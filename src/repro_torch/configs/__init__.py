@@ -1,0 +1,53 @@
+"""Config registry: ``get_config(name)`` + ``reduce_config`` for smoke tests.
+
+Only the configurations the port serves so far are registered."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs import cgra_edge, deepseek_67b, olmo_1b
+from repro_torch.configs.base import ArchConfig, LayerSpec, Stage, build_stages
+
+REGISTRY: dict[str, ArchConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (olmo_1b, deepseek_67b, cgra_edge)
+}
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+def reduce_config(cfg: ArchConfig) -> ArchConfig:
+    """Shrink an arch to smoke-test size with the same widths as
+    ``repro.configs.reduce_config`` (layer pattern and GQA kept)."""
+    if cfg.ssm_every:
+        layers = cfg.ssm_every
+    elif cfg.cross_every:
+        layers = cfg.cross_every
+    elif cfg.local_global_pattern:
+        layers = cfg.local_global_pattern + 1
+    elif cfg.num_experts and cfg.moe_every > 1:
+        layers = cfg.moe_every * 2
+    else:
+        layers = 2
+    kw = dict(
+        num_layers=layers,
+        d_model=64,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab_size=256,
+        compute_dtype=torch.float32,
+        pad_heads_to=1,
+        pad_vocab_to=32,
+    )
+    if cfg.num_heads:
+        kw.update(num_heads=4, head_dim=16)
+        kw.update(num_kv_heads=2 if cfg.num_kv_heads < cfg.num_heads else 4)
+    if cfg.window_size:
+        kw.update(window_size=32)
+    return cfg.with_(**kw).with_(name=cfg.name + "-smoke")
+
+
+__all__ = ["ArchConfig", "LayerSpec", "Stage", "build_stages", "REGISTRY",
+           "get_config", "reduce_config"]

@@ -1,0 +1,140 @@
+"""Architecture configuration (port of ``repro.configs.base``).
+
+An :class:`ArchConfig` fully describes a model: the model functions build
+parameter dictionaries and apply functions from it alone.  Layer stacks are
+a repeating pattern of :class:`LayerSpec`s, factored by ``build_stages`` into
+stages whose weights are stacked along a leading layer axis — the same
+layout as the JAX package, so a weight tree crosses between the two with a
+plain reshape.
+
+Differences from the JAX config: dtypes are ``torch`` dtypes, one
+``compute_dtype`` also stores the weights, and there is no ``kernel_mode``
+— a tensor's device chooses the kernel or its plain version.  Mesh, remat,
+training knobs and the widths of unported mixers are left out with the
+paths that use them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Sequence
+
+import torch
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    mixer: str  # attn_global | attn_local | ssm | cross
+    ffn: str    # dense | moe | none
+
+
+@dataclass(frozen=True)
+class Stage:
+    """``repeats`` stacked iterations of a fixed ``group`` of layers."""
+
+    group: tuple[LayerSpec, ...]
+    repeats: int
+
+
+def _is_periodic(specs: Sequence[LayerSpec], p: int) -> bool:
+    return all(specs[i] == specs[i % p] for i in range(len(specs)))
+
+
+def build_stages(specs: Sequence[LayerSpec]) -> list[Stage]:
+    """Factor a layer list into <=2 stages (main periodic prefix + tail)."""
+    n = len(specs)
+    if n == 0:
+        return []
+    for p in range(1, n + 1):
+        n_full = n // p
+        if n_full == 0:
+            break
+        prefix = specs[: n_full * p]
+        if _is_periodic(prefix, p) and n_full * p >= max(p, n // 2):
+            stages = [Stage(tuple(specs[:p]), n_full)]
+            tail = specs[n_full * p:]
+            if tail:
+                stages.extend(build_stages(tail))
+            return stages
+    return [Stage(tuple(specs), 1)]
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+
+    local_global_pattern: int = 0
+    window_size: int = 0
+    rope_theta: float = 10_000.0
+    logit_softcap: float = 0.0
+    use_qk_norm: bool = False
+
+    # structural families the port does not serve yet: kept so that
+    # layer_specs / reduce_config match the JAX config, and so that a config
+    # using them is refused
+    use_mla: bool = False
+    num_experts: int = 0
+    moe_every: int = 1
+    ssm_every: int = 0
+    cross_every: int = 0
+    vision_tokens: int = 0
+    audio_frontend: bool = False
+
+    norm_type: str = "rmsnorm"  # rmsnorm | layernorm | layernorm_nonparam
+    tie_embeddings: bool = False
+
+    compute_dtype: Any = torch.bfloat16  # weights are stored in it too
+
+    pad_heads_to: int = 1
+    pad_vocab_to: int = 256
+
+    @property
+    def padded_vocab(self) -> int:
+        pv = self.pad_vocab_to
+        return ((self.vocab_size + pv - 1) // pv) * pv
+
+    @property
+    def padded_heads(self) -> int:
+        ph = self.pad_heads_to
+        return ((self.num_heads + ph - 1) // ph) * ph
+
+    def layer_specs(self) -> list[LayerSpec]:
+        specs = []
+        for i in range(self.num_layers):
+            if self.family == "ssm":
+                mixer = "ssm"
+            elif self.ssm_every:
+                mixer = ("attn_global"
+                         if (i % self.ssm_every) == self.ssm_every // 2
+                         else "ssm")
+            elif self.cross_every and ((i + 1) % self.cross_every == 0):
+                mixer = "cross"
+            elif self.local_global_pattern:
+                p = self.local_global_pattern + 1
+                mixer = ("attn_global" if (i % p) == self.local_global_pattern
+                         else "attn_local")
+            else:
+                mixer = "attn_global"
+            if self.num_experts and (i % self.moe_every == self.moe_every - 1):
+                ffn = "moe"
+            elif self.family == "ssm":
+                ffn = "none"
+            else:
+                ffn = "dense"
+            specs.append(LayerSpec(mixer, ffn))
+        return specs
+
+    def stages(self) -> list[Stage]:
+        return build_stages(self.layer_specs())
+
+    def with_(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,222 @@
+// Paged flash-decode for Hopper (sm_90a): one query token per slot over
+// page pools.
+//
+// Replaces: src/repro/kernels/decode_attention.py, _fd_kernel_paged (body
+// _fd_kernel, wrapper _flash_decode_paged).
+//
+// What bounds it on an H100: bytes.  Each (slot, kv-head) reads its live KV
+// rows once and does 4*G*d operations per row (G query heads share a row),
+// orders of magnitude below the card's operations-per-byte balance.  The
+// design reads only the pages that overlap the live rows [start, pos] -- the
+// page index clipped to npp-1 as the Pallas index map clips it, so a frozen
+// full slot (pos == npp*ps) never reads past its table -- each K row is read
+// by one warp as a contiguous d-vector, eight rows' loads in flight before
+// any sum, and the block's eight warps walk different pages at once.
+//
+// Grid: one block per (kv-head, slot).  Warp w takes pages lo+w, lo+w+8, ...
+// with its own f32 online softmax (the running max / denominator / PV
+// accumulator that the TPU kept in VMEM scratch across grid steps live in
+// shared memory here); the eight partials are merged in warp order at the
+// end.  All G = H/K query heads of the kv-head are handled by the block, so
+// GQA reads each KV row once; the TPU's pad of G to 8 sublanes is dropped.
+// A slot with start > pos (an empty or drained slot) writes exact zeros.
+// Softcap and dv narrowing (v may alias k, MLA-style) are supported.  The
+// split of pages over warps and every sum's order depend on nothing but the
+// slot's own rows: no atomics, nothing chosen by the batch.
+#include "common.cuh"
+
+namespace repro {
+
+constexpr int FD_THREADS = 256;
+constexpr int FD_WARPS = FD_THREADS / 32;
+constexpr int FD_ROWS = 8;  // K rows a warp loads before reducing
+
+// CH = ceil(max(dq, dv) / 32) rounded up to a power of two: the q/k/v
+// columns each lane holds (c = lane + 32 * t).
+template <typename T, int CH>
+__global__ void __launch_bounds__(FD_THREADS)
+flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const int* __restrict__ pages,
+                          const int* __restrict__ pos, const int* __restrict__ start,
+                          T* __restrict__ out, int H, int Kh, int dq, int dv, int v_row,
+                          int ps, int npp, float scale, float softcap) {
+  extern __shared__ float smem[];
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int G = H / Kh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wsz = G * (ps + dv + 2);  // one warp's partial: P, acc, m, l
+  float* q_s = smem;                  // [G][dq]
+  auto part = [&](int w) { return q_s + G * dq + w * wsz; };
+  float* s_w = part(warp);            // [G][ps] scores, then P
+  float* acc = s_w + G * ps;          // [G][dv] (lane-private columns)
+  float* m_w = acc + G * dv;          // [G] running max
+  float* l_w = m_w + G;               // [G] running denominator
+
+  const T* qb = q + ((size_t)b * H + (size_t)kh * G) * dq;
+  for (int e = tid; e < G * dq; e += FD_THREADS) q_s[e] = to_f(qb[e]);
+  for (int e = lane; e < G * dv; e += 32) acc[e] = 0.f;
+  for (int g = lane; g < G; g += 32) {
+    m_w[g] = NEG;
+    l_w[g] = 0.f;
+  }
+  __syncthreads();
+
+  const int p_b = pos[b], s_b = start[b];
+  const int lo = s_b / ps;
+  const int hi = (s_b > p_b) ? lo - 1 : min(p_b / ps, npp - 1);
+  const size_t vstride = (size_t)Kh * v_row;
+  // warp w walks pages lo + w, lo + w + FD_WARPS, ... with its own online
+  // softmax; the partials are merged in warp order at the end
+  for (int ik = lo + warp; ik <= hi; ik += FD_WARPS) {
+    const size_t row0 = (size_t)pages[(size_t)b * npp + ik] * ps;
+    for (int jb = 0; jb < ps; jb += FD_ROWS) {
+      float kr[FD_ROWS][CH];  // all loads of FD_ROWS rows issued before any sum
+#pragma unroll
+      for (int u = 0; u < FD_ROWS; ++u) {
+        const int j = jb + u;
+        const T* kp = k + ((row0 + (j < ps ? j : 0)) * Kh + kh) * (size_t)dq;
+#pragma unroll
+        for (int t = 0; t < CH; ++t) {
+          const int c = lane + 32 * t;
+          kr[u][t] = (j < ps && c < dq) ? to_f(kp[c]) : 0.f;
+        }
+      }
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int u = 0; u < FD_ROWS; ++u) {
+          float dot = 0.f;
+#pragma unroll
+          for (int t = 0; t < CH; ++t) {
+            const int c = lane + 32 * t;
+            if (c < dq) dot = fmaf(q_s[g * dq + c], kr[u][t], dot);
+          }
+          dot = warp_sum(dot);
+          const int j = jb + u, r = ik * ps + j;
+          if (lane == 0 && j < ps) {
+            float sc = dot * scale;
+            if (softcap > 0.f) sc = tanhf(sc / softcap) * softcap;
+            s_w[g * ps + j] = (r >= s_b && r <= p_b) ? sc : NEG;
+          }
+        }
+      }
+    }
+    __syncwarp();
+    for (int g = 0; g < G; ++g) {
+      float mx = NEG;
+      for (int j = lane; j < ps; j += 32) mx = fmaxf(mx, s_w[g * ps + j]);
+      const float m_prev = m_w[g];
+      const float m_new = fmaxf(m_prev, warp_max(mx));
+      const bool live = m_new > NEG * 0.5f;  // no valid key yet: P stays 0
+      float sum = 0.f;
+      for (int j = lane; j < ps; j += 32) {
+        const float p = live ? expf(s_w[g * ps + j] - m_new) : 0.f;
+        sum += p;
+        s_w[g * ps + j] = round_to<T>(p);
+      }
+      sum = warp_sum(sum);
+      const float alpha = expf(m_prev - m_new);
+      for (int c = lane; c < dv; c += 32) acc[g * dv + c] *= alpha;
+      __syncwarp();
+      if (lane == 0) {
+        m_w[g] = m_new;
+        l_w[g] = l_w[g] * alpha + sum;
+      }
+    }
+    __syncwarp();
+    for (int g = 0; g < G; ++g) {
+      // one pass over the page's V rows: each lane's CH columns of a row are
+      // loaded together, eight rows ahead
+      float a[CH];
+#pragma unroll
+      for (int t = 0; t < CH; ++t) a[t] = (lane + 32 * t < dv) ? acc[g * dv + lane + 32 * t] : 0.f;
+      const T* vr = v + (row0 * Kh + kh) * (size_t)v_row;
+#pragma unroll 8
+      for (int j = 0; j < ps; ++j) {
+        const float p = s_w[g * ps + j];
+#pragma unroll
+        for (int t = 0; t < CH; ++t) {
+          const int c = lane + 32 * t;
+          if (c < dv) a[t] = fmaf(p, to_f(vr[j * vstride + c]), a[t]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < CH; ++t)
+        if (lane + 32 * t < dv) acc[g * dv + lane + 32 * t] = a[t];
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+
+  T* ob = out + ((size_t)b * H + (size_t)kh * G) * dv;
+  for (int e = tid; e < G * dv; e += FD_THREADS) {
+    const int g = e / dv;
+    float m = NEG;
+    for (int w = 0; w < FD_WARPS; ++w) m = fmaxf(m, part(w)[G * (ps + dv) + g]);
+    float l = 0.f, a = 0.f;
+    for (int w = 0; w < FD_WARPS; ++w) {
+      const float* pw = part(w);
+      const float f = expf(pw[G * (ps + dv) + g] - m);
+      l = fmaf(pw[G * (ps + dv) + G + g], f, l);
+      a = fmaf(pw[G * ps + e], f, a);
+    }
+    ob[e] = from_f<T>(a / fmaxf(l, 1e-30f));
+  }
+}
+
+template <typename T, int CH>
+int launch(const void* q, const void* k, const void* v, const int* pages, const int* pos,
+           const int* start, void* out, int B, int H, int Kh, int dq, int dv, int v_row,
+           int ps, int npp, float scale, float softcap, cudaStream_t stream) {
+  const int G = H / Kh;
+  const size_t smem = sizeof(float) * ((size_t)G * dq + (size_t)FD_WARPS * G * (ps + dv + 2));
+  auto kern = flash_decode_paged_kernel<T, CH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(Kh, B);
+  kern<<<grid, FD_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pages,
+      pos, start, static_cast<T*>(out), H, Kh, dq, dv, v_row, ps, npp, scale, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const int* pages, const int* pos,
+             const int* start, void* out, int B, int H, int Kh, int dq, int dv, int v_row,
+             int ps, int npp, float scale, float softcap, cudaStream_t s) {
+  const int dmax = dq > dv ? dq : dv;
+  if (dmax <= 32)
+    return launch<T, 1>(q, k, v, pages, pos, start, out, B, H, Kh, dq, dv, v_row, ps, npp,
+                        scale, softcap, s);
+  if (dmax <= 64)
+    return launch<T, 2>(q, k, v, pages, pos, start, out, B, H, Kh, dq, dv, v_row, ps, npp,
+                        scale, softcap, s);
+  if (dmax <= 128)
+    return launch<T, 4>(q, k, v, pages, pos, start, out, B, H, Kh, dq, dv, v_row, ps, npp,
+                        scale, softcap, s);
+  if (dmax <= 256)
+    return launch<T, 8>(q, k, v, pages, pos, start, out, B, H, Kh, dq, dv, v_row, ps, npp,
+                        scale, softcap, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace repro
+
+// q [B,H,dq]; k pool [P,ps,Kh,dq]; v pool [P,ps,Kh,v_row] (first dv columns
+// read); pages [B,npp]; pos, start [B]; out [B,H,dv].  softcap <= 0 is off.
+extern "C" int repro_flash_decode_paged(const void* q, const void* k, const void* v,
+                                        const void* pages, const void* pos,
+                                        const void* start, void* out, int B, int H,
+                                        int Kh, int dq, int dv, int v_row, int ps,
+                                        int npp, float scale, float softcap, int is_bf16,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* pg = static_cast<const int*>(pages);
+  const int* p = static_cast<const int*>(pos);
+  const int* st = static_cast<const int*>(start);
+  if (is_bf16)
+    return repro::dispatch<__nv_bfloat16>(q, k, v, pg, p, st, out, B, H, Kh, dq, dv, v_row,
+                                          ps, npp, scale, softcap, s);
+  return repro::dispatch<float>(q, k, v, pg, p, st, out, B, H, Kh, dq, dv, v_row, ps, npp,
+                                scale, softcap, s);
+}

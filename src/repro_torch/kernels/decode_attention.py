@@ -1,0 +1,81 @@
+"""Paged flash-decode wrapper: ``csrc/decode_attention.cu`` on the card,
+the plain version on the CPU.
+
+Port of ``repro.kernels.decode_attention._flash_decode_paged`` (TPU kernel
+``_fd_kernel_paged``).  ``flash_decode_paged.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_decode_ref
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_fn = None
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        _fn = _build.bind("decode_attention", "repro_flash_decode_paged",
+                          [P] * 7 + [I] * 8 + [F, F, I, P])
+    return _fn
+
+
+def flash_decode_paged(q, k, v, pos, start, pages, *, softcap: float = 0.0,
+                       scale=None, dv: int | None = None) -> torch.Tensor:
+    """q: [B,H,dq]; k/v: page pools [P,ps,K,d] (v may be k); pages: [B,npp]
+    int32; pos/start: [B] int32 -> [B,H,dv].  Logical row ``r`` of slot
+    ``b`` lives at pool row ``(pages[b, r // ps], r % ps)``; rows
+    ``[start, pos]`` are live and a slot with none gives exact zeros."""
+    B, H, dq = q.shape
+    dv = dv or v.shape[-1]
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k, v, pos, start, pages=pages,
+                                softcap=softcap, scale=scale, dv=dv)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_paged: q on {q.device}")
+    dev = q.device
+    for name, t in (("k", k), ("v", v), ("pages", pages), ("pos", pos),
+                    ("start", start)):
+        if t.device != dev:
+            raise ValueError(f"flash_decode_paged: {name} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_decode_paged: {name} must be contiguous")
+    if not q.is_contiguous():
+        raise ValueError("flash_decode_paged: q must be contiguous")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_decode_paged: dtypes q={q.dtype} k={k.dtype} v={v.dtype}")
+    if k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"flash_decode_paged: pools {tuple(k.shape)}, {tuple(v.shape)}")
+    P, ps, K = k.shape[0], k.shape[1], k.shape[2]
+    if k.shape[3] != dq or H % K or dv > v.shape[3] or max(dq, dv) > 256:
+        raise ValueError(f"flash_decode_paged: q {tuple(q.shape)} vs pools "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, dv={dv}")
+    if pages.dim() != 2 or pages.shape[0] != B or pos.shape != (B,) \
+            or start.shape != (B,):
+        raise ValueError("flash_decode_paged: pages [B,npp], pos/start [B]")
+    if any(t.dtype != torch.int32 for t in (pages, pos, start)):
+        raise TypeError("flash_decode_paged: pages/pos/start must be int32")
+    G = H // K
+    if 4 * (G * dq + 8 * G * (ps + dv + 2)) > 200 * 1024:
+        raise ValueError("flash_decode_paged: G*(dq+8*(ps+dv)) exceeds shared memory")
+    out = torch.empty((B, H, dv), dtype=q.dtype, device=dev)
+    if B == 0:
+        return out
+    scale = scale if scale is not None else dq ** -0.5
+    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pages.data_ptr(),
+                   pos.data_ptr(), start.data_ptr(), out.data_ptr(),
+                   B, H, K, dq, dv, v.shape[3], ps, pages.shape[1],
+                   float(scale), float(softcap or 0.0),
+                   int(q.dtype == torch.bfloat16), _build.stream_ptr(dev))
+    _build.check(err, "flash_decode_paged")
+    flash_decode_paged.launches += 1
+    return out
+
+
+flash_decode_paged.launches = 0

@@ -1,0 +1,76 @@
+"""Paged chunk-prefill attention wrapper: ``csrc/flash_attention.cu`` on
+the card, the plain version on the CPU.
+
+Port of ``repro.kernels.flash_attention._flash_attention_paged`` (TPU
+kernel ``_fa_kernel_paged``).  ``flash_attention_paged.launches`` counts
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_attention_paged_ref
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_fn = None
+
+
+def _entry():
+    global _fn
+    if _fn is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        _fn = _build.bind("flash_attention", "repro_flash_attention_paged",
+                          [P] * 7 + [I] * 8 + [F, F, I, P])
+    return _fn
+
+
+def flash_attention_paged(q, k, v, pages, q_start, k_len, *, window: int = 0,
+                          softcap: float = 0.0, scale=None) -> torch.Tensor:
+    """q: [B,H,C,d] query chunk; k/v: page pools [P,ps,K,d]; pages: [B,npp]
+    int32; q_start/k_len: [B] int32 -> [B,H,C,d].  Query row ``i`` sits at
+    logical position ``q_start[b] + i`` and attends causally over rows
+    ``[0, k_len[b])``; rows with no valid key give 0."""
+    if q.device.type == "cpu":
+        return flash_attention_paged_ref(q, k, v, pages, q_start, k_len,
+                                         window=window, scale=scale,
+                                         softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_paged: q on {q.device}")
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v), ("pages", pages),
+                    ("q_start", q_start), ("k_len", k_len)):
+        if t.device != dev:
+            raise ValueError(f"flash_attention_paged: {name} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_paged: {name} must be contiguous")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_paged: dtypes q={q.dtype} k={k.dtype} v={v.dtype}")
+    B, H, C, d = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[3] != d or H % k.shape[2]:
+        raise ValueError(f"flash_attention_paged: q {tuple(q.shape)} vs pools "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if pages.dim() != 2 or pages.shape[0] != B or q_start.shape != (B,) \
+            or k_len.shape != (B,):
+        raise ValueError("flash_attention_paged: pages [B,npp], q_start/k_len [B]")
+    if any(t.dtype != torch.int32 for t in (pages, q_start, k_len)):
+        raise TypeError("flash_attention_paged: pages/q_start/k_len must be int32")
+    if 4 * (2 * 8 * d + 2 * 32 * (d + 1) + 8 * 32 + 24) > 200 * 1024:
+        raise ValueError(f"flash_attention_paged: head dim {d} exceeds shared memory")
+    out = torch.empty_like(q)
+    if B == 0 or C == 0:
+        return out
+    scale = scale if scale is not None else d ** -0.5
+    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pages.data_ptr(),
+                   q_start.data_ptr(), k_len.data_ptr(), out.data_ptr(),
+                   B, H, k.shape[2], C, d, k.shape[1], pages.shape[1],
+                   int(window or 0), float(scale), float(softcap or 0.0),
+                   int(q.dtype == torch.bfloat16), _build.stream_ptr(dev))
+    _build.check(err, "flash_attention_paged")
+    flash_attention_paged.launches += 1
+    return out
+
+
+flash_attention_paged.launches = 0

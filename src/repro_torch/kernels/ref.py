@@ -1,0 +1,107 @@
+"""Plain PyTorch versions of the ported kernels (port of ``repro.kernels.ref``).
+
+They are the kernels' ground truth: the CPU path of every wrapper and the
+yardstick ``chip_smoke.py`` holds each CUDA kernel against on the card.
+Like the JAX oracles they accumulate in f32 and round P to the value dtype
+before the PV product.
+"""
+from __future__ import annotations
+
+import torch
+
+F32 = torch.float32
+NEG = -1e30
+
+
+def block_gemm_ref(a, b, out_dtype=None):
+    """C = A @ B with f32 accumulation and one cast to ``out_dtype``."""
+    out_dtype = out_dtype or a.dtype
+    return torch.matmul(a.to(F32), b.to(F32)).to(out_dtype)
+
+
+def _as_rows(x, B: int, device) -> torch.Tensor:
+    """[B] int32 tensor from a scalar or a [B] array-like."""
+    return torch.as_tensor(x, dtype=torch.int32, device=device).expand(B)
+
+
+def _softmax_masked(s, mask):
+    """Softmax over the last axis with masked entries at -1e30; a row with
+    every entry masked gives zeros (the kernels' contract), not 1/S."""
+    s = torch.where(mask, s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    return torch.where(mask, p, torch.zeros_like(p))
+
+
+def _gather_pages(pool, pages):
+    """Pool [P, ps, K, d] + tables [B, npp] -> dense [B, npp*ps, K, d]."""
+    B, npp = pages.shape
+    g = pool[pages.long()]  # [B, npp, ps, K, d]
+    return g.reshape(B, npp * pool.shape[1], *pool.shape[2:])
+
+
+def flash_attention_paged_ref(q, k, v, pages, q_start, k_len, *, window=0,
+                              scale=None, softcap=0.0):
+    """Query chunk over a paged past (chunked prefill).  q: [B,H,C,d]; k/v:
+    page pools [P,ps,K,d]; pages: [B,npp] int32; q_start/k_len: [B].  Query
+    row ``i`` of slot ``b`` sits at ``q_start[b] + i`` and attends causally
+    over logical rows ``[0, k_len[b])``.  Rows past the chunk's valid length
+    are the caller's padding; their output is unspecified."""
+    B, H, C, d = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else d ** -0.5
+    dev = q.device
+    q_start = _as_rows(q_start, B, dev)
+    k_len = _as_rows(k_len, B, dev)
+    kb = _gather_pages(k, pages).repeat_interleave(G, dim=2)  # [B,S,H,d]
+    vb = kb if v is k else _gather_pages(v, pages).repeat_interleave(G, dim=2)
+    S = kb.shape[1]
+    s = torch.einsum("bhqd,bshd->bhqs", q.to(F32), kb.to(F32)) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qpos = q_start[:, None] + torch.arange(C, dtype=torch.int32, device=dev)
+    kpos = torch.arange(S, dtype=torch.int32, device=dev)
+    mask = (kpos[None, None, :] < k_len[:, None, None]) & \
+        (kpos[None, None, :] <= qpos[:, :, None])
+    if window:
+        mask &= kpos[None, None, :] > qpos[:, :, None] - window
+    p = _softmax_masked(s, mask[:, None])
+    o = torch.einsum("bhqs,bshd->bhqd", p.to(vb.dtype).to(F32), vb.to(F32))
+    return o.to(vb.dtype)
+
+
+def flash_decode_ref(q, k, v, pos, start=None, *, layout="linear",
+                     softcap=0.0, scale=None, dv=None, pages=None):
+    """Batched single-token decode.  q: [B,H,dq]; linear layout: k
+    [B,S,K,dq], v [B,S,K,>=dv] with rows ``[start, pos]`` live.  Paged
+    (``pages`` [B,npp]): k/v are pools [P,ps,K,d] gathered through the page
+    table and the linear rule applies to logical rows.  ``dv`` reads only
+    the first dv value columns (v may be k).  Slots with no live row give
+    exact zeros."""
+    if pages is not None:
+        if str(layout) not in ("linear", "paged"):
+            raise ValueError(f"paged decode is linear-validity only, "
+                             f"got layout={layout!r}")
+        shared = v is k
+        k = _gather_pages(k, pages)
+        v = k if shared else _gather_pages(v, pages)
+    elif str(layout) != "linear":
+        raise NotImplementedError(f"layout {layout!r} is not ported yet")
+    B, H, dq = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    dev = q.device
+    scale = scale if scale is not None else dq ** -0.5
+    pos = _as_rows(pos, B, dev)
+    start = _as_rows(0 if start is None else start, B, dev)
+    if dv is not None:
+        v = v[..., :dv]
+    qg = q.reshape(B, K, G, dq)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.to(F32), k.to(F32)) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    j = torch.arange(S, device=dev)[None, :]
+    valid = (j >= start[:, None]) & (j <= pos[:, None])
+    p = _softmax_masked(s, valid[:, None, None, :])
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).to(F32), v.to(F32))
+    return o.to(v.dtype).reshape(B, H, v.shape[-1])

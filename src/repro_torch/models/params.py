@@ -1,0 +1,89 @@
+"""Parameter declaration (port of ``repro.models.params``).
+
+Models declare their parameters once as a nested dict of :class:`ParamSpec`
+(shape + logical axes + init kind).  :func:`init_params` materializes it
+with the JAX package's init rules from an explicit ``torch.Generator``.
+The port cannot reproduce ``jax.random``'s numbers, so a parity test never
+initialises its weights here: it loads the JAX tree through
+``repro_torch.models.bridge``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+
+class ParamSpec(NamedTuple):
+    shape: tuple
+    axes: tuple  # logical axis name (or None) per dim
+    init: str = "scaled"  # scaled | normal | zeros | ones
+    dtype: Any = None  # None -> the default dtype init_params is given
+
+    def stacked(self, n: int, axis_name: str = "layers") -> "ParamSpec":
+        return ParamSpec((n,) + tuple(self.shape), (axis_name,) + tuple(self.axes),
+                         self.init, self.dtype)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_map_specs(fn, tree):
+    """Apply ``fn`` to every ParamSpec leaf of nested dicts/lists."""
+    if is_spec(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_specs(fn, v) for v in tree]
+    raise TypeError(f"unexpected node {type(tree)!r} in a spec tree")
+
+
+def stack_tree(spec_tree, n: int, axis_name: str = "layers"):
+    return tree_map_specs(lambda s: s.stacked(n, axis_name), spec_tree)
+
+
+def count_params(spec_tree) -> int:
+    total = 0
+
+    def add(s):
+        nonlocal total
+        total += math.prod(s.shape)
+        return s
+
+    tree_map_specs(add, spec_tree)
+    return total
+
+
+def _init_leaf(spec: ParamSpec, gen: torch.Generator, default_dtype, device):
+    dtype = spec.dtype or default_dtype
+    shape = tuple(int(s) for s in spec.shape)
+    if spec.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    if spec.init == "normal":
+        return (0.02 * x).to(dtype)
+    if spec.init != "scaled":
+        raise NotImplementedError(f"init {spec.init!r} is not ported")
+    # "scaled": std 1/sqrt(fan_in), fan_in = product of all dims but the last
+    fan_in = max(1, math.prod(shape[:-1]))
+    return (x * (1.0 / math.sqrt(fan_in))).to(dtype)
+
+
+def init_params(spec_tree, generator: torch.Generator, default_dtype=torch.float32):
+    """Materialize a spec tree on the generator's device.  Leaves are drawn
+    in sorted-key order, so a seed fixes every tensor."""
+    device = generator.device
+
+    def walk(t):
+        if is_spec(t):
+            return _init_leaf(t, generator, default_dtype, device)
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return [walk(v) for v in t]
+
+    return walk(spec_tree)
