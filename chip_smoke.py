@@ -6,17 +6,29 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions, and the kernels' build from ``src/repro_torch/kernels/csrc``;
-2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the serving path's shapes, in f32 and bf16, with its time,
-   the plain version's time, the library call's time where one exists and
-   the least time the card could take (bytes over 3.35 TB/s, operations
-   over the peak rate of their type);
-3. engine: full-width, full-depth olmo-1b in bf16 with seeded random
+2. kernels: each of the six hand-written kernels against its plain PyTorch
+   version on the card at its path's shapes, in f32 and bf16 (the int8
+   GEMM exactly, on integer-valued cases), with its time, the plain
+   version's time, the library call's time where one exists and the least
+   time the card could take (bytes over 3.35 TB/s, operations over the
+   peak rate of their type);
+3. edge: the paper's int8 path on full-width gemma3-4b (34 layers, seeded
+   random weights, ``quantize_params``): ``prefill`` of 2 x 1536 tokens
+   into linear and ring caches, then 32 greedy ``decode_step``s.  The int8
+   GEMM, dense flash attention and slot flash-decode must each launch, the
+   bf16 GEMM must not; a reduced gemma3-4b must give the same logits on
+   the card as on the CPU's plain versions (under w8a8, up to one-step
+   int8 flips at rounding boundaries, which ``flip_witness`` finds and
+   checks); the bf16 model's argmax agreement on the same tokens is
+   printed;
+4. engine: full-width, full-depth olmo-1b in bf16 with seeded random
    weights serves 8 greedy requests (four share a prefix, so radix hits
    and copy-on-write pages happen) through ``repro_torch.serving.Engine``;
-   every kernel's launch count must rise during this phase, the page pool
-   must reconcile, and two prompts served alone must give the same tokens;
-4. a JSON ``kernels`` line, then the JSON result as the last line.
+   every paged-path kernel's launch count must rise, the page pool must
+   reconcile, and two prompts served alone must give the same tokens; then
+   a short ``EngineConfig(quant="w8a8")`` pass runs the int8 GEMM on the
+   paged path;
+5. a JSON ``kernels`` line, then the JSON result as the last line.
 
 It needs CUDA: without a card it exits 2 before printing anything else.
 """
@@ -35,7 +47,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12,  # dense, per type
+            torch.int8: 1979e12}
 
 
 def log(msg: str):
@@ -67,13 +80,17 @@ class L2Flush:
 
 
 def time_ms(fn, flush: L2Flush, reps: int = 20, warmup: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` launches."""
+    """Median CUDA-event time of ``fn`` over ``reps`` launches: device time
+    only.  A ~2 ms GPU spin ahead of the start event keeps the card busy
+    while the host enqueues all of ``fn``, so the host's launch latency (the
+    Python wrapper, ~20-50 us) is not counted."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush()
+        torch.cuda._sleep(4_000_000)  # clock cycles
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -96,6 +113,55 @@ def check_close(name, got, want, atol, rtol):
     if bool(bad.any()):
         fail(f"{name}: max_abs_err {mx:.3e} beyond atol {atol} + rtol {rtol}")
     return mx
+
+
+BF16_ROW_RTOL = 2.0 ** -7
+
+
+def check_rows(name, got, want, rtol=BF16_ROW_RTOL):
+    """bf16 attention output [..., d]: every row (one query of one head) within
+    ``rtol`` of the plain version in L2 norm, relative to that row's norm.
+
+    Both versions round P to bf16 (at different points) and round the output
+    to bf16: each rounding is <= 2^-9 relative, the P roundings are
+    independent across keys, so a row's relative error stays near 2^-9
+    whatever the number of keys, and 2^-7 (two bf16 ulps) bounds it.  A row
+    the plain version gives as exactly 0 (nothing to attend to) must be 0.
+    Returns (max abs error, max row relative error)."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite output")
+    diff = got - want
+    num, den = diff.norm(dim=-1), want.norm(dim=-1)
+    zero = den == 0
+    if bool((num[zero] != 0).any()):
+        fail(f"{name}: a row that is exactly 0 in the plain version is not")
+    rel = num[~zero] / den[~zero]
+    mx = float(rel.max()) if rel.numel() else 0.0
+    if mx > rtol:
+        fail(f"{name}: row relative error {mx:.3e} beyond {rtol:.3e}")
+    return float(diff.abs().max()) if diff.numel() else 0.0, mx
+
+
+def check_attn(name, got, want, dtype):
+    """f32: elementwise atol 2e-5 (online vs two-pass softmax in f32);
+    bf16: ``check_rows``.  Returns (max abs error, max row relative error)."""
+    if dtype == torch.float32:
+        return check_close(name, got, want, 2e-5, 0.0), 0.0
+    return check_rows(name, got, want)
+
+
+def _errs(err):
+    """``{(dtype, case): (max abs, max row rel)}`` as one log fragment."""
+    return "max_abs_err (bf16: / max row relative error) " + ", ".join(
+        f"{str(dt)[6:]} {n} {a:.3e}" + (f" / {r:.3e}" if dt == torch.bfloat16 else "")
+        for (dt, n), (a, r) in err.items())
+
+
+def _bf16_max(err):
+    return max(a for (dt, _), (a, _) in err.items() if dt == torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +194,17 @@ def gemm_phase(flush, gen):
         check_close(f"block_gemm bf16->f32 {M}x{K}x{N}",
                     block_gemm(ab, bb, out_dtype=torch.float32),
                     ref.block_gemm_ref(ab, bb, torch.float32), 1e-4, 1e-5)
+    for (M, K, N) in ((2, 2560, 262144), (1, 2048, 50432), (37, 1000, 777)):
+        # the tied LM head reads the [V, D] embedding as B^T: as bf16->f32
+        a = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        e = (torch.randn(N, K, generator=gen, device="cuda") / math.sqrt(K)).bfloat16()
+        check_close(f"block_gemm bf16->f32 trans_b {M}x{K}x{N}",
+                    block_gemm(a, e, torch.float32, trans_b=True),
+                    ref.block_gemm_ref(a, e, torch.float32, trans_b=True), 1e-4, 1e-5)
+        a, e = a.float(), e.float()  # f32 models (reduced configs) tie the head too
+        check_close(f"block_gemm f32 trans_b {M}x{K}x{N}",
+                    block_gemm(a, e, trans_b=True),
+                    ref.block_gemm_ref(a, e, trans_b=True), 1e-4, 1e-5)
     torch.cuda.synchronize()
     log(f"block_gemm: {len(shapes)} shapes x (f32, bf16, bf16->f32) agree; "
         f"max_abs_err f32 {err_f32:.3e} bf16 {err_bf16:.3e}")
@@ -151,6 +228,192 @@ def gemm_phase(flush, gen):
     return max(err_bf16, err_f32), rows
 
 
+def int8_phase(flush, gen):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_gemm import block_gemm_int8
+    # Tolerance 0.  Integer case: unit scales and operands in [-7, 7] at
+    # K = 10240 keep |acc| <= 501,760 < 2^24, so every output is the exact
+    # integer product (the plain version sums in f64, exactly).  Scaled
+    # case: both versions form the same exact int32 sum and the same two
+    # f32 products in the same order, then the same round-to-nearest cast.
+    # the edge path's projections at decode (M = 2) and prefill (M = 3072):
+    # wq, wk / wv, wo, w_gate / w_up, w_down, and the tied head
+    timed = [(2, 2560, 2048), (2, 2560, 10240), (2, 10240, 2560), (2, 2560, 262144),
+             (3072, 2560, 2048), (3072, 2560, 10240), (3072, 10240, 2560)]
+    shapes = timed + [(2, 2560, 1024), (2, 2048, 2560), (3072, 2560, 1024),
+                      (3072, 2048, 2560), (37, 1000, 777), (2, 64, 64), (80, 64, 32),
+                      (2, 128, 256)]
+
+    def operands(M, K, N, lim):
+        a = torch.randint(-lim, lim + 1, (M, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-lim, lim + 1, (N, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        return a, b
+
+    for (M, K, N) in shapes:
+        a, b = operands(M, K, N, 7)
+        ones_m = torch.ones(M, 1, device="cuda")
+        ones_n = torch.ones(1, N, device="cuda")
+        exact = ref.block_gemm_int8_ref(a, b, ones_m, ones_n)
+        check_close(f"block_gemm_int8 exact {M}x{K}x{N}",
+                    block_gemm_int8(a, b, ones_m, ones_n), exact, 0.0, 0.0)
+        a, b = operands(M, K, N, 127)
+        sa = torch.rand(M, 1, generator=gen, device="cuda") * 0.01 + 1e-4
+        sb = torch.rand(1, N, generator=gen, device="cuda") * 0.01 + 1e-4
+        for dt in (torch.float32, torch.bfloat16):
+            check_close(f"block_gemm_int8 scaled {dt} {M}x{K}x{N}",
+                        block_gemm_int8(a, b, sa, sb, dt),
+                        ref.block_gemm_int8_ref(a, b, sa, sb, dt), 0.0, 0.0)
+    torch.cuda.synchronize()
+    log(f"block_gemm_int8: {len(shapes)} shapes agree exactly (integer case and "
+        f"scaled f32/bf16 out)")
+    rows = []
+    for (M, K, N) in timed:
+        a, b = operands(M, K, N, 127)
+        sa = torch.rand(M, 1, generator=gen, device="cuda") * 0.01 + 1e-4
+        sb = torch.rand(1, N, generator=gen, device="cuda") * 0.01 + 1e-4
+        out_dtype = torch.float32 if N == 262144 else torch.bfloat16
+        ms = time_ms(lambda: block_gemm_int8(a, b, sa, sb, out_dtype), flush)
+        plain = time_ms(lambda: ref.block_gemm_int8_ref(a, b, sa, sb, out_dtype), flush,
+                        reps=5)
+        lib = None
+        if M > 16:  # torch._int_mm takes M > 16 only
+            bt = b.T  # [K, N] column-major view: no copy
+            lib = time_ms(lambda: (torch._int_mm(a, bt).float() * sa * sb).to(out_dtype),
+                          flush)
+        out_bytes = M * N * (4 if out_dtype == torch.float32 else 2)
+        bms, by = bound_ms(M * K + N * K + 4 * (M + N) + out_bytes, 2 * M * N * K,
+                           torch.int8)
+        rows.append(dict(shape=f"{M}x{K}x{N}", ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=bms, bound_by=by))
+        log(f"  block_gemm_int8 M={M} K={K} N={N} ({str(out_dtype)[6:]} out): kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, torch._int_mm+epilogue "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {bms:.4f} ms ({by})")
+    return 0.0, rows
+
+
+def dense_attention_phase(flush, gen):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    # Tolerances (``check_attn``): f32 2e-5 elementwise; bf16 2^-7 per row.
+    cases = [  # name, B, Sq, Sk, causal, window, softcap (, H, K, d)
+        ("global-causal", 2, 1536, 1536, True, 0, 0.0),
+        ("local-window", 2, 1536, 1536, True, 1024, 0.0),
+        ("suffix Sq<Sk", 1, 100, 1300, True, 1024, 0.0),
+        ("softcap-ragged", 1, 77, 77, True, 0, 30.0),
+        ("all-masked Sq>Sk", 1, 90, 40, True, 0, 0.0),
+        ("bidirectional", 1, 200, 333, False, 0, 0.0),
+        ("reduced d16", 2, 40, 40, True, 32, 0.0, 4, 2, 16),
+    ]
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, Sq, Sk, causal, win, cap, *hkd in cases:
+            H, K, d = hkd or (8, 4, 256)
+            # the layers' layout: [B, S, heads, d] transposed without a copy
+            q = torch.randn(B, Sq, H, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+            k = torch.randn(B, Sk, K, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+            v = torch.randn(B, Sk, K, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+            got = flash_attention(q, k, v, causal=causal, window=win, softcap=cap)
+            want = ref.flash_attention_ref(q, k, v, causal=causal, window=win, softcap=cap)
+            err[(dtype, name)] = check_attn(f"flash_attention {dtype} {name}", got, want,
+                                            dtype)
+            if Sq > Sk and causal and float(got[:, :, : Sq - Sk].abs().max()) != 0.0:
+                fail("flash_attention: all-masked rows are not exactly zero")
+    torch.cuda.synchronize()
+    log(f"flash_attention: {len(cases)} cases x (f32, bf16) agree; " + _errs(err))
+    rows = []
+    B, S, H, K, d = 2, 1536, 8, 4, 256
+    q = torch.randn(B, H, S, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, K, S, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, K, S, d, generator=gen, device="cuda").bfloat16()
+    for name, win in (("global", 0), ("local", 1024)):
+        ms = time_ms(lambda: flash_attention(q, k, v, window=win), flush, reps=10)
+        plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, window=win), flush, reps=5)
+        i = torch.arange(S, device="cuda")  # the window as a boolean mask
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - win)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if win:
+            lib_fn = lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)  # noqa: E731
+        else:
+            lib_fn = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+        lib = time_ms(lib_fn, flush)
+        lib_rel = check_rows(f"SDPA yardstick {name}", lib_fn(),
+                             ref.flash_attention_ref(q, k, v, window=win), rtol=math.inf)[1]
+        pairs = sum(min(i + 1, win or i + 1) for i in range(S))
+        bms, by = bound_ms(2 * (2 * B * H * S * d + 2 * B * K * S * d),
+                           4 * B * H * pairs * d, torch.bfloat16)
+        rows.append(dict(shape=f"{name} B{B} H{H} K{K} S{S} d{d}", ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=bms, bound_by=by))
+        log(f"  flash_attention bf16 {name} B={B} H={H} K={K} S={S} d={d}: kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA{'+window mask' if win else ''} "
+            f"{lib:.4f} ms (row relative error vs plain {lib_rel:.3e}), bound "
+            f"{bms:.4f} ms ({by})")
+    return _bf16_max(err), rows
+
+
+def _live_mask(pos, start, S, ring):
+    j = torch.arange(S, device=pos.device)[None]
+    if ring:
+        a = pos[:, None] - torch.remainder(pos[:, None] - j, S)
+        return (a >= 0) & (a >= start[:, None])
+    return (j >= start[:, None]) & (j <= pos[:, None])
+
+
+def slot_decode_phase(flush, gen):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import flash_decode
+    # Tolerances (``check_attn``): f32 2e-5 elementwise; bf16 2^-7 per row.
+    B = 4
+    cases = [  # layout, S, pos, start (, H, K, d)
+        ("linear", 1600, [1567, 1600, 10, 5], [0, 0, 0, 9]),   # pos == S; start > pos
+        ("ring", 1024, [1567, 1024, 500, 3000], [0, 0, 0, 3001]),
+        ("linear", 64, [50, 64, 3, 7], [0, 0, 0, 8], 4, 2, 16),  # reduced widths
+        ("ring", 32, [50, 32, 3, 60], [0, 0, 0, 61], 4, 2, 16),
+    ]
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for layout, S, pos, start, *hkd in cases:
+            H, K, d = hkd or (8, 4, 256)
+            q = torch.randn(B, H, d, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(B, S, K, d, generator=gen, device="cuda").to(dtype)
+            v = torch.randn(B, S, K, d, generator=gen, device="cuda").to(dtype)
+            p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            st = torch.tensor(start, dtype=torch.int32, device="cuda")
+            for cap in (0.0, 50.0):
+                got = flash_decode(q, k, v, p, st, layout=layout, softcap=cap)
+                want = ref.flash_decode_ref(q, k, v, p, st, layout=layout, softcap=cap)
+                err[(dtype, f"{layout}{S} cap{cap:g}")] = check_attn(
+                    f"flash_decode {dtype} {layout} S={S} softcap {cap}", got, want, dtype)
+                if float(got[3].abs().max()) != 0.0:
+                    fail("flash_decode: a slot with start > pos is not exactly zero")
+    torch.cuda.synchronize()
+    log("flash_decode: linear and ring x (f32, bf16) x softcap agree; " + _errs(err))
+    rows = []
+    B, H, K, d = 2, 8, 4, 256
+    for layout, S, pos in (("linear", 1600, 1567), ("ring", 1024, 1567)):
+        q = torch.randn(B, H, d, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(B, S, K, d, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(B, S, K, d, generator=gen, device="cuda").bfloat16()
+        p = torch.full((B,), pos, dtype=torch.int32, device="cuda")
+        st = torch.zeros(B, dtype=torch.int32, device="cuda")
+        ms = time_ms(lambda: flash_decode(q, k, v, p, st, layout=layout), flush)
+        plain = time_ms(lambda: ref.flash_decode_ref(q, k, v, p, st, layout=layout), flush)
+        mask = _live_mask(p, st, S, layout == "ring")[:, None, None, :]
+        kt, vt, q4 = k.transpose(1, 2), v.transpose(1, 2), q[:, :, None]
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, enable_gqa=True), flush)
+        live = int(mask.sum())
+        bms, by = bound_ms(2 * (2 * live * K * d + 2 * B * H * d) + 8 * B,
+                           4 * live * H * d, torch.bfloat16)
+        rows.append(dict(shape=f"{layout} B{B} H{H} K{K} S{S} d{d} live{live}", ms=ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by))
+        log(f"  flash_decode bf16 {layout} B={B} S={S} pos={pos} ({live} live rows): "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA+mask {lib:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
+    return _bf16_max(err), rows
+
+
 def _paged_pools(gen, P, ps, K, d, dtype):
     k = torch.randn(P, ps, K, d, generator=gen, device="cuda").to(dtype)
     v = torch.randn(P, ps, K, d, generator=gen, device="cuda").to(dtype)
@@ -166,10 +429,9 @@ def _tables(B, npp, P, seed):
 def decode_phase(flush, gen):
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import flash_decode_paged
-    # Tolerances.  f32: online vs two-pass softmax in f32, ~1e-6; 2e-5.
-    # bf16: the kernel rounds the unnormalized P to bf16 before PV (as the
-    # Pallas kernel does), the plain version the normalized P, and both
-    # round the output: ~2^-8 of max|v| (~4 for randn), so 3e-2.
+    # Tolerances (``check_attn``): f32 2e-5 elementwise; bf16 2^-7 per row
+    # (the kernel rounds the unnormalized P to bf16 before PV, as the Pallas
+    # kernel does, the plain version the normalized P).
     B, H, K, d, ps, max_len = 8, 16, 16, 128, 64, 1024
     npp, P = max_len // ps, 8 * (max_len // ps) + 1
     # empty slot (start > pos), prefix-only, mid-page, window-like start,
@@ -182,7 +444,7 @@ def decode_phase(flush, gen):
     err = {}
     cases = [("mha", H, K, 0.0, None, False), ("gqa-softcap", 16, 4, 30.0, None, False),
              ("shared-kv-dv64", 16, 4, 0.0, 64, True)]
-    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+    for dtype in (torch.float32, torch.bfloat16):
         for name, Hc, Kc, cap, dv, shared in cases:
             k, v = _paged_pools(gen, P, ps, Kc, d, dtype)
             if shared:
@@ -191,13 +453,12 @@ def decode_phase(flush, gen):
             got = flash_decode_paged(q, k, v, pos, start, pages, softcap=cap, dv=dv)
             want = ref.flash_decode_ref(q, k, v, pos, start, pages=pages,
                                         softcap=cap, dv=dv)
-            err[(dtype, name)] = check_close(f"flash_decode_paged {dtype} {name}",
-                                             got, want, atol, 0.0)
+            err[(dtype, name)] = check_attn(f"flash_decode_paged {dtype} {name}",
+                                            got, want, dtype)
             if float(got[0].abs().max()) != 0.0:
                 fail("flash_decode_paged: empty slot is not exactly zero")
     torch.cuda.synchronize()
-    log(f"flash_decode_paged: {len(cases)} cases x (f32, bf16) agree; max_abs_err "
-        + ", ".join(f"{str(dt)[6:]} {n} {e:.3e}" for (dt, n), e in err.items()))
+    log(f"flash_decode_paged: {len(cases)} cases x (f32, bf16) agree; " + _errs(err))
     k, v = _paged_pools(gen, P, ps, K, d, torch.bfloat16)
     q = torch.randn(B, H, d, generator=gen, device="cuda").bfloat16()
     ms = time_ms(lambda: flash_decode_paged(q, k, v, pos, start, pages), flush)
@@ -209,7 +470,7 @@ def decode_phase(flush, gen):
     bms, by = bound_ms(n_bytes, 4 * live * (H // K) * K * d, torch.bfloat16)
     log(f"  flash_decode_paged bf16 B={B} H={H} d={d} ps={ps} live rows={live}: "
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
-    return max(e for (dt, _), e in err.items() if dt == torch.bfloat16), \
+    return _bf16_max(err), \
         dict(shape=f"B{B} H{H} d{d} ps{ps} live{live}", ms=ms, plain_ms=plain,
              library_ms=None, bound_ms=bms, bound_by=by)
 
@@ -217,8 +478,7 @@ def decode_phase(flush, gen):
 def chunk_phase(flush, gen):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_paged
-    # Tolerances as for decode: f32 2e-5; bf16 3e-2 (P rounded to bf16 at
-    # another point than the plain version, output rounded to bf16).
+    # Tolerances (``check_attn``): f32 2e-5 elementwise; bf16 2^-7 per row.
     H, d, ps, max_len, C = 16, 128, 64, 1024, 64
     npp, P = max_len // ps, 8 * (max_len // ps) + 1
     cases = [  # name, B, K, q_start, n valid rows, window, softcap
@@ -230,7 +490,7 @@ def chunk_phase(flush, gen):
         ("softcap", 1, 16, [96], [64], 0, 30.0),
     ]
     err = {}
-    for dtype, atol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+    for dtype in (torch.float32, torch.bfloat16):
         for name, B, K, qs, n, win, cap in cases:
             k, v = _paged_pools(gen, P, ps, K, d, dtype)
             q = torch.randn(B, H, C, d, generator=gen, device="cuda").to(dtype)
@@ -242,12 +502,11 @@ def chunk_phase(flush, gen):
             want = ref.flash_attention_paged_ref(q, k, v, pages, q_start, k_len,
                                                  window=win, softcap=cap)
             rows = min(n)  # rows past a slot's valid length are padding
-            err[(dtype, name)] = check_close(
+            err[(dtype, name)] = check_attn(
                 f"flash_attention_paged {dtype} {name}",
-                got[:, :, :rows], want[:, :, :rows], atol, 0.0)
+                got[:, :, :rows], want[:, :, :rows], dtype)
     torch.cuda.synchronize()
-    log(f"flash_attention_paged: {len(cases)} cases x (f32, bf16) agree; max_abs_err "
-        + ", ".join(f"{str(dt)[6:]} {n} {e:.3e}" for (dt, n), e in err.items()))
+    log(f"flash_attention_paged: {len(cases)} cases x (f32, bf16) agree; " + _errs(err))
     qs, n = 448, 64
     k, v = _paged_pools(gen, P, ps, H, d, torch.bfloat16)
     q = torch.randn(1, H, C, d, generator=gen, device="cuda").bfloat16()
@@ -262,16 +521,270 @@ def chunk_phase(flush, gen):
     bms, by = bound_ms(n_bytes, 4 * H * keys * d, torch.bfloat16)
     log(f"  flash_attention_paged bf16 C={C} H={H} d={d} q_start={qs} k_len={qs + n}: "
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
-    return max(e for (dt, _), e in err.items() if dt == torch.bfloat16), \
+    return _bf16_max(err), \
         dict(shape=f"C{C} H{H} d{d} q_start{qs} k_len{qs + n}", ms=ms, plain_ms=plain,
              library_ms=None, bound_ms=bms, bound_by=by)
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the engine at full width
+# phase 3: the int8 edge path at full width
 # ---------------------------------------------------------------------------
 
-def engine_phase(counters):
+def _to_cuda(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cuda(v) for v in tree]
+    if isinstance(tree, tuple):  # QTensor
+        return type(tree)(*(_to_cuda(v) for v in tree))
+    return tree.cuda()
+
+
+class _Int8Recorder:
+    """Records every w8a8 GEMM of ``core.gemm`` by device, in call order: the
+    float activation, its int8 row quantization and the GEMM's output."""
+
+    def __init__(self):
+        from repro_torch.core import gemm
+        self.gemm, self.calls = gemm, {"cpu": [], "cuda": []}
+
+    def __enter__(self):
+        g = self.gemm
+        self._quantize, self._matmul = g.quantize, g.cgra_matmul_int8
+
+        def quantize(x, axis):
+            qt = self._quantize(x, axis)
+            self.calls[x.device.type].append(
+                dict(x=x.float().cpu(), q=qt.q.cpu(), scale=qt.scale.cpu()))
+            return qt
+
+        def matmul(*args, **kw):
+            out = self._matmul(*args, **kw)
+            self.calls[out.device.type][-1]["out"] = out.float().cpu()
+            return out
+        g.quantize, g.cgra_matmul_int8 = quantize, matmul
+        return self
+
+    def __exit__(self, *exc):
+        self.gemm.quantize, self.gemm.cgra_matmul_int8 = self._quantize, self._matmul
+
+
+def flip_witness(rec) -> dict:
+    """Where the card's w8a8 run leaves the CPU's: the first GEMM call whose
+    int8 activations differ, with the count of differing entries, their
+    largest step difference, and the float gap of the activations at that
+    call (in int8 steps).  Every GEMM up to that call must agree at 1e-4 on
+    the rows whose int8 activations are equal (no flip can reach them)."""
+    cpu, gpu = rec.calls["cpu"], rec.calls["cuda"]
+    if len(cpu) != len(gpu):
+        fail(f"w8a8 witness: {len(cpu)} GEMM calls on the CPU, {len(gpu)} on the card")
+    first, flips, entries, gemm_gap = None, 0, 0, 0.0
+    for i, (c, g) in enumerate(zip(cpu, gpu)):
+        d = (c["q"].int() - g["q"].int()).abs()
+        flips, entries = flips + int((d > 0).sum()), entries + d.numel()
+        if first is None:
+            same = (d == 0).all(-1)
+            gemm_gap = max(gemm_gap, float((c["out"][same] - g["out"][same]).abs().max())
+                           if bool(same.any()) else 0.0)
+            if bool((d > 0).any()):
+                uc, ug = c["x"] / c["scale"], g["x"] / g["scale"]  # in int8 steps
+                frac = uc.abs() - uc.abs().floor()
+                first = dict(call=i, of_calls=len(cpu), entries=int((d > 0).sum()),
+                             of_entries=d.numel(), max_step=int(d.max()),
+                             input_gap_steps=float((uc - ug).abs().max()),
+                             flip_boundary_dist_steps=float((frac - 0.5).abs()[d > 0].max()))
+    return dict(first_flip=first, flips=flips, entries=entries,
+                gemm_gap_before_flip=gemm_gap)
+
+
+def small_reference_check():
+    """Reduced gemma3-4b (f32 compute, window 32) on the card's kernels
+    against the CPU's plain versions: prefill of a 40-token prompt, then 12
+    decode steps past the window on the same tokens.
+
+    Float weights: max logits gap <= 1e-4 (the kernels sum in another
+    order: f32 rounding only).  w8a8: the same bound while no int8
+    activation differs.  An activation that lies within that f32 rounding
+    of an int8 rounding boundary takes the neighbouring step on one side;
+    ``flip_witness`` finds the first such call and must show one-step flips
+    of activations whose float values agree to 1e-2 of a step, and GEMM
+    outputs equal to 1e-4 up to there.  From the flip on, one step (1/127 of
+    a row's max) moves the logits by up to ~1e-2 here, so the gate is then
+    5e-2 on the gap and 0.9 on the argmax agreement; all are printed."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import model as M
+    toks = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (2, 40)).astype(np.int32))
+    cfg = reduce_config(get_config("gemma3-4b"))
+    out = {}
+    for quant in ("none", "w8a8"):
+        p_cpu = M.init(cfg, seed=0, device="cpu")
+        if quant == "w8a8":
+            p_cpu = M.quantize_params(cfg, p_cpu)
+        p_gpu = _to_cuda(p_cpu)
+        with _Int8Recorder() as rec:
+            lc, cc = M.prefill(cfg, p_cpu, toks, cache_len=64)
+            lg, cg = M.prefill(cfg, p_gpu, toks.cuda(), cache_len=64)
+            pairs = [(lc, lg.cpu())]
+            for i in range(12):
+                tok = toks[:, i: i + 1]
+                lc, cc = M.decode_step(cfg, p_cpu, cc, tok, 40 + i)
+                lg, cg = M.decode_step(cfg, p_gpu, cg, tok.cuda(), 40 + i)
+                pairs.append((lc, lg.cpu()))
+        gap = max(float((b - a).abs().max()) for a, b in pairs)
+        agree = statistics.mean(float((a.argmax(-1) == b.argmax(-1)).float().mean())
+                                for a, b in pairs)
+        bound, witness = 1e-4, None
+        if quant == "w8a8":
+            witness = flip_witness(rec)
+            first = witness["first_flip"]
+            log(f"reduced gemma3-4b w8a8 witness: {json.dumps(witness)}")
+            if witness["gemm_gap_before_flip"] > 1e-4:
+                fail(f"w8a8 GEMM outputs before the first flip differ by "
+                     f"{witness['gemm_gap_before_flip']:.3e} (bound 1e-4)")
+            if first is not None:
+                if first["max_step"] > 1 or first["input_gap_steps"] > 1e-2:
+                    fail(f"w8a8 first flip is not a boundary rounding: {first}")
+                bound = 5e-2
+        log(f"reduced gemma3-4b {quant}, card kernels vs CPU plain versions: prefill + 12 "
+            f"decode steps, max logits gap {gap:.3e} (bound {bound:g}), argmax "
+            f"agreement {agree:.4f}")
+        if not math.isfinite(gap) or gap > bound or agree < 0.9:
+            fail(f"reduced gemma3-4b {quant}: card vs CPU gap {gap:.3e}, agreement {agree}")
+        out[quant] = dict(gap=gap, bound=bound, argmax_agreement=agree, witness=witness)
+    return out
+
+
+def edge_phase(counters):
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    names = {c.__name__: c for c in counters}
+    small_gap = small_reference_check()
+    cfg = get_config("gemma3-4b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = M.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    t1 = time.time()
+    params_q = M.quantize_params(cfg, params)
+    torch.cuda.synchronize()
+    int8_gb = sum(t.numel() for t in _leaves(params_q) if t.dtype == torch.int8) / 1e9
+    log(f"gemma3-4b: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {n_params / 1e9:.3f} B parameters in bf16 (init "
+        f"{t1 - t0:.2f} s), {int8_gb:.3f} GB of int8 weights incl. the head "
+        f"(quantize_params {time.time() - t1:.2f} s)")
+    B, S, cache_len, steps = 2, 1536, 1600, 32
+    V = cfg.vocab_size
+    prompts = torch.from_numpy(np.random.RandomState(1).randint(
+        0, V, (B, S)).astype(np.int32)).cuda()
+
+    def run(c, p, forced=None, n=steps):
+        """prefill -> ``n`` greedy decode steps (or the ``forced`` tokens);
+        returns (per-step logits, tokens, prefill s, decode s)."""
+        torch.cuda.synchronize()
+        t0 = time.time()
+        logits, caches = M.prefill(c, p, prompts, cache_len=cache_len)
+        torch.cuda.synchronize()
+        t_pre = time.time() - t0
+        outs, toks = [logits[:, -1]], []
+        t0 = time.time()
+        for i in range(n):
+            tok = (forced[i] if forced is not None
+                   else torch.argmax(outs[-1][:, :V], -1).to(torch.int32))
+            toks.append(tok)
+            logits, caches = M.decode_step(c, p, caches, tok[:, None], S + i)
+            outs.append(logits[:, -1])
+        torch.cuda.synchronize()
+        return outs, toks, t_pre, time.time() - t0
+
+    run(cfg, params_q, n=2)  # warm-up: first launches, allocator
+    for c in counters:
+        c.launches = 0
+    outs, toks, t_pre, t_dec = run(cfg, params_q)
+    launches = {n: c.launches for n, c in names.items()}
+    for n in ("block_gemm_int8", "flash_attention", "flash_decode"):
+        if launches[n] <= 0:
+            fail(f"{n} was not launched during the edge phase")
+    if launches["block_gemm"] != 0:
+        fail("the bf16 block_gemm was launched under w8a8")
+    for i, lg in enumerate(outs):
+        if lg.shape != (B, cfg.padded_vocab) or not bool(torch.isfinite(lg).all()):
+            fail(f"edge logits {i}: shape {tuple(lg.shape)} or non-finite values")
+    for n in names:  # per prefill / per decode step, from one more counted prefill
+        names[n].launches = 0
+    M.prefill(cfg, params_q, prompts, cache_len=cache_len)
+    per_prefill = {n: c.launches for n, c in names.items()}
+    per_step = {n: (launches[n] - per_prefill[n]) / steps for n in names}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens_per_s = B * steps / t_dec
+    log(f"edge w8a8: prefill {B}x{S} in {t_pre * 1e3:.1f} ms, {steps} decode steps at "
+        f"{t_dec / steps * 1e3:.2f} ms ({tokens_per_s:.1f} tokens/s at batch {B}); peak "
+        f"device memory {peak:.2f} GiB")
+    log(f"edge launches: total {json.dumps(launches)}; per prefill "
+        f"{json.dumps(per_prefill)}; per decode step {json.dumps(per_step)}")
+    trace = trace_edge(cfg, params_q, prompts, cache_len, t_pre, t_dec / steps)
+    # bf16 on the same tokens: argmax agreement (information, not a gate)
+    outs_bf, _, t_pre_bf, t_dec_bf = run(cfg, params, forced=toks)
+    agree = float(torch.mean(torch.stack([
+        (torch.argmax(a[:, :V], -1) == torch.argmax(b[:, :V], -1)).float()
+        for a, b in zip(outs, outs_bf)])))
+    log(f"edge bf16 on the same tokens: prefill {t_pre_bf * 1e3:.1f} ms, "
+        f"{t_dec_bf / steps * 1e3:.2f} ms per step; w8a8 vs bf16 argmax agreement "
+        f"{agree:.4f} over {len(outs) * B} positions")
+    return launches, dict(prefill_ms=t_pre * 1e3, decode_step_ms=t_dec / steps * 1e3,
+                          tokens_per_s=tokens_per_s, peak_gib=peak,
+                          per_prefill=per_prefill, per_step=per_step,
+                          argmax_agreement=agree, small_gap=small_gap,
+                          bf16_prefill_ms=t_pre_bf * 1e3,
+                          bf16_decode_step_ms=t_dec_bf / steps * 1e3, trace=trace)
+
+
+def _traced(fn):
+    """Device time by kernel of ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if _device_us(e) > 0 and not e.key.startswith("aten::")]
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    return (sum(_device_us(e) for e in kernels) / 1e3,
+            {f"{e.key[:60]} x{e.count}": _device_us(e) / 1e3 for e in top})
+
+
+def trace_edge(cfg, params, prompts, cache_len, prefill_s, step_s):
+    """Traced prefill and decode step of the edge path, set against the
+    untraced times: idle share = 1 - device time / untraced time."""
+    from repro_torch.models import model as M
+    box = {}
+
+    def pre():
+        box["lc"] = M.prefill(cfg, params, prompts, cache_len=cache_len)
+    out = {}
+    dev, top = _traced(pre)
+    out["prefill"] = dict(device_ms=dev, untraced_ms=prefill_s * 1e3, top=top,
+                          idle_share=1 - dev / (prefill_s * 1e3) if dev else None)
+    logits, caches = box["lc"]
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    S = prompts.shape[1]
+    dev, top = _traced(lambda: M.decode_step(cfg, params, caches, tok, S))
+    out["decode"] = dict(device_ms=dev, untraced_ms=step_s * 1e3, top=top,
+                         idle_share=1 - dev / (step_s * 1e3) if dev else None)
+    for kind, o in out.items():
+        log(f"traced edge {kind}: device {o['device_ms']:.3f} ms of an untraced "
+            f"{o['untraced_ms']:.3f} ms; top kernels (ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in o["top"].items())
+            if o["device_ms"] else f"traced edge {kind}: the profiler saw no device "
+            "time (not measured)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the engine at full width
+# ---------------------------------------------------------------------------
+
+def engine_phase(counters, paged_path):
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.serving import Engine, EngineConfig, FinishReason, check_invariants
@@ -313,8 +826,8 @@ def engine_phase(counters):
             fail(f"rid {rid}: token outside the vocabulary")
     if eng.stats.prefix_hit_rate <= 0:
         fail("no radix prefix hit")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in paged_path:
+        if launches[name] <= 0:
             fail(f"{name} was not launched during the engine phase")
     bad = check_invariants(eng.pool, eng.radix, tables=eng.sched.owned)
     if bad:
@@ -348,6 +861,29 @@ def engine_phase(counters):
                    decode_tick_ms=st.decode_s / max(st.chunks, 1) * 1e3)
     summary["trace"] = trace_ticks(Engine(cfg, params, econf), prompts, max_new,
                                    summary)
+    # w8a8 through the paged engine: the int8 GEMM on the paged path
+    qconf = EngineConfig(max_batch=4, max_len=1024, page_size=64, chunk_tokens=64,
+                         decode_chunk=8, quant="w8a8")
+    qeng = Engine(cfg, params, qconf)
+    for c in counters:
+        c.launches = 0
+    t0 = time.time()
+    qrids = [qeng.submit(p, max_new=16) for p in prompts[:4]]
+    qres = {r.rid: r for r in qeng.run()}
+    torch.cuda.synchronize()
+    qwall = time.time() - t0
+    qlaunch = {c.__name__: c.launches for c in counters}
+    for rid in qrids:
+        if len(qres[rid].generated) != 16 or not all(0 <= t < V for t in qres[rid].generated):
+            fail(f"w8a8 engine rid {rid}: bad output {qres[rid].generated}")
+    if qlaunch["block_gemm_int8"] <= 0 or qlaunch["block_gemm"] != 0:
+        fail(f"w8a8 engine launches {qlaunch}: the int8 GEMM must carry every GEMM")
+    agree = statistics.mean(
+        sum(a == b for a, b in zip(qres[q].generated, batched[tuple(p)])) / 16
+        for q, p in zip(qrids, prompts[:4]))
+    log(f"engine w8a8: 4 requests x 16 tokens in {qwall:.3f} s; launches "
+        f"{json.dumps(qlaunch)}; greedy tokens equal to bf16's at {agree:.4f} of positions")
+    summary["w8a8"] = dict(wall_s=qwall, launches=qlaunch, token_agreement=agree)
     return launches, summary
 
 
@@ -408,7 +944,7 @@ def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
-    elif isinstance(tree, list):
+    elif isinstance(tree, (list, tuple)):  # a QTensor is a (q, scale) tuple
         for v in tree:
             yield from _leaves(v)
     else:
@@ -422,9 +958,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.kernels import _build
-    from repro_torch.kernels.block_gemm import block_gemm
-    from repro_torch.kernels.decode_attention import flash_decode_paged
-    from repro_torch.kernels.flash_attention import flash_attention_paged
+    from repro_torch.kernels.block_gemm import block_gemm, block_gemm_int8
+    from repro_torch.kernels.decode_attention import flash_decode, flash_decode_paged
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_paged
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -441,29 +977,55 @@ def main() -> int:
 
     flush = L2Flush()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    gemm_err, gemm_rows = gemm_phase(flush, gen)
-    dec_err, dec_row = decode_phase(flush, gen)
-    fa_err, fa_row = chunk_phase(flush, gen)
+    counters = [block_gemm, block_gemm_int8, flash_decode_paged, flash_decode,
+                flash_attention_paged, flash_attention]
+    rows, errs, launches, report = {}, {}, {}, {}
+    errs["block_gemm"], rows["block_gemm"] = gemm_phase(flush, gen)
+    errs["block_gemm_int8"], rows["block_gemm_int8"] = int8_phase(flush, gen)
+    errs["flash_attention"], rows["flash_attention"] = dense_attention_phase(flush, gen)
+    errs["flash_decode"], rows["flash_decode"] = slot_decode_phase(flush, gen)
+    errs["flash_decode_paged"], rows["flash_decode_paged"] = decode_phase(flush, gen)
+    errs["flash_attention_paged"], rows["flash_attention_paged"] = chunk_phase(flush, gen)
+    del flush
+    edge_launch, report["edge"] = edge_phase(counters)
+    for n in ("block_gemm_int8", "flash_attention", "flash_decode"):
+        launches[n] = edge_launch[n]
+    eng_launch, report["engine"] = engine_phase(
+        counters, ["block_gemm", "flash_decode_paged", "flash_attention_paged"])
+    for n in ("block_gemm", "flash_decode_paged", "flash_attention_paged"):
+        launches[n] = eng_launch[n]
 
-    counters = [block_gemm, flash_decode_paged, flash_attention_paged]
-    launches, eng = engine_phase(counters)
+    def pick(name, shape):
+        return next(r for r in rows[name] if r["shape"] == shape)
 
-    main_gemm = next(r for r in gemm_rows if r["shape"] == "8x2048x8192")
-    kernels = [
-        dict(name="block_gemm", route="cuda",
-             source="src/repro_torch/kernels/csrc/block_gemm.cu",
-             replaces="src/repro/kernels/block_gemm.py:74",
-             launches=launches["block_gemm"], max_abs_err=gemm_err, **main_gemm),
-        dict(name="flash_decode_paged", route="cuda",
-             source="src/repro_torch/kernels/csrc/decode_attention.cu",
-             replaces="src/repro/kernels/decode_attention.py:234",
-             launches=launches["flash_decode_paged"], max_abs_err=dec_err, **dec_row),
-        dict(name="flash_attention_paged", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:172",
-             launches=launches["flash_attention_paged"], max_abs_err=fa_err, **fa_row),
-    ]
-    log(json.dumps({"gemm_shapes": gemm_rows, "engine": eng}))
+    # each kernel's row at a shape of its main path; launches from that path
+    # (the engine phase for the paged kernels and the bf16 GEMM, the edge
+    # phase for the int8 GEMM, dense attention and slot decode)
+    main_rows = {
+        "block_gemm": pick("block_gemm", "8x2048x8192"),
+        "block_gemm_int8": pick("block_gemm_int8", "3072x2560x10240"),
+        "flash_attention": pick("flash_attention", "global B2 H8 K4 S1536 d256"),
+        "flash_decode": rows["flash_decode"][0],
+        "flash_decode_paged": rows["flash_decode_paged"],
+        "flash_attention_paged": rows["flash_attention_paged"],
+    }
+    sources = {
+        "block_gemm": ("block_gemm.cu", "src/repro/kernels/block_gemm.py:74"),
+        "block_gemm_int8": ("block_gemm_int8.cu", "src/repro/kernels/block_gemm.py:129"),
+        "flash_attention_paged": ("flash_attention.cu",
+                                  "src/repro/kernels/flash_attention.py:172"),
+        "flash_attention": ("flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:117"),
+        "flash_decode_paged": ("decode_attention.cu",
+                               "src/repro/kernels/decode_attention.py:234"),
+        "flash_decode": ("decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:170"),
+    }
+    kernels = [dict(name=n, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
+                    replaces=rep_, launches=launches[n], max_abs_err=errs[n],
+                    **main_rows[n])
+               for n, (src, rep_) in sources.items()]
+    log(json.dumps({"kernel_shapes": rows, **report}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,11 +5,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs import cgra_edge, deepseek_67b, olmo_1b
+from repro_torch.configs import cgra_edge, deepseek_67b, gemma3_4b, olmo_1b
 from repro_torch.configs.base import ArchConfig, LayerSpec, Stage, build_stages
 
 REGISTRY: dict[str, ArchConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (olmo_1b, deepseek_67b, cgra_edge)
+    m.CONFIG.name: m.CONFIG for m in (olmo_1b, deepseek_67b, cgra_edge, gemma3_4b)
 }
 
 

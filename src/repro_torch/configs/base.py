@@ -8,7 +8,7 @@ layout as the JAX package, so a weight tree crosses between the two with a
 plain reshape.
 
 Differences from the JAX config: dtypes are ``torch`` dtypes, one
-``compute_dtype`` also stores the weights, and there is no ``kernel_mode``
+``compute_dtype`` also stores the float weights, and there is no ``kernel_mode``
 — a tensor's device chooses the kernel or its plain version.  Mesh, remat,
 training knobs and the widths of unported mixers are left out with the
 paths that use them.

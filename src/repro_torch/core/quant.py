@@ -1,0 +1,45 @@
+"""int8 quantization — the paper's packed-data path (port of
+``repro.core.quant``; the gradient compressor waits for the training
+slice).
+
+Symmetric int8 with f32 scales, bit for bit the JAX package's rule:
+``scale = max(amax, 1e-8) / 127``, ``q = clip(round(x / scale), -127,
+127)`` with round-half-to-even, all in f32."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+F32 = torch.float32
+
+
+class QTensor(NamedTuple):
+    q: torch.Tensor      # int8
+    scale: torch.Tensor  # f32, per channel (broadcastable against q) or scalar
+
+
+def quantize(x, axis: int | None = -1) -> QTensor:
+    """Symmetric int8 quantization with per-channel scales along ``axis``
+    (the max runs over every other axis; ``None``: one scalar scale)."""
+    xf = x.to(F32)
+    if axis is None:
+        amax = xf.abs().amax()
+    else:
+        red = tuple(i for i in range(xf.dim()) if i != axis % xf.dim())
+        amax = xf.abs().amax(dim=red, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return QTensor(q, scale)
+
+
+def dequantize(qt: QTensor, dtype=F32):
+    return (qt.q.to(F32) * qt.scale).to(dtype)
+
+
+def quantized_matmul_ref(x_q: QTensor, w_q: QTensor, out_dtype=F32):
+    """(x_scale * x_q) @ (w_q * w_scale) with exact integer sums.  x_q.q:
+    [..., K] (per-row scales), w_q.q: [K, N] (per-column scales).  The sums
+    run in f64, exact for |acc| < 2^53 (CUDA has no integer matmul)."""
+    acc = torch.matmul(x_q.q.to(torch.float64), w_q.q.to(torch.float64))
+    return (acc.to(torch.int32).to(F32) * x_q.scale * w_q.scale).to(out_dtype)

@@ -1,8 +1,9 @@
-"""Block GEMM wrapper: ``csrc/block_gemm.cu`` on the card, the plain
-version on the CPU.
+"""Block GEMM wrappers: ``csrc/block_gemm.cu`` and ``csrc/block_gemm_int8.cu``
+on the card, the plain versions on the CPU.
 
-Port of ``repro.kernels.block_gemm.block_gemm`` (TPU kernel
-``_gemm_kernel``).  ``block_gemm.launches`` counts kernel launches.
+Ports of ``repro.kernels.block_gemm.block_gemm`` (TPU kernel
+``_gemm_kernel``) and ``block_gemm_int8`` (``_gemm_int8_kernel``).  Each
+wrapper's ``.launches`` counts its kernel launches.
 """
 from __future__ import annotations
 
@@ -11,10 +12,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import block_gemm_ref
+from repro_torch.kernels.ref import block_gemm_int8_ref, block_gemm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _fn = None
+_fn_int8 = None
 
 
 def _entry():
@@ -22,21 +24,34 @@ def _entry():
     if _fn is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         _fn = _build.bind("block_gemm", "repro_block_gemm",
-                          [P, P, P, I, I, I, I, I, P])
+                          [P, P, P, I, I, I, I, I, I, P])
     return _fn
 
 
-def block_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """C = A[M,K] @ B[K,N] with an f32 accumulator and one cast to
-    ``out_dtype`` (default ``a.dtype``; f32 is the LM head's store).  B is
-    row-major [K, N], not ``nn.Linear``'s [N, K]."""
+def _entry_int8():
+    global _fn_int8
+    if _fn_int8 is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        _fn_int8 = _build.bind("block_gemm_int8", "repro_block_gemm_int8",
+                               [P, P, P, P, P, I, I, I, I, P])
+    return _fn_int8
+
+
+def block_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
+               trans_b: bool = False) -> torch.Tensor:
+    """C = A[M,K] @ B with an f32 accumulator and one cast to ``out_dtype``
+    (default ``a.dtype``; f32 is the LM head's store).  B is row-major
+    [K, N], or [N, K] with ``trans_b`` (the tied LM head reads the [V, D]
+    embedding table in place)."""
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
-        return block_gemm_ref(a, b, out_dtype)
+        return block_gemm_ref(a, b, out_dtype, trans_b)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"block_gemm: a on {a.device}, b on {b.device}")
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"block_gemm: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    kb = 1 if trans_b else 0
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[kb]:
+        raise ValueError(f"block_gemm: shapes {tuple(a.shape)} @ {tuple(b.shape)}"
+                         f"{'^T' if trans_b else ''}")
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise TypeError(f"block_gemm: dtypes {a.dtype}, {b.dtype}")
     if out_dtype not in (a.dtype, torch.float32):
@@ -44,7 +59,7 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("block_gemm: a and b must be contiguous")
     M, K = a.shape
-    N = b.shape[1]
+    N = b.shape[1 - kb]
     c = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if M == 0 or N == 0:
         return c
@@ -52,7 +67,7 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor
         return c.zero_()
     err = _entry()(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
                    int(a.dtype == torch.bfloat16),
-                   int(out_dtype == torch.bfloat16),
+                   int(out_dtype == torch.bfloat16), int(trans_b),
                    _build.stream_ptr(a.device))
     _build.check(err, "block_gemm")
     block_gemm.launches += 1
@@ -60,3 +75,49 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor
 
 
 block_gemm.launches = 0
+
+
+def block_gemm_int8(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
+                    b_scale: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
+    """Packed-data GEMM: a_q [M,K] int8 times b_q [N,K] int8 (K contiguous:
+    the packed weight layout) with exact int32 sums and the fused epilogue
+    ``(acc * a_scale[m]) * b_scale[n]`` in f32, cast once to ``out_dtype``
+    (f32 or bf16).  a_scale: [M, 1] f32; b_scale: [1, N] f32."""
+    if a_q.device.type == "cpu":
+        return block_gemm_int8_ref(a_q, b_q, a_scale, b_scale, out_dtype)
+    dev = a_q.device
+    for name, x in (("b_q", b_q), ("a_scale", a_scale), ("b_scale", b_scale)):
+        if a_q.device.type != "cuda" or x.device != dev:
+            raise ValueError(f"block_gemm_int8: a_q on {dev}, {name} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"block_gemm_int8: {name} must be contiguous")
+    if not a_q.is_contiguous():
+        raise ValueError("block_gemm_int8: a_q must be contiguous")
+    if a_q.dtype != torch.int8 or b_q.dtype != torch.int8 \
+            or a_scale.dtype != torch.float32 or b_scale.dtype != torch.float32:
+        raise TypeError(f"block_gemm_int8: dtypes {a_q.dtype}, {b_q.dtype}, "
+                        f"{a_scale.dtype}, {b_scale.dtype}")
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"block_gemm_int8: out_dtype {out_dtype}")
+    if a_q.dim() != 2 or b_q.dim() != 2 or a_q.shape[1] != b_q.shape[1]:
+        raise ValueError(f"block_gemm_int8: shapes {tuple(a_q.shape)} @ "
+                         f"{tuple(b_q.shape)}^T")
+    M, K = a_q.shape
+    N = b_q.shape[0]
+    if a_scale.numel() != M or b_scale.numel() != N:
+        raise ValueError(f"block_gemm_int8: scales {tuple(a_scale.shape)}, "
+                         f"{tuple(b_scale.shape)} for M={M}, N={N}")
+    c = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if M == 0 or N == 0:
+        return c
+    if K == 0:
+        return c.zero_()
+    err = _entry_int8()(a_q.data_ptr(), b_q.data_ptr(), a_scale.data_ptr(),
+                        b_scale.data_ptr(), c.data_ptr(), M, N, K,
+                        int(out_dtype == torch.bfloat16), _build.stream_ptr(dev))
+    _build.check(err, "block_gemm_int8")
+    block_gemm_int8.launches += 1
+    return c
+
+
+block_gemm_int8.launches = 0

@@ -1,4 +1,4 @@
-// Block GEMM C[M,N] = A[M,K] @ B[K,N] for Hopper (sm_90a).
+// Block GEMM C[M,N] = A[M,K] @ B[K,N] (or B stored [N,K]) for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/block_gemm.py, _gemm_kernel (wrapper
 // block_gemm) -- the output-stationary block accumulation every projection
@@ -28,21 +28,6 @@ namespace repro {
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
@@ -58,19 +43,23 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
 
 // bf16 tensor-core kernel.  Block tile BM x BN, k-tile BK, warp tile WM x WN
 // (WM/16 x WN/8 mma tiles per warp), STAGES-deep cp.async ring.  vecA/vecB:
-// the operand's rows are 16-byte aligned (K resp. N a multiple of 8 and an
-// aligned base), so tiles move as 16-byte cp.async chunks; otherwise they
-// move element by element with the same zero fill.
-template <int BM, int BN, int BK, int WM, int WN, int STAGES, typename TO>
+// the operand's rows are 16-byte aligned (K resp. the row length of B a
+// multiple of 8 and an aligned base), so tiles move as 16-byte cp.async
+// chunks; otherwise they move element by element with the same zero fill.
+// BT: B is stored [N, K] (the tied LM head reads the [V, D] embedding table
+// in place); its tile is kept k-contiguous, so each mma B fragment is one
+// 32-bit shared load.  The k16 steps, and so every result, are the same.
+template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool BT, typename TO>
 __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __restrict__ C,
                  int M, int N, int K, int vecA, int vecB) {
   constexpr int WARPS_N = BN / WN;
   constexpr int NT = (BM / WM) * WARPS_N * 32;
   constexpr int MT = WM / 16, NTL = WN / 8;
-  constexpr int AS = BK + 8, BS = BN + 8;  // padded rows: 16-byte aligned, fewer conflicts
+  // padded rows: 16-byte aligned, fewer conflicts; B is [BK][BS] or, BT, [BN][BS]
+  constexpr int AS = BK + 8, BS = BT ? BK + 8 : BN + 8;
   __shared__ __align__(16) bf16 As[STAGES][BM * AS];
-  __shared__ __align__(16) bf16 Bs[STAGES][BK * BS];
+  __shared__ __align__(16) bf16 Bs[STAGES][(BT ? BN : BK) * BS];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
@@ -104,7 +93,20 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
         as[r * AS + c] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : zero;
       }
     }
-    if (vecB) {
+    if (BT && vecB) {
+      for (int e = tid; e < BN * BK / 8; e += NT) {
+        const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
+        const int gn = n0 + r, gk = k0 + c;
+        const bool ok = gn < N && gk < K;
+        cp_async16(bs + r * BS + c, ok ? B + (size_t)gn * K + gk : B, ok);
+      }
+    } else if (BT) {
+      for (int e = tid; e < BN * BK; e += NT) {
+        const int r = e / BK, c = e % BK;
+        const int gn = n0 + r, gk = k0 + c;
+        bs[r * BS + c] = (gn < N && gk < K) ? B[(size_t)gn * K + gk] : zero;
+      }
+    } else if (vecB) {
       for (int e = tid; e < BK * BN / 8; e += NT) {
         const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
         const int gk = k0 + r, gn = n0 + c;
@@ -147,9 +149,15 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
       }
 #pragma unroll
       for (int ni = 0; ni < NTL; ++ni) {
-        const bf16* q = bs + (kk + c2) * BS + wn * WN + ni * 8 + g;
-        bfr[ni][0] = pack_bf16(q[0], q[BS]);
-        bfr[ni][1] = pack_bf16(q[8 * BS], q[9 * BS]);
+        if (BT) {
+          const bf16* q = bs + (wn * WN + ni * 8 + g) * BS + kk + c2;
+          bfr[ni][0] = *reinterpret_cast<const uint32_t*>(q);
+          bfr[ni][1] = *reinterpret_cast<const uint32_t*>(q + 8);
+        } else {
+          const bf16* q = bs + (kk + c2) * BS + wn * WN + ni * 8 + g;
+          bfr[ni][0] = pack_bf16(q[0], q[BS]);
+          bfr[ni][1] = pack_bf16(q[8 * BS], q[9 * BS]);
+        }
       }
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi)
@@ -172,8 +180,9 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
 }
 
 // f32 CUDA-core kernel (f32 inputs; off the serving path).  Each thread
-// owns TM x TN outputs, each a sequential fmaf chain over k.
-template <int BM, int BN, int BK, int TM, int TN>
+// owns TM x TN outputs, each a sequential fmaf chain over k.  BT: B is
+// stored [N, K].
+template <int BM, int BN, int BK, int TM, int TN, bool BT>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                 float* __restrict__ C, int M, int N, int K) {
@@ -195,7 +204,8 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
     }
     for (int e = tid; e < BK * BN; e += NT) {
       const int r = e / BN, c = e % BN, gk = k0 + r, gn = n0 + c;
-      Bs[r][c] = (gk < K && gn < N) ? B[(size_t)gk * N + gn] : 0.f;
+      Bs[r][c] = (gk < K && gn < N) ? B[BT ? (size_t)gn * K + gk : (size_t)gk * N + gn]
+                                    : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -224,20 +234,20 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-template <typename TO>
+template <bool BT, typename TO>
 void launch_bf16(const bf16* A, const bf16* B, TO* C, int M, int N, int K,
                  cudaStream_t stream) {
   const int vecA = (K % 8 == 0) && (reinterpret_cast<uintptr_t>(A) % 16 == 0);
-  const int vecB = (N % 8 == 0) && (reinterpret_cast<uintptr_t>(B) % 16 == 0);
+  const int vecB = ((BT ? K : N) % 8 == 0) && (reinterpret_cast<uintptr_t>(B) % 16 == 0);
   if (M <= 16) {  // decode rows: one m16 tile, 32 columns per block
     constexpr int BM = 16, BN = 32, BK = 64, WM = 16, WN = 8, ST = 4;
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    gemm_bf16_kernel<BM, BN, BK, WM, WN, ST, TO>
+    gemm_bf16_kernel<BM, BN, BK, WM, WN, ST, BT, TO>
         <<<grid, (BM / WM) * (BN / WN) * 32, 0, stream>>>(A, B, C, M, N, K, vecA, vecB);
   } else {        // prefill chunks: 64 x 64 tiles, four 32 x 32 warp tiles
     constexpr int BM = 64, BN = 64, BK = 32, WM = 32, WN = 32, ST = 3;
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    gemm_bf16_kernel<BM, BN, BK, WM, WN, ST, TO>
+    gemm_bf16_kernel<BM, BN, BK, WM, WN, ST, BT, TO>
         <<<grid, (BM / WM) * (BN / WN) * 32, 0, stream>>>(A, B, C, M, N, K, vecA, vecB);
   }
 }
@@ -245,23 +255,34 @@ void launch_bf16(const bf16* A, const bf16* B, TO* C, int M, int N, int K,
 }  // namespace repro
 
 // in_bf16: A and B are bf16 (else f32).  out_bf16: C is bf16 (else f32).
-// Returns cudaGetLastError() after the launch.
+// trans_b: B is [N, K].  Returns cudaGetLastError() after the launch.
 extern "C" int repro_block_gemm(const void* a, const void* b, void* c, int M, int N,
-                                int K, int in_bf16, int out_bf16, void* stream) {
+                                int K, int in_bf16, int out_bf16, int trans_b,
+                                void* stream) {
   using repro::bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* A16 = static_cast<const bf16*>(a);
   const bf16* B16 = static_cast<const bf16*>(b);
-  if (in_bf16 && out_bf16) {
-    repro::launch_bf16<bf16>(A16, B16, static_cast<bf16*>(c), M, N, K, s);
+  if (in_bf16 && out_bf16 && trans_b) {
+    repro::launch_bf16<true, bf16>(A16, B16, static_cast<bf16*>(c), M, N, K, s);
+  } else if (in_bf16 && trans_b) {
+    repro::launch_bf16<true, float>(A16, B16, static_cast<float*>(c), M, N, K, s);
+  } else if (in_bf16 && out_bf16) {
+    repro::launch_bf16<false, bf16>(A16, B16, static_cast<bf16*>(c), M, N, K, s);
   } else if (in_bf16) {
-    repro::launch_bf16<float>(A16, B16, static_cast<float*>(c), M, N, K, s);
+    repro::launch_bf16<false, float>(A16, B16, static_cast<float*>(c), M, N, K, s);
   } else if (!out_bf16) {
     constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
     dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    repro::gemm_f32_kernel<BM, BN, BK, TM, TN><<<grid, (BM / TM) * (BN / TN), 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(c),
-        M, N, K);
+    const float* A32 = static_cast<const float*>(a);
+    const float* B32 = static_cast<const float*>(b);
+    float* C32 = static_cast<float*>(c);
+    if (trans_b)
+      repro::gemm_f32_kernel<BM, BN, BK, TM, TN, true>
+          <<<grid, (BM / TM) * (BN / TN), 0, s>>>(A32, B32, C32, M, N, K);
+    else
+      repro::gemm_f32_kernel<BM, BN, BK, TM, TN, false>
+          <<<grid, (BM / TM) * (BN / TN), 0, s>>>(A32, B32, C32, M, N, K);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

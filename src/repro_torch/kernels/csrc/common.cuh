@@ -39,4 +39,22 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
+// 16-byte cp.async from global into shared memory; with pred false the 16
+// bytes are zero-filled (src-size 0) and nothing is read -- the kernels'
+// ragged edges, never a padded copy.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 }  // namespace repro

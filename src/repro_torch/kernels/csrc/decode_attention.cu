@@ -1,8 +1,9 @@
-// Paged flash-decode for Hopper (sm_90a): one query token per slot over
-// page pools.
+// Flash-decode for Hopper (sm_90a): one query token per slot, over page
+// pools (first part of this file) or over a slot cache [B, S, K, d] in its
+// linear or ring layout (second part).
 //
-// Replaces: src/repro/kernels/decode_attention.py, _fd_kernel_paged (body
-// _fd_kernel, wrapper _flash_decode_paged).
+// Replaces: src/repro/kernels/decode_attention.py, _fd_kernel_paged
+// (wrapper _flash_decode_paged) and _fd_kernel (wrapper flash_decode).
 //
 // What bounds it on an H100: bytes.  Each (slot, kv-head) reads its live KV
 // rows once and does 4*G*d operations per row (G query heads share a row),
@@ -219,4 +220,215 @@ extern "C" int repro_flash_decode_paged(const void* q, const void* k, const void
                                           ps, npp, scale, softcap, s);
   return repro::dispatch<float>(q, k, v, pg, p, st, out, B, H, Kh, dq, dv, v_row, ps, npp,
                                 scale, softcap, s);
+}
+
+// ---------------------------------------------------------------------------
+// Slot-cache flash-decode: k [B, S, K, dq], v [B, S, K, v_row].
+//
+// Replaces: src/repro/kernels/decode_attention.py, _fd_kernel (wrapper
+// flash_decode), linear and ring layouts.  Validity of cache row r: linear,
+// start <= r <= pos (a frozen full slot, pos == S, reads rows
+// [start, S - 1]); ring, entry r holds absolute row
+// a = pos - ((pos - r) mod S) with a floored mod -- C++ % truncates toward
+// zero, so ((pos - r) % S + S) % S -- and is live iff a >= 0 and
+// a >= start.  A slot with start > pos writes exact zeros.
+//
+// What bounds it on an H100: bytes, as for the paged kernel.  At the edge
+// path's batch (B = 2 slots, K = 4 kv-heads) one block per (slot, kv-head)
+// would leave 124 of 132 SMs idle, so the rows are split instead: one block
+// per 64-row block of the cache (flash-decoding), each writing its partial
+// (block max, block sum, unnormalized P.V) to a scratch buffer, and a
+// second kernel merging the partials of a (slot, kv-head) in block order --
+// a fixed order, with no atomics.  Linear blocks outside [start, pos] and
+// every block of a drained slot return at once; every block of a live ring
+// is visited, as in the Pallas kernel.  Within a block, warp w scores rows
+// 8w..8w+7 for all G query heads of the kv-head (each K row read once), one
+// warp per head takes the block's softmax, and each thread accumulates
+// whole output columns over the 64 rows, so V rows are read coalesced.
+// ---------------------------------------------------------------------------
+namespace repro {
+
+constexpr int SD_ROWS = 64;  // cache rows per block: 8 warps x 8 rows
+constexpr int SD_THREADS = 256;
+
+template <typename T, int CH>  // CH = ceil(dq / 32) rounded to a power of two
+__global__ void __launch_bounds__(SD_THREADS)
+flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const int* __restrict__ pos,
+                         const int* __restrict__ start, float* __restrict__ part, int H,
+                         int Kh, int S, int dq, int dv, int v_row, int ring, float scale,
+                         float softcap) {
+  extern __shared__ float smem[];
+  const int blk = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, nblk = gridDim.x;
+  const int G = H / Kh, W = dv + 2;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* q_s = smem;              // [G][dq]
+  float* p_s = q_s + G * dq;      // [G][SD_ROWS] scores, then P
+  float* ml = p_s + G * SD_ROWS;  // [G][2] block max and sum
+  // this block's partial: per head [m, l, acc[dv]]
+  float* out = part + (((size_t)b * Kh + kh) * nblk + blk) * (size_t)G * W;
+
+  const int p_b = pos[b], s_b = start[b];
+  const int r0 = blk * SD_ROWS, jn = min(SD_ROWS, S - r0);
+  const bool live = s_b <= p_b && (ring || (r0 <= p_b && r0 + jn > s_b));
+  if (!live) {  // the merge skips a partial whose sum is 0
+    for (int g = tid; g < G; g += SD_THREADS) out[g * W + 1] = 0.f;
+    return;
+  }
+  const T* qb = q + ((size_t)b * H + (size_t)kh * G) * dq;
+  for (int e = tid; e < G * dq; e += SD_THREADS) q_s[e] = to_f(qb[e]);
+  __syncthreads();
+
+  {
+    float kr[8][CH];  // the warp's 8 K rows, all loads issued before any sum
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int j = warp * 8 + u;
+      const T* kp = k + (((size_t)b * S + r0 + (j < jn ? j : 0)) * Kh + kh) * (size_t)dq;
+#pragma unroll
+      for (int t = 0; t < CH; ++t) {
+        const int c = lane + 32 * t;
+        kr[u][t] = (j < jn && c < dq) ? to_f(kp[c]) : 0.f;
+      }
+    }
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        float dot = 0.f;
+#pragma unroll
+        for (int t = 0; t < CH; ++t) {
+          const int c = lane + 32 * t;
+          if (c < dq) dot = fmaf(q_s[g * dq + c], kr[u][t], dot);
+        }
+        dot = warp_sum(dot);
+        if (lane == 0) {
+          const int j = warp * 8 + u, r = r0 + j;
+          bool valid;
+          if (ring) {
+            const int a = p_b - (((p_b - r) % S + S) % S);
+            valid = a >= 0 && a >= s_b;
+          } else {
+            valid = r >= s_b && r <= p_b;
+          }
+          float sc = dot * scale;
+          if (softcap > 0.f) sc = tanhf(sc / softcap) * softcap;
+          p_s[g * SD_ROWS + j] = (j < jn && valid) ? sc : NEG;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int g = warp; g < G; g += SD_THREADS / 32) {
+    const float x0 = p_s[g * SD_ROWS + lane], x1 = p_s[g * SD_ROWS + lane + 32];
+    const float m = warp_max(fmaxf(x0, x1));
+    const bool any = m > NEG * 0.5f;  // no valid row: P stays 0, the sum 0
+    const float e0 = any ? expf(x0 - m) : 0.f, e1 = any ? expf(x1 - m) : 0.f;
+    const float l = warp_sum(e0 + e1);
+    p_s[g * SD_ROWS + lane] = round_to<T>(e0);
+    p_s[g * SD_ROWS + lane + 32] = round_to<T>(e1);
+    if (lane == 0) {
+      ml[2 * g] = m;
+      ml[2 * g + 1] = l;
+    }
+  }
+  __syncthreads();
+  const size_t vstride = (size_t)Kh * v_row;
+  const T* vb = v + ((size_t)b * S + r0) * vstride + (size_t)kh * v_row;
+  for (int e = tid; e < G * dv; e += SD_THREADS) {
+    const int g = e / dv, c = e % dv;
+    float a = 0.f;
+#pragma unroll 16
+    for (int j = 0; j < jn; ++j) a = fmaf(p_s[g * SD_ROWS + j], to_f(vb[j * vstride + c]), a);
+    out[g * W + 2 + c] = a;
+  }
+  for (int g = tid; g < G; g += SD_THREADS) {
+    out[g * W] = ml[2 * g];
+    out[g * W + 1] = ml[2 * g + 1];
+  }
+}
+
+// One block per (kv-head, slot): merges the nblk partials in block order.
+template <typename T>
+__global__ void __launch_bounds__(SD_THREADS)
+flash_decode_merge_kernel(const float* __restrict__ part, T* __restrict__ out, int H, int Kh,
+                          int dv, int nblk) {
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int G = H / Kh, W = dv + 2;
+  const float* pb = part + ((size_t)b * Kh + kh) * nblk * (size_t)G * W;
+  T* ob = out + ((size_t)b * H + (size_t)kh * G) * dv;
+  for (int e = threadIdx.x; e < G * dv; e += SD_THREADS) {
+    const int g = e / dv, c = e % dv;
+    float m = NEG;
+    for (int i = 0; i < nblk; ++i) {
+      const float* pi = pb + ((size_t)i * G + g) * W;
+      if (pi[1] > 0.f) m = fmaxf(m, pi[0]);
+    }
+    float l = 0.f, a = 0.f;
+    for (int i = 0; i < nblk; ++i) {
+      const float* pi = pb + ((size_t)i * G + g) * W;
+      if (pi[1] > 0.f) {
+        const float f = expf(pi[0] - m);
+        l = fmaf(pi[1], f, l);
+        a = fmaf(pi[2 + c], f, a);
+      }
+    }
+    ob[e] = from_f<T>(a / fmaxf(l, 1e-30f));
+  }
+}
+
+template <typename T, int CH>
+int launch_slot(const void* q, const void* k, const void* v, const int* pos, const int* start,
+                float* part, void* out, int B, int H, int Kh, int S, int dq, int dv, int v_row,
+                int ring, float scale, float softcap, cudaStream_t stream) {
+  const int G = H / Kh, nblk = (S + SD_ROWS - 1) / SD_ROWS;
+  const size_t smem = sizeof(float) * ((size_t)G * dq + (size_t)G * SD_ROWS + 2 * G);
+  auto kern = flash_decode_slot_kernel<T, CH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<dim3(nblk, Kh, B), SD_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
+      start, part, H, Kh, S, dq, dv, v_row, ring, scale, softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_decode_merge_kernel<T><<<dim3(Kh, B), SD_THREADS, 0, stream>>>(
+      part, static_cast<T*>(out), H, Kh, dv, nblk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_slot(const void* q, const void* k, const void* v, const int* pos,
+                  const int* start, float* part, void* out, int B, int H, int Kh, int S,
+                  int dq, int dv, int v_row, int ring, float scale, float softcap,
+                  cudaStream_t s) {
+#define REPRO_SLOT(CH)                                                                     \
+  return launch_slot<T, CH>(q, k, v, pos, start, part, out, B, H, Kh, S, dq, dv, v_row, \
+                            ring, scale, softcap, s)
+  if (dq <= 32) REPRO_SLOT(1);
+  if (dq <= 64) REPRO_SLOT(2);
+  if (dq <= 128) REPRO_SLOT(4);
+  if (dq <= 256) REPRO_SLOT(8);
+#undef REPRO_SLOT
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace repro
+
+// q [B,H,dq]; k [B,S,Kh,dq]; v [B,S,Kh,v_row] (first dv columns read); pos,
+// start [B]; part: B*Kh*ceil(S/64)*(H/Kh)*(dv+2) f32 scratch; out [B,H,dv].
+// ring: 0 linear, 1 ring.  softcap <= 0 is off.
+extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
+                                  const void* pos, const void* start, void* part, void* out,
+                                  int B, int H, int Kh, int S, int dq, int dv, int v_row,
+                                  int ring, float scale, float softcap, int is_bf16,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  const int* st = static_cast<const int*>(start);
+  float* pt = static_cast<float*>(part);
+  if (is_bf16)
+    return repro::dispatch_slot<__nv_bfloat16>(q, k, v, p, st, pt, out, B, H, Kh, S, dq, dv,
+                                               v_row, ring, scale, softcap, s);
+  return repro::dispatch_slot<float>(q, k, v, p, st, pt, out, B, H, Kh, S, dq, dv, v_row,
+                                     ring, scale, softcap, s);
 }

@@ -1,8 +1,9 @@
-"""Paged chunk-prefill attention wrapper: ``csrc/flash_attention.cu`` on
-the card, the plain version on the CPU.
+"""Flash-attention wrappers: ``csrc/flash_attention.cu`` on the card, the
+plain versions on the CPU.
 
-Port of ``repro.kernels.flash_attention._flash_attention_paged`` (TPU
-kernel ``_fa_kernel_paged``).  ``flash_attention_paged.launches`` counts
+Ports of ``repro.kernels.flash_attention.flash_attention`` (TPU kernel
+``_fa_kernel``, dense) and ``_flash_attention_paged`` (``_fa_kernel_paged``,
+chunked prefill over page pools).  Each wrapper's ``.launches`` counts its
 launches.
 """
 from __future__ import annotations
@@ -12,10 +13,70 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import flash_attention_paged_ref
+from repro_torch.kernels.ref import flash_attention_paged_ref, flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _fn = None
+_fn_dense = None
+
+
+def _entry_dense():
+    global _fn_dense
+    if _fn_dense is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        _fn_dense = _build.bind("flash_attention", "repro_flash_attention",
+                                [P] * 5 + [I] * 8 + [F, F, I, P])
+    return _fn_dense
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, scale=None) -> torch.Tensor:
+    """q: [B,H,Sq,d]; k/v: [B,K,Sk,d] with H % K == 0 -> [B,H,Sq,d].  Query
+    row i sits at position ``i + Sk - Sq``; causal, window and softcap as
+    ``flash_attention_ref``; rows with no valid key give 0.
+
+    On the card any strides with a unit stride along d are read as they are
+    (the layers pass transposed views of [B,S,H,d] tensors), and the result
+    is a [B,H,Sq,d] view of a [B,Sq,H,d] buffer, so the caller's transpose
+    back is free."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: q on {q.device}")
+    dev = q.device
+    for name, t in (("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on {dev}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: dtypes q={q.dtype} k={k.dtype} v={v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    B, H, Sq, d = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != d or H % K or d > 256:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k/v {tuple(k.shape)}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v need a unit stride along d")
+    if 4 * (96 * (d + 1) + 32 * d + 64 * 33 + 192) > 200 * 1024:
+        raise ValueError(f"flash_attention: head dim {d} exceeds shared memory")
+    out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    if B == 0 or Sq == 0 or H == 0:
+        return out
+    scale = scale if scale is not None else d ** -0.5
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
+                                         for s in t.stride()[:3]))
+    err = _entry_dense()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                         strides, B, H, K, Sq, Sk, d, int(causal), int(window or 0),
+                         float(scale), float(softcap or 0.0),
+                         int(q.dtype == torch.bfloat16), _build.stream_ptr(dev))
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
 
 
 def _entry():

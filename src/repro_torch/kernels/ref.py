@@ -13,10 +13,24 @@ F32 = torch.float32
 NEG = -1e30
 
 
-def block_gemm_ref(a, b, out_dtype=None):
-    """C = A @ B with f32 accumulation and one cast to ``out_dtype``."""
+def block_gemm_ref(a, b, out_dtype=None, trans_b: bool = False):
+    """C = A @ B with f32 accumulation and one cast to ``out_dtype``.
+    ``trans_b``: b is given as [N, K] (the tied LM head reads the
+    embedding table so)."""
     out_dtype = out_dtype or a.dtype
-    return torch.matmul(a.to(F32), b.to(F32)).to(out_dtype)
+    b = b.to(F32)
+    return torch.matmul(a.to(F32), b.T if trans_b else b).to(out_dtype)
+
+
+def block_gemm_int8_ref(a_q, b_q, a_scale, b_scale, out_dtype=F32):
+    """int8 x int8 -> exact integer sums, then ``(acc * a_scale[m]) *
+    b_scale[n]`` in f32 and one cast.  a_q: [M, K] int8; b_q: [N, K] int8
+    (K contiguous: the port's packed weight layout, the transpose of the
+    JAX operand); a_scale: [M, 1] f32; b_scale: [1, N] f32.  The sums run
+    in f64, exact for |acc| < 2^53, since CUDA has no integer matmul."""
+    acc = torch.matmul(a_q.to(torch.float64), b_q.to(torch.float64).T)
+    acc = acc.to(torch.int32).to(F32)
+    return (acc * a_scale.reshape(-1, 1) * b_scale.reshape(1, -1)).to(out_dtype)
 
 
 def _as_rows(x, B: int, device) -> torch.Tensor:
@@ -37,6 +51,35 @@ def _gather_pages(pool, pages):
     B, npp = pages.shape
     g = pool[pages.long()]  # [B, npp, ps, K, d]
     return g.reshape(B, npp * pool.shape[1], *pool.shape[2:])
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None,
+                        softcap=0.0):
+    """Dense attention.  q: [B,H,Sq,d]; k/v: [B,K,Sk,d] with H % K == 0
+    (query head h reads kv-head h // (H/K)).  Query row i sits at position
+    ``i + Sk - Sq`` (the last query aligned with the last key: ``Sq < Sk``
+    continues a cached prefix); masks: causal ``kpos <= qpos``, window
+    ``kpos > qpos - window``.  A row with every key masked gives zeros."""
+    B, H, Sq, d = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else d ** -0.5
+    kb = k.repeat_interleave(G, dim=1)
+    vb = v.repeat_interleave(G, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(F32), kb.to(F32)) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    dev = q.device
+    qpos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=dev)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    p = _softmax_masked(s, mask)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(vb.dtype).to(F32), vb.to(F32))
+    return o.to(vb.dtype)
 
 
 def flash_attention_paged_ref(q, k, v, pages, q_start, k_len, *, window=0,
@@ -72,12 +115,14 @@ def flash_attention_paged_ref(q, k, v, pages, q_start, k_len, *, window=0,
 
 def flash_decode_ref(q, k, v, pos, start=None, *, layout="linear",
                      softcap=0.0, scale=None, dv=None, pages=None):
-    """Batched single-token decode.  q: [B,H,dq]; linear layout: k
-    [B,S,K,dq], v [B,S,K,>=dv] with rows ``[start, pos]`` live.  Paged
-    (``pages`` [B,npp]): k/v are pools [P,ps,K,d] gathered through the page
-    table and the linear rule applies to logical rows.  ``dv`` reads only
-    the first dv value columns (v may be k).  Slots with no live row give
-    exact zeros."""
+    """Batched single-token decode.  q: [B,H,dq]; k [B,S,K,dq], v
+    [B,S,K,>=dv].  ``layout`` "linear": rows ``[start, pos]`` live; "ring":
+    entry j holds absolute row ``a = pos - ((pos - j) mod S)`` (floored
+    mod), live iff ``a >= 0`` and ``a >= start``.  Paged (``pages``
+    [B,npp]): k/v are pools [P,ps,K,d] gathered through the page table and
+    the linear rule applies to logical rows.  ``dv`` reads only the first
+    dv value columns (v may be k).  Slots with no live row give exact
+    zeros."""
     if pages is not None:
         if str(layout) not in ("linear", "paged"):
             raise ValueError(f"paged decode is linear-validity only, "
@@ -85,8 +130,9 @@ def flash_decode_ref(q, k, v, pos, start=None, *, layout="linear",
         shared = v is k
         k = _gather_pages(k, pages)
         v = k if shared else _gather_pages(v, pages)
-    elif str(layout) != "linear":
-        raise NotImplementedError(f"layout {layout!r} is not ported yet")
+        layout = "linear"
+    elif str(layout) not in ("linear", "ring"):
+        raise ValueError(f"unknown decode layout {layout!r}")
     B, H, dq = q.shape
     S, K = k.shape[1], k.shape[2]
     G = H // K
@@ -101,7 +147,11 @@ def flash_decode_ref(q, k, v, pos, start=None, *, layout="linear",
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     j = torch.arange(S, device=dev)[None, :]
-    valid = (j >= start[:, None]) & (j <= pos[:, None])
+    if str(layout) == "ring":
+        a = pos[:, None] - torch.remainder(pos[:, None] - j, S)
+        valid = (a >= 0) & (a >= start[:, None])
+    else:
+        valid = (j >= start[:, None]) & (j <= pos[:, None])
     p = _softmax_masked(s, valid[:, None, None, :])
     o = torch.einsum("bkgs,bskd->bkgd", p.to(v.dtype).to(F32), v.to(F32))
     return o.to(v.dtype).reshape(B, H, v.shape[-1])

@@ -1,16 +1,19 @@
-"""Transformer layers on the serving path (port of ``repro.models.layers``).
+"""Transformer layers (port of ``repro.models.layers``).
 
 Every weight-activation matmul funnels through :func:`dense_proj` (the block
-GEMM), chunked-prefill attention through the paged flash-attention kernel
-and decode attention through paged flash-decode.  A tensor's device chooses
-between each kernel and its plain version.
+GEMM, or the packed int8 GEMM for ``QTensor`` weights under w8a8),
+whole-prompt attention through the dense flash-attention kernel,
+chunked-prefill attention through the paged one, and decode attention
+through flash-decode on page pools or on linear / ring slot caches.  A
+tensor's device chooses between each kernel and its plain version.
 
-Page pools are updated **in place** (the JAX engine donates them instead).
-A pool made by ``model.init_paged_cache`` has one spare *drop row* in its
+Caches are updated **in place** (the JAX engine donates them instead).  A
+pool made by ``model.init_paged_cache`` has one spare *drop row* in its
 storage right past its last page: a write whose row falls off the page
 table, or that belongs to a chunk's padding, lands there — the counterpart
 of JAX's ``.at[].set(mode="drop")`` with no host round trip, and never a
-clamp onto a real row.
+clamp onto a real row.  A slot cache drops a write past its last row by
+writing that row's old value back (:func:`_slot_write`).
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.cache import CacheLayout
-from repro_torch.core.gemm import cgra_gemm
+from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8
+from repro_torch.core.quant import QTensor
 from repro_torch.kernels.ops import attend_decode, attention
 from repro_torch.models.params import ParamSpec
 
@@ -31,12 +35,17 @@ F32 = torch.float32
 # ---------------------------------------------------------------------------
 
 def dense_proj(cfg: ArchConfig, x, w, out_shape: tuple = (), out_dtype=None):
-    """x: [..., K] @ w -> [..., N] (or [..., *out_shape]).  ``w``'s dims
-    reshape row-major to [K, N] (wq [D,H,dh] -> [D, H*dh]; wo [H,dh,D] ->
-    [H*dh, D] with the caller flattening x's head dims).  Weights are stored
-    in the compute dtype at load, so no cast happens here.  ``out_dtype``
-    overrides the accumulator's store dtype (the LM head asks for f32)."""
-    out = cgra_gemm(x, w.reshape(x.shape[-1], -1), out_dtype=out_dtype)
+    """x: [..., K] @ w -> [..., N] (or [..., *out_shape]).  ``w`` is a float
+    weight whose dims reshape row-major to [K, N] (wq [D,H,dh] -> [D, H*dh];
+    wo [H,dh,D] -> [H*dh, D] with the caller flattening x's head dims),
+    stored in the compute dtype at load, or a ``QTensor`` packed by
+    ``model.quantize_params`` (q [N, K] int8), served by the int8 GEMM.
+    ``out_dtype`` overrides the accumulator's store dtype (default the
+    compute dtype; the LM head asks for f32)."""
+    if isinstance(w, QTensor):
+        out = cgra_gemm_w8a8(x, w, out_dtype=out_dtype or cfg.compute_dtype)
+    else:
+        out = cgra_gemm(x, w.reshape(x.shape[-1], -1), out_dtype=out_dtype)
     if out_shape:
         out = out.reshape(*out.shape[:-1], *out_shape)
     return out
@@ -68,6 +77,12 @@ def apply_norm(cfg: ArchConfig, p: dict, x):
                         eps=1e-6).to(x.dtype)
 
 
+def rms_only(x, scale, eps=1e-6):
+    """RMS norm over the last axis in f32 with a scale (qk-norm)."""
+    return F.rms_norm(x.to(F32), (x.shape[-1],), scale.to(F32),
+                      eps=eps).to(x.dtype)
+
+
 def rope_tables(positions, d: int, theta: float):
     """RoPE factors for positions [S] or [B, S], shaped [..., S, 1, d] f32:
     ``(cos, sin)`` with the rotate-half sign folded into sin, so that
@@ -91,27 +106,34 @@ def apply_rope(x, tables):
 
 
 # ---------------------------------------------------------------------------
-# GQA attention over paged KV pools
+# GQA attention (global or sliding-window local)
 # ---------------------------------------------------------------------------
 
 def attn_specs(cfg: ArchConfig) -> dict:
     H, K, dh = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
     D = cfg.d_model
-    if cfg.use_qk_norm:
-        raise NotImplementedError("qk-norm is not ported yet")
-    return {
+    p = {
         "wq": ParamSpec((D, H, dh), ("embed", "heads", "qk")),
         "wk": ParamSpec((D, K, dh), ("embed", "kv_heads", "qk")),
         "wv": ParamSpec((D, K, dh), ("embed", "kv_heads", "qk")),
         "wo": ParamSpec((H, dh, D), ("heads", "qk", "embed")),
     }
+    if cfg.use_qk_norm:
+        p["q_norm"] = ParamSpec((dh,), (None,), "ones")
+        p["k_norm"] = ParamSpec((dh,), (None,), "ones")
+    return p
 
 
-def attn_cache_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
+def attn_cache_specs(cfg: ArchConfig, batch: int, seq: int,
+                     local: bool = False) -> dict:
+    """k/v [batch, S, K, dh]; a sliding-window layer's slot cache is a ring
+    of ``S = min(seq, window)`` rows (page pools pass ``local=False``: they
+    keep every row and window through ``start``)."""
     K, dh = cfg.num_kv_heads, cfg.head_dim
+    S = min(seq, cfg.window_size) if (local and cfg.window_size) else seq
     return {
-        "k": ParamSpec((batch, seq, K, dh), ("batch", "kv_seq", "kv_heads", "qk"), "zeros"),
-        "v": ParamSpec((batch, seq, K, dh), ("batch", "kv_seq", "kv_heads", "qk"), "zeros"),
+        "k": ParamSpec((batch, S, K, dh), ("batch", "kv_seq", "kv_heads", "qk"), "zeros"),
+        "v": ParamSpec((batch, S, K, dh), ("batch", "kv_seq", "kv_heads", "qk"), "zeros"),
     }
 
 
@@ -120,6 +142,9 @@ def _qkv(cfg, p, x):
     q = dense_proj(cfg, x, p["wq"], (H, dh))
     k = dense_proj(cfg, x, p["wk"], (K, dh))
     v = dense_proj(cfg, x, p["wv"], (K, dh))
+    if "q_norm" in p:
+        q = rms_only(q, p["q_norm"])
+        k = rms_only(k, p["k_norm"])
     return q, k, v
 
 
@@ -166,9 +191,10 @@ def _write_rows(pool, rows, idx):
 
 class StepRows:
     """What every layer of one model step shares, computed once per step:
-    the step's positions [B, S], RoPE tables per theta, the pool rows its
-    new KV lands in, and the attention bounds.  ``n`` [B] is the valid row
-    count of a chunk (None for decode: every row is valid)."""
+    the step's positions ([B, S], or [S] shared by a prompt batch), RoPE
+    tables per theta, the pool rows its new KV lands in, and the attention
+    bounds.  ``pages`` is None off the paged cache; ``n`` [B] is the valid
+    row count of a chunk (None for decode: every row is valid)."""
 
     def __init__(self, positions, pages, n=None):
         self.positions = positions
@@ -203,18 +229,57 @@ class StepRows:
             else torch.zeros_like(pos)))
 
 
+def _qkv_rope(cfg, p, x, rows: StepRows, local: bool):
+    """q/k/v projections with RoPE on q and k at the step's positions."""
+    q, k, v = _qkv(cfg, p, x)
+    tables = rows.rope(q.shape[-1], cfg.rope_theta if not local else 10_000.0)
+    return apply_rope(q, tables), apply_rope(k, tables), v
+
+
 def _attn_inputs(cfg, p, cache, x, rows: StepRows, local: bool):
     """q/k/v projections, RoPE on q and k, and the new KV written through
     the page table in place.  Returns (q, k_pool, v_pool)."""
     B, S = x.shape[0], x.shape[1]
-    q, k_new, v_new = _qkv(cfg, p, x)
-    tables = rows.rope(q.shape[-1], cfg.rope_theta if not local else 10_000.0)
-    q = apply_rope(q, tables)
-    k_new = apply_rope(k_new, tables)
+    q, k_new, v_new = _qkv_rope(cfg, p, x, rows, local)
     idx = rows.rows(cache["k"])
     k = _write_rows(cache["k"], k_new.reshape(B * S, *k_new.shape[2:]), idx)
     v = _write_rows(cache["v"], v_new.reshape(B * S, *v_new.shape[2:]), idx)
     return q, k, v
+
+
+def attn_forward(cfg: ArchConfig, p: dict, x, rows: StepRows, *, local: bool,
+                 past_kv=None):
+    """Whole-prompt self-attention (training forward and prefill).  x:
+    [B,S,D] at ``rows.positions`` [S]; ``past_kv`` ({"k","v"} [B,s,K,dh],
+    post-RoPE) is a cached prefix the prompt continues: attention runs over
+    concat(past, new) with the last query aligned with the last key.
+    Returns (out, k, v) with the new rows' post-RoPE k/v [B,S,K,dh]."""
+    q, k, v = _qkv_rope(cfg, p, x, rows, local)
+    k_all, v_all = k, v
+    if past_kv is not None:
+        k_all = torch.cat([past_kv["k"].to(k.dtype), k], 1)
+        v_all = torch.cat([past_kv["v"].to(v.dtype), v], 1)
+    o = attention(q.transpose(1, 2), k_all.transpose(1, 2), v_all.transpose(1, 2),
+                  causal=True, window=cfg.window_size if local else 0,
+                  softcap=cfg.logit_softcap)
+    o = o.transpose(1, 2)  # [B, S, H, dh]; free on the card (see flash_attention)
+    out = dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"])
+    return out, k, v
+
+
+def attn_prefill(cfg: ArchConfig, p: dict, x, rows: StepRows, *, local: bool,
+                 past_kv=None):
+    """:func:`attn_forward` that also returns the prompt's cache (post-RoPE
+    k/v of the new rows).  A sliding-window layer keeps only the last
+    ``window`` rows, rolled so that entry ``pos % window`` holds row ``pos``:
+    decode continues the ring.  Returns (out, {"k", "v"})."""
+    out, k, v = attn_forward(cfg, p, x, rows, local=local, past_kv=past_kv)
+    window = cfg.window_size if local else 0
+    S = k.shape[1]
+    if window and past_kv is None and S > window:
+        k = torch.roll(k[:, -window:], (S - window) % window, 1)
+        v = torch.roll(v[:, -window:], (S - window) % window, 1)
+    return out, {"k": k, "v": v}
 
 
 def attn_chunk_prefill(cfg: ArchConfig, p: dict, cache: dict, x, rows: StepRows,
@@ -237,25 +302,52 @@ def attn_chunk_prefill(cfg: ArchConfig, p: dict, cache: dict, x, rows: StepRows,
     return out, {"k": k, "v": v}
 
 
+def _slot_write(cache, new, widx):
+    """cache[b, widx[b]] = new[b] in place for a slot cache [B, S, ...].
+    A row at ``widx >= S`` is dropped, as JAX's ``mode="drop"``: row S-1
+    gets its own old value back, with no host sync and never a clamp."""
+    B, S = cache.shape[0], cache.shape[1]
+    bidx = torch.arange(B, device=cache.device)
+    idx = torch.clamp(widx, max=S - 1).long()
+    drop = (widx >= S).view(B, *([1] * (new.dim() - 1)))
+    cache[bidx, idx] = torch.where(drop, cache[bidx, idx], new.to(cache.dtype))
+
+
 def attn_decode(cfg: ArchConfig, p: dict, cache: dict, x, rows: StepRows, *,
                 local: bool):
-    """One-token decode over page pools.  x: [B,1,D]; ``rows`` holds the
-    current rows ``pos`` ([B, 1] positions) and the page tables.  The new
-    row is written through the table in place, then attention follows the
-    table over rows ``[start, pos]`` (``start = max(0, pos - window + 1)``
-    on sliding-window layers, else 0)."""
+    """One-token decode.  x: [B,1,D]; ``rows`` holds the current rows
+    ``pos`` ([B, 1] positions) and the page tables, if any.
+
+    Paged: the new row is written through the table in place, then
+    attention follows the table over rows ``[start, pos]`` (``start = max(0,
+    pos - window + 1)`` on sliding-window layers, else 0).  Slot caches
+    [B,S,K,dh]: a sliding-window layer's ring takes the row at ``pos % S``
+    and reads in the ring layout; a global layer's linear cache takes it at
+    ``pos`` (dropped when ``pos >= S``) and reads rows ``[0, pos]``."""
     B = x.shape[0]
-    q, k, v = _attn_inputs(cfg, p, cache, x, rows, local)
     window = cfg.window_size if local else 0
-    o = attend_decode(q[:, 0].contiguous(), k, v, rows.pos0(),
-                      rows.start(window), layout=CacheLayout.PAGED,
-                      pages=rows.pages, softcap=cfg.logit_softcap)
+    if rows.pages is not None:
+        q, k, v = _attn_inputs(cfg, p, cache, x, rows, local)
+        o = attend_decode(q[:, 0].contiguous(), k, v, rows.pos0(),
+                          rows.start(window), layout=CacheLayout.PAGED,
+                          pages=rows.pages, softcap=cfg.logit_softcap)
+    else:
+        q, k_new, v_new = _qkv_rope(cfg, p, x, rows, local)
+        k, v = cache["k"], cache["v"]
+        ring = bool(local and cfg.window_size)
+        pos = rows.pos0()
+        widx = torch.remainder(pos, k.shape[1]) if ring else pos
+        _slot_write(k, k_new[:, 0], widx)
+        _slot_write(v, v_new[:, 0], widx)
+        o = attend_decode(q[:, 0].contiguous(), k, v, pos, rows.start(0),
+                          layout=CacheLayout.RING if ring else CacheLayout.LINEAR,
+                          softcap=cfg.logit_softcap)
     out = dense_proj(cfg, o.reshape(B, 1, -1), p["wo"])
     return out, {"k": k, "v": v}
 
 
 # ---------------------------------------------------------------------------
-# Dense FFN (SwiGLU)
+# Dense FFN (SwiGLU, GeGLU)
 # ---------------------------------------------------------------------------
 
 def ffn_kind(cfg: ArchConfig) -> str:
@@ -267,8 +359,8 @@ def ffn_kind(cfg: ArchConfig) -> str:
 
 
 def ffn_specs(cfg: ArchConfig) -> dict:
-    if ffn_kind(cfg) != "swiglu":
-        raise NotImplementedError(f"{ffn_kind(cfg)} FFN is not ported yet")
+    if ffn_kind(cfg) == "gelu_mlp":
+        raise NotImplementedError("the GELU MLP FFN is not ported yet")
     D, Fdim = cfg.d_model, cfg.d_ff
     return {"w_gate": ParamSpec((D, Fdim), ("embed", "ffn")),
             "w_up": ParamSpec((D, Fdim), ("embed", "ffn")),
@@ -278,4 +370,6 @@ def ffn_specs(cfg: ArchConfig) -> dict:
 def ffn_forward(cfg: ArchConfig, p: dict, x):
     g = dense_proj(cfg, x, p["w_gate"])
     u = dense_proj(cfg, x, p["w_up"])
-    return dense_proj(cfg, torch.nn.functional.silu(g) * u, p["w_down"])
+    act = (F.gelu(g, approximate="tanh") if ffn_kind(cfg) == "geglu"
+           else F.silu(g))
+    return dense_proj(cfg, act * u, p["w_down"])

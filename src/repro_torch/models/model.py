@@ -1,19 +1,24 @@
-"""Config-driven model assembly on the serving path (port of
-``repro.models.model``): param specs, paged caches, chunk / decode / mixed
+"""Config-driven model assembly (port of ``repro.models.model``): param
+specs, w8a8 quantization, slot and paged caches, the training forward,
+``prefill`` -> ``decode_step``, and the engine's chunk / decode / mixed
 steps.
 
 Weights keep the JAX package's stacked layout — one leading layer axis per
 stage — so the weight bridge is a plain reshape; the ``lax.scan`` over that
 axis becomes a Python loop.  Only attention mixers with a dense FFN are
-ported; every other mixer or FFN raises ``NotImplementedError``.  Page
-pools are updated in place.
+ported; every other mixer or FFN raises ``NotImplementedError``.  Caches
+are updated in place by the decode and chunk steps.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core import resolve_device
+from repro_torch.core.gemm import cgra_gemm
+from repro_torch.core.quant import QTensor
 from repro_torch.models import layers as L
 from repro_torch.models.params import (ParamSpec, init_params, stack_tree,
                                        tree_map_specs)
@@ -65,6 +70,118 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# w8a8 weight quantization (one-time, at load)
+# ---------------------------------------------------------------------------
+
+# every weight consumed by ``layers.dense_proj``; norm scales and the
+# embedding table stay float
+_QUANT_NAMES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                          "w1", "w2", "wq_a", "wkv_a", "lm_head"})
+
+
+def _quantize_weight(w, red_axes: tuple) -> QTensor:
+    """Symmetric int8 over ``red_axes`` (the contraction dims): per-output-
+    channel scales, broadcastable against ``w``.  Bit for bit the JAX
+    package's ``_quantize_weight``, in its layout."""
+    wf = w.to(F32)
+    amax = wf.abs().amax(dim=red_axes, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+    return QTensor(q, scale)
+
+
+def _pack(qt: QTensor, lead: int, n_red: int) -> QTensor:
+    """JAX layout [*lead, *contraction, *out] -> the int8 kernel's layout:
+    q [*lead, N, K] contiguous (K contiguous), scale [*lead, 1, N]."""
+    lead_shape = tuple(qt.q.shape[:lead])
+    K = math.prod(qt.q.shape[lead:lead + n_red])
+    N = math.prod(qt.q.shape[lead + n_red:])
+    q = qt.q.reshape(*lead_shape, K, N).transpose(-1, -2).contiguous()
+    return QTensor(q, qt.scale.reshape(*lead_shape, 1, N))
+
+
+def quantize_params(cfg: ArchConfig, params: dict) -> dict:
+    """Quantize every GEMM weight to int8 once at load: the w8a8 path.  The
+    model dispatches on the ``QTensor`` weights this returns (the engine
+    calls it at init under ``EngineConfig(quant="w8a8")``).
+
+    Each ``dense_proj`` weight becomes a ``QTensor`` holding the JAX
+    package's int8 values and per-output-channel f32 scales, packed for the
+    int8 kernel: q [R, N, K] (stacked layers; the transpose of the JAX
+    [K, N] operand) and scale [R, 1, N].  A tied head gets its own int8
+    copy ``lm_head_q`` (q [Vp, D] — the embedding table's own layout); the
+    embedding stays float for the gather.  Idempotent.  Inference only."""
+    def walk(tree):
+        out = {}
+        for name, v in tree.items():
+            if isinstance(v, dict):
+                out[name] = walk(v)
+            elif (name in _QUANT_NAMES and not isinstance(v, QTensor)
+                  and v.dim() >= 2):
+                red = tuple(range(1, v.dim() - 1)) if name == "wo" else (1,)
+                out[name] = _pack(_quantize_weight(v, red), 1, len(red))
+            else:
+                out[name] = v
+        return out
+
+    new = dict(params)
+    new["stages"] = [walk(st) for st in params["stages"]]
+    if "lm_head" in params and not isinstance(params["lm_head"], QTensor):
+        new["lm_head"] = _pack(_quantize_weight(params["lm_head"], (0,)), 0, 1)
+    if cfg.tie_embeddings and "lm_head_q" not in params:
+        # per vocab row of embed [Vp, D] == per column of JAX's embed.T
+        qt = _quantize_weight(params["embed"], (1,))
+        new["lm_head_q"] = QTensor(qt.q, qt.scale.reshape(1, -1))
+    return new
+
+
+# ---------------------------------------------------------------------------
+# Slot caches (the direct prefill -> decode_step loop)
+# ---------------------------------------------------------------------------
+
+def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> list:
+    """Per-stage slot-cache specs: global layers k/v [R, batch, seq, K, dh]
+    (linear), sliding-window layers a ring of ``min(seq, window)`` rows."""
+    out = []
+    for stage in cfg.stages():
+        group = {}
+        for i, sp in enumerate(stage.group):
+            _check_layer(sp)
+            group[str(i)] = L.attn_cache_specs(cfg, batch, seq,
+                                               local=sp.mixer == "attn_local")
+        out.append(stack_tree(group, stage.repeats))
+    return out
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None) -> list:
+    dev = resolve_device(device)
+    return tree_map_specs(
+        lambda s: torch.zeros(s.shape, dtype=s.dtype or cfg.compute_dtype,
+                              device=dev),
+        cache_specs(cfg, batch, seq))
+
+
+def pad_cache_len(cfg: ArchConfig, caches: list, new_len: int) -> list:
+    """Zero-pad every cache's row axis up to its ``new_len`` capacity (a
+    ring up to ``min(new_len, window)``), so that a prefill's caches can be
+    decoded into directly."""
+    out = []
+    for stage, group in zip(cache_specs(cfg, 1, new_len), caches):
+        g_out = {}
+        for gi, spec in stage.items():
+            g_out[gi] = {}
+            for name, leaf in group[gi].items():
+                S = spec[name].shape[2]  # [R, batch, S, K, dh]
+                pad = S - leaf.shape[2]
+                if pad > 0:
+                    leaf = torch.cat([leaf, leaf.new_zeros(
+                        (*leaf.shape[:2], pad, *leaf.shape[3:]))], 2)
+                g_out[gi][name] = leaf
+        out.append(g_out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Paged caches
 # ---------------------------------------------------------------------------
 
@@ -110,13 +227,24 @@ def _index(tree, r: int):
     """Layer ``r`` of a stacked tree (views, no copies)."""
     if isinstance(tree, dict):
         return {k: _index(v, r) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return QTensor(tree.q[r], tree.scale[r])
     return tree[r]
+
+
+def _stack_layers(per_layer: list) -> dict:
+    """[{gi: {"k", "v"}} per repeat] -> {gi: {"k": [R, ...], "v": ...}}."""
+    return {gi: {n: torch.stack([c[gi][n] for c in per_layer])
+                 for n in per_layer[0][gi]} for gi in per_layer[0]}
 
 
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
                  cache, rows: L.StepRows):
-    """Returns (x, cache).  ``cache`` is the layer's page pools (updated in
-    place); ``rows`` the step's shared positions, tables and bounds."""
+    """Returns (x, cache).  decode / chunk: ``cache`` is the layer's slot
+    cache or page pools, updated in place.  prefill: ``cache`` is the
+    layer's past KV or None, and the returned cache holds the new rows.
+    train: no cache.  ``rows`` holds the step's shared positions, tables
+    and bounds."""
     _check_layer(spec)
     local = spec.mixer == "attn_local"
     h = L.apply_norm(cfg, p["norm1"], x)
@@ -125,8 +253,13 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
     elif mode == "chunk":
         m, cache = L.attn_chunk_prefill(cfg, p["mixer"], cache, h, rows,
                                         local=local)
+    elif mode == "prefill":
+        m, cache = L.attn_prefill(cfg, p["mixer"], h, rows, local=local,
+                                  past_kv=cache)
+    elif mode == "train":
+        m = L.attn_forward(cfg, p["mixer"], h, rows, local=local)[0]
     else:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet")
+        raise ValueError(f"unknown mode {mode!r}")
     x = x + m
     h = L.apply_norm(cfg, p["norm2"], x)
     return x + L.ffn_forward(cfg, p["ffn"], h), cache
@@ -144,10 +277,14 @@ def embed_tokens(cfg: ArchConfig, params, tokens):
 
 
 def lm_logits(cfg: ArchConfig, params, hidden):
-    """f32 logits straight from the GEMM's f32 accumulator."""
-    head = (params["embed"].T.contiguous() if cfg.tie_embeddings
-            else params["lm_head"])
-    return L.dense_proj(cfg, hidden, head, out_dtype=F32)
+    """f32 logits straight from the GEMM's f32 accumulator.  A tied head
+    reads the [Vp, D] embedding table in place as the GEMM's [N, K] operand
+    (no per-call transpose), or its int8 copy ``lm_head_q`` under w8a8."""
+    if cfg.tie_embeddings:
+        if "lm_head_q" in params:
+            return L.dense_proj(cfg, hidden, params["lm_head_q"], out_dtype=F32)
+        return cgra_gemm(hidden, params["embed"], out_dtype=F32, trans_b=True)
+    return L.dense_proj(cfg, hidden, params["lm_head"], out_dtype=F32)
 
 
 # ---------------------------------------------------------------------------
@@ -161,12 +298,19 @@ def _rows(x, B: int, device) -> torch.Tensor:
     return torch.full((B,), int(x), dtype=torch.int32, device=device)
 
 
-def forward_hidden(cfg: ArchConfig, params, tokens, *, mode: str, caches,
-                   pos=None, pages=None, past_len=0, chunk_len=None):
-    """Run the stack; returns (hidden, caches).  decode: tokens [B, 1], pos
-    [B].  chunk: tokens [B, C], ``past_len`` rows already in the pages and
-    ``chunk_len`` valid rows in the buffer (ints or [B] tensors).  The pools
-    in ``caches`` are updated in place."""
+def forward_hidden(cfg: ArchConfig, params, tokens, *, mode: str = "train",
+                   caches=None, pos=None, pages=None, past_len=0,
+                   chunk_len=None):
+    """Run the stack; returns (hidden, caches).
+
+    train: tokens [B, S], no caches (None is returned).  prefill: tokens
+    [B, S] at positions ``past_len + arange(S)``; ``caches``, if given, is
+    the past KV tree of a cached prefix of ``past_len`` rows, and the
+    returned tree holds only the new rows (sliding-window layers as rolled
+    rings).  decode: tokens [B, 1], pos [B]; ``caches`` are slot caches, or
+    page pools with ``pages``, updated in place.  chunk: tokens [B, C],
+    ``past_len`` rows already in the pages and ``chunk_len`` valid rows in
+    the buffer (ints or [B] tensors), pools updated in place."""
     x = embed_tokens(cfg, params, tokens)
     B, C = tokens.shape
     dev = tokens.device
@@ -175,22 +319,54 @@ def forward_hidden(cfg: ArchConfig, params, tokens, *, mode: str, caches,
         positions = past[:, None] + torch.arange(C, dtype=torch.int32,
                                                  device=dev)[None]
         rows = L.StepRows(positions, pages, _rows(chunk_len, B, dev))
-    else:
+    elif mode == "decode":
         rows = L.StepRows(pos[:, None], pages)
+    else:
+        rows = L.StepRows(torch.arange(C, dtype=torch.int32, device=dev)
+                          + int(past_len), None)
+    new_caches = []
     for si, stage in enumerate(cfg.stages()):
-        sp, sc = params["stages"][si], caches[si]
+        sp = params["stages"][si]
+        sc = None if caches is None else caches[si]
+        per_layer = []
         for r in range(stage.repeats):
-            lp, lc = _index(sp, r), _index(sc, r)
+            lp = _index(sp, r)
+            lc = None if sc is None else _index(sc, r)
+            out = {}
             for gi, spec in enumerate(stage.group):
-                x, _ = _apply_layer(cfg, spec, lp[str(gi)], x, mode=mode,
-                                    cache=lc[str(gi)], rows=rows)
-    return L.apply_norm(cfg, params["final_norm"], x), caches
+                c_in = None if lc is None else lc[str(gi)]
+                x, out[str(gi)] = _apply_layer(cfg, spec, lp[str(gi)], x,
+                                               mode=mode, cache=c_in, rows=rows)
+            per_layer.append(out)
+        if mode == "prefill":
+            new_caches.append(_stack_layers(per_layer))
+    hidden = L.apply_norm(cfg, params["final_norm"], x)
+    if mode == "prefill":
+        return hidden, new_caches
+    return hidden, (caches if mode in ("decode", "chunk") else None)
 
 
-def decode_step(cfg: ArchConfig, params, caches, token, pos, *, pages):
-    """One-token decode.  token: [B, 1]; pos: [B] int32 (each slot at its
-    own row); pages: [B, npp] int32.  Returns (logits [B, 1, Vp] f32,
-    caches)."""
+def prefill(cfg: ArchConfig, params, tokens, *, past=None, past_len: int = 0,
+            cache_len: int | None = None):
+    """Whole-prompt prefill of tokens [B, S].  Returns (last-row logits
+    [B, 1, Vp] f32, caches).  ``past``/``past_len``: a cached prefix's KV
+    tree and its length (the prompt continues it; the returned caches hold
+    only the new rows).  ``cache_len``: zero-pad every cache to that
+    capacity so that ``decode_step`` can decode into it directly."""
+    hidden, caches = forward_hidden(cfg, params, tokens, mode="prefill",
+                                    caches=past, past_len=past_len)
+    logits = lm_logits(cfg, params, hidden[:, -1:].contiguous())
+    if cache_len is not None:
+        caches = pad_cache_len(cfg, caches, cache_len)
+    return logits, caches
+
+
+def decode_step(cfg: ArchConfig, params, caches, token, pos, *, pages=None):
+    """One-token decode.  token: [B, 1]; pos: an int (every slot at the
+    same row) or [B] int32 (each slot at its own row).  ``pages`` [B, npp]
+    int32 switches ``caches`` from slot caches (linear for global layers, a
+    ring for sliding-window ones) to page pools.  The new row is written in
+    place.  Returns (logits [B, 1, Vp] f32, caches)."""
     B = token.shape[0]
     pos = _rows(pos, B, token.device)
     hidden, caches = forward_hidden(cfg, params, token, mode="decode",

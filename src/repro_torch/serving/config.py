@@ -1,8 +1,8 @@
 """Serving configuration (port of ``repro.serving.config``): ``EngineConfig``
 with the fields this port implements, and the ``CacheSpec`` it derives.
 
-Deadlines, queue bounds, preemption, mesh placement, kernel-mode and w8a8
-overrides wait for later slices."""
+Deadlines, queue bounds, preemption, mesh placement and the kernel-mode
+override wait for later slices."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -40,6 +40,9 @@ class EngineConfig:
     chunk_tokens: prompt tokens per mixed tick; ``None`` prefills each
                   prompt's whole suffix in one chunk (power-of-two buffer)
     eos_id:       optional stop token
+    quant:        "w8a8" int8-quantizes the weights once at init
+                  (``model.quantize_params``); None or "none" serves them as
+                  given
     """
     page_size: int = 64
     n_pages: int | None = None
@@ -49,8 +52,11 @@ class EngineConfig:
     decode_chunk: int = 8
     chunk_tokens: int | None = None
     eos_id: int | None = None
+    quant: str | None = None
 
     def __post_init__(self):
+        if self.quant not in (None, "none", "w8a8"):
+            raise ValueError(f"quant={self.quant!r} must be None, 'none' or 'w8a8'")
         if self.page_size < 8 or self.page_size % 8:
             raise ValueError(f"page_size={self.page_size} must be a positive "
                              f"multiple of 8")

@@ -419,8 +419,10 @@ class Engine:
         emb = params["embed"]
         if emb.device.type != self.device.type:
             raise ValueError(f"params live on {emb.device}, engine on {self.device}")
-        self.cfg, self.params = cfg, params
         self.config = config or EngineConfig()
+        if self.config.quant == "w8a8":
+            params = M.quantize_params(cfg, params)  # idempotent
+        self.cfg, self.params = cfg, params
         self.max_len = self.config.max_len
         self.stats = ServeStats()
         self.runner = ModelRunner(cfg, params, self.config, self.device)

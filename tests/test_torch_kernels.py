@@ -11,14 +11,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import quant as jquant
 from repro.kernels import ref as jref
+from repro.kernels.block_gemm import block_gemm_int8 as j_block_gemm_int8
 from repro.kernels.decode_attention import flash_decode
 from repro.kernels.flash_attention import flash_attention
 from repro.models import layers as JL
-from repro_torch.core.gemm import cgra_gemm
+from repro_torch.core import quant as tquant
+from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.block_gemm import block_gemm
+from repro_torch.kernels.block_gemm import block_gemm, block_gemm_int8
+from repro_torch.kernels.decode_attention import flash_decode as t_flash_decode
 from repro_torch.kernels.decode_attention import flash_decode_paged
+from repro_torch.kernels.flash_attention import flash_attention as t_flash_attention
 from repro_torch.kernels.flash_attention import flash_attention_paged
 from repro_torch.kernels.ops import attend_decode, attention
 from repro_torch.models import layers as TL
@@ -80,6 +85,19 @@ def test_wrappers_refuse_other_devices():
     a = torch.empty(4, 4, device="meta")
     with pytest.raises(ValueError):
         block_gemm(a, a)
+    a8 = torch.empty(4, 4, dtype=torch.int8, device="meta")
+    sc = torch.empty(4, 1, device="meta")
+    with pytest.raises(ValueError):
+        block_gemm_int8(a8, a8, sc, sc.T)
+    with pytest.raises(ValueError):
+        t_flash_attention(torch.empty(1, 2, 3, 8, device="meta"),
+                          torch.empty(1, 1, 3, 8, device="meta"),
+                          torch.empty(1, 1, 3, 8, device="meta"))
+    with pytest.raises(ValueError):
+        t_flash_decode(torch.empty(2, 4, 8, device="meta"),
+                       torch.empty(2, 5, 2, 8, device="meta"),
+                       torch.empty(2, 5, 2, 8, device="meta"),
+                       torch.zeros(2, dtype=torch.int32), None)
     q = torch.empty(2, 4, 8, device="meta")
     pool = torch.empty(3, 8, 2, 8, device="meta")
     rows = torch.empty(2, dtype=torch.int32, device="meta")
@@ -90,6 +108,200 @@ def test_wrappers_refuse_other_devices():
         flash_attention_paged(torch.empty(2, 4, 3, 8, device="meta"), pool, pool,
                               torch.empty(2, 1, dtype=torch.int32, device="meta"),
                               rows, rows)
+
+
+def test_block_gemm_bf16_trans_b_matches_jax():
+    """The tied head's [N, K] operand: the same product as the [K, N] one."""
+    rng = np.random.RandomState(10)
+    a = rng.randn(3, 48).astype(np.float32)
+    e = rng.randn(70, 48).astype(np.float32)  # [Vp, D] embedding table
+    want = jref.block_gemm_ref(jnp.asarray(a, jnp.bfloat16),
+                               jnp.asarray(e, jnp.bfloat16).T, jnp.float32)
+    got = block_gemm(t(a).bfloat16(), t(e).bfloat16(), out_dtype=torch.float32,
+                     trans_b=True)
+    close(got, want)
+    assert cgra_gemm(t(a)[None].bfloat16(), t(e).bfloat16(), torch.float32,
+                     trans_b=True).shape == (1, 3, 70)
+
+
+# ---------------------------------------------------------------------------
+# int8 block GEMM and quantization
+# ---------------------------------------------------------------------------
+
+def _int8(rng, *shape, lim=127):
+    return rng.randint(-lim, lim + 1, shape).astype(np.int8)
+
+
+@pytest.mark.parametrize("M,K,N", [(2, 64, 96), (1, 100, 50), (37, 130, 77),
+                                   (70, 256, 33)])
+def test_block_gemm_int8_unit_scales_exact(M, K, N):
+    """Unit scales: the output is the exact integer product, equal to the
+    JAX oracle's and the interpret-mode Pallas kernel's bit for bit."""
+    rng = np.random.RandomState(M * K + N)
+    a, b = _int8(rng, M, K), _int8(rng, K, N)
+    ones_m, ones_n = np.ones((M, 1), np.float32), np.ones((1, N), np.float32)
+    exact = a.astype(np.int64) @ b.astype(np.int64)
+    got = block_gemm_int8(t(a), t(np.ascontiguousarray(b.T)), t(ones_m), t(ones_n))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), exact.astype(np.float32))
+    for want in (jref.block_gemm_int8_ref(*map(jnp.asarray, (a, b, ones_m, ones_n))),
+                 j_block_gemm_int8(*map(jnp.asarray, (a, b, ones_m, ones_n)),
+                                   interpret=True)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_block_gemm_int8_scaled_matches_jax(out_dtype):
+    """Per-row x per-column scales, ragged M, K, N: 1e-6 relative to the
+    JAX oracle and the interpret-mode kernel (the epilogue's f32 products
+    are the same; only the final bf16 cast may round differently by one
+    ulp when the XLA and PyTorch casts disagree, which they do not)."""
+    rng = np.random.RandomState(11)
+    M, K, N = 19, 150, 45
+    a, b = _int8(rng, M, K), _int8(rng, K, N)
+    sa = (rng.rand(M, 1) * 0.02 + 1e-3).astype(np.float32)
+    sb = (rng.rand(1, N) * 0.02 + 1e-3).astype(np.float32)
+    jdt = jnp.float32 if out_dtype == torch.float32 else jnp.bfloat16
+    got = block_gemm_int8(t(a), t(np.ascontiguousarray(b.T)), t(sa), t(sb), out_dtype)
+    assert got.dtype == out_dtype
+    for want in (jref.block_gemm_int8_ref(*map(jnp.asarray, (a, b, sa, sb)), jdt),
+                 j_block_gemm_int8(*map(jnp.asarray, (a, b, sa, sb)), out_dtype=jdt,
+                                   interpret=True)):
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("axis", [-1, 0, None])
+def test_quantize_bit_identical_to_jax(axis):
+    """int8 values and f32 scales equal JAX's exactly, rounding ties to
+    even included (the input holds exact .5 multiples of its scale)."""
+    rng = np.random.RandomState(12)
+    x = rng.randn(9, 33).astype(np.float32)
+    x[0, :5] = [127.0, 0.5, 1.5, -2.5, 3.5]  # amax 127 -> scale 1: ties
+    jq, tq = jquant.quantize(jnp.asarray(x), axis), tquant.quantize(t(x), axis)
+    np.testing.assert_array_equal(tq.q.numpy(), np.asarray(jq.q))
+    np.testing.assert_array_equal(tq.scale.numpy(), np.asarray(jq.scale))
+    np.testing.assert_array_equal(tquant.dequantize(tq).numpy(),
+                                  np.asarray(jquant.dequantize(jq)))
+
+
+def test_quantized_matmul_and_w8a8_gemm_match_jax():
+    rng = np.random.RandomState(13)
+    x = rng.randn(2, 5, 40).astype(np.float32)
+    w = rng.randn(40, 24).astype(np.float32)
+    x2 = x.reshape(10, 40)  # per-row activation scales, per-column weight scales
+    jx, jw = jquant.quantize(jnp.asarray(x2), 0), jquant.quantize(jnp.asarray(w), -1)
+    tx, tw = tquant.quantize(t(x2), 0), tquant.quantize(t(w), -1)
+    close(tquant.quantized_matmul_ref(tx, tw), jquant.quantized_matmul_ref(jx, jw))
+    # cgra_gemm_w8a8: per-row activations against per-column weight scales
+    from repro.core.gemm import cgra_gemm_w8a8 as j_w8a8
+    jwq = jquant.quantize(jnp.asarray(w), -1)
+    packed = tquant.QTensor(t(np.ascontiguousarray(np.asarray(jwq.q).T)),
+                            t(np.array(jwq.scale)))
+    got = cgra_gemm_w8a8(t(x), packed)
+    assert got.shape == (2, 5, 24)
+    close(got, j_w8a8(jnp.asarray(x), jwq))
+
+
+# ---------------------------------------------------------------------------
+# dense flash attention
+# ---------------------------------------------------------------------------
+
+DENSE_CASES = [  # B, H, K, Sq, Sk, d, causal, window, softcap
+    (2, 4, 2, 24, 24, 16, True, 0, 0.0),      # causal prefill, GQA G=2
+    (1, 4, 1, 19, 19, 16, True, 0, 0.0),      # MQA, ragged length
+    (2, 2, 2, 16, 40, 16, True, 0, 0.0),      # Sq < Sk: suffix over a past
+    (1, 4, 2, 37, 37, 32, True, 12, 0.0),     # sliding window
+    (1, 4, 2, 20, 20, 16, True, 0, 9.0),      # softcap
+    (2, 2, 1, 13, 29, 16, False, 0, 0.0),     # bidirectional, ragged
+    (1, 2, 2, 33, 70, 16, False, 10, 5.0),    # bidirectional window + softcap
+    (1, 4, 2, 50, 30, 16, True, 0, 0.0),      # Sq > Sk: 20 all-masked rows
+]
+
+
+@pytest.mark.parametrize("case", DENSE_CASES, ids=[f"c{i}" for i in range(len(DENSE_CASES))])
+def test_dense_attention_plain_matches_jax(case):
+    """The plain version == the JAX oracle (kv heads broadcast) == the
+    interpret-mode Pallas kernel; rows with every key masked are exact 0."""
+    B, H, K, Sq, Sk, d, causal, window, softcap = case
+    rng = np.random.RandomState(Sq * 7 + Sk)
+    q = rng.randn(B, H, Sq, d).astype(np.float32)
+    k = rng.randn(B, K, Sk, d).astype(np.float32)
+    v = rng.randn(B, K, Sk, d).astype(np.float32)
+    got = attention(t(q), t(k), t(v), causal=causal, window=window, softcap=softcap)
+    assert got.shape == (B, H, Sq, d)
+    G = H // K
+    want = jref.flash_attention_ref(jnp.asarray(q), jnp.repeat(jnp.asarray(k), G, 1),
+                                    jnp.repeat(jnp.asarray(v), G, 1), causal=causal,
+                                    window=window, softcap=softcap)
+    close(got, want)
+    pallas = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, window=window, softcap=softcap,
+                             bq=16, bk=16, interpret=True)
+    close(got, pallas)
+    if Sq > Sk and causal:
+        assert torch.count_nonzero(got[:, :, : Sq - Sk]) == 0
+
+
+def test_dense_attention_reads_transposed_views():
+    """The layers hand over [B,S,H,d] tensors transposed to [B,H,S,d]
+    without a copy; the result is the same as for contiguous inputs."""
+    rng = np.random.RandomState(14)
+    q = t(rng.randn(2, 12, 4, 16).astype(np.float32))
+    k = t(rng.randn(2, 12, 2, 16).astype(np.float32))
+    got = t_flash_attention(q.transpose(1, 2), k.transpose(1, 2), k.transpose(1, 2),
+                            window=5)
+    want = t_flash_attention(q.transpose(1, 2).contiguous(),
+                             k.transpose(1, 2).contiguous(),
+                             k.transpose(1, 2).contiguous(), window=5)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# flash-decode on slot caches: linear and ring layouts
+# ---------------------------------------------------------------------------
+
+def _slot(seed, B=5, H=4, K=2, S=24, d=16):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, H, d).astype(np.float32),
+            rng.randn(B, S, K, d).astype(np.float32),
+            rng.randn(B, S, K, d).astype(np.float32))
+
+
+@pytest.mark.parametrize("layout", ["linear", "ring"])
+@pytest.mark.parametrize("softcap", [0.0, 12.0])
+def test_slot_decode_plain_matches_jax(layout, softcap):
+    """Both layouts against the JAX oracle and the interpret-mode Pallas
+    kernel.  Slots: pos < S, a ring wrapped twice (pos 57 over S 24), pos
+    == S (a frozen full slot: rows [0, S-1] live), a windowed start, and
+    start > pos (exact zeros)."""
+    q, k, v = _slot(15)
+    S = k.shape[1]
+    pos = np.array([5, 57, S, 30, 3], np.int32)
+    start = np.array([0, 0, 0, 20, 4], np.int32)
+    got = attend_decode(t(q), t(k), t(v), t(pos), t(start), layout=layout,
+                        softcap=softcap)
+    want = jref.flash_decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 jnp.asarray(pos), jnp.asarray(start), layout=layout,
+                                 softcap=softcap)
+    close(got, want)
+    pallas = flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          jnp.asarray(pos), jnp.asarray(start), layout=layout,
+                          softcap=softcap, bk=8, interpret=True)
+    close(got, pallas)
+    assert torch.count_nonzero(got[4]) == 0  # start > pos: exact zeros
+
+
+def test_ring_decode_before_the_ring_fills():
+    """pos < S on a ring: entries j > pos hold rows pos - (pos - j) mod S
+    < 0 — never written, never live (scalar pos and start=None)."""
+    q, k, v = _slot(16, B=2)
+    got = t_flash_decode(t(q), t(k), t(v), 6, None, layout="ring")
+    want = jref.flash_decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 6,
+                                 layout="ring")
+    close(got, want)
+    lin = t_flash_decode(t(q), t(k), t(v), 6, None, layout="linear")
+    close(got, lin)  # before wrapping, ring == linear
 
 
 # ---------------------------------------------------------------------------
