@@ -5,13 +5,15 @@
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. environment: the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions, and the kernels' build from ``src/repro_torch/kernels/csrc``;
+   CUDA versions, the kernels' build from ``src/repro_torch/kernels/csrc``,
+   and the registers and spills ptxas reported for the tensor-core kernels;
 2. kernels: each of the six hand-written kernels against its plain PyTorch
    version on the card at its path's shapes, in f32 and bf16 (the int8
-   GEMM exactly, on integer-valued cases), with its time, the plain
-   version's time, the library call's time where one exists and the least
-   time the card could take (bytes over 3.35 TB/s, operations over the
-   peak rate of their type);
+   GEMM exactly, on integer-valued cases; dense attention also at the
+   tiles' edges), with its time, the plain version's time, the library
+   call's time where one exists and the least time the card could take
+   (bytes over 3.35 TB/s, operations over the peak rate of their type);
+   the bf16 GEMM's rows must be bit-identical across M;
 3. edge: the paper's int8 path on full-width gemma3-4b (34 layers, seeded
    random weights, ``quantize_params``): ``prefill`` of 2 x 1536 tokens
    into linear and ring caches, then 32 greedy ``decode_step``s.  The int8
@@ -170,7 +172,7 @@ def _bf16_max(err):
 
 def gemm_phase(flush, gen):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.block_gemm import block_gemm
+    from repro_torch.kernels.block_gemm import block_gemm, gemm_splits
     # Tolerances.  f32: both sum K products in f32 in different orders, so
     # they differ by ~sqrt(K) * 2^-24 * |terms|; 1e-4 absolute bounds that
     # for O(1) outputs at K = 8192.  bf16 output: both round nearly equal
@@ -208,24 +210,57 @@ def gemm_phase(flush, gen):
     torch.cuda.synchronize()
     log(f"block_gemm: {len(shapes)} shapes x (f32, bf16, bf16->f32) agree; "
         f"max_abs_err f32 {err_f32:.3e} bf16 {err_bf16:.3e}")
+    gemm_row_invariance(gen)
     rows = []
-    for (M, K, N) in [(8, 2048, 2048), (8, 2048, 8192), (8, 8192, 2048),
-                      (8, 2048, 50432), (64, 2048, 2048), (64, 2048, 8192),
-                      (64, 8192, 2048), (1, 2048, 50432)]:
+    for (M, K, N, tb) in [(8, 2048, 2048, False), (8, 2048, 8192, False),
+                          (8, 8192, 2048, False), (8, 2048, 50432, False),
+                          (64, 2048, 2048, False), (64, 2048, 8192, False),
+                          (64, 8192, 2048, False), (1, 2048, 50432, False),
+                          (1, 2048, 50432, True)]:
         a = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
-        b = (torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)).bfloat16()
+        b = (torch.randn(*((N, K) if tb else (K, N)), generator=gen, device="cuda")
+             / math.sqrt(K)).bfloat16()
         out_dtype = torch.float32 if N == 50432 else torch.bfloat16
-        ms = time_ms(lambda: block_gemm(a, b, out_dtype=out_dtype), flush)
-        plain = time_ms(lambda: ref.block_gemm_ref(a, b, out_dtype), flush)
-        lib = time_ms(lambda: torch.matmul(a, b), flush)
+        ms = time_ms(lambda: block_gemm(a, b, out_dtype=out_dtype, trans_b=tb), flush)
+        plain = time_ms(lambda: ref.block_gemm_ref(a, b, out_dtype, trans_b=tb), flush)
+        lib = time_ms(lambda: torch.matmul(a, b.T if tb else b), flush)
         out_bytes = M * N * (4 if out_dtype == torch.float32 else 2)
         bms, by = bound_ms(2 * (M * K + K * N) + out_bytes, 2 * M * N * K,
                            torch.bfloat16)
-        rows.append(dict(shape=f"{M}x{K}x{N}", ms=ms, plain_ms=plain,
-                         library_ms=lib, bound_ms=bms, bound_by=by))
-        log(f"  block_gemm bf16 M={M} K={K} N={N}: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+        shape = f"{M}x{K}x{N}" + (" trans_b" if tb else "")
+        rows.append(dict(shape=shape, ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=bms, bound_by=by))
+        log(f"  block_gemm bf16 {shape} (K split {gemm_splits(K, N)}): kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, torch.matmul {lib:.4f} ms, bound {bms:.4f} ms ({by})")
     return max(err_bf16, err_f32), rows
+
+
+def gemm_row_invariance(gen):
+    """Every output row of the bf16 GEMM is the same f32 sum whatever M is:
+    ``block_gemm(A[:M], B)`` equals the first M rows of ``block_gemm(A, B)``
+    bit for bit, for M across both tilings (<= 16 and > 16) and past one
+    64-row tile, at each engine (K, N) and for the [N, K] head; f32 and bf16
+    out.  This is what makes a prompt served alone give the same greedy
+    tokens as in a batch."""
+    from repro_torch.kernels.block_gemm import block_gemm
+    Ms = (1, 8, 16, 17, 33, 64, 72)
+    cases = [(2048, 2048, False), (2048, 8192, False), (8192, 2048, False),
+             (2048, 50432, True)]
+    for K, N, tb in cases:
+        a = torch.randn(max(Ms), K, generator=gen, device="cuda").bfloat16()
+        b = (torch.randn(*((N, K) if tb else (K, N)), generator=gen, device="cuda")
+             / math.sqrt(K)).bfloat16()
+        for out_dtype in (torch.float32, torch.bfloat16):
+            full = block_gemm(a, b, out_dtype=out_dtype, trans_b=tb)
+            for M in Ms:
+                part = block_gemm(a[:M].contiguous(), b, out_dtype=out_dtype, trans_b=tb)
+                if not torch.equal(part, full[:M]):
+                    n = int((part != full[:M]).sum())
+                    fail(f"block_gemm rows differ between M={M} and M={max(Ms)} at "
+                         f"K={K} N={N} trans_b={tb} {out_dtype}: {n} entries")
+    torch.cuda.synchronize()
+    log(f"block_gemm: rows bit-identical across M in {Ms} for (K, N) "
+        f"{[(K, N) for K, N, _ in cases]} (the last as [N, K]), f32 and bf16 out")
 
 
 def int8_phase(flush, gen):
@@ -305,6 +340,20 @@ def dense_attention_phase(flush, gen):
         ("all-masked Sq>Sk", 1, 90, 40, True, 0, 0.0),
         ("bidirectional", 1, 200, 333, False, 0, 0.0),
         ("reduced d16", 2, 40, 40, True, 32, 0.0, 4, 2, 16),
+        # the tiles' edges: lengths one past a 64-row query tile and a 64-row
+        # key tile (32 at d = 256), G = H/K in {1, 2, 8}, windows crossing
+        # tile boundaries, Sq < Sk and Sq > Sk (all-masked rows), and a d
+        # that is no multiple of 8 (element-wise loads instead of cp.async)
+        ("edge65 d64 G1", 1, 65, 65, True, 0, 0.0, 4, 4, 64),
+        ("edge129 d128 G2", 2, 129, 129, True, 0, 0.0, 4, 2, 128),
+        ("edge Sq65<Sk129 d256 G8", 1, 65, 129, True, 0, 0.0, 8, 1, 256),
+        ("window70 d128 G8", 2, 300, 300, True, 70, 0.0, 8, 1, 128),
+        ("window33 Sq129<Sk200 d64 G2", 1, 129, 200, True, 33, 0.0, 4, 2, 64),
+        ("window97 d256 G2", 1, 257, 257, True, 97, 0.0, 4, 2, 256),
+        ("all-masked Sq129>Sk65 d128 G2", 1, 129, 65, True, 0, 0.0, 4, 2, 128),
+        ("all-masked Sq200>Sk129 window40 d64", 1, 200, 129, True, 40, 0.0, 2, 1, 64),
+        ("bidirectional Sq65<Sk129 d256 G8", 1, 65, 129, False, 0, 0.0, 8, 1, 256),
+        ("softcap d20 elementwise", 1, 70, 70, True, 0, 20.0, 4, 2, 20),
     ]
     err = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -974,12 +1023,18 @@ def main() -> int:
     _build.build_all()
     log(f"kernels built in {_build.BUILD_SECONDS:.1f} s "
         f"({time.time() - t0:.1f} s with loading checks)")
+    resources = {k: v for n in ("flash_attention", "block_gemm")
+                 for k, v in _build.resources(n).items()
+                 if "dense_tc" in k or "gemm_bf16" in k}
+    for k, v in resources.items():  # the tensor-core kernels, from ptxas -v
+        log(f"  ptxas {k[:90]}: {v.get('registers')} registers, spill stores "
+            f"{v.get('spill_stores')} B, spill loads {v.get('spill_loads')} B")
 
     flush = L2Flush()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     counters = [block_gemm, block_gemm_int8, flash_decode_paged, flash_decode,
                 flash_attention_paged, flash_attention]
-    rows, errs, launches, report = {}, {}, {}, {}
+    rows, errs, launches, report = {}, {}, {}, {"ptxas": resources}
     errs["block_gemm"], rows["block_gemm"] = gemm_phase(flush, gen)
     errs["block_gemm_int8"], rows["block_gemm_int8"] = int8_phase(flush, gen)
     errs["flash_attention"], rows["flash_attention"] = dense_attention_phase(flush, gen)

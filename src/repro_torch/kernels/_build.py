@@ -7,6 +7,9 @@ headers, so a build takes seconds).  All sources build together, one
 hash of every source and the flags, so an edited kernel rebuilds and an
 unchanged one loads from ``build/`` (git-ignored) at the repository root.
 
+``-Xptxas -v`` makes ptxas report each kernel's registers and spills; the
+log is kept beside the library (:func:`resources`).
+
 The C entry points take every pointer and the stream as ``void*`` and
 return ``cudaGetLastError()``; :func:`check` raises when that is not 0.
 """
@@ -15,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 
@@ -77,6 +81,7 @@ def build_all() -> Path:
         if proc.returncode != 0:
             errors.append(f"nvcc failed on {src.name}:\n{log}")
             continue
+        (out / f"lib{src.stem}.log").write_text(log)
         os.replace(tmp, out / f"lib{src.stem}.so")
     BUILD_SECONDS += time.time() - t0
     if errors:
@@ -92,6 +97,30 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
         _LIBS[name] = lib
     return lib
+
+
+def resources(name: str) -> dict[str, dict[str, int]]:
+    """Registers a thread and spill bytes of each kernel in ``csrc/<name>.cu``
+    as ptxas reported them at build time: {mangled name: {"registers",
+    "spill_stores", "spill_loads"}}."""
+    path = build_all() / f"lib{name}.log"
+    log = path.read_text() if path.exists() else ""
+    out: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def bind(name: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:

@@ -18,13 +18,31 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _fn = None
 _fn_int8 = None
 
+GEMM_BN = 64  # the column tile of the split rule (the kernel's 64-column tiles)
+_SMS = 132  # an H100's SMs
+_MIN_K_CHUNK = 256
+_MAX_SPLITS = 8  # a portable thread block cluster
+
+
+def gemm_splits(K: int, N: int) -> int:
+    """How many ways the bf16 kernel splits K: the least power of two that
+    gives every SM a block of each 64-column row tile (``ceil(N/64) * S >=
+    132``), at most 8 (one cluster), and no K range under 256.  A function
+    of (K, N) only -- never of M -- so every output row is the same f32 sum
+    for every M."""
+    tiles = -(-N // GEMM_BN)
+    s = 1
+    while s < _MAX_SPLITS and tiles * s < _SMS and K // (2 * s) >= _MIN_K_CHUNK:
+        s *= 2
+    return s
+
 
 def _entry():
     global _fn
     if _fn is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         _fn = _build.bind("block_gemm", "repro_block_gemm",
-                          [P, P, P, I, I, I, I, I, I, P])
+                          [P, P, P, I, I, I, I, I, I, I, P])
     return _fn
 
 
@@ -68,7 +86,7 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
     err = _entry()(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
                    int(a.dtype == torch.bfloat16),
                    int(out_dtype == torch.bfloat16), int(trans_b),
-                   _build.stream_ptr(a.device))
+                   gemm_splits(K, N), _build.stream_ptr(a.device))
     _build.check(err, "block_gemm")
     block_gemm.launches += 1
     return c

@@ -4,68 +4,90 @@
 // block_gemm) -- the output-stationary block accumulation every projection
 // and the LM head run through.
 //
-// What bounds it on an H100: at the serving shapes (M = 8 decode rows, M =
-// chunk_tokens prefill rows) the weight matrix B is read once per call and
-// dominates the bytes, while 2*M*K*N operations stay far below the card's
-// operations-per-byte balance -- the kernel is bound by reading B.  The
-// design keeps many bytes of B in flight: cp.async copies 16-byte chunks of
-// the next tiles into a 3-4 stage shared-memory ring while the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate) work on the current one, and
-// a 16 x 32 output tile for small M spreads even a 2048-wide projection
-// over 64 blocks.  f32 inputs take a CUDA-core FMA kernel (full f32, never
-// TF32); they are off the serving path.
+// What bounds it on an H100: reading B.  At the serving shapes (M = 1-8
+// decode rows, M <= 72 rows of a mixed tick) the weight matrix B is read once
+// per call and dominates the bytes, while 2*M*K*N operations stay far below
+// the card's operations-per-byte balance.  So the design is about keeping
+// bytes of B in flight on all 132 SMs:
+//   - each k-row of a B tile is a 128- or 256-byte piece of a B row (for B
+//     stored [N, K], 64 k-values = 128 bytes of each row), copied as
+//     16-byte cp.async chunks under an L2 evict-first policy (B is read once
+//     a call; the policy keeps it from pushing reusable lines out of L2);
+//   - a 64-deep k-tile moves through a ring: M <= 16 takes 16 x 128 tiles
+//     with 4 stages (16 KB of B a stage) where K is split, 16 x 64 with 5
+//     where it is not; M > 16 takes 64 x 64 tiles (four 32 x 32 warp tiles)
+//     with 4 stages;
+//   - where the column tiles alone cannot give every SM a block (N = 2048
+//     gives 32), K is split S ways and the S blocks of one output tile form
+//     a thread block cluster: each sums its K range, leaves the partial tile
+//     in its shared memory, and after a cluster barrier every block adds a
+//     slice of the tile from all S partials over distributed shared memory
+//     and stores it.  One launch, no atomics, no scratch in device memory.
+//   What holds it back: per-SM request depth and pipeline fill.  At the
+// 2048 x 2048 projections (8 MB of B) launch and ramp take most of the
+// ~13 us; at M = 64 each block also streams as many bytes of A (from L2) as
+// of B.  Registers (ptxas -v, sm_90a): 48 (16 x 64), 72-122 (16 x 128),
+// 126-128 (64 x 64), no spills; dynamic shared memory 57,600 / 78,848 /
+// 73,728 bytes a block.
+// S is chosen by the wrapper (block_gemm.gemm_splits) from (K, N) alone.
+// The tensor cores run mma.sync m16n8k16 (bf16 in, f32 accumulate) with
+// ldmatrix fragments (.trans for B stored [K, N]).  f32 inputs take a
+// CUDA-core FMA kernel (full f32, never TF32); they are off the serving path.
 //
-// Reduction order: each output is one f32 accumulator chain over k = 0..K-1
-// in fixed steps (k16 tensor-core steps for bf16, single fmaf steps for
-// f32) -- the same for every M, tile choice and batch, with no split over
-// K and no atomics.  Ragged M/K/N edges are zero-filled on load (zeros
-// leave the chain unchanged) and masked on store -- no padded copies.  The
-// f32 accumulator is cast once in the epilogue (f32 straight out for the
-// LM head).
+// Reduction order, bf16: split s covers k in [s*kc, min(K, (s+1)*kc)) with
+// kc = ceil(K / S) rounded up to the 64-deep k-tile; inside a split each
+// output is one f32 accumulator chain of k16 tensor-core steps in k order;
+// the output is ((p_0 + p_1) + p_2) + ... + p_{S-1}, in split order.  S and
+// kc depend on (K, N) only and never on M or the tiling, so every output row
+// is the same f32 sum, bit for bit, for every M (a prompt served alone gives
+// the same greedy tokens as in a batch).  f32: one fmaf chain over k.
+// Ragged M/K/N edges are zero-filled on load (zeros leave the chain
+// unchanged) and masked on store -- no padded copies.  The f32 sum is cast
+// once in the epilogue (f32 straight out for the LM head).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace repro {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
+constexpr int GEMM_BK = 64;  // k-tile depth; kc is a multiple of it
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// bf16 tensor-core kernel.  Block tile BM x BN, k-tile BK, warp tile WM x WN
-// (WM/16 x WN/8 mma tiles per warp), STAGES-deep cp.async ring.  vecA/vecB:
-// the operand's rows are 16-byte aligned (K resp. the row length of B a
-// multiple of 8 and an aligned base), so tiles move as 16-byte cp.async
-// chunks; otherwise they move element by element with the same zero fill.
-// BT: B is stored [N, K] (the tied LM head reads the [V, D] embedding table
-// in place); its tile is kept k-contiguous, so each mma B fragment is one
-// 32-bit shared load.  The k16 steps, and so every result, are the same.
-template <int BM, int BN, int BK, int WM, int WN, int STAGES, bool BT, typename TO>
+// bf16 tensor-core kernel.  Block tile BM x BN, warp tile WM x WN (WM/16 x
+// WN/8 mma tiles per warp), STAGES-deep cp.async ring in dynamic shared
+// memory.  Grid: x = column tile * S + split, y = row tile; with S > 1 the S
+// splits of a column tile are one cluster.  vecA/vecB: the operand's rows
+// are 16-byte aligned (K resp. the row length of B a multiple of 8 and an
+// aligned base), so tiles move as 16-byte cp.async chunks; otherwise element
+// by element with the same zero fill.  BT: B is stored [N, K] (the tied LM
+// head reads the [V, D] embedding table in place); its tile is kept
+// k-contiguous.  The k16 steps, and so every result, are the same.
+template <int BM, int BN, int WM, int WN, int STAGES, bool BT, typename TO>
 __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __restrict__ C,
-                 int M, int N, int K, int vecA, int vecB) {
+                 int M, int N, int K, int vecA, int vecB, int splits, int kc) {
+  constexpr int BK = GEMM_BK;
   constexpr int WARPS_N = BN / WN;
   constexpr int NT = (BM / WM) * WARPS_N * 32;
   constexpr int MT = WM / 16, NTL = WN / 8;
-  // padded rows: 16-byte aligned, fewer conflicts; B is [BK][BS] or, BT, [BN][BS]
+  // padded rows: 16-byte aligned, the 8 rows of an ldmatrix in distinct banks;
+  // B is [BK][BS] or, BT, [BN][BS]
   constexpr int AS = BK + 8, BS = BT ? BK + 8 : BN + 8;
-  __shared__ __align__(16) bf16 As[STAGES][BM * AS];
-  __shared__ __align__(16) bf16 Bs[STAGES][(BT ? BN : BK) * BS];
+  constexpr int A_ELEMS = BM * AS, B_ELEMS = (BT ? BN : BK) * BS;
+  extern __shared__ __align__(16) unsigned char gemm_smem[];
+  bf16* As = reinterpret_cast<bf16*>(gemm_smem);  // [STAGES][A_ELEMS]
+  bf16* Bs = As + STAGES * A_ELEMS;                // [STAGES][B_ELEMS]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int split = splits > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const int m0 = blockIdx.y * BM, n0 = (blockIdx.x / splits) * BN;
+  const int kbeg = split * kc, kend = min(K, kbeg + kc);
   const bf16 zero = __float2bfloat16(0.f);
+  const uint64_t pol = l2_evict_first();  // B is read once per call
 
   float acc[MT][NTL][4];
 #pragma unroll
@@ -76,53 +98,53 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
       for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
 
   auto load = [&](int kt, int s) {
-    const int k0 = kt * BK;
-    bf16* as = As[s];
-    bf16* bs = Bs[s];
+    const int k0 = kbeg + kt * BK;
+    bf16* as = As + s * A_ELEMS;
+    bf16* bs = Bs + s * B_ELEMS;
     if (vecA) {
       for (int e = tid; e < BM * BK / 8; e += NT) {
         const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
         const int gm = m0 + r, gk = k0 + c;
-        const bool ok = gm < M && gk < K;
+        const bool ok = gm < M && gk < kend;
         cp_async16(as + r * AS + c, ok ? A + (size_t)gm * K + gk : A, ok);
       }
     } else {
       for (int e = tid; e < BM * BK; e += NT) {
         const int r = e / BK, c = e % BK;
         const int gm = m0 + r, gk = k0 + c;
-        as[r * AS + c] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : zero;
+        as[r * AS + c] = (gm < M && gk < kend) ? A[(size_t)gm * K + gk] : zero;
       }
     }
     if (BT && vecB) {
       for (int e = tid; e < BN * BK / 8; e += NT) {
         const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
         const int gn = n0 + r, gk = k0 + c;
-        const bool ok = gn < N && gk < K;
-        cp_async16(bs + r * BS + c, ok ? B + (size_t)gn * K + gk : B, ok);
+        const bool ok = gn < N && gk < kend;
+        cp_async16(bs + r * BS + c, ok ? B + (size_t)gn * K + gk : B, ok, pol);
       }
     } else if (BT) {
       for (int e = tid; e < BN * BK; e += NT) {
         const int r = e / BK, c = e % BK;
         const int gn = n0 + r, gk = k0 + c;
-        bs[r * BS + c] = (gn < N && gk < K) ? B[(size_t)gn * K + gk] : zero;
+        bs[r * BS + c] = (gn < N && gk < kend) ? B[(size_t)gn * K + gk] : zero;
       }
     } else if (vecB) {
       for (int e = tid; e < BK * BN / 8; e += NT) {
         const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
         const int gk = k0 + r, gn = n0 + c;
-        const bool ok = gk < K && gn < N;
-        cp_async16(bs + r * BS + c, ok ? B + (size_t)gk * N + gn : B, ok);
+        const bool ok = gk < kend && gn < N;
+        cp_async16(bs + r * BS + c, ok ? B + (size_t)gk * N + gn : B, ok, pol);
       }
     } else {
       for (int e = tid; e < BK * BN; e += NT) {
         const int r = e / BN, c = e % BN;
         const int gk = k0 + r, gn = n0 + c;
-        bs[r * BS + c] = (gk < K && gn < N) ? B[(size_t)gk * N + gn] : zero;
+        bs[r * BS + c] = (gk < kend && gn < N) ? B[(size_t)gk * N + gn] : zero;
       }
     }
   };
 
-  const int KT = (K + BK - 1) / BK;
+  const int KT = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < KT) load(s, s);
@@ -134,30 +156,27 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
     const int nk = kt + STAGES - 1;
     if (nk < KT) load(nk, nk % STAGES);
     cp_async_commit();
-    const bf16* as = As[kt % STAGES];
-    const bf16* bs = Bs[kt % STAGES];
+    const bf16* as = As + (kt % STAGES) * A_ELEMS;
+    const bf16* bs = Bs + (kt % STAGES) * B_ELEMS;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t af[MT][4], bfr[NTL][2];
 #pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        const bf16* p = as + (wm * WM + mi * 16 + g) * AS + kk + c2;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * AS);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * AS + 8);
-      }
+      for (int mi = 0; mi < MT; ++mi)
+        ldmatrix_x4(af[mi], as + (wm * WM + mi * 16 + (lane & 15)) * AS + kk + (lane >> 4) * 8);
 #pragma unroll
-      for (int ni = 0; ni < NTL; ++ni) {
-        if (BT) {
-          const bf16* q = bs + (wn * WN + ni * 8 + g) * BS + kk + c2;
-          bfr[ni][0] = *reinterpret_cast<const uint32_t*>(q);
-          bfr[ni][1] = *reinterpret_cast<const uint32_t*>(q + 8);
-        } else {
-          const bf16* q = bs + (kk + c2) * BS + wn * WN + ni * 8 + g;
-          bfr[ni][0] = pack_bf16(q[0], q[BS]);
-          bfr[ni][1] = pack_bf16(q[8 * BS], q[9 * BS]);
-        }
+      for (int np = 0; np < NTL / 2; ++np) {  // two n8 tiles per ldmatrix
+        uint32_t r4[4];
+        if (BT)
+          ldmatrix_x4(r4, bs + (wn * WN + np * 16 + (lane & 7) + (lane >> 4) * 8) * BS + kk +
+                              ((lane >> 3) & 1) * 8);
+        else
+          ldmatrix_x4_trans(r4, bs + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * BS +
+                                    wn * WN + np * 16 + (lane >> 4) * 8);
+        bfr[2 * np][0] = r4[0];
+        bfr[2 * np][1] = r4[1];
+        bfr[2 * np + 1][0] = r4[2];
+        bfr[2 * np + 1][1] = r4[3];
       }
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi)
@@ -167,16 +186,59 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
   }
   cp_async_wait<0>();
 
+  if (splits == 1) {
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NTL; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int gm = m0 + wm * WM + mi * 16 + g + (r >= 2 ? 8 : 0);
+          const int gn = n0 + wn * WN + ni * 8 + c2 + (r & 1);
+          if (gm < M && gn < N) C[(size_t)gm * N + gn] = from_f<TO>(acc[mi][ni][r]);
+        }
+    return;
+  }
+
+  // split K: the partial tile goes to this block's shared memory (the ring
+  // is free), then each block of the cluster sums a slice of the tile over
+  // all partials in split order and stores it
+  constexpr int RS = BN + 4;  // f32 row stride of the partial tile
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(gemm_smem);  // [BM][RS]
 #pragma unroll
   for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
     for (int ni = 0; ni < NTL; ++ni)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int gm = m0 + wm * WM + mi * 16 + g + (r >= 2 ? 8 : 0);
-        const int gn = n0 + wn * WN + ni * 8 + c2 + (r & 1);
-        if (gm < M && gn < N) C[(size_t)gm * N + gn] = from_f<TO>(acc[mi][ni][r]);
+        const int row = wm * WM + mi * 16 + g + (r >= 2 ? 8 : 0);
+        red[row * RS + wn * WN + ni * 8 + c2 + (r & 1)] = acc[mi][ni][r];
       }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rows = min(BM, M - m0);
+  const int n4 = rows * (BN / 4), per = (n4 + splits - 1) / splits;
+  const int e1 = min(n4, (split + 1) * per);
+  for (int e = split * per + tid; e < e1; e += NT) {
+    const int row = e / (BN / 4), col = (e % (BN / 4)) * 4;
+    float4 sum = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, 0) +
+                                                  row * RS + col);
+    for (int s = 1; s < splits; ++s) {
+      const float4 p = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, s) +
+                                                        row * RS + col);
+      sum.x += p.x;
+      sum.y += p.y;
+      sum.z += p.z;
+      sum.w += p.w;
+    }
+    const float vals[4] = {sum.x, sum.y, sum.z, sum.w};
+    TO* out = C + (size_t)(m0 + row) * N + n0 + col;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (n0 + col + u < N) out[u] = from_f<TO>(vals[u]);
+  }
+  cluster.sync();  // no block leaves while the others read its partial
 }
 
 // f32 CUDA-core kernel (f32 inputs; off the serving path).  Each thread
@@ -234,57 +296,90 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
+
+template <int BM, int BN, int WM, int WN, int STAGES, bool BT, typename TO>
+int launch_tile(const bf16* A, const bf16* B, TO* C, int M, int N, int K, int vecA, int vecB,
+                int splits, cudaStream_t stream) {
+  constexpr int BK = GEMM_BK;
+  const size_t smem = sizeof(bf16) * STAGES *
+                      ((size_t)BM * (BK + 8) + (size_t)(BT ? BN : BK) * ((BT ? BK : BN) + 8));
+  auto kern = gemm_bf16_kernel<BM, BN, WM, WN, STAGES, BT, TO>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // kc: ceil(K / splits) rounded up to the k-tile -- a function of (K, splits)
+  const int kc = ((K + splits - 1) / splits + BK - 1) / BK * BK;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((N + BN - 1) / BN) * splits, (M + BM - 1) / BM);
+  cfg.blockDim = dim3((BM / WM) * (BN / WN) * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kern, A, B, C, M, N, K, vecA, vecB, splits, kc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool BT, typename TO>
-void launch_bf16(const bf16* A, const bf16* B, TO* C, int M, int N, int K,
-                 cudaStream_t stream) {
+int launch_bf16(const bf16* A, const bf16* B, TO* C, int M, int N, int K, int splits,
+                cudaStream_t stream) {
+  if (splits < 1 || splits > 8) return static_cast<int>(cudaErrorInvalidValue);
   const int vecA = (K % 8 == 0) && (reinterpret_cast<uintptr_t>(A) % 16 == 0);
   const int vecB = ((BT ? K : N) % 8 == 0) && (reinterpret_cast<uintptr_t>(B) % 16 == 0);
-  if (M <= 16) {  // decode rows: one m16 tile, 32 columns per block
-    constexpr int BM = 16, BN = 32, BK = 64, WM = 16, WN = 8, ST = 4;
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    gemm_bf16_kernel<BM, BN, BK, WM, WN, ST, BT, TO>
-        <<<grid, (BM / WM) * (BN / WN) * 32, 0, stream>>>(A, B, C, M, N, K, vecA, vecB);
-  } else {        // prefill chunks: 64 x 64 tiles, four 32 x 32 warp tiles
-    constexpr int BM = 64, BN = 64, BK = 32, WM = 32, WN = 32, ST = 3;
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    gemm_bf16_kernel<BM, BN, BK, WM, WN, ST, BT, TO>
-        <<<grid, (BM / WM) * (BN / WN) * 32, 0, stream>>>(A, B, C, M, N, K, vecA, vecB);
-  }
+  // decode rows: one m16 tile; 128 columns (4 stages) where K is split, so
+  // that a block keeps 16 KB of B per stage in flight, else 64 (5 stages),
+  // which fills the SMs better at the LM head's 50k-262k columns
+  if (M <= 16 && splits > 1)
+    return launch_tile<16, 128, 16, 32, 4, BT, TO>(A, B, C, M, N, K, vecA, vecB, splits,
+                                                   stream);
+  if (M <= 16)
+    return launch_tile<16, 64, 16, 16, 5, BT, TO>(A, B, C, M, N, K, vecA, vecB, splits,
+                                                  stream);
+  // mixed-tick and prefill rows: 64 x 64 tiles, four 32 x 32 warp tiles, 4 stages
+  return launch_tile<64, 64, 32, 32, 4, BT, TO>(A, B, C, M, N, K, vecA, vecB, splits, stream);
 }
 
 }  // namespace repro
 
 // in_bf16: A and B are bf16 (else f32).  out_bf16: C is bf16 (else f32).
-// trans_b: B is [N, K].  Returns cudaGetLastError() after the launch.
+// trans_b: B is [N, K].  splits: the bf16 kernel's split of K (1..8, from
+// block_gemm.gemm_splits); the f32 kernel does not split.  Returns the
+// launch's error, else cudaGetLastError() after it.
 extern "C" int repro_block_gemm(const void* a, const void* b, void* c, int M, int N,
-                                int K, int in_bf16, int out_bf16, int trans_b,
+                                int K, int in_bf16, int out_bf16, int trans_b, int splits,
                                 void* stream) {
   using repro::bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* A16 = static_cast<const bf16*>(a);
   const bf16* B16 = static_cast<const bf16*>(b);
-  if (in_bf16 && out_bf16 && trans_b) {
-    repro::launch_bf16<true, bf16>(A16, B16, static_cast<bf16*>(c), M, N, K, s);
-  } else if (in_bf16 && trans_b) {
-    repro::launch_bf16<true, float>(A16, B16, static_cast<float*>(c), M, N, K, s);
-  } else if (in_bf16 && out_bf16) {
-    repro::launch_bf16<false, bf16>(A16, B16, static_cast<bf16*>(c), M, N, K, s);
-  } else if (in_bf16) {
-    repro::launch_bf16<false, float>(A16, B16, static_cast<float*>(c), M, N, K, s);
-  } else if (!out_bf16) {
-    constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    const float* A32 = static_cast<const float*>(a);
-    const float* B32 = static_cast<const float*>(b);
-    float* C32 = static_cast<float*>(c);
-    if (trans_b)
-      repro::gemm_f32_kernel<BM, BN, BK, TM, TN, true>
-          <<<grid, (BM / TM) * (BN / TN), 0, s>>>(A32, B32, C32, M, N, K);
-    else
-      repro::gemm_f32_kernel<BM, BN, BK, TM, TN, false>
-          <<<grid, (BM / TM) * (BN / TN), 0, s>>>(A32, B32, C32, M, N, K);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (in_bf16 && out_bf16 && trans_b)
+    return repro::launch_bf16<true, bf16>(A16, B16, static_cast<bf16*>(c), M, N, K, splits, s);
+  if (in_bf16 && trans_b)
+    return repro::launch_bf16<true, float>(A16, B16, static_cast<float*>(c), M, N, K, splits,
+                                           s);
+  if (in_bf16 && out_bf16)
+    return repro::launch_bf16<false, bf16>(A16, B16, static_cast<bf16*>(c), M, N, K, splits,
+                                           s);
+  if (in_bf16)
+    return repro::launch_bf16<false, float>(A16, B16, static_cast<float*>(c), M, N, K, splits,
+                                            s);
+  if (out_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  const float* A32 = static_cast<const float*>(a);
+  const float* B32 = static_cast<const float*>(b);
+  float* C32 = static_cast<float*>(c);
+  if (trans_b)
+    repro::gemm_f32_kernel<BM, BN, BK, TM, TN, true>
+        <<<grid, (BM / TM) * (BN / TN), 0, s>>>(A32, B32, C32, M, N, K);
+  else
+    repro::gemm_f32_kernel<BM, BN, BK, TM, TN, false>
+        <<<grid, (BM / TM) * (BN / TN), 0, s>>>(A32, B32, C32, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,8 +16,22 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_paged_ref, flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_SMEM_LIMIT = 227 * 1024  # an H100 block's dynamic shared memory
 _fn = None
 _fn_dense = None
+
+
+def dense_smem_bytes(d: int, dtype) -> int:
+    """Dynamic shared memory of one dense-attention block.  bf16 (tensor
+    cores): 64 Q rows and a 2-stage ring of K and V tiles (64 rows, 32 at
+    d > 128), bf16, d padded to a power of two >= 16 plus 8 elements a row.
+    f32 (CUDA cores): 64 Q rows and 32 K rows of d + 1, 32 V rows of d, the
+    64 x 33 score tile and three 64-float row vectors."""
+    if dtype == torch.bfloat16:
+        D = max(16, 1 << (d - 1).bit_length())
+        kt = 32 if D > 128 else 64
+        return 2 * (64 + 4 * kt) * (D + 8)
+    return 4 * (96 * (d + 1) + 32 * d + 64 * 33 + 192)
 
 
 def _entry_dense():
@@ -59,7 +73,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash_attention: q {tuple(q.shape)} vs k/v {tuple(k.shape)}")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k and v need a unit stride along d")
-    if 4 * (96 * (d + 1) + 32 * d + 64 * 33 + 192) > 200 * 1024:
+    if dense_smem_bytes(d, q.dtype) > _SMEM_LIMIT:
         raise ValueError(f"flash_attention: head dim {d} exceeds shared memory")
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=dev).transpose(1, 2)
     if B == 0 or Sq == 0 or H == 0:

@@ -6,6 +6,8 @@ Tolerance: f32, max abs <= 1e-5 — XLA and PyTorch sum in different orders,
 so results differ by a few f32 ulps of O(1) values, never more.  The CUDA
 kernels themselves run only on the card; ``chip_smoke.py`` holds them
 against these plain versions there."""
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,11 +22,11 @@ from repro.models import layers as JL
 from repro_torch.core import quant as tquant
 from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.block_gemm import block_gemm, block_gemm_int8
+from repro_torch.kernels.block_gemm import block_gemm, block_gemm_int8, gemm_splits
 from repro_torch.kernels.decode_attention import flash_decode as t_flash_decode
 from repro_torch.kernels.decode_attention import flash_decode_paged
 from repro_torch.kernels.flash_attention import flash_attention as t_flash_attention
-from repro_torch.kernels.flash_attention import flash_attention_paged
+from repro_torch.kernels.flash_attention import dense_smem_bytes, flash_attention_paged
 from repro_torch.kernels.ops import attend_decode, attention
 from repro_torch.models import layers as TL
 from repro_torch.models.model import _pool
@@ -55,6 +57,32 @@ def test_block_gemm_plain_matches_jax(M, K, N):
     want = jref.block_gemm_ref(jnp.asarray(a), jnp.asarray(b))
     close(block_gemm(t(a), t(b)), want)
     close(tref.block_gemm_ref(t(a), t(b), torch.float32), want)
+
+
+ENGINE_KN = [(2048, 2048), (2048, 8192), (8192, 2048), (2048, 50432)]
+
+
+def test_gemm_splits_depend_on_k_n_only_and_fill_the_card():
+    """The bf16 kernel's split of K is a plain function of (K, N) -- M cannot
+    reach it, so every output row is the same sum for every M -- and at the
+    engine shapes (olmo-1b projections and head) and the edge ones
+    (gemma3-4b) it gives every one of the H100's 132 SMs a block."""
+    assert list(inspect.signature(gemm_splits).parameters) == ["K", "N"]
+    for K, N in ENGINE_KN + [(2560, 2048), (2560, 10240), (10240, 2560), (2560, 262144)]:
+        s = gemm_splits(K, N)
+        assert s in (1, 2, 4, 8)
+        assert -(-N // 64) * s >= 132, (K, N, s)
+        assert s == 1 or K // s >= 256
+    assert gemm_splits(64, 96) == 1  # short K is never split below 256
+
+
+@pytest.mark.parametrize("d", [16, 20, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_attention_smem_fits_a_block(d, dtype):
+    """Every head width the wrapper takes fits one H100 block's 227 KB; at
+    d = 256 the bf16 kernel keeps two blocks on an SM."""
+    assert 0 < dense_smem_bytes(d, dtype) <= 227 * 1024
+    assert 2 * dense_smem_bytes(256, torch.bfloat16) <= 227 * 1024
 
 
 def test_block_gemm_bf16_f32_store_matches_jax():
@@ -216,6 +244,15 @@ DENSE_CASES = [  # B, H, K, Sq, Sk, d, causal, window, softcap
     (2, 2, 1, 13, 29, 16, False, 0, 0.0),     # bidirectional, ragged
     (1, 2, 2, 33, 70, 16, False, 10, 5.0),    # bidirectional window + softcap
     (1, 4, 2, 50, 30, 16, True, 0, 0.0),      # Sq > Sk: 20 all-masked rows
+    # the card kernel's tile edges (64-row query and key tiles, 32-row key
+    # tiles at d > 128): lengths one past a tile, G = H/K in {1, 2, 8}, a
+    # window crossing a 64-row tile, and Sq > Sk
+    (1, 4, 4, 65, 65, 64, True, 0, 0.0),      # d=64, G=1, one row past a tile
+    (1, 4, 2, 129, 129, 128, True, 0, 0.0),   # d=128, G=2, one past two tiles
+    (1, 8, 1, 65, 129, 16, True, 0, 0.0),     # G=8, Sq < Sk
+    (1, 8, 1, 130, 130, 32, True, 70, 0.0),   # G=8, window 70 across tiles
+    (1, 2, 1, 129, 65, 64, True, 0, 0.0),     # Sq > Sk: 64 all-masked rows
+    (1, 4, 2, 100, 129, 128, False, 33, 0.0), # bidirectional window across tiles
 ]
 
 
