@@ -9,16 +9,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    and the registers and spills ptxas reported for the tensor-core kernels;
 2. kernels: each of the six hand-written kernels against its plain PyTorch
    version on the card at its path's shapes, in f32 and bf16 (the int8
-   GEMM exactly, on integer-valued cases; dense attention also at the
-   tiles' edges), with its time, the plain version's time, the library
+   GEMM exactly, on integer-valued cases, over all four of its routes;
+   dense attention also at the tiles' edges; slot decode also repeated,
+   bit for bit), with its time, the plain version's time, the library
    call's time where one exists and the least time the card could take
    (bytes over 3.35 TB/s, operations over the peak rate of their type);
-   the bf16 GEMM's rows must be bit-identical across M;
+   the bf16 and int8 GEMMs' rows must be bit-identical across M; the
+   per-row activation quantize kernel the port adds must equal its plain
+   version bit for bit;
 3. edge: the paper's int8 path on full-width gemma3-4b (34 layers, seeded
    random weights, ``quantize_params``): ``prefill`` of 2 x 1536 tokens
    into linear and ring caches, then 32 greedy ``decode_step``s.  The int8
-   GEMM, dense flash attention and slot flash-decode must each launch, the
-   bf16 GEMM must not; a reduced gemma3-4b must give the same logits on
+   GEMM and the quantize kernel must launch once per w8a8 GEMM (239 a
+   prefill and a step), slot flash-decode once per layer a step, dense
+   flash attention must launch, the bf16 GEMM must not, and the traces
+   must show no merge kernel and no per-GEMM PyTorch reduction; a reduced
+   gemma3-4b must give the same logits on
    the card as on the CPU's plain versions (under w8a8, up to one-step
    int8 flips at rounding boundaries, which ``flip_witness`` finds and
    checks); the bf16 model's argmax agreement on the same tokens is
@@ -30,7 +36,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    reconcile, and two prompts served alone must give the same tokens; then
    a short ``EngineConfig(quant="w8a8")`` pass runs the int8 GEMM on the
    paged path;
-5. a JSON ``kernels`` line, then the JSON result as the last line.
+5. a JSON ``added_kernels`` line (the quantize kernel), a JSON ``kernels``
+   line (the six ported TPU kernels), then the JSON result as the last
+   line.
 
 It needs CUDA: without a card it exits 2 before printing anything else.
 """
@@ -263,9 +271,13 @@ def gemm_row_invariance(gen):
         f"{[(K, N) for K, N, _ in cases]} (the last as [N, K]), f32 and bf16 out")
 
 
+# the (K, N) of every int8 GEMM of the w8a8 engine at olmo-1b's widths
+OLMO_INT8_KN = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 50432))
+
+
 def int8_phase(flush, gen):
     from repro_torch.kernels import ref
-    from repro_torch.kernels.block_gemm import block_gemm_int8
+    from repro_torch.kernels.block_gemm import block_gemm_int8, int8_route, int8_splits
     # Tolerance 0.  Integer case: unit scales and operands in [-7, 7] at
     # K = 10240 keep |acc| <= 501,760 < 2^24, so every output is the exact
     # integer product (the plain version sums in f64, exactly).  Scaled
@@ -278,6 +290,18 @@ def int8_phase(flush, gen):
     shapes = timed + [(2, 2560, 1024), (2, 2048, 2560), (3072, 2560, 1024),
                       (3072, 2048, 2560), (37, 1000, 777), (2, 64, 64), (80, 64, 32),
                       (2, 128, 256)]
+    # every route at the FFN shapes: decode rows (16-row tiles), the engine's
+    # chunks (64-row tiles), prefill (wgmma); and the wgmma tiles' ragged
+    # M, N and K edges (K a multiple of 16, not of the 128-byte k-tile; N
+    # odd)
+    shapes += [(M, K, N) for M in (1, 8, 16, 17, 33, 64, 72, 3072)
+               for (K, N) in ((2560, 10240), (10240, 2560)) if (M, K, N) not in shapes]
+    shapes += [(3000, 2000, 1000), (3000, 2000, 1001)]  # the second: element-wise stores
+    # the w8a8 engine's olmo-1b GEMMs: decode ticks (M 1-8) and the 64-row
+    # chunks of mixed ticks (M 64-67, where the 50432-column head turns to
+    # the wgmma route), at wq / wk / wv / wo, w_gate / w_up, w_down and the head
+    shapes += [(M, K, N) for M in (1, 4, 8, 64, 67)
+               for (K, N) in OLMO_INT8_KN if (M, K, N) not in shapes]
 
     def operands(M, K, N, lim):
         a = torch.randint(-lim, lim + 1, (M, K), generator=gen, device="cuda",
@@ -286,7 +310,13 @@ def int8_phase(flush, gen):
                           dtype=torch.int8)
         return a, b
 
+    def scales(M, N):
+        return (torch.rand(M, 1, generator=gen, device="cuda") * 0.01 + 1e-4,
+                torch.rand(1, N, generator=gen, device="cuda") * 0.01 + 1e-4)
+
+    routes = set()
     for (M, K, N) in shapes:
+        routes.add(int8_route(M, N, tma_ok=K % 16 == 0))
         a, b = operands(M, K, N, 7)
         ones_m = torch.ones(M, 1, device="cuda")
         ones_n = torch.ones(1, N, device="cuda")
@@ -294,37 +324,129 @@ def int8_phase(flush, gen):
         check_close(f"block_gemm_int8 exact {M}x{K}x{N}",
                     block_gemm_int8(a, b, ones_m, ones_n), exact, 0.0, 0.0)
         a, b = operands(M, K, N, 127)
-        sa = torch.rand(M, 1, generator=gen, device="cuda") * 0.01 + 1e-4
-        sb = torch.rand(1, N, generator=gen, device="cuda") * 0.01 + 1e-4
+        sa, sb = scales(M, N)
         for dt in (torch.float32, torch.bfloat16):
             check_close(f"block_gemm_int8 scaled {dt} {M}x{K}x{N}",
                         block_gemm_int8(a, b, sa, sb, dt),
                         ref.block_gemm_int8_ref(a, b, sa, sb, dt), 0.0, 0.0)
     torch.cuda.synchronize()
+    if routes != {0, 1, 2, 3}:
+        fail(f"block_gemm_int8: the checked shapes took routes {sorted(routes)}, not all four")
     log(f"block_gemm_int8: {len(shapes)} shapes agree exactly (integer case and "
-        f"scaled f32/bf16 out)")
+        f"scaled f32/bf16 out) over all four routes")
+    int8_row_invariance(gen, operands, scales)
     rows = []
     for (M, K, N) in timed:
         a, b = operands(M, K, N, 127)
-        sa = torch.rand(M, 1, generator=gen, device="cuda") * 0.01 + 1e-4
-        sb = torch.rand(1, N, generator=gen, device="cuda") * 0.01 + 1e-4
+        sa, sb = scales(M, N)
         out_dtype = torch.float32 if N == 262144 else torch.bfloat16
         ms = time_ms(lambda: block_gemm_int8(a, b, sa, sb, out_dtype), flush)
         plain = time_ms(lambda: ref.block_gemm_int8_ref(a, b, sa, sb, out_dtype), flush,
                         reps=5)
-        lib = None
+        bt = b.T  # [K, N] column-major view: no copy
         if M > 16:  # torch._int_mm takes M > 16 only
-            bt = b.T  # [K, N] column-major view: no copy
+            lib_label = "torch._int_mm+epilogue"
             lib = time_ms(lambda: (torch._int_mm(a, bt).float() * sa * sb).to(out_dtype),
                           flush)
+        else:  # A zero-padded to 32 rows, then the M rows kept
+            lib_label = "torch._int_mm+epilogue, padded to 32 rows"
+            a32 = torch.zeros(32, K, dtype=torch.int8, device="cuda")
+            a32[:M] = a
+            lib = time_ms(lambda: (torch._int_mm(a32, bt)[:M].float() * sa * sb).to(
+                out_dtype), flush)
         out_bytes = M * N * (4 if out_dtype == torch.float32 else 2)
         bms, by = bound_ms(M * K + N * K + 4 * (M + N) + out_bytes, 2 * M * N * K,
                            torch.int8)
+        route = int8_route(M, N)
         rows.append(dict(shape=f"{M}x{K}x{N}", ms=ms, plain_ms=plain, library_ms=lib,
+                         library=lib_label, bound_ms=bms, bound_by=by, route=route,
+                         splits=int8_splits(K, N) if route < 2 else 1))
+        log(f"  block_gemm_int8 M={M} K={K} N={N} ({str(out_dtype)[6:]} out, route {route}, "
+            f"splits {rows[-1]['splits']}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"{lib_label} {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    return 0.0, rows
+
+
+def int8_row_invariance(gen, operands, scales):
+    """Every output row of the int8 GEMM is the same whatever M is and
+    whichever route takes it: ``block_gemm_int8(A[:M], B)`` equals the first
+    M rows of the 3072-row product (the wgmma route) bit for bit for M in
+    {1, ..., 72} (the two mma.sync routes), f32 and bf16 out, at gemma3-4b's
+    and olmo-1b's widths; and each head's rows at M <= 72 against its 72-row
+    product (the wgmma route from M = 67 on)."""
+    from repro_torch.kernels.block_gemm import block_gemm_int8, int8_route
+    Ms = (1, 4, 8, 16, 17, 33, 64, 67, 72)
+    cases = [(2560, 2048, 3072), (2560, 10240, 3072), (10240, 2560, 3072),
+             (2560, 262144, 72)]
+    cases += [(K, N, 72 if N > 10240 else 3072) for K, N in OLMO_INT8_KN]
+    for K, N, full_m in cases:
+        a, b = operands(full_m, K, N, 127)
+        sa, sb = scales(full_m, N)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            full = block_gemm_int8(a, b, sa, sb, out_dtype)
+            for M in Ms:
+                part = block_gemm_int8(a[:M].contiguous(), b, sa[:M].contiguous(), sb,
+                                       out_dtype)
+                if not torch.equal(part, full[:M]):
+                    n = int((part != full[:M]).sum())
+                    fail(f"block_gemm_int8 rows differ between M={M} (route "
+                         f"{int8_route(M, N)}) and M={full_m} (route "
+                         f"{int8_route(full_m, N)}) at K={K} N={N} {out_dtype}: {n} entries")
+    torch.cuda.synchronize()
+    log(f"block_gemm_int8: rows bit-identical across M in {Ms} and 3072 (72 for the "
+        f"heads) at (K, N) {[(K, N) for K, N, _ in cases]}, f32 and bf16 out")
+
+
+def quantize_phase(flush, gen):
+    """The per-row quantize kernel against its plain version, bit for bit
+    (``torch.equal`` on q and scale), at every edge GEMM's shape (M = 2 and
+    3072; K = 2048, 2560, 10240) and the w8a8 engine's at olmo-1b's widths
+    (M = 4, 64 and 67; K = 2048 and 8192), bf16 and f32, with an all-zero row, a row
+    whose amax is under 1e-8, and rows whose values land exactly on k + 0.5
+    steps (amax 127 gives scale 1: 2.5 and -3.5 must round to even); and
+    against ``core.quant.quantize(x, axis=0)`` on a CPU copy of the input,
+    the arithmetic the CPU tests hold equal to JAX's."""
+    from repro_torch.core.quant import quantize
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quantize import quantize_rows
+    n = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for M in (2, 4, 64, 67, 3072):
+            for K in (2048, 2560, 8192, 10240):
+                x = torch.randn(M, K, generator=gen, device="cuda").to(dt)
+                x[0] = 0.0
+                x[1] = 3e-9
+                x[1, 5] = -7e-9
+                if M > 2:
+                    x[2] = 0.0
+                    x[2, :6] = torch.tensor([127.0, 2.5, -3.5, 0.5, -1.5, 126.5])
+                q, scale = quantize_rows(x)
+                qr, sr = ref.quantize_rows_ref(x)
+                qc = quantize(x.cpu(), axis=0)
+                if not (torch.equal(q, qr) and torch.equal(scale, sr)):
+                    fail(f"quantize_rows {dt} {M}x{K}: {int((q != qr).sum())} values and "
+                         f"{int((scale != sr).sum())} scales differ from the plain version")
+                if not (torch.equal(q.cpu(), qc.q) and torch.equal(scale.cpu(), qc.scale)):
+                    fail(f"quantize_rows {dt} {M}x{K}: differs from core.quant.quantize on "
+                         f"the CPU")
+                if M > 2 and q[2, :6].tolist() != [127, 2, -4, 0, -2, 126]:
+                    fail(f"quantize_rows {dt}: ties rounded {q[2, :6].tolist()}")
+                n += 1
+    torch.cuda.synchronize()
+    log(f"quantize_rows: {n} cases (M 2, 4, 64, 67, 3072 x K 2048, 2560, 8192, 10240 x "
+        f"f32, bf16) "
+        f"bit-identical to the plain version and to core.quant.quantize on the CPU, "
+        f"zero, sub-1e-8 and tie rows included")
+    rows = []
+    for M, K in ((3072, 2560), (3072, 10240), (2, 2560), (2, 10240)):
+        x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        ms = time_ms(lambda: quantize_rows(x), flush)
+        plain = time_ms(lambda: ref.quantize_rows_ref(x), flush)
+        bms, by = bound_ms(M * K * 2 + M * K + 4 * M, 0, torch.bfloat16)
+        rows.append(dict(shape=f"{M}x{K} bf16", ms=ms, plain_ms=plain, library_ms=None,
                          bound_ms=bms, bound_by=by))
-        log(f"  block_gemm_int8 M={M} K={K} N={N} ({str(out_dtype)[6:]} out): kernel "
-            f"{ms:.4f} ms, plain {plain:.4f} ms, torch._int_mm+epilogue "
-            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {bms:.4f} ms ({by})")
+        log(f"  quantize_rows bf16 {M}x{K}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bms:.4f} ms ({by})")
     return 0.0, rows
 
 
@@ -413,31 +535,51 @@ def slot_decode_phase(flush, gen):
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import flash_decode
     # Tolerances (``check_attn``): f32 2e-5 elementwise; bf16 2^-7 per row.
-    B = 4
-    cases = [  # layout, S, pos, start (, H, K, d)
+    # Every slot with start > pos must be exactly 0, and a second identical
+    # call must give the same bits (the kernel's ticket counters were reset).
+    cases = [  # layout, S, pos, start (, H, K, d (, dv: v is k, read to dv)); B = len(pos)
         ("linear", 1600, [1567, 1600, 10, 5], [0, 0, 0, 9]),   # pos == S; start > pos
         ("ring", 1024, [1567, 1024, 500, 3000], [0, 0, 0, 3001]),
         ("linear", 64, [50, 64, 3, 7], [0, 0, 0, 8], 4, 2, 16),  # reduced widths
+        # bf16 rows of 40 bytes: element-wise loads, a partial 16-byte piece
+        ("ring", 100, [150, 100, 3, 70], [0, 0, 0, 71], 4, 2, 20),
+        # v is k, read to dv = 32 of its 64 columns (MLA-style narrowing)
+        ("linear", 200, [199, 130, 0, 60], [0, 0, 0, 61], 4, 2, 64, 32),
         ("ring", 32, [50, 32, 3, 60], [0, 0, 0, 61], 4, 2, 16),
+        # 64 row blocks a slot, one slot and eight
+        ("linear", 4096, [4000], [0]),
+        ("ring", 4096, [9000], [0]),
+        ("linear", 4096, [4095, 4096, 100, 3000, 64, 0, 2047, 10],
+         [0, 0, 0, 2900, 65, 0, 0, 0]),
+        ("ring", 4096, [5000, 4096, 63, 12000, 4000, 1, 8191, 300],
+         [0, 0, 0, 11000, 4001, 0, 0, 0]),
     ]
     err = {}
     for dtype in (torch.float32, torch.bfloat16):
         for layout, S, pos, start, *hkd in cases:
-            H, K, d = hkd or (8, 4, 256)
+            H, K, d, dv = (*hkd, None)[:4] if hkd else (8, 4, 256, None)
+            B = len(pos)
             q = torch.randn(B, H, d, generator=gen, device="cuda").to(dtype)
             k = torch.randn(B, S, K, d, generator=gen, device="cuda").to(dtype)
-            v = torch.randn(B, S, K, d, generator=gen, device="cuda").to(dtype)
+            v = k if dv else torch.randn(B, S, K, d, generator=gen, device="cuda").to(dtype)
             p = torch.tensor(pos, dtype=torch.int32, device="cuda")
             st = torch.tensor(start, dtype=torch.int32, device="cuda")
             for cap in (0.0, 50.0):
-                got = flash_decode(q, k, v, p, st, layout=layout, softcap=cap)
-                want = ref.flash_decode_ref(q, k, v, p, st, layout=layout, softcap=cap)
-                err[(dtype, f"{layout}{S} cap{cap:g}")] = check_attn(
-                    f"flash_decode {dtype} {layout} S={S} softcap {cap}", got, want, dtype)
-                if float(got[3].abs().max()) != 0.0:
-                    fail("flash_decode: a slot with start > pos is not exactly zero")
+                got = flash_decode(q, k, v, p, st, layout=layout, softcap=cap, dv=dv)
+                again = flash_decode(q, k, v, p, st, layout=layout, softcap=cap, dv=dv)
+                want = ref.flash_decode_ref(q, k, v, p, st, layout=layout, softcap=cap,
+                                            dv=dv)
+                name = f"{layout}{S} B{B} cap{cap:g}"
+                err[(dtype, name)] = check_attn(f"flash_decode {dtype} {name}", got, want,
+                                                dtype)
+                if not torch.equal(got, again):
+                    fail(f"flash_decode {dtype} {name}: a repeated call differs")
+                for i in range(B):
+                    if start[i] > pos[i] and float(got[i].abs().max()) != 0.0:
+                        fail("flash_decode: a slot with start > pos is not exactly zero")
     torch.cuda.synchronize()
-    log("flash_decode: linear and ring x (f32, bf16) x softcap agree; " + _errs(err))
+    log(f"flash_decode: {len(cases)} cases (linear and ring, B 1-8, S up to 4096) x "
+        "(f32, bf16) x softcap agree, repeated calls bit-equal; " + _errs(err))
     rows = []
     B, H, K, d = 2, 8, 4, 256
     for layout, S, pos in (("linear", 1600, 1567), ("ring", 1024, 1567)):
@@ -591,7 +733,9 @@ def _to_cuda(tree):
 
 class _Int8Recorder:
     """Records every w8a8 GEMM of ``core.gemm`` by device, in call order: the
-    float activation, its int8 row quantization and the GEMM's output."""
+    float activation, its int8 row quantization (``quantize_rows``: the
+    kernel on the card, its plain version on the CPU) and the GEMM's
+    output."""
 
     def __init__(self):
         from repro_torch.core import gemm
@@ -599,23 +743,23 @@ class _Int8Recorder:
 
     def __enter__(self):
         g = self.gemm
-        self._quantize, self._matmul = g.quantize, g.cgra_matmul_int8
+        self._quantize, self._matmul = g.quantize_rows, g.cgra_matmul_int8
 
-        def quantize(x, axis):
-            qt = self._quantize(x, axis)
+        def quantize_rows(x):
+            q, scale = self._quantize(x)
             self.calls[x.device.type].append(
-                dict(x=x.float().cpu(), q=qt.q.cpu(), scale=qt.scale.cpu()))
-            return qt
+                dict(x=x.float().cpu(), q=q.cpu(), scale=scale.cpu()))
+            return q, scale
 
         def matmul(*args, **kw):
             out = self._matmul(*args, **kw)
             self.calls[out.device.type][-1]["out"] = out.float().cpu()
             return out
-        g.quantize, g.cgra_matmul_int8 = quantize, matmul
+        g.quantize_rows, g.cgra_matmul_int8 = quantize_rows, matmul
         return self
 
     def __exit__(self, *exc):
-        self.gemm.quantize, self.gemm.cgra_matmul_int8 = self._quantize, self._matmul
+        self.gemm.quantize_rows, self.gemm.cgra_matmul_int8 = self._quantize, self._matmul
 
 
 def flip_witness(rec) -> dict:
@@ -751,7 +895,7 @@ def edge_phase(counters):
         c.launches = 0
     outs, toks, t_pre, t_dec = run(cfg, params_q)
     launches = {n: c.launches for n, c in names.items()}
-    for n in ("block_gemm_int8", "flash_attention", "flash_decode"):
+    for n in ("block_gemm_int8", "quantize_rows", "flash_attention", "flash_decode"):
         if launches[n] <= 0:
             fail(f"{n} was not launched during the edge phase")
     if launches["block_gemm"] != 0:
@@ -764,6 +908,16 @@ def edge_phase(counters):
     M.prefill(cfg, params_q, prompts, cache_len=cache_len)
     per_prefill = {n: c.launches for n, c in names.items()}
     per_step = {n: (launches[n] - per_prefill[n]) / steps for n in names}
+    # every w8a8 GEMM (7 projections a layer and the tied head) is one
+    # quantize launch and one GEMM launch; slot decode is one launch a layer
+    n_gemm = 7 * cfg.num_layers + 1
+    for n, want in (("block_gemm_int8", n_gemm), ("quantize_rows", n_gemm)):
+        if per_prefill[n] != want or per_step[n] != want:
+            fail(f"edge {n}: {per_prefill[n]} launches per prefill and {per_step[n]} per "
+                 f"decode step, not {want}")
+    if per_step["flash_decode"] != cfg.num_layers:
+        fail(f"edge flash_decode: {per_step['flash_decode']} launches per decode step, "
+             f"not {cfg.num_layers}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tokens_per_s = B * steps / t_dec
     log(f"edge w8a8: prefill {B}x{S} in {t_pre * 1e3:.1f} ms, {steps} decode steps at "
@@ -771,7 +925,7 @@ def edge_phase(counters):
         f"device memory {peak:.2f} GiB")
     log(f"edge launches: total {json.dumps(launches)}; per prefill "
         f"{json.dumps(per_prefill)}; per decode step {json.dumps(per_step)}")
-    trace = trace_edge(cfg, params_q, prompts, cache_len, t_pre, t_dec / steps)
+    trace = trace_edge(cfg, params_q, prompts, cache_len, t_pre, t_dec / steps, n_gemm)
     # bf16 on the same tokens: argmax agreement (information, not a gate)
     outs_bf, _, t_pre_bf, t_dec_bf = run(cfg, params, forced=toks)
     agree = float(torch.mean(torch.stack([
@@ -789,7 +943,8 @@ def edge_phase(counters):
 
 
 def _traced(fn):
-    """Device time by kernel of ``fn`` under torch.profiler."""
+    """Device time by kernel of ``fn`` under torch.profiler: (total ms, the
+    top 8 {name xcount: ms}, every kernel's (name, launches))."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -799,27 +954,35 @@ def _traced(fn):
     kernels = [e for e in events if _device_us(e) > 0 and not e.key.startswith("aten::")]
     top = sorted(kernels, key=_device_us, reverse=True)[:8]
     return (sum(_device_us(e) for e in kernels) / 1e3,
-            {f"{e.key[:60]} x{e.count}": _device_us(e) / 1e3 for e in top})
+            {f"{e.key[:60]} x{e.count}": _device_us(e) / 1e3 for e in top},
+            [(e.key, e.count) for e in kernels])
 
 
-def trace_edge(cfg, params, prompts, cache_len, prefill_s, step_s):
+def trace_edge(cfg, params, prompts, cache_len, prefill_s, step_s, n_gemm):
     """Traced prefill and decode step of the edge path, set against the
-    untraced times: idle share = 1 - device time / untraced time."""
+    untraced times: idle share = 1 - device time / untraced time.  Neither
+    may show slot decode's old merge kernel, nor a PyTorch reduction that
+    runs once per w8a8 GEMM (``n_gemm`` times or more: the eager activation
+    quantization's amax)."""
     from repro_torch.models import model as M
     box = {}
 
     def pre():
         box["lc"] = M.prefill(cfg, params, prompts, cache_len=cache_len)
     out = {}
-    dev, top = _traced(pre)
+    dev, top, every = _traced(pre)
     out["prefill"] = dict(device_ms=dev, untraced_ms=prefill_s * 1e3, top=top,
                           idle_share=1 - dev / (prefill_s * 1e3) if dev else None)
     logits, caches = box["lc"]
     tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
     S = prompts.shape[1]
-    dev, top = _traced(lambda: M.decode_step(cfg, params, caches, tok, S))
+    dev, top, every_step = _traced(lambda: M.decode_step(cfg, params, caches, tok, S))
     out["decode"] = dict(device_ms=dev, untraced_ms=step_s * 1e3, top=top,
                          idle_share=1 - dev / (step_s * 1e3) if dev else None)
+    for kind, kernels in (("prefill", every), ("decode", every_step)):
+        for name, count in kernels:
+            if "merge_kernel" in name or ("reduce_kernel" in name and count >= n_gemm):
+                fail(f"traced edge {kind}: {name[:80]} x{count} is still launched")
     for kind, o in out.items():
         log(f"traced edge {kind}: device {o['device_ms']:.3f} ms of an untraced "
             f"{o['untraced_ms']:.3f} ms; top kernels (ms): "
@@ -925,8 +1088,10 @@ def engine_phase(counters, paged_path):
     for rid in qrids:
         if len(qres[rid].generated) != 16 or not all(0 <= t < V for t in qres[rid].generated):
             fail(f"w8a8 engine rid {rid}: bad output {qres[rid].generated}")
-    if qlaunch["block_gemm_int8"] <= 0 or qlaunch["block_gemm"] != 0:
-        fail(f"w8a8 engine launches {qlaunch}: the int8 GEMM must carry every GEMM")
+    if qlaunch["block_gemm_int8"] <= 0 or qlaunch["block_gemm"] != 0 \
+            or qlaunch["quantize_rows"] != qlaunch["block_gemm_int8"]:
+        fail(f"w8a8 engine launches {qlaunch}: the int8 GEMM must carry every GEMM, "
+             f"each after one quantize launch")
     agree = statistics.mean(
         sum(a == b for a, b in zip(qres[q].generated, batched[tuple(p)])) / 16
         for q, p in zip(qrids, prompts[:4]))
@@ -1010,6 +1175,7 @@ def main() -> int:
     from repro_torch.kernels.block_gemm import block_gemm, block_gemm_int8
     from repro_torch.kernels.decode_attention import flash_decode, flash_decode_paged
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_paged
+    from repro_torch.kernels.quantize import quantize_rows
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1023,35 +1189,40 @@ def main() -> int:
     _build.build_all()
     log(f"kernels built in {_build.BUILD_SECONDS:.1f} s "
         f"({time.time() - t0:.1f} s with loading checks)")
-    resources = {k: v for n in ("flash_attention", "block_gemm")
+    resources = {k: v for n in ("flash_attention", "block_gemm", "block_gemm_int8",
+                                "decode_attention", "quantize")
                  for k, v in _build.resources(n).items()
-                 if "dense_tc" in k or "gemm_bf16" in k}
-    for k, v in resources.items():  # the tensor-core kernels, from ptxas -v
+                 if any(t in k for t in ("dense_tc", "gemm_bf16", "gemm_int8", "slot",
+                                         "quantize"))}
+    for k, v in resources.items():  # the redesigned kernels, from ptxas -v
         log(f"  ptxas {k[:90]}: {v.get('registers')} registers, spill stores "
             f"{v.get('spill_stores')} B, spill loads {v.get('spill_loads')} B")
 
     flush = L2Flush()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    counters = [block_gemm, block_gemm_int8, flash_decode_paged, flash_decode,
-                flash_attention_paged, flash_attention]
+    counters = [block_gemm, block_gemm_int8, quantize_rows, flash_decode_paged,
+                flash_decode, flash_attention_paged, flash_attention]
     rows, errs, launches, report = {}, {}, {}, {"ptxas": resources}
     errs["block_gemm"], rows["block_gemm"] = gemm_phase(flush, gen)
     errs["block_gemm_int8"], rows["block_gemm_int8"] = int8_phase(flush, gen)
+    errs["quantize_rows"], rows["quantize_rows"] = quantize_phase(flush, gen)
     errs["flash_attention"], rows["flash_attention"] = dense_attention_phase(flush, gen)
     errs["flash_decode"], rows["flash_decode"] = slot_decode_phase(flush, gen)
     errs["flash_decode_paged"], rows["flash_decode_paged"] = decode_phase(flush, gen)
     errs["flash_attention_paged"], rows["flash_attention_paged"] = chunk_phase(flush, gen)
     del flush
     edge_launch, report["edge"] = edge_phase(counters)
-    for n in ("block_gemm_int8", "flash_attention", "flash_decode"):
+    for n in ("block_gemm_int8", "quantize_rows", "flash_attention", "flash_decode"):
         launches[n] = edge_launch[n]
     eng_launch, report["engine"] = engine_phase(
         counters, ["block_gemm", "flash_decode_paged", "flash_attention_paged"])
     for n in ("block_gemm", "flash_decode_paged", "flash_attention_paged"):
         launches[n] = eng_launch[n]
 
-    def pick(name, shape):
-        return next(r for r in rows[name] if r["shape"] == shape)
+    def pick(name, shape):  # the row's contract keys
+        row = next(r for r in rows[name] if r["shape"] == shape)
+        return {k: row[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by")}
 
     # each kernel's row at a shape of its main path; launches from that path
     # (the engine phase for the paged kernels and the bf16 GEMM, the edge
@@ -1080,7 +1251,16 @@ def main() -> int:
                     replaces=rep_, launches=launches[n], max_abs_err=errs[n],
                     **main_rows[n])
                for n, (src, rep_) in sources.items()]
+    # the kernel the port adds (no TPU kernel: XLA fuses the JAX quantize)
+    # at the prefill shape of the FFN up projections
+    quant = dict(name="quantize_rows", route="cuda",
+                 source="src/repro_torch/kernels/csrc/quantize.cu",
+                 replaces="src/repro/core/quant.py:18 (no pallas_call)",
+                 launches=launches["quantize_rows"], max_abs_err=errs["quantize_rows"],
+                 **pick("quantize_rows", "3072x2560 bf16"))
+    report["quantize_rows"] = quant
     log(json.dumps({"kernel_shapes": rows, **report}))
+    log(json.dumps({"added_kernels": [quant]}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

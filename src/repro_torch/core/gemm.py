@@ -7,8 +7,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quant import QTensor, quantize
-from repro_torch.kernels.ops import cgra_matmul, cgra_matmul_int8
+from repro_torch.core.quant import QTensor
+from repro_torch.kernels.ops import cgra_matmul, cgra_matmul_int8, quantize_rows
 
 
 def cgra_gemm(a, b, out_dtype=None, trans_b: bool = False):
@@ -22,10 +22,12 @@ def cgra_gemm(a, b, out_dtype=None, trans_b: bool = False):
 
 
 def cgra_gemm_w8a8(x, w_q: QTensor, out_dtype=torch.float32):
-    """Dynamic-activation int8 GEMM: x [..., K] is quantized per row, then
-    multiplied with the pre-quantized weight ``w_q`` (q [N, K] int8, the
-    packed layout of ``model.quantize_params``; per-column scales [1, N])."""
+    """Dynamic-activation int8 GEMM: x [..., K] is quantized per row (one
+    kernel launch on the card, ``core.quant.quantize(x, axis=0)`` bit for
+    bit), then multiplied with the pre-quantized weight ``w_q`` (q [N, K]
+    int8, the packed layout of ``model.quantize_params``; per-column scales
+    [1, N])."""
     lead = x.shape[:-1]
-    x_q = quantize(x.reshape(-1, x.shape[-1]), axis=0)  # per-row scales [M, 1]
-    out = cgra_matmul_int8(x_q.q, w_q.q, x_q.scale, w_q.scale, out_dtype)
+    q, scale = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())  # scales [M, 1]
+    out = cgra_matmul_int8(q, w_q.q, scale, w_q.scale, out_dtype)
     return out.reshape(*lead, w_q.q.shape[0])

@@ -4,7 +4,9 @@ slice).
 
 Symmetric int8 with f32 scales, bit for bit the JAX package's rule:
 ``scale = max(amax, 1e-8) / 127``, ``q = clip(round(x / scale), -127,
-127)`` with round-half-to-even, all in f32."""
+127)`` with round-half-to-even, all in f32.  The 127 is a tensor: PyTorch's
+CUDA kernels turn a division by a Python number into a product with its
+reciprocal, which lands one ulp off for some scales."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -22,13 +24,19 @@ class QTensor(NamedTuple):
 def quantize(x, axis: int | None = -1) -> QTensor:
     """Symmetric int8 quantization with per-channel scales along ``axis``
     (the max runs over every other axis; ``None``: one scalar scale)."""
-    xf = x.to(F32)
     if axis is None:
-        amax = xf.abs().amax()
-    else:
-        red = tuple(i for i in range(xf.dim()) if i != axis % xf.dim())
-        amax = xf.abs().amax(dim=red, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+        return quantize_over(x, None)
+    return quantize_over(x, tuple(i for i in range(x.dim()) if i != axis % x.dim()))
+
+
+def quantize_over(x, red_axes: tuple | None) -> QTensor:
+    """Symmetric int8 with the max taken over ``red_axes`` (kept as size-1
+    dims; ``None``: all of x, one scalar scale).  The port's one copy of
+    the rule: activations per row, weights per output channel, and the
+    quantize kernel's plain version all call it."""
+    xf = x.to(F32)
+    amax = xf.abs().amax() if red_axes is None else xf.abs().amax(dim=red_axes, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return QTensor(q, scale)
 

@@ -37,6 +37,53 @@ def gemm_splits(K: int, N: int) -> int:
     return s
 
 
+INT8_BN = 128  # the column tile of the int8 split rule (the mma.sync routes' tiles)
+_INT8_MIN_K_CHUNK = 256
+
+
+def int8_splits(K: int, N: int) -> int:
+    """How many ways the int8 kernel's mma.sync routes split K: the least
+    power of two that gives every SM a block of each 128-column tile
+    (``ceil(N/128) * S >= 132``), at most 8 (one portable cluster), and no
+    K range under 256 bytes.  A function of (K, N) only; int32 sums are
+    exact, so no split could change an output bit anyway."""
+    tiles = -(-N // INT8_BN)
+    s = 1
+    while s < _MAX_SPLITS and tiles * s < _SMS and K // (2 * s) >= _INT8_MIN_K_CHUNK:
+        s *= 2
+    return s
+
+
+def int8_route(M: int, N: int, sms: int = _SMS, tma_ok: bool = True) -> int:
+    """Which design of ``csrc/block_gemm_int8.cu`` takes the product:
+    0 -- mma.sync, 16-row tiles (M <= 16, decode); 1 -- mma.sync, 64-row
+    tiles (the engine's chunks, and whatever M the wgmma kernel cannot fill
+    the card with); 2 / 3 -- the persistent wgmma kernel with 128 x 128 /
+    128 x 256 tiles, for M > 64 once its 128 x 128 tiles alone give every
+    SM one (whole-prompt prefill) and the TMA can read the operands
+    (``tma_ok``: K % 16 == 0 and 16-byte aligned bases).  The
+    wider tile reads less of A per product and wins unless its tiles spread
+    over the SMs in more than 15 % more columns a block than the narrower
+    one's (``ceil(tiles / sms) * BN``: 3072 rows x 2048 columns take 128)."""
+    if M <= 16:
+        return 0
+    m_tiles = -(-M // 128)
+    if M > 64 and tma_ok and m_tiles * -(-N // 128) >= sms:
+        cols = {bn: -(-(m_tiles * -(-N // bn)) // sms) * bn for bn in (128, 256)}
+        return 3 if cols[256] <= 1.15 * cols[128] else 2
+    return 1
+
+
+_SM_COUNTS: dict = {}
+
+
+def _sm_count(dev) -> int:
+    n = _SM_COUNTS.get(dev)
+    if n is None:
+        n = _SM_COUNTS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
+
+
 def _entry():
     global _fn
     if _fn is None:
@@ -51,7 +98,7 @@ def _entry_int8():
     if _fn_int8 is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         _fn_int8 = _build.bind("block_gemm_int8", "repro_block_gemm_int8",
-                               [P, P, P, P, P, I, I, I, I, P])
+                               [P, P, P, P, P, I, I, I, I, I, I, I, P])
     return _fn_int8
 
 
@@ -100,7 +147,8 @@ def block_gemm_int8(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
     """Packed-data GEMM: a_q [M,K] int8 times b_q [N,K] int8 (K contiguous:
     the packed weight layout) with exact int32 sums and the fused epilogue
     ``(acc * a_scale[m]) * b_scale[n]`` in f32, cast once to ``out_dtype``
-    (f32 or bf16).  a_scale: [M, 1] f32; b_scale: [1, N] f32."""
+    (f32 or bf16).  a_scale: [M, 1] f32; b_scale: [1, N] f32.  On the card
+    ``int8_route`` picks the design and ``int8_splits`` the split of K."""
     if a_q.device.type == "cpu":
         return block_gemm_int8_ref(a_q, b_q, a_scale, b_scale, out_dtype)
     dev = a_q.device
@@ -130,9 +178,14 @@ def block_gemm_int8(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
         return c
     if K == 0:
         return c.zero_()
+    sms = _sm_count(dev)
+    tma_ok = K % 16 == 0 and a_q.data_ptr() % 16 == 0 and b_q.data_ptr() % 16 == 0
+    route = int8_route(M, N, sms, tma_ok)
     err = _entry_int8()(a_q.data_ptr(), b_q.data_ptr(), a_scale.data_ptr(),
                         b_scale.data_ptr(), c.data_ptr(), M, N, K,
-                        int(out_dtype == torch.bfloat16), _build.stream_ptr(dev))
+                        int(out_dtype == torch.bfloat16), route,
+                        int8_splits(K, N) if route < 2 else 1, sms,
+                        _build.stream_ptr(dev))
     _build.check(err, "block_gemm_int8")
     block_gemm_int8.launches += 1
     return c

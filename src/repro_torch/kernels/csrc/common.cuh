@@ -66,6 +66,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
                "l"(gmem), "r"(n), "l"(policy));
 }
 
+// cp_async16 of the first `bytes` (0..16) bytes; the rest of the 16 are zeroed
+__device__ __forceinline__ void cp_async16_n(void* smem, const void* gmem, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -20,13 +20,34 @@ _fn = None
 _fn_slot = None
 
 
+_SLOT_ROWS = 64  # cache rows per CUDA block of the slot kernel
+_slot_scratch: dict = {}  # (device, stream) -> (partials f32, tickets int32)
+
+
 def _entry_slot():
     global _fn_slot
     if _fn_slot is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         _fn_slot = _build.bind("decode_attention", "repro_flash_decode",
-                               [P] * 7 + [I] * 8 + [F, F, I, P])
+                               [P] * 8 + [I] * 8 + [F, F, I, P])
     return _fn_slot
+
+
+def _scratch(dev, stream: int, n_part: int, n_tickets: int):
+    """The slot kernel's partials and ticket counters for launches on
+    ``stream`` of ``dev``, kept between calls and grown when a call needs
+    more.  The counters are zeroed once, when allocated: every launch
+    leaves them at 0.  Launches on one stream run in order, so they may
+    share both; each stream has its own, so launches on two streams never
+    race on them."""
+    key = (dev, stream)
+    part, tickets = _slot_scratch.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+    _slot_scratch[key] = (part, tickets)
+    return part, tickets
 
 
 def flash_decode(q, k, v, pos, start, *, layout: str = "linear",
@@ -37,8 +58,8 @@ def flash_decode(q, k, v, pos, start, *, layout: str = "linear",
     S-1); "ring": entry j holds absolute row ``pos - ((pos - j) mod S)``,
     live iff that row is ``>= max(start, 0)``.  A slot with no live row
     gives exact zeros.  On the card the rows are split into 64-row blocks,
-    one CUDA block each, and the partials merged (two launches, one
-    count)."""
+    one CUDA block each, and the last block of each (slot, kv-head) to
+    finish merges the partials in block order: one launch."""
     B, H, dq = q.shape
     dv = dv or v.shape[-1]
     layout = str(layout)
@@ -72,15 +93,17 @@ def flash_decode(q, k, v, pos, start, *, layout: str = "linear",
     out = torch.empty((B, H, dv), dtype=q.dtype, device=dev)
     if B == 0 or S == 0:
         return out.zero_()
-    # per (slot, kv-head, 64-row block): [m, l, acc[dv]] for each query head
-    part = torch.empty(B * K * -(-S // 64) * (H // K) * (dv + 2),
-                       dtype=torch.float32, device=dev)
+    # per (slot, kv-head, 64-row block): [m, l, acc[dv]] for each query head;
+    # one ticket counter per (slot, kv-head)
+    stream = _build.stream_ptr(dev)
+    part, tickets = _scratch(dev, stream,
+                             B * K * -(-S // _SLOT_ROWS) * (H // K) * (dv + 2), B * K)
     scale = scale if scale is not None else dq ** -0.5
     err = _entry_slot()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                        start.data_ptr(), part.data_ptr(), out.data_ptr(), B, H, K, S, dq,
+                        start.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+                        out.data_ptr(), B, H, K, S, dq,
                         dv, v.shape[3], int(layout == "ring"), float(scale),
-                        float(softcap or 0.0), int(q.dtype == torch.bfloat16),
-                        _build.stream_ptr(dev))
+                        float(softcap or 0.0), int(q.dtype == torch.bfloat16), stream)
     _build.check(err, "flash_decode")
     flash_decode.launches += 1
     return out

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quant import quantize
+
 F32 = torch.float32
 NEG = -1e30
 
@@ -31,6 +33,15 @@ def block_gemm_int8_ref(a_q, b_q, a_scale, b_scale, out_dtype=F32):
     acc = torch.matmul(a_q.to(torch.float64), b_q.to(torch.float64).T)
     acc = acc.to(torch.int32).to(F32)
     return (acc * a_scale.reshape(-1, 1) * b_scale.reshape(1, -1)).to(out_dtype)
+
+
+def quantize_rows_ref(x):
+    """Per-row symmetric int8: x [M, K] -> (q [M, K] int8, scale [M, 1]
+    f32), ``scale = max(amax, 1e-8) / 127`` and ``q = clip(round(x /
+    scale), -127, 127)`` with round-half-to-even, all in f32:
+    ``core.quant.quantize(x, axis=0)`` itself."""
+    qt = quantize(x, axis=0)
+    return qt.q, qt.scale
 
 
 def _as_rows(x, B: int, device) -> torch.Tensor:

@@ -18,7 +18,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core import resolve_device
 from repro_torch.core.gemm import cgra_gemm
-from repro_torch.core.quant import QTensor
+from repro_torch.core.quant import QTensor, quantize_over
 from repro_torch.models import layers as L
 from repro_torch.models.params import (ParamSpec, init_params, stack_tree,
                                        tree_map_specs)
@@ -79,17 +79,6 @@ _QUANT_NAMES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                           "w1", "w2", "wq_a", "wkv_a", "lm_head"})
 
 
-def _quantize_weight(w, red_axes: tuple) -> QTensor:
-    """Symmetric int8 over ``red_axes`` (the contraction dims): per-output-
-    channel scales, broadcastable against ``w``.  Bit for bit the JAX
-    package's ``_quantize_weight``, in its layout."""
-    wf = w.to(F32)
-    amax = wf.abs().amax(dim=red_axes, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
-    q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
-    return QTensor(q, scale)
-
-
 def _pack(qt: QTensor, lead: int, n_red: int) -> QTensor:
     """JAX layout [*lead, *contraction, *out] -> the int8 kernel's layout:
     q [*lead, N, K] contiguous (K contiguous), scale [*lead, 1, N]."""
@@ -119,7 +108,7 @@ def quantize_params(cfg: ArchConfig, params: dict) -> dict:
             elif (name in _QUANT_NAMES and not isinstance(v, QTensor)
                   and v.dim() >= 2):
                 red = tuple(range(1, v.dim() - 1)) if name == "wo" else (1,)
-                out[name] = _pack(_quantize_weight(v, red), 1, len(red))
+                out[name] = _pack(quantize_over(v, red), 1, len(red))
             else:
                 out[name] = v
         return out
@@ -127,10 +116,10 @@ def quantize_params(cfg: ArchConfig, params: dict) -> dict:
     new = dict(params)
     new["stages"] = [walk(st) for st in params["stages"]]
     if "lm_head" in params and not isinstance(params["lm_head"], QTensor):
-        new["lm_head"] = _pack(_quantize_weight(params["lm_head"], (0,)), 0, 1)
+        new["lm_head"] = _pack(quantize_over(params["lm_head"], (0,)), 0, 1)
     if cfg.tie_embeddings and "lm_head_q" not in params:
         # per vocab row of embed [Vp, D] == per column of JAX's embed.T
-        qt = _quantize_weight(params["embed"], (1,))
+        qt = quantize_over(params["embed"], (1,))
         new["lm_head_q"] = QTensor(qt.q, qt.scale.reshape(1, -1))
     return new
 

@@ -22,12 +22,14 @@ from repro.models import layers as JL
 from repro_torch.core import quant as tquant
 from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.block_gemm import block_gemm, block_gemm_int8, gemm_splits
+from repro_torch.kernels.block_gemm import (block_gemm, block_gemm_int8, gemm_splits,
+                                            int8_route, int8_splits)
 from repro_torch.kernels.decode_attention import flash_decode as t_flash_decode
 from repro_torch.kernels.decode_attention import flash_decode_paged
 from repro_torch.kernels.flash_attention import flash_attention as t_flash_attention
 from repro_torch.kernels.flash_attention import dense_smem_bytes, flash_attention_paged
 from repro_torch.kernels.ops import attend_decode, attention
+from repro_torch.kernels.quantize import quantize_rows
 from repro_torch.models import layers as TL
 from repro_torch.models.model import _pool
 from repro_torch.models.params import ParamSpec
@@ -136,6 +138,15 @@ def test_wrappers_refuse_other_devices():
         flash_attention_paged(torch.empty(2, 4, 3, 8, device="meta"), pool, pool,
                               torch.empty(2, 1, dtype=torch.int32, device="meta"),
                               rows, rows)
+    # the row quantizer refuses, on every device, what its kernel cannot take
+    with pytest.raises(ValueError):
+        quantize_rows(torch.empty(4, 8, device="meta"))
+    with pytest.raises(ValueError):
+        quantize_rows(torch.zeros(8, 4).T)  # not contiguous
+    with pytest.raises(ValueError):
+        quantize_rows(torch.zeros(2, 3, 4))
+    with pytest.raises(TypeError):
+        quantize_rows(torch.zeros(4, 8, dtype=torch.float16))
 
 
 def test_block_gemm_bf16_trans_b_matches_jax():
@@ -211,6 +222,72 @@ def test_quantize_bit_identical_to_jax(axis):
     np.testing.assert_array_equal(tq.scale.numpy(), np.asarray(jq.scale))
     np.testing.assert_array_equal(tquant.dequantize(tq).numpy(),
                                   np.asarray(jquant.dequantize(jq)))
+
+
+@pytest.mark.parametrize("M", [1, 2, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_rows_bit_identical_to_jax(M, dtype):
+    """The row quantizer's plain path (its CPU path) gives JAX's int8 values
+    and f32 scales of ``quantize(x, axis=0)`` exactly, f32 and bf16 inputs:
+    half-way ties round to even, an all-zero row and a row whose amax is
+    under 1e-8 take the 1e-8 floor."""
+    rng = np.random.RandomState(20 + M)
+    x = rng.randn(M, 48).astype(np.float32)
+    x[0, :6] = [127.0, 2.5, -3.5, 0.5, -1.5, 126.5]  # amax 127 -> scale 1: ties
+    x[0, 6:] = 0.0
+    if M > 1:
+        x[1] = 0.0  # all-zero row
+    if M > 2:
+        x[2] = 3e-9
+        x[2, 7] = -7e-9  # amax < 1e-8
+    xt = t(x).to(dtype)
+    q, scale = quantize_rows(xt)
+    jq = jquant.quantize(jnp.asarray(xt.float().numpy()), 0)  # the same values
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq.q))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(jq.scale))
+    assert q.dtype == torch.int8 and scale.shape == (M, 1) and scale.dtype == torch.float32
+    assert q[0, :6].tolist() == [127, 2, -4, 0, -2, 126]
+    tq = tquant.quantize(xt, 0)  # the eager quantizer agrees too
+    assert torch.equal(tq.q, q) and torch.equal(tq.scale, scale)
+
+
+def test_w8a8_gemm_quantizes_through_quantize_rows(monkeypatch):
+    """``cgra_gemm_w8a8`` takes its activation's int8 rows from the row
+    quantizer, once per call, on the flattened [M, K] activation."""
+    from repro_torch.core import gemm as tgemm
+    seen = []
+
+    def spy(x):
+        seen.append(tuple(x.shape))
+        return quantize_rows(x)
+    monkeypatch.setattr(tgemm, "quantize_rows", spy)
+    rng = np.random.RandomState(21)
+    w = tquant.quantize(t(rng.randn(16, 40).astype(np.float32)), 0)  # [N, K], a scale a row
+    packed = tquant.QTensor(w.q, w.scale.reshape(1, -1))
+    out = cgra_gemm_w8a8(t(rng.randn(2, 3, 40).astype(np.float32)), packed)
+    assert seen == [(6, 40)] and out.shape == (2, 3, 16)
+
+
+def test_int8_splits_and_routes():
+    """The int8 kernel's split of K is a plain function of (K, N) within one
+    portable cluster (8 blocks) that gives every SM a block at the edge
+    path's decode shapes; the route sends decode rows to the 16-row
+    mma.sync tiles, the engine's chunks to the 64-row ones and the
+    whole-prompt prefill (and any M whose 128 x 128 tiles fill the card) to
+    wgmma, which needs K % 16 == 0."""
+    assert list(inspect.signature(int8_splits).parameters) == ["K", "N"]
+    for K, N in [(2560, 2048), (2560, 1024), (2048, 2560), (2560, 10240), (10240, 2560),
+                 (2560, 262144), (2048, 2048), (8192, 2048), (2048, 50432)]:
+        s = int8_splits(K, N)
+        assert s in (1, 2, 4, 8)
+        assert s == 8 or -(-N // 128) * s >= 132, (K, N, s)
+        assert s == 1 or K // s >= 256
+    assert int8_splits(64, 96) == 1
+    assert [int8_route(M, 2560) for M in (1, 2, 16)] == [0, 0, 0]
+    assert [int8_route(M, 2560) for M in (17, 64, 72)] == [1, 1, 1]
+    assert int8_route(3072, 2048) == 2  # 128 x 128: 3 waves of 384 tiles
+    assert [int8_route(3072, n) for n in (1024, 2560, 10240)] == [3, 3, 3]
+    assert int8_route(3072, 2560, tma_ok=False) == 1
 
 
 def test_quantized_matmul_and_w8a8_gemm_match_jax():
@@ -326,6 +403,21 @@ def test_slot_decode_plain_matches_jax(layout, softcap):
                           jnp.asarray(pos), jnp.asarray(start), layout=layout,
                           softcap=softcap, bk=8, interpret=True)
     close(got, pallas)
+    assert torch.count_nonzero(got[4]) == 0  # start > pos: exact zeros
+
+
+@pytest.mark.parametrize("layout", ["linear", "ring"])
+def test_slot_decode_long_cache_matches_jax(layout):
+    """S = 4096 rows (64 of the card kernel's 64-row blocks a slot) and B =
+    8 slots: full, frozen, wrapped twice, windowed and drained (start >
+    pos, exact zeros) -- the plain version against the JAX oracle."""
+    q, k, v = _slot(17, B=8, H=4, K=2, S=4096, d=16)
+    pos = np.array([4095, 4096, 100, 3000, 64, 0, 9000, 10], np.int32)
+    start = np.array([0, 0, 0, 2900, 65, 0, 8000, 0], np.int32)
+    got = attend_decode(t(q), t(k), t(v), t(pos), t(start), layout=layout)
+    want = jref.flash_decode_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 jnp.asarray(pos), jnp.asarray(start), layout=layout)
+    close(got, want)
     assert torch.count_nonzero(got[4]) == 0  # start > pos: exact zeros
 
 
