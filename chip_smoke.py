@@ -11,9 +11,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    version on the card at its path's shapes, in f32 and bf16 (the int8
    GEMM exactly, on integer-valued cases, over all four of its routes;
    dense attention also at the tiles' edges; slot decode also repeated,
-   bit for bit), with its time, the plain version's time, the library
-   call's time where one exists and the least time the card could take
-   (bytes over 3.35 TB/s, operations over the peak rate of their type);
+   bit for bit; both paged kernels at page sizes 8-128, G = 1, 2, 4, 8,
+   d = 128 and 256, windows and key tiles across pages, frozen full and
+   empty slots, and each slot of a batched call bit-equal to its call
+   alone), with its time, the plain version's time, the library call's
+   time where one exists (for the paged kernels SDPA on K/V gathered from
+   the pages beforehand, the gather not timed) and the least time the card
+   could take (bytes over 3.35 TB/s, operations over the peak rate of
+   their type);
    the bf16 and int8 GEMMs' rows must be bit-identical across M; the
    per-row activation quantize kernel the port adds must equal its plain
    version bit for bit;
@@ -617,88 +622,178 @@ def _tables(B, npp, P, seed):
     return torch.from_numpy(perm.reshape(B, npp).astype(np.int32)).cuda()
 
 
+def _gathered(pool, pages):
+    """Pool [P, ps, K, d] through tables [B, npp] -> contiguous [B, K, S, d]
+    (the yardstick's operand; gathered outside its timed window)."""
+    B, npp = pages.shape
+    g = pool[pages.long()].reshape(B, npp * pool.shape[1], *pool.shape[2:])
+    return g.transpose(1, 2).contiguous()
+
+
+def _slot_invariance(name, call, B):
+    """``call(slots)`` runs the kernel on the slots of a slice; each slot's
+    output of the batched call must equal that slot's call alone, bit for
+    bit (the engine's solo == batched greedy tokens rest on it)."""
+    full = call(slice(0, B))
+    for i in range(B):
+        solo = call(slice(i, i + 1))
+        if not torch.equal(solo[0], full[i]):
+            n = int((solo[0] != full[i]).sum())
+            fail(f"{name}: slot {i} alone differs from the batched call in {n} entries")
+
+
 def decode_phase(flush, gen):
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import flash_decode_paged
     # Tolerances (``check_attn``): f32 2e-5 elementwise; bf16 2^-7 per row
     # (the kernel rounds the unnormalized P to bf16 before PV, as the Pallas
-    # kernel does, the plain version the normalized P).
-    B, H, K, d, ps, max_len = 8, 16, 16, 128, 64, 1024
-    npp, P = max_len // ps, 8 * (max_len // ps) + 1
+    # kernel does, the plain version the normalized P).  Every slot with
+    # start > pos must be exactly 0, and every slot of a batched call must
+    # equal its call alone, bit for bit.
     # empty slot (start > pos), prefix-only, mid-page, window-like start,
     # page boundary, a full frozen slot (pos == npp * ps), a fresh slot
-    pos = torch.tensor([3, 100, 257, 511, 700, 1024, 63, 0], dtype=torch.int32,
-                       device="cuda")
-    start = torch.tensor([5, 0, 0, 200, 0, 0, 0, 0], dtype=torch.int32,
-                         device="cuda")
-    pages = _tables(B, npp, P, 1)
+    pos8, start8 = [3, 100, 257, 511, 700, 1024, 63, 0], [5, 0, 0, 200, 0, 0, 0, 0]
+    pos4, start4 = [1024, 517, 9, 40], [0, 3, 10, 33]  # frozen full, ..., empty
+    cases = [  # name, H, K, d, ps, max_len, pos, start, softcap, dv (v is k, read to dv)
+        ("mha", 16, 16, 128, 64, 1024, pos8, start8, 0.0, None),
+        ("gqa-softcap", 16, 4, 128, 64, 1024, pos8, start8, 30.0, None),
+        ("shared-kv-dv64", 16, 4, 128, 64, 1024, pos8, start8, 0.0, 64),
+        # page sizes 8, 16, 128: a 64-row block spans 8 or 4 pages, or half a page
+        ("ps8", 16, 4, 128, 8, 1024, pos4, start4, 0.0, None),
+        ("ps16", 16, 16, 128, 16, 1024, pos4, start4, 0.0, None),
+        ("ps128", 16, 4, 128, 128, 1024, pos4, start4, 0.0, None),
+        ("G8 deepseek-67b", 64, 8, 128, 64, 1024, [1024, 700, 0, 6], [0, 0, 0, 7], 0.0,
+         None),
+        # gemma3-4b on the engine: d = 256, G = 2, 1024-row windows from mid-page
+        ("d256 G2 window1024", 8, 4, 256, 64, 2048, [1500, 2047, 300, 1023],
+         [477, 1024, 0, 0], 50.0, None),
+        ("d256 shared-kv-dv128", 16, 1, 256, 64, 1024, [700, 1024, 2, 5], [0, 0, 0, 6], 0.0,
+         128),
+    ]
     err = {}
-    cases = [("mha", H, K, 0.0, None, False), ("gqa-softcap", 16, 4, 30.0, None, False),
-             ("shared-kv-dv64", 16, 4, 0.0, 64, True)]
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, Hc, Kc, cap, dv, shared in cases:
-            k, v = _paged_pools(gen, P, ps, Kc, d, dtype)
-            if shared:
+    for ci, (name, H, K, d, ps, max_len, pos, start, cap, dv) in enumerate(cases):
+        B, npp = len(pos), max_len // ps
+        P = B * npp + 1
+        pages = _tables(B, npp, P, 10 + ci)
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        st = torch.tensor(start, dtype=torch.int32, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            k, v = _paged_pools(gen, P, ps, K, d, dtype)
+            if dv:
                 v = k
-            q = torch.randn(B, Hc, d, generator=gen, device="cuda").to(dtype)
-            got = flash_decode_paged(q, k, v, pos, start, pages, softcap=cap, dv=dv)
-            want = ref.flash_decode_ref(q, k, v, pos, start, pages=pages,
-                                        softcap=cap, dv=dv)
+            q = torch.randn(B, H, d, generator=gen, device="cuda").to(dtype)
+            got = flash_decode_paged(q, k, v, p, st, pages, softcap=cap, dv=dv)
+            want = ref.flash_decode_ref(q, k, v, p, st, pages=pages, softcap=cap, dv=dv)
             err[(dtype, name)] = check_attn(f"flash_decode_paged {dtype} {name}",
                                             got, want, dtype)
-            if float(got[0].abs().max()) != 0.0:
-                fail("flash_decode_paged: empty slot is not exactly zero")
+            for i in range(B):
+                if start[i] > pos[i] and float(got[i].abs().max()) != 0.0:
+                    fail(f"flash_decode_paged {name}: empty slot {i} is not exactly zero")
+            _slot_invariance(f"flash_decode_paged {dtype} {name}", lambda sl: flash_decode_paged(
+                q[sl], k, v, p[sl], st[sl], pages[sl], softcap=cap, dv=dv), B)
     torch.cuda.synchronize()
-    log(f"flash_decode_paged: {len(cases)} cases x (f32, bf16) agree; " + _errs(err))
+    log(f"flash_decode_paged: {len(cases)} cases x (f32, bf16) agree, empty slots exactly 0, "
+        f"every slot alone == batched bit for bit; " + _errs(err))
+    B, H, K, d, ps, max_len = 8, 16, 16, 128, 64, 1024
+    npp, P = max_len // ps, B * (max_len // ps) + 1
+    pos = torch.tensor(pos8, dtype=torch.int32, device="cuda")
+    start = torch.tensor(start8, dtype=torch.int32, device="cuda")
+    pages = _tables(B, npp, P, 1)
     k, v = _paged_pools(gen, P, ps, K, d, torch.bfloat16)
     q = torch.randn(B, H, d, generator=gen, device="cuda").bfloat16()
     ms = time_ms(lambda: flash_decode_paged(q, k, v, pos, start, pages), flush)
     plain = time_ms(lambda: ref.flash_decode_ref(q, k, v, pos, start, pages=pages),
                     flush)
+    # yardstick: SDPA on K/V gathered from the pages beforehand (gather not
+    # timed), live rows as a boolean mask
+    kg, vg = _gathered(k, pages), _gathered(v, pages)
+    mask = _live_mask(pos, start, npp * ps, False)[:, None, None, :]
+    q4 = q[:, :, None]
+    lib_fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q4, kg, vg, attn_mask=mask, enable_gqa=True)
+    lib = time_ms(lib_fn, flush)
+    want = ref.flash_decode_ref(q, k, v, pos, start, pages=pages)
+    live_slots = [i for i in range(B) if start8[i] <= pos8[i]]
+    lib_rel = check_rows("SDPA yardstick paged decode", lib_fn()[live_slots, :, 0],
+                         want[live_slots], rtol=math.inf)[1]
     live = sum(max(0, min(int(p), npp * ps - 1) - int(s) + 1)
                for p, s in zip(pos.tolist(), start.tolist()))
     n_bytes = 2 * (2 * live * K * d + 2 * B * H * d) + 4 * (B * npp + 2 * B)
     bms, by = bound_ms(n_bytes, 4 * live * (H // K) * K * d, torch.bfloat16)
     log(f"  flash_decode_paged bf16 B={B} H={H} d={d} ps={ps} live rows={live}: "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA on pre-gathered K/V + mask "
+        f"{lib:.4f} ms (gather not timed; row relative error vs plain {lib_rel:.3e}), bound "
+        f"{bms:.4f} ms ({by})")
     return _bf16_max(err), \
         dict(shape=f"B{B} H{H} d{d} ps{ps} live{live}", ms=ms, plain_ms=plain,
-             library_ms=None, bound_ms=bms, bound_by=by)
+             library_ms=lib, bound_ms=bms, bound_by=by)
 
 
 def chunk_phase(flush, gen):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_paged
-    # Tolerances (``check_attn``): f32 2e-5 elementwise; bf16 2^-7 per row.
-    H, d, ps, max_len, C = 16, 128, 64, 1024, 64
-    npp, P = max_len // ps, 8 * (max_len // ps) + 1
-    cases = [  # name, B, K, q_start, n valid rows, window, softcap
-        ("first-chunk", 1, 16, [0], [64], 0, 0.0),
-        ("q_start>0", 1, 16, [448], [64], 0, 0.0),
-        ("partial-chunk", 1, 16, [200], [40], 0, 0.0),
-        ("two-slots-gqa", 2, 4, [130, 700], [64, 64], 0, 0.0),
-        ("window", 1, 16, [300], [64], 100, 0.0),
-        ("softcap", 1, 16, [96], [64], 0, 30.0),
+    # Tolerances (``check_attn``): f32 2e-5 elementwise; bf16 2^-7 per row,
+    # over each slot's n valid rows (the rest are the caller's padding); a
+    # slot with nothing to attend to (n = 0) is exactly 0; every slot alone ==
+    # batched, bit for bit; q is the layers' transposed [B, C, H, d] view
+    # (the first case also contiguous, bit-equal).
+    cases = [  # name, H, K, d, ps, max_len, C, q_start, n valid rows, window, softcap
+        ("first-chunk", 16, 16, 128, 64, 1024, 64, [0], [64], 0, 0.0),
+        ("q_start>0", 16, 16, 128, 64, 1024, 64, [448], [64], 0, 0.0),
+        ("partial-chunk", 16, 16, 128, 64, 1024, 64, [200], [40], 0, 0.0),
+        ("two-slots-gqa", 16, 4, 128, 64, 1024, 64, [130, 700], [64, 64], 0, 0.0),
+        ("window", 16, 16, 128, 64, 1024, 64, [300], [64], 100, 0.0),
+        ("softcap", 16, 16, 128, 64, 1024, 64, [96], [64], 0, 30.0),
+        # key tiles straddling pages (ps 8 and 16: a 64-row tile spans 8 or
+        # 4 pages; ps 128: half a page), chunks starting mid-page
+        ("ps8", 16, 4, 128, 8, 1024, 64, [203, 960, 0], [64, 64, 17], 0, 0.0),
+        ("ps16", 16, 16, 128, 16, 1024, 64, [203, 0], [64, 50], 0, 0.0),
+        ("ps128", 16, 4, 128, 128, 1024, 64, [203, 900], [64, 64], 0, 0.0),
+        ("G8 deepseek-67b", 64, 8, 128, 64, 1024, 64, [320, 5], [64, 64], 0, 0.0),
+        # gemma3-4b on the engine: d = 256, G = 2, a 1024-row window crossing pages
+        ("d256 G2 window1024", 8, 4, 256, 64, 2048, 64, [1400, 300], [64, 64], 1024, 50.0),
+        # n < C, C no multiple of 16, and a slot with nothing to attend to
+        ("C40 n<C", 16, 4, 128, 64, 1024, 40, [77, 0, 500], [33, 40, 0], 0, 0.0),
+        ("C100 two q-tiles", 16, 4, 128, 16, 1024, 100, [150, 0], [100, 70], 0, 0.0),
     ]
     err = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, B, K, qs, n, win, cap in cases:
+    for ci, (name, H, K, d, ps, max_len, C, qs, n, win, cap) in enumerate(cases):
+        B, npp = len(qs), max_len // ps
+        P = B * npp + 1
+        pages = _tables(B, npp, P, 20 + ci)
+        q_start = torch.tensor(qs, dtype=torch.int32, device="cuda")
+        # k_len = q_start + n; 0 for a slot with n = 0 (no key at all)
+        k_len = torch.tensor([a + b if b else 0 for a, b in zip(qs, n)], dtype=torch.int32,
+                             device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
             k, v = _paged_pools(gen, P, ps, K, d, dtype)
-            q = torch.randn(B, H, C, d, generator=gen, device="cuda").to(dtype)
-            pages = _tables(B, npp, P, 2)
-            q_start = torch.tensor(qs, dtype=torch.int32, device="cuda")
-            k_len = q_start + torch.tensor(n, dtype=torch.int32, device="cuda")
+            q = torch.randn(B, C, H, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
             got = flash_attention_paged(q, k, v, pages, q_start, k_len,
                                         window=win, softcap=cap)
             want = ref.flash_attention_paged_ref(q, k, v, pages, q_start, k_len,
                                                  window=win, softcap=cap)
-            rows = min(n)  # rows past a slot's valid length are padding
-            err[(dtype, name)] = check_attn(
-                f"flash_attention_paged {dtype} {name}",
-                got[:, :, :rows], want[:, :, :rows], dtype)
+            if got.shape != q.shape:
+                fail(f"flash_attention_paged {name}: shape {tuple(got.shape)}")
+            e = [check_attn(f"flash_attention_paged {dtype} {name} slot {i}",
+                            got[i, :, : n[i]], want[i, :, : n[i]], dtype)
+                 for i in range(B) if n[i]]
+            err[(dtype, name)] = (max(a for a, _ in e), max(r for _, r in e))
+            for i in range(B):
+                if n[i] == 0 and float(got[i].abs().max()) != 0.0:
+                    fail(f"flash_attention_paged {name}: slot {i} with no key is not exactly 0")
+            if ci == 0 and not torch.equal(got, flash_attention_paged(
+                    q.contiguous(), k, v, pages, q_start, k_len, window=win, softcap=cap)):
+                fail(f"flash_attention_paged {dtype}: a transposed q view differs from "
+                     f"the contiguous q")
+            _slot_invariance(f"flash_attention_paged {dtype} {name}",
+                             lambda sl: flash_attention_paged(
+                                 q[sl], k, v, pages[sl], q_start[sl], k_len[sl],
+                                 window=win, softcap=cap), B)
     torch.cuda.synchronize()
-    log(f"flash_attention_paged: {len(cases)} cases x (f32, bf16) agree; " + _errs(err))
-    qs, n = 448, 64
+    log(f"flash_attention_paged: {len(cases)} cases x (f32, bf16) agree, empty slots exactly 0, "
+        f"q views == contiguous q, every slot alone == batched bit for bit; " + _errs(err))
+    H, d, ps, max_len, C, qs, n = 16, 128, 64, 1024, 64, 448, 64
+    npp, P = max_len // ps, 8 * (max_len // ps) + 1
     k, v = _paged_pools(gen, P, ps, H, d, torch.bfloat16)
     q = torch.randn(1, H, C, d, generator=gen, device="cuda").bfloat16()
     pages = _tables(1, npp, P, 3)
@@ -707,14 +802,27 @@ def chunk_phase(flush, gen):
     ms = time_ms(lambda: flash_attention_paged(q, k, v, pages, q_start, k_len), flush)
     plain = time_ms(lambda: ref.flash_attention_paged_ref(q, k, v, pages, q_start,
                                                           k_len), flush)
+    # yardstick: SDPA on K/V gathered from the pages beforehand (gather not
+    # timed), causal-at-offset and live rows as a boolean mask
+    kg, vg = _gathered(k, pages), _gathered(v, pages)
+    kpos = torch.arange(npp * ps, device="cuda")[None, :]
+    qpos = qs + torch.arange(C, device="cuda")[:, None]
+    mask = (kpos < qs + n) & (kpos <= qpos)
+    lib_fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, kg, vg, attn_mask=mask, enable_gqa=True)
+    lib = time_ms(lib_fn, flush)
+    lib_rel = check_rows("SDPA yardstick paged chunk", lib_fn(), ref.flash_attention_paged_ref(
+        q, k, v, pages, q_start, k_len), rtol=math.inf)[1]
     keys = sum(min(qs + n, qs + i + 1) for i in range(C))  # causal pairs
     n_bytes = 2 * (2 * (qs + n) * H * d + 2 * H * C * d) + 4 * (npp + 2)
     bms, by = bound_ms(n_bytes, 4 * H * keys * d, torch.bfloat16)
     log(f"  flash_attention_paged bf16 C={C} H={H} d={d} q_start={qs} k_len={qs + n}: "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA on pre-gathered K/V + mask "
+        f"{lib:.4f} ms (gather not timed; row relative error vs plain {lib_rel:.3e}), bound "
+        f"{bms:.4f} ms ({by})")
     return _bf16_max(err), \
         dict(shape=f"C{C} H{H} d{d} q_start{qs} k_len{qs + n}", ms=ms, plain_ms=plain,
-             library_ms=None, bound_ms=bms, bound_by=by)
+             library_ms=lib, bound_ms=bms, bound_by=by)
 
 
 # ---------------------------------------------------------------------------
@@ -1192,11 +1300,12 @@ def main() -> int:
     resources = {k: v for n in ("flash_attention", "block_gemm", "block_gemm_int8",
                                 "decode_attention", "quantize")
                  for k, v in _build.resources(n).items()
-                 if any(t in k for t in ("dense_tc", "gemm_bf16", "gemm_int8", "slot",
-                                         "quantize"))}
+                 if any(t in k for t in ("dense_tc", "paged_tc", "gemm_bf16", "gemm_int8",
+                                         "slot", "quantize", "dense_kernel"))}
     for k, v in resources.items():  # the redesigned kernels, from ptxas -v
         log(f"  ptxas {k[:90]}: {v.get('registers')} registers, spill stores "
-            f"{v.get('spill_stores')} B, spill loads {v.get('spill_loads')} B")
+            f"{v.get('spill_stores')} B, spill loads {v.get('spill_loads')} B, static "
+            f"shared memory {v.get('smem')} B")
 
     flush = L2Flush()
     gen = torch.Generator(device="cuda").manual_seed(1234)

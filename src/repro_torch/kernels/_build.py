@@ -12,6 +12,8 @@ log is kept beside the library (:func:`resources`).
 
 The C entry points take every pointer and the stream as ``void*`` and
 return ``cudaGetLastError()``; :func:`check` raises when that is not 0.
+The kernels that split a reduction over blocks and merge it in the same
+launch take their partials and ticket counters from :func:`scratch`.
 """
 from __future__ import annotations
 
@@ -100,9 +102,10 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def resources(name: str) -> dict[str, dict[str, int]]:
-    """Registers a thread and spill bytes of each kernel in ``csrc/<name>.cu``
-    as ptxas reported them at build time: {mangled name: {"registers",
-    "spill_stores", "spill_loads"}}."""
+    """Registers a thread, spill bytes and static shared memory of each
+    kernel in ``csrc/<name>.cu`` as ptxas reported them at build time:
+    {mangled name: {"registers", "spill_stores", "spill_loads", "smem"}}
+    (dynamic shared memory is set at launch and not in the log)."""
     path = build_all() / f"lib{name}.log"
     log = path.read_text() if path.exists() else ""
     out: dict[str, dict[str, int]] = {}
@@ -120,6 +123,8 @@ def resources(name: str) -> dict[str, dict[str, int]]:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
     return out
 
 
@@ -140,3 +145,24 @@ def check(err: int, what: str):
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_SCRATCH: dict = {}  # (device, stream) -> (partials f32, tickets int32)
+
+
+def scratch(dev, stream: int, n_part: int, n_tickets: int):
+    """Partials and ticket counters for a split-and-merge launch on
+    ``stream`` of ``dev``, kept between calls and grown when a call needs
+    more.  The counters are zeroed once, when allocated: every launch
+    leaves them at 0.  Launches on one stream run in order, so every such
+    kernel may share both; each stream has its own, so launches on two
+    streams never race on them."""
+    import torch
+    key = (dev, stream)
+    part, tickets = _SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(max(n_part, 1), dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 1), dtype=torch.int32, device=dev)
+    _SCRATCH[key] = (part, tickets)
+    return part, tickets

@@ -1,249 +1,37 @@
-// Flash-decode for Hopper (sm_90a): one query token per slot, over page
-// pools (first part of this file) or over a slot cache [B, S, K, d] in its
-// linear or ring layout (second part).
+// Flash-decode for Hopper (sm_90a): one query token per slot, over a slot
+// cache [B, S, K, d] in its linear or ring layout, or over page pools
+// [P, ps, K, d] read through a page table.  The three layouts share one
+// kernel body; the row address is a template parameter (SlotRows,
+// PageRows).
 //
-// Replaces: src/repro/kernels/decode_attention.py, _fd_kernel_paged
-// (wrapper _flash_decode_paged) and _fd_kernel (wrapper flash_decode).
+// Replaces: src/repro/kernels/decode_attention.py, _fd_kernel (wrapper
+// flash_decode) and _fd_kernel_paged (wrapper _flash_decode_paged).
+// Validity of logical row r: linear (and paged), start <= r <= pos (a
+// frozen full slot, pos == S, reads rows [start, S - 1]); ring, entry r
+// holds absolute row a = pos - ((pos - r) mod S) with a floored mod -- C++
+// % truncates toward zero, so ((pos - r) % S + S) % S -- and is live iff
+// a >= 0 and a >= start.  A slot with start > pos writes exact zeros.
+// Paged: logical row r of slot b lives at pool row
+// pages[b, min(r / ps, npp - 1)] * ps + r % ps, the page index clipped to
+// npp - 1 as the Pallas index map clips it, over S = npp * ps logical rows;
+// only live rows are read, so the pools' drop row and the trash pages of a
+// table are never touched.
 //
 // What bounds it on an H100: bytes.  Each (slot, kv-head) reads its live KV
 // rows once and does 4*G*d operations per row (G query heads share a row),
-// orders of magnitude below the card's operations-per-byte balance.  The
-// design reads only the pages that overlap the live rows [start, pos] -- the
-// page index clipped to npp-1 as the Pallas index map clips it, so a frozen
-// full slot (pos == npp*ps) never reads past its table -- each K row is read
-// by one warp as a contiguous d-vector, eight rows' loads in flight before
-// any sum, and the block's eight warps walk different pages at once.
-//
-// Grid: one block per (kv-head, slot).  Warp w takes pages lo+w, lo+w+8, ...
-// with its own f32 online softmax (the running max / denominator / PV
-// accumulator that the TPU kept in VMEM scratch across grid steps live in
-// shared memory here); the eight partials are merged in warp order at the
-// end.  All G = H/K query heads of the kv-head are handled by the block, so
-// GQA reads each KV row once; the TPU's pad of G to 8 sublanes is dropped.
-// A slot with start > pos (an empty or drained slot) writes exact zeros.
-// Softcap and dv narrowing (v may alias k, MLA-style) are supported.  The
-// split of pages over warps and every sum's order depend on nothing but the
-// slot's own rows: no atomics, nothing chosen by the batch.
-#include "common.cuh"
-
-namespace repro {
-
-constexpr int FD_THREADS = 256;
-constexpr int FD_WARPS = FD_THREADS / 32;
-constexpr int FD_ROWS = 8;  // K rows a warp loads before reducing
-
-// CH = ceil(max(dq, dv) / 32) rounded up to a power of two: the q/k/v
-// columns each lane holds (c = lane + 32 * t).
-template <typename T, int CH>
-__global__ void __launch_bounds__(FD_THREADS)
-flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const int* __restrict__ pages,
-                          const int* __restrict__ pos, const int* __restrict__ start,
-                          T* __restrict__ out, int H, int Kh, int dq, int dv, int v_row,
-                          int ps, int npp, float scale, float softcap) {
-  extern __shared__ float smem[];
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int G = H / Kh;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wsz = G * (ps + dv + 2);  // one warp's partial: P, acc, m, l
-  float* q_s = smem;                  // [G][dq]
-  auto part = [&](int w) { return q_s + G * dq + w * wsz; };
-  float* s_w = part(warp);            // [G][ps] scores, then P
-  float* acc = s_w + G * ps;          // [G][dv] (lane-private columns)
-  float* m_w = acc + G * dv;          // [G] running max
-  float* l_w = m_w + G;               // [G] running denominator
-
-  const T* qb = q + ((size_t)b * H + (size_t)kh * G) * dq;
-  for (int e = tid; e < G * dq; e += FD_THREADS) q_s[e] = to_f(qb[e]);
-  for (int e = lane; e < G * dv; e += 32) acc[e] = 0.f;
-  for (int g = lane; g < G; g += 32) {
-    m_w[g] = NEG;
-    l_w[g] = 0.f;
-  }
-  __syncthreads();
-
-  const int p_b = pos[b], s_b = start[b];
-  const int lo = s_b / ps;
-  const int hi = (s_b > p_b) ? lo - 1 : min(p_b / ps, npp - 1);
-  const size_t vstride = (size_t)Kh * v_row;
-  // warp w walks pages lo + w, lo + w + FD_WARPS, ... with its own online
-  // softmax; the partials are merged in warp order at the end
-  for (int ik = lo + warp; ik <= hi; ik += FD_WARPS) {
-    const size_t row0 = (size_t)pages[(size_t)b * npp + ik] * ps;
-    for (int jb = 0; jb < ps; jb += FD_ROWS) {
-      float kr[FD_ROWS][CH];  // all loads of FD_ROWS rows issued before any sum
-#pragma unroll
-      for (int u = 0; u < FD_ROWS; ++u) {
-        const int j = jb + u;
-        const T* kp = k + ((row0 + (j < ps ? j : 0)) * Kh + kh) * (size_t)dq;
-#pragma unroll
-        for (int t = 0; t < CH; ++t) {
-          const int c = lane + 32 * t;
-          kr[u][t] = (j < ps && c < dq) ? to_f(kp[c]) : 0.f;
-        }
-      }
-      for (int g = 0; g < G; ++g) {
-#pragma unroll
-        for (int u = 0; u < FD_ROWS; ++u) {
-          float dot = 0.f;
-#pragma unroll
-          for (int t = 0; t < CH; ++t) {
-            const int c = lane + 32 * t;
-            if (c < dq) dot = fmaf(q_s[g * dq + c], kr[u][t], dot);
-          }
-          dot = warp_sum(dot);
-          const int j = jb + u, r = ik * ps + j;
-          if (lane == 0 && j < ps) {
-            float sc = dot * scale;
-            if (softcap > 0.f) sc = tanhf(sc / softcap) * softcap;
-            s_w[g * ps + j] = (r >= s_b && r <= p_b) ? sc : NEG;
-          }
-        }
-      }
-    }
-    __syncwarp();
-    for (int g = 0; g < G; ++g) {
-      float mx = NEG;
-      for (int j = lane; j < ps; j += 32) mx = fmaxf(mx, s_w[g * ps + j]);
-      const float m_prev = m_w[g];
-      const float m_new = fmaxf(m_prev, warp_max(mx));
-      const bool live = m_new > NEG * 0.5f;  // no valid key yet: P stays 0
-      float sum = 0.f;
-      for (int j = lane; j < ps; j += 32) {
-        const float p = live ? expf(s_w[g * ps + j] - m_new) : 0.f;
-        sum += p;
-        s_w[g * ps + j] = round_to<T>(p);
-      }
-      sum = warp_sum(sum);
-      const float alpha = expf(m_prev - m_new);
-      for (int c = lane; c < dv; c += 32) acc[g * dv + c] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        m_w[g] = m_new;
-        l_w[g] = l_w[g] * alpha + sum;
-      }
-    }
-    __syncwarp();
-    for (int g = 0; g < G; ++g) {
-      // one pass over the page's V rows: each lane's CH columns of a row are
-      // loaded together, eight rows ahead
-      float a[CH];
-#pragma unroll
-      for (int t = 0; t < CH; ++t) a[t] = (lane + 32 * t < dv) ? acc[g * dv + lane + 32 * t] : 0.f;
-      const T* vr = v + (row0 * Kh + kh) * (size_t)v_row;
-#pragma unroll 8
-      for (int j = 0; j < ps; ++j) {
-        const float p = s_w[g * ps + j];
-#pragma unroll
-        for (int t = 0; t < CH; ++t) {
-          const int c = lane + 32 * t;
-          if (c < dv) a[t] = fmaf(p, to_f(vr[j * vstride + c]), a[t]);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < CH; ++t)
-        if (lane + 32 * t < dv) acc[g * dv + lane + 32 * t] = a[t];
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  T* ob = out + ((size_t)b * H + (size_t)kh * G) * dv;
-  for (int e = tid; e < G * dv; e += FD_THREADS) {
-    const int g = e / dv;
-    float m = NEG;
-    for (int w = 0; w < FD_WARPS; ++w) m = fmaxf(m, part(w)[G * (ps + dv) + g]);
-    float l = 0.f, a = 0.f;
-    for (int w = 0; w < FD_WARPS; ++w) {
-      const float* pw = part(w);
-      const float f = expf(pw[G * (ps + dv) + g] - m);
-      l = fmaf(pw[G * (ps + dv) + G + g], f, l);
-      a = fmaf(pw[G * ps + e], f, a);
-    }
-    ob[e] = from_f<T>(a / fmaxf(l, 1e-30f));
-  }
-}
-
-template <typename T, int CH>
-int launch(const void* q, const void* k, const void* v, const int* pages, const int* pos,
-           const int* start, void* out, int B, int H, int Kh, int dq, int dv, int v_row,
-           int ps, int npp, float scale, float softcap, cudaStream_t stream) {
-  const int G = H / Kh;
-  const size_t smem = sizeof(float) * ((size_t)G * dq + (size_t)FD_WARPS * G * (ps + dv + 2));
-  auto kern = flash_decode_paged_kernel<T, CH>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(Kh, B);
-  kern<<<grid, FD_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pages,
-      pos, start, static_cast<T*>(out), H, Kh, dq, dv, v_row, ps, npp, scale, softcap);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const int* pages, const int* pos,
-             const int* start, void* out, int B, int H, int Kh, int dq, int dv, int v_row,
-             int ps, int npp, float scale, float softcap, cudaStream_t s) {
-  const int dmax = dq > dv ? dq : dv;
-  if (dmax <= 32)
-    return launch<T, 1>(q, k, v, pages, pos, start, out, B, H, Kh, dq, dv, v_row, ps, npp,
-                        scale, softcap, s);
-  if (dmax <= 64)
-    return launch<T, 2>(q, k, v, pages, pos, start, out, B, H, Kh, dq, dv, v_row, ps, npp,
-                        scale, softcap, s);
-  if (dmax <= 128)
-    return launch<T, 4>(q, k, v, pages, pos, start, out, B, H, Kh, dq, dv, v_row, ps, npp,
-                        scale, softcap, s);
-  if (dmax <= 256)
-    return launch<T, 8>(q, k, v, pages, pos, start, out, B, H, Kh, dq, dv, v_row, ps, npp,
-                        scale, softcap, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace repro
-
-// q [B,H,dq]; k pool [P,ps,Kh,dq]; v pool [P,ps,Kh,v_row] (first dv columns
-// read); pages [B,npp]; pos, start [B]; out [B,H,dv].  softcap <= 0 is off.
-extern "C" int repro_flash_decode_paged(const void* q, const void* k, const void* v,
-                                        const void* pages, const void* pos,
-                                        const void* start, void* out, int B, int H,
-                                        int Kh, int dq, int dv, int v_row, int ps,
-                                        int npp, float scale, float softcap, int is_bf16,
-                                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* pg = static_cast<const int*>(pages);
-  const int* p = static_cast<const int*>(pos);
-  const int* st = static_cast<const int*>(start);
-  if (is_bf16)
-    return repro::dispatch<__nv_bfloat16>(q, k, v, pg, p, st, out, B, H, Kh, dq, dv, v_row,
-                                          ps, npp, scale, softcap, s);
-  return repro::dispatch<float>(q, k, v, pg, p, st, out, B, H, Kh, dq, dv, v_row, ps, npp,
-                                scale, softcap, s);
-}
-
-// ---------------------------------------------------------------------------
-// Slot-cache flash-decode: k [B, S, K, dq], v [B, S, K, v_row].
-//
-// Replaces: src/repro/kernels/decode_attention.py, _fd_kernel (wrapper
-// flash_decode), linear and ring layouts.  Validity of cache row r: linear,
-// start <= r <= pos (a frozen full slot, pos == S, reads rows
-// [start, S - 1]); ring, entry r holds absolute row
-// a = pos - ((pos - r) mod S) with a floored mod -- C++ % truncates toward
-// zero, so ((pos - r) % S + S) % S -- and is live iff a >= 0 and
-// a >= start.  A slot with start > pos writes exact zeros.
-//
-// What bounds it on an H100: bytes, as for the paged kernel.  At the edge
-// path's batch (B = 2 slots, K = 4 kv-heads) one block per (slot, kv-head)
-// would leave 124 of 132 SMs idle, so the rows are split (flash-decoding):
-// one block per 64-row block of the cache, and one launch in all.
+// orders of magnitude below the card's operations-per-byte balance.  One
+// block per (slot, kv-head) would leave most SMs idle at small batches and
+// let the longest slot set the time, so the rows are split
+// (flash-decoding): one block per 64-row block of a slot's logical rows,
+// per kv-head, per slot, and one launch in all.
 //   - Loads: warp w owns rows 8w..8w+7 of the block.  Each lane holds 16
 //     bytes of a row (8 bf16 or 4 f32 columns; at d = 256 bf16 one warp
 //     instruction reads a whole 512-byte row).  All eight K rows of the warp
 //     are loaded into registers and all eight V rows are copied into shared
 //     memory by cp.async before any sum, so the V bytes arrive while the
 //     scores are computed and hold no registers meanwhile (each lane later
-//     reads back the 16-byte pieces it copied).
+//     reads back the 16-byte pieces it copied).  A row's storage index is
+//     computed once (one page-table read for a pool) for its K and its V.
 //   - Scores: per row a lane's products and a warp sum, for all G query
 //     heads of the kv-head (each K row read once); one warp per head takes
 //     the block's softmax; P is rounded to the value type before PV.
@@ -255,13 +43,31 @@ extern "C" int repro_flash_decode_paged(const void* q, const void* k, const void
 //     that draws the last one merges every partial in block order -- a
 //     fixed order, whatever order the blocks finished in -- and resets the
 //     counter to 0 for the next call.  The wrapper allocates the counters
-//     (zeroed once) and the partials' scratch, and keeps both per device.
-// Linear blocks outside [start, pos] and every block of a drained slot load
-// nothing (they only take their ticket); every block of a live ring is
-// visited, as in the Pallas kernel.  Two blocks fit an SM: 103 registers a
-// thread at bf16 (ptxas -v, sm_90a), no spills, 52 KB of shared memory at
-// G = 2, d = 256.
-// ---------------------------------------------------------------------------
+//     (zeroed once) and the partials' scratch, and keeps both per device
+//     and stream.
+// Slot caches: linear blocks outside [start, pos] and every block of a
+// drained slot load nothing and only take their ticket; every block of a
+// live ring is visited, as in the Pallas kernel.  Pools: a slot's rows are
+// the table's width (the engine's max_len), mostly past pos, so which
+// blocks are live is computed from pos and start by every block; the
+// others exit at once (block 0 of a slot with none writes its zeros), the
+// tickets count live blocks only, and a slot with one live block writes
+// its output directly, which is the merge of one partial.  Both steps are
+// compiled for pools only: on slot caches, where nearly every block is
+// live, they measured slower.  Only rows in
+// [start, pos] of a linear or paged block are read.  The split of a slot's
+// rows and every sum's order depend on nothing but the slot's own rows: no
+// atomics on values, nothing chosen by the batch.  Softcap and dv
+// narrowing (v may alias k, MLA-style: v's rows are v_row wide) are
+// supported, G = H / K from 1 up, d <= 256.  Slot caches: two blocks an
+// SM, 103 registers a thread at bf16 (ptxas -v, sm_90a), no spills, 52 KB
+// of shared memory at G = 2, d = 256.  Pools: compiled for three blocks an
+// SM (80 registers at bf16, 32 bytes spilled), which hid more of the
+// load latency than two at the engine's decode shape (B = 8, H = K = 16,
+// d = 128) and than four; slot caches measured no gain from a third block.
+// chip_smoke.py prints every instantiation's ptxas line.
+#include "common.cuh"
+
 namespace repro {
 
 constexpr int SD_ROWS = 64;  // cache rows per block: 8 warps x 8 rows
@@ -307,15 +113,39 @@ template <> __device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& r,
   return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
 }
 
-// CH: 16-byte chunks of a row a lane holds (column c0 = V * (lane + 32 t))
-template <typename T, int CH>
-__global__ void __launch_bounds__(SD_THREADS, 2)
+// Storage row of logical row r of slot b, counted in rows of [Kh][width]:
+// a slot cache's own rows (b * S + r: contiguous, so a block steps a
+// pointer), or a pool's rows through the page table (the page index
+// clipped to npp - 1).  min_blocks: blocks an SM the kernel is compiled for
+// (registers a thread <= 65536 / (256 * min_blocks)).  paged: a slot's
+// rows are a table's width, mostly past pos, so blocks outside the live
+// range exit at once (see the kernel).
+struct SlotRows {
+  static constexpr int min_blocks = 2;
+  static constexpr bool paged = false;
+  int S;
+  __device__ __forceinline__ size_t operator()(int b, int r) const { return (size_t)b * S + r; }
+};
+struct PageRows {
+  static constexpr int min_blocks = 3;  // a third block an SM hides more load latency
+  static constexpr bool paged = true;
+  const int* pages;  // [B, npp]
+  int ps, npp;
+  __device__ __forceinline__ size_t operator()(int b, int r) const {
+    return (size_t)pages[(size_t)b * npp + min(r / ps, npp - 1)] * ps + r % ps;
+  }
+};
+
+// CH: 16-byte chunks of a row a lane holds (column c0 = V * (lane + 32 t));
+// S: logical rows of a slot (npp * ps for pools)
+template <typename T, int CH, typename Rows>
+__global__ void __launch_bounds__(SD_THREADS, Rows::min_blocks)
 flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const int* __restrict__ pos,
                          const int* __restrict__ start, float* __restrict__ part,
                          int* __restrict__ counter, T* __restrict__ out, int H, int Kh, int S,
                          int dq, int dv, int v_row, int ring, float scale, float softcap,
-                         int veck, int vecv) {
+                         int veck, int vecv, Rows rows) {
   constexpr int V = 16 / sizeof(T);
   extern __shared__ __align__(16) float sd_smem[];
   __shared__ int last;
@@ -334,28 +164,63 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int p_b = pos[b], s_b = start[b];
   const int r0 = blk * SD_ROWS, jn = min(SD_ROWS, S - r0);
+  // the blocks that take a ticket, [blo, bhi].  Slot caches: all of them
+  // (a block with no live row writes a partial with sum 0).  Pools: those
+  // overlapping [start, pos], none when drained -- a function of the slot's
+  // own rows, known to every block: the others exit at once, and block 0
+  // of a slot with none writes its zeros.
+  int blo = 0, bhi = nblk - 1;
+  if constexpr (Rows::paged) {
+    bhi = -1;
+    if (s_b <= p_b && p_b >= 0 && s_b < S) {
+      blo = max(s_b, 0) / SD_ROWS;
+      bhi = min(p_b, S - 1) / SD_ROWS;
+    }
+  }
+  const int nlive = bhi - blo + 1;
+  if constexpr (Rows::paged) {
+    if (blk < blo || blk > bhi) {
+      if (nlive <= 0 && blk == 0) {
+        T* ob = out + ((size_t)b * H + (size_t)kh * G) * dv;
+        for (int e = tid; e < G * dv; e += SD_THREADS) ob[e] = from_f<T>(0.f);
+      }
+      return;
+    }
+  }
   const bool live = s_b <= p_b && (ring || (r0 <= p_b && r0 + jn > s_b));
   if (live) {
+    // rows read: all of a ring block's, those in [start, pos] of a linear or
+    // paged one (the rest stay zero and are masked)
+    const int j_lo = ring ? 0 : max(s_b - r0, 0), j_hi = ring ? jn - 1 : min(p_b - r0, jn - 1);
     const size_t kstride = (size_t)Kh * dq, vstride = (size_t)Kh * v_row;
-    const T* kb = k + ((size_t)b * S + r0) * kstride + (size_t)kh * dq;
-    const T* vb = v + ((size_t)b * S + r0) * vstride + (size_t)kh * v_row;
+    size_t sr0 = 0;  // slot caches: the block's first row; its rows follow
+    if constexpr (!Rows::paged) sr0 = rows(b, r0);
+    const T* kb = k + sr0 * kstride + (size_t)kh * dq;
+    const T* vb = v + sr0 * vstride + (size_t)kh * v_row;
     uint4 kr[8][CH];  // the warp's 8 K rows; its 8 V rows go to v_s meanwhile
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int j = warp * 8 + u;
+      const bool rd = j >= j_lo && j <= j_hi;
+      const T* krow = kb + j * kstride;
+      const T* vrow = vb + j * vstride;
+      if constexpr (Rows::paged) {  // one table read for K and V
+        const size_t sr = rd ? rows(b, r0 + j) : 0;
+        krow = kb + sr * kstride;
+        vrow = vb + sr * vstride;
+      }
 #pragma unroll
       for (int t = 0; t < CH; ++t) {
         const int c0 = V * (lane + 32 * t);
-        kr[u][t] = j < jn ? load16(kb + j * kstride, c0, dq, veck) : make_uint4(0u, 0u, 0u, 0u);
+        kr[u][t] = rd ? load16(krow, c0, dq, veck) : make_uint4(0u, 0u, 0u, 0u);
         if (c0 < dv) {
           T* dst = v_s + j * dvs + c0;
-          const T* src = vb + j * vstride + c0;
-          if (vecv) {  // zeros past dv and past the cache's last row
-            const int n = j < jn ? min(V, dv - c0) * static_cast<int>(sizeof(T)) : 0;
-            cp_async16_n(dst, n ? src : vb, n);
+          if (vecv) {  // zeros past dv and on rows not read
+            const int n = rd ? min(V, dv - c0) * static_cast<int>(sizeof(T)) : 0;
+            cp_async16_n(dst, n ? vrow + c0 : v, n);
           } else {
             *reinterpret_cast<uint4*>(dst) =
-                j < jn ? load16(src, 0, dv - c0, false) : make_uint4(0u, 0u, 0u, 0u);
+                rd ? load16(vrow + c0, 0, dv - c0, false) : make_uint4(0u, 0u, 0u, 0u);
           }
         }
       }
@@ -442,6 +307,17 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
     __syncthreads();
+    if (Rows::paged && nlive == 1) {  // one live block: the merge of its lone partial
+      T* ob = out + ((size_t)b * H + (size_t)kh * G) * dv;
+      for (int e = tid; e < G * dv; e += SD_THREADS) {  // the warps' sums in warp order
+        const int g = e / dv, c = e % dv;
+        float a = red[(size_t)g * dv + c];
+#pragma unroll
+        for (int w = 1; w < SD_WARPS; ++w) a += red[((size_t)w * G + g) * dv + c];
+        ob[e] = from_f<T>(a / fmaxf(ml[2 * g + 1], 1e-30f));
+      }
+      return;
+    }
     for (int e = tid; e < G * dv; e += SD_THREADS) {  // the warps' sums in warp order
       const int g = e / dv, c = e % dv;
       float a = red[(size_t)g * dv + c];
@@ -460,25 +336,26 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the block that takes the last ticket of its (slot, kv-head) merges
   __threadfence();
   __syncthreads();
-  if (tid == 0) last = atomicAdd(&counter[b * Kh + kh], 1) == nblk - 1;
+  if (tid == 0) last = atomicAdd(&counter[b * Kh + kh], 1) == nlive - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
-  float* mf = red;             // [nblk][G]: block maxima, then merge factors
-  float* lf = red + nblk * G;  // [nblk][G]: block sums
-  for (int e = tid; e < nblk * G; e += SD_THREADS) {
-    const float* pi = pbase + (size_t)e * W;  // block e / G, head e % G
+  float* mf = red;              // [nlive][G]: block maxima, then merge factors
+  float* lf = red + nlive * G;  // [nlive][G]: block sums
+  const float* plive = pbase + (size_t)blo * G * W;  // the live blocks' partials
+  for (int e = tid; e < nlive * G; e += SD_THREADS) {
+    const float* pi = plive + (size_t)e * W;  // live block e / G, head e % G
     mf[e] = __ldcg(pi);
     lf[e] = __ldcg(pi + 1);
   }
   __syncthreads();
   for (int g = warp; g < G; g += SD_WARPS) {
     float m = NEG;
-    for (int i = lane; i < nblk; i += 32)
+    for (int i = lane; i < nlive; i += 32)
       if (lf[i * G + g] > 0.f) m = fmaxf(m, mf[i * G + g]);
     m = warp_max(m);
     __syncwarp();
-    for (int i = lane; i < nblk; i += 32)
+    for (int i = lane; i < nlive; i += 32)
       mf[i * G + g] = lf[i * G + g] > 0.f ? expf(mf[i * G + g] - m) : 0.f;
   }
   __syncthreads();
@@ -487,8 +364,8 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int g = e / dv, c = e % dv;
     float l = 0.f, a = 0.f;
 #pragma unroll 8
-    for (int i = 0; i < nblk; ++i) {  // block order
-      const float x = __ldcg(pbase + ((size_t)i * G + g) * W + 2 + c);
+    for (int i = 0; i < nlive; ++i) {  // block order
+      const float x = __ldcg(plive + ((size_t)i * G + g) * W + 2 + c);
       const float f = mf[i * G + g], li = lf[i * G + g];
       if (li > 0.f) {
         l = fmaf(li, f, l);
@@ -507,13 +384,14 @@ size_t slot_smem(int G, int dq, int dv, int nblk) {
          sizeof(T) * SD_ROWS * (size_t)((dv + V - 1) / V * V);
 }
 
-template <typename T, int CH>
+template <typename T, int CH, typename Rows>
 int launch_slot(const void* q, const void* k, const void* v, const int* pos, const int* start,
                 float* part, int* counter, void* out, int B, int H, int Kh, int S, int dq,
-                int dv, int v_row, int ring, float scale, float softcap, cudaStream_t stream) {
+                int dv, int v_row, int ring, float scale, float softcap, Rows rows,
+                cudaStream_t stream) {
   const int G = H / Kh, nblk = (S + SD_ROWS - 1) / SD_ROWS;
   const size_t smem = slot_smem<T>(G, dq, dv, nblk);
-  auto kern = flash_decode_slot_kernel<T, CH>;
+  auto kern = flash_decode_slot_kernel<T, CH, Rows>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -523,20 +401,20 @@ int launch_slot(const void* q, const void* k, const void* v, const int* pos, con
   kern<<<dim3(nblk, Kh, B), SD_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
       start, part, counter, static_cast<T*>(out), H, Kh, S, dq, dv, v_row, ring, scale,
-      softcap, veck, vecv);
+      softcap, veck, vecv, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename Rows>
 int dispatch_slot(const void* q, const void* k, const void* v, const int* pos,
                   const int* start, float* part, int* counter, void* out, int B, int H, int Kh,
                   int S, int dq, int dv, int v_row, int ring, float scale, float softcap,
-                  cudaStream_t s) {
+                  Rows rows, cudaStream_t s) {
   const int dmax = dq > dv ? dq : dv;
   const int per = 32 * (16 / static_cast<int>(sizeof(T)));  // columns a warp's chunk holds
-#define REPRO_SLOT(CH)                                                                  \
-  return launch_slot<T, CH>(q, k, v, pos, start, part, counter, out, B, H, Kh, S, dq, \
-                            dv, v_row, ring, scale, softcap, s)
+#define REPRO_SLOT(CH)                                                                        \
+  return launch_slot<T, CH, Rows>(q, k, v, pos, start, part, counter, out, B, H, Kh, S, dq, \
+                                  dv, v_row, ring, scale, softcap, rows, s)
   if (dmax <= per) REPRO_SLOT(1);
   if constexpr (sizeof(T) == 4) {  // f32 rows up to 256 wide take two chunks a lane
     if (dmax <= 2 * per) REPRO_SLOT(2);
@@ -545,25 +423,44 @@ int dispatch_slot(const void* q, const void* k, const void* v, const int* pos,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename Rows>
+int dispatch_type(const void* q, const void* k, const void* v, const int* pos,
+                  const int* start, float* part, int* counter, void* out, int B, int H, int Kh,
+                  int S, int dq, int dv, int v_row, int ring, float scale, float softcap,
+                  int is_bf16, Rows rows, cudaStream_t s) {
+  if (is_bf16)
+    return dispatch_slot<__nv_bfloat16>(q, k, v, pos, start, part, counter, out, B, H, Kh, S,
+                                        dq, dv, v_row, ring, scale, softcap, rows, s);
+  return dispatch_slot<float>(q, k, v, pos, start, part, counter, out, B, H, Kh, S, dq, dv,
+                              v_row, ring, scale, softcap, rows, s);
+}
+
 }  // namespace repro
 
-// q [B,H,dq]; k [B,S,Kh,dq]; v [B,S,Kh,v_row] (first dv columns read); pos,
-// start [B]; part: B*Kh*ceil(S/64)*(H/Kh)*(dv+2) f32 scratch; counter:
-// B*Kh int32, all 0 (every launch leaves them 0 again); out [B,H,dv].
-// ring: 0 linear, 1 ring.  softcap <= 0 is off.  One launch.
+// q [B,H,dq]; k [B,S,Kh,dq] and v [B,S,Kh,v_row] slot caches, or, with
+// pages [B,npp] not null, pools k [P,ps,Kh,dq] and v [P,ps,Kh,v_row] over
+// S = npp*ps logical rows (linear validity); the first dv columns of v are
+// read.  pos, start [B]; part: B*Kh*ceil(S/64)*(H/Kh)*(dv+2) f32 scratch;
+// counter: B*Kh int32, all 0 (every launch leaves them 0 again); out
+// [B,H,dv].  ring: 0 linear, 1 ring (slot caches only).  softcap <= 0 is
+// off.  One launch.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
-                                  const void* pos, const void* start, void* part,
-                                  void* counter, void* out, int B, int H, int Kh, int S,
-                                  int dq, int dv, int v_row, int ring, float scale,
-                                  float softcap, int is_bf16, void* stream) {
+                                  const void* pages, const void* pos, const void* start,
+                                  void* part, void* counter, void* out, int B, int H, int Kh,
+                                  int S, int dq, int dv, int v_row, int ring, int ps, int npp,
+                                  float scale, float softcap, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   const int* st = static_cast<const int*>(start);
   float* pt = static_cast<float*>(part);
   int* ct = static_cast<int*>(counter);
-  if (is_bf16)
-    return repro::dispatch_slot<__nv_bfloat16>(q, k, v, p, st, pt, ct, out, B, H, Kh, S, dq,
-                                               dv, v_row, ring, scale, softcap, s);
-  return repro::dispatch_slot<float>(q, k, v, p, st, pt, ct, out, B, H, Kh, S, dq, dv, v_row,
-                                     ring, scale, softcap, s);
+  if (pages) {
+    if (ring || ps <= 0 || npp <= 0 || S != npp * ps)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const repro::PageRows rows{static_cast<const int*>(pages), ps, npp};
+    return repro::dispatch_type(q, k, v, p, st, pt, ct, out, B, H, Kh, S, dq, dv, v_row, 0,
+                                scale, softcap, is_bf16, rows, s);
+  }
+  return repro::dispatch_type(q, k, v, p, st, pt, ct, out, B, H, Kh, S, dq, dv, v_row, ring,
+                              scale, softcap, is_bf16, repro::SlotRows{S}, s);
 }

@@ -1,252 +1,136 @@
-// Flash attention for Hopper (sm_90a), in two kernels: paged chunk
-// prefill (a query chunk at absolute positions q_start + i attending
-// causally over logical rows [0, k_len) of page pools) and dense attention
-// (whole-prompt prefill and the training forward; see the second part of
-// this file).
-//
-// Replaces: src/repro/kernels/flash_attention.py, _fa_kernel_paged (wrapper
-// _flash_attention_paged), and _fa_kernel (wrapper flash_attention).
-//
-// What bounds it on an H100: at the serving shapes (a 64-row chunk over a
-// past of a few hundred rows, d = 128) the 4*C*k_len*d operations per head
-// and the bytes of the live KV rows are both small; the kernel is bound by
-// latency and by reading K and V once per 8-row query tile.  The design
-// reads only the pages that are live under _paged_block_live
-// (flash_attention.py:28): page ik is visited iff ik*ps < k_len and
-// ik*ps <= q_start + last row of the tile, so pages past the valid rows or
-// past the tile's causal horizon cost neither bytes nor operations.  Each
-// page is staged through shared memory in 32-row sub-tiles (rows padded by
-// one float so the column reads are conflict-free), and the tile's Q rows
-// stay in shared memory for the whole walk.
-//
-// Grid: one block per (q-tile, head, slot); the block loops over its live
-// pages in order with an f32 online softmax.  Masks: absolute-position
-// causal (kpos <= qpos), sliding window (kpos > qpos - window) and
-// kpos < k_len; softcap.  A row with every key masked writes 0.  Query rows
-// at i >= chunk length are the caller's padding: computed, never used.
-// GQA maps head h to kv-head h / (H/K) -- no KV broadcast in memory.
-#include "common.cuh"
-
-namespace repro {
-
-constexpr int FA_BQ = 8;    // query rows per block (small: more blocks in flight)
-constexpr int FA_KT = 32;   // key rows per shared-memory sub-tile (one per lane)
-constexpr int FA_THREADS = 128;
-
-template <typename T>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_attention_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, const int* __restrict__ pages,
-                             const int* __restrict__ q_start, const int* __restrict__ k_len,
-                             T* __restrict__ out, int H, int Kh, int C, int d, int ps,
-                             int npp, int window, float scale, float softcap) {
-  extern __shared__ float smem[];
-  const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int G = H / Kh, kh = h / G;
-  const int dp = d + 1;
-  float* q_s = smem;                 // [BQ][d]
-  float* k_s = q_s + FA_BQ * d;      // [KT][d+1]
-  float* v_s = k_s + FA_KT * dp;     // [KT][d+1]
-  float* s_s = v_s + FA_KT * dp;     // [BQ][KT] scores, then P
-  float* acc = s_s + FA_BQ * FA_KT;  // [BQ][d]
-  float* m_s = acc + FA_BQ * d;      // [BQ]
-  float* l_s = m_s + FA_BQ;          // [BQ]
-  float* a_s = l_s + FA_BQ;          // [BQ]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int NW = FA_THREADS / 32;
-  const int i0 = iq * FA_BQ;
-  const int qs = q_start[b], kl = k_len[b];
-
-  const T* qb = q + (((size_t)b * H + h) * C + i0) * d;
-  for (int e = tid; e < FA_BQ * d; e += FA_THREADS) {
-    q_s[e] = (i0 + e / d < C) ? to_f(qb[e]) : 0.f;
-    acc[e] = 0.f;
-  }
-  for (int i = tid; i < FA_BQ; i += FA_THREADS) {
-    m_s[i] = NEG;
-    l_s[i] = 0.f;
-  }
-  __syncthreads();
-
-  const int horizon = qs + i0 + FA_BQ - 1;  // last query position of the tile
-  const int hi = (kl <= 0) ? -1 : min(min((kl - 1) / ps, horizon / ps), npp - 1);
-  for (int ik = 0; ik <= hi; ++ik) {
-    const size_t row0 = (size_t)pages[(size_t)b * npp + ik] * ps;
-    for (int j0 = 0; j0 < ps; j0 += FA_KT) {
-      const int jn = min(FA_KT, ps - j0);
-#pragma unroll 8  // keep several row loads in flight per thread
-      for (int e = tid; e < FA_KT * d; e += FA_THREADS) {
-        const int j = e / d, c = e % d;
-        float kv = 0.f, vv = 0.f;
-        if (j < jn) {
-          const size_t off = ((row0 + j0 + j) * Kh + kh) * (size_t)d + c;
-          kv = to_f(k[off]);
-          vv = to_f(v[off]);
-        }
-        k_s[j * dp + c] = kv;
-        v_s[j * dp + c] = vv;
-      }
-      __syncthreads();
-      for (int e = tid; e < FA_BQ * FA_KT; e += FA_THREADS) {
-        const int i = e / FA_KT, j = e % FA_KT;
-        const int qpos = qs + i0 + i, kpos = ik * ps + j0 + j;
-        bool valid = (j < jn) && (kpos < kl) && (kpos <= qpos);
-        if (window > 0) valid = valid && (kpos > qpos - window);
-        float s = NEG;
-        if (valid) {
-          float dot = 0.f;
-          for (int c = 0; c < d; ++c) dot = fmaf(q_s[i * d + c], k_s[j * dp + c], dot);
-          s = dot * scale;
-          if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-        }
-        s_s[e] = s;
-      }
-      __syncthreads();
-      for (int i = warp; i < FA_BQ; i += NW) {
-        const float x = (lane < FA_KT) ? s_s[i * FA_KT + lane] : NEG;
-        const float m_prev = m_s[i];
-        const float m_new = fmaxf(m_prev, warp_max(x));
-        const bool live = m_new > NEG * 0.5f;  // no valid key yet: P stays 0
-        const float p = (lane < FA_KT && live) ? expf(x - m_new) : 0.f;
-        const float sum = warp_sum(p);
-        if (lane < FA_KT) s_s[i * FA_KT + lane] = round_to<T>(p);
-        if (lane == 0) {
-          const float alpha = expf(m_prev - m_new);
-          a_s[i] = alpha;
-          l_s[i] = l_s[i] * alpha + sum;
-          m_s[i] = m_new;
-        }
-      }
-      __syncthreads();
-      for (int e = tid; e < FA_BQ * d; e += FA_THREADS) {
-        const int i = e / d, c = e % d;
-        float a = acc[e] * a_s[i];
-#pragma unroll 4
-        for (int j = 0; j < jn; ++j) a = fmaf(s_s[i * FA_KT + j], v_s[j * dp + c], a);
-        acc[e] = a;
-      }
-      __syncthreads();
-    }
-  }
-
-  T* ob = out + (((size_t)b * H + h) * C + i0) * d;
-  for (int e = tid; e < FA_BQ * d; e += FA_THREADS) {
-    const int i = e / d;
-    if (i0 + i < C) ob[e] = from_f<T>(acc[e] / fmaxf(l_s[i], 1e-30f));
-  }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* pages, const int* q_start,
-           const int* k_len, void* out, int B, int H, int Kh, int C, int d, int ps, int npp,
-           int window, float scale, float softcap, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)2 * FA_BQ * d + 2 * FA_KT * (d + 1) + FA_BQ * FA_KT + 3 * FA_BQ);
-  auto kern = flash_attention_paged_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((C + FA_BQ - 1) / FA_BQ, H, B);
-  kern<<<grid, FA_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pages,
-      q_start, k_len, static_cast<T*>(out), H, Kh, C, d, ps, npp, window, scale, softcap);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace repro
-
-// q [B,H,C,d]; k/v pools [P,ps,Kh,d]; pages [B,npp]; q_start, k_len [B];
-// out [B,H,C,d].  window <= 0 and softcap <= 0 are off.
-extern "C" int repro_flash_attention_paged(const void* q, const void* k, const void* v,
-                                           const void* pages, const void* q_start,
-                                           const void* k_len, void* out, int B, int H,
-                                           int Kh, int C, int d, int ps, int npp,
-                                           int window, float scale, float softcap,
-                                           int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* pg = static_cast<const int*>(pages);
-  const int* qs = static_cast<const int*>(q_start);
-  const int* kl = static_cast<const int*>(k_len);
-  if (is_bf16)
-    return repro::launch<__nv_bfloat16>(q, k, v, pg, qs, kl, out, B, H, Kh, C, d, ps, npp,
-                                        window, scale, softcap, s);
-  return repro::launch<float>(q, k, v, pg, qs, kl, out, B, H, Kh, C, d, ps, npp, window,
-                              scale, softcap, s);
-}
-
-// ---------------------------------------------------------------------------
-// Dense flash attention: q [B,H,Sq,d] against k/v [B,K,Sk,d], any strides
-// with unit stride along d.
+// Flash attention for Hopper (sm_90a): dense attention (whole-prompt
+// prefill and the training forward) and paged chunk prefill (a query chunk
+// at absolute positions q_start + i attending causally over logical rows
+// [0, k_len) of page pools).  Both run on one tile loop per dtype: the
+// paged form is the dense kernel with its K/V rows looked up through the
+// page table and its keys split over blocks.
 //
 // Replaces: src/repro/kernels/flash_attention.py, _fa_kernel (wrapper
-// flash_attention).  Masks as there: query row i sits at position
-// qpos = i + (Sk - Sq) (the last query aligned with the last key; Sq < Sk
-// continues a cached prefix), key kpos is valid iff kpos < Sk, and
-// kpos <= qpos when causal, and kpos > qpos - window when windowed; softcap
-// before the mask.  A row with every key masked writes exact 0.  GQA maps
-// head h to kv-head h / (H/K): no KV broadcast in memory.  Strides are read,
-// not assumed, so the layers hand over transposed views of their
-// [B, S, H, d] tensors with no copy, and the output is written into a
-// [B, Sq, H, d] buffer.
+// flash_attention) and _fa_kernel_paged (wrapper _flash_attention_paged).
 //
-// What bounds it on an H100: operations.  At prefill (Sq = Sk = thousands,
-// d = 256) each (q-tile, head) does 4*BQ*keys*d operations on BQ*d + 2*keys*d
-// inputs, far above the card's operations-per-byte balance.  Two kernels,
-// by dtype:
+// Masks, as the Pallas kernels: query row i sits at position qpos = i + off
+// (dense: off = Sk - Sq, the last query aligned with the last key, so
+// Sq < Sk continues a cached prefix; paged: off = q_start[b]); key kpos is
+// valid iff kpos < kn (dense: Sk; paged: min(k_len[b], npp * ps)), and
+// kpos <= qpos when causal (paged: always), and kpos > qpos - window when
+// windowed; softcap before the mask.  A row with every key masked writes
+// exact 0.  GQA maps head h to kv-head h / (H/K): no KV broadcast in
+// memory.  Strides are read, not assumed, so the layers hand over
+// transposed views of their [B, S, H, d] tensors with no copy, and the
+// output is written into a [B, Sq, H, d] buffer.
 //
-// bf16 (the serving and edge path): tensor cores.  A block owns 64 query
+// Paged addressing: key row r of slot b lives at pool row
+// pages[b, r / ps] * ps + r % ps, kv-head kh, in pools [P, ps, K, d]; ps is
+// any positive multiple of 8, so a key tile may span several pages or half
+// of one.  Only rows r < kn are ever read (the cp.async of a row past kn is
+// a zero fill), so the pools' spare drop row and the trash entries of a
+// table past the slot's rows are never touched.  Key tiles are loaded only
+// where _paged_block_live (flash_attention.py:28) holds -- the tile has
+// rows below kn and not past the query tile's causal horizon -- and not
+// where they lie wholly below every query row's window.
+//
+// What bounds it on an H100: dense prefill (Sq = Sk = thousands, d = 256)
+// is bound by operations, 4*BQ*keys*d a (q-tile, head) on BQ*d + 2*keys*d
+// inputs.  A serving chunk (C = 64 rows over a past of a few hundred, one
+// slot) is bound by neither: its bytes (the live K/V rows once) and its
+// operations are both a few microseconds of the card, and what it pays is
+// latency -- a few blocks each walking their tiles one after another.  The
+// paged form therefore splits each slot's keys into pieces of FAP_SPLIT
+// rows (a constant: never a function of B, H or the grid), one block per
+// (query tile, piece, head, slot), so a 64-row chunk over 512 keys at
+// H = 16 keeps 64 blocks busy instead of 16.  Each block writes its
+// partial (row max, row sum, unnormalised O in f32), fences and takes a
+// ticket from its (slot, head, query tile)'s counter; the block that draws
+// the last ticket merges the partials in piece order -- a fixed order,
+// whatever order the blocks finished in -- and resets the counter.  Which
+// pieces are live follows from the slot's q_start, k_len and window, which
+// every block reads: a block of a dead piece exits at once (no load, no
+// ticket), and a query tile with one live piece is written directly by its
+// block, which is the merge of one partial.  The split and every sum's
+// order depend on nothing but the slot's own rows, so a slot gives the same
+// bits alone or in a batch.
+//
+// bf16 (the serving and edge paths): tensor cores.  A block owns 64 query
 // rows of one head, four warps of 16 rows each.  Q stays bf16 in shared
 // memory; K/V tiles of KT rows (64, or 32 at d > 128) come through a 2-stage
 // cp.async ring, so tile t+1 loads while tile t computes, with one barrier
-// per tile.  Each warp runs QK^T and PV as mma.sync m16n8k16 (bf16 in, f32
-// accumulate), Q and K fragments by ldmatrix, V by ldmatrix.trans; S, the
-// running max and the running sum stay in registers (max over the quad of
-// lanes that share a row), and the S accumulator is repacked in registers
-// as the A fragment of PV.  The softmax runs in base 2 (scores times log2 e,
-// ex2.approx), P is rounded to bf16 before PV while the sum takes the
-// unrounded P (as _fa_kernel's p.astype(v.dtype)), the rescale of O is
-// skipped once the running max stops moving, and the output is
-// O / max(l, 1e-30).  Only key tiles live under the causal and window masks
-// are loaded; a warp skips a tile where all its 16 rows are masked, and
-// masks per element only on tiles that cross the diagonal, the window edge
-// or Sk.  Blocks are numbered heaviest causal query tile first, with the
-// heads of one kv-head adjacent so their K/V reads meet in L2.  d is padded
-// to D in {16, ..., 256} with zero columns; shared rows are padded by 16
-// bytes, so the 8 rows of every ldmatrix fall in distinct banks.
+// per tile; a paged tile's row offsets are looked up once per row and
+// serve both its K and its V copy.  Each warp runs QK^T and PV as mma.sync
+// m16n8k16 (bf16 in, f32 accumulate), Q and K fragments by ldmatrix, V by
+// ldmatrix.trans; S, the running max and the running sum stay in registers
+// (max over the quad of lanes that share a row), and the S accumulator is
+// repacked in registers as the A fragment of PV.  The softmax runs in base
+// 2 (scores times log2 e, ex2.approx), P is rounded to bf16 before PV while
+// the sum takes the unrounded P (as _fa_kernel's p.astype(v.dtype)), the
+// rescale of O is skipped once the running max stops moving, and the
+// output is O / max(l, 1e-30).  A warp skips a tile where all its 16 rows
+// are masked, and masks per element only on tiles that cross the diagonal,
+// the window edge or kn.  Dense blocks are numbered heaviest causal query
+// tile first, with the heads of one kv-head adjacent so their K/V reads
+// meet in L2 (paged blocks too).  d is padded to D in {16, ..., 256} with
+// zero columns; shared rows are padded by 16 bytes, so the 8 rows of every
+// ldmatrix fall in distinct banks.
 //   What holds it back: at d = 256 the O accumulator alone is 128 registers
 // a thread, so a warp runs at ~245 registers and two blocks (8 warps) fit
 // an SM; with two warps per scheduler, the softmax between the two products
 // and the ldmatrix -> mma chains are not hidden.  Measured alternatives
-// that were slower on an H100 at d = 256: 16-row key tiles (3 or 4
+// that were slower on an H100 at d = 256 (dense): 16-row key tiles (3 or 4
 // stages), 64-row tiles (one block an SM), a 3-stage ring, single-buffered
 // K and V with split waits, pairs of warps splitting each row group's
 // keys and columns (16 warps an SM, 128 registers, spills), and two blocks
 // of a cluster splitting a query tile's keys with a merge over distributed
-// shared memory (the causal tail is not what holds it back).  Registers,
+// shared memory (the causal tail is not what holds it back).
+//   Paged: with a 64-row chunk every piece is one or two key tiles, so a
+// block's time is the latency of its first tile's load, and the launch's
+// the chain to the last block's merge: it reads the other partials
+// (64 x (d + 2) f32 a piece) from L2, first every m and l in one sweep into
+// shared memory, then each piece's O with a thread's eight 16-byte loads in
+// flight.  Measured slower at the engine's chunk shape (C = 64, 512 keys,
+// d = 128): 64- and 256-row pieces, sixteen loads a thread in the merge,
+// a merge that read each piece's m and l per row (serial L2 round trips),
+// and the default register budget (168 registers with spills; the paged
+// entry asks for one block an SM and gets 214, none spilled).  Registers,
 // spills and shared memory per block: DENSE_TC_RESOURCES below.
 //
 // f32 (reduced configs, parity checks): CUDA cores, full f32, never TF32.  A
 // block owns 64 query rows, keeps them in shared memory for its walk over
 // 32-row K/V tiles, and computes each thread's 2 x 4 scores and
-// 4 x ceil(d/16) outputs from registers, over the same live tiles.
-// ---------------------------------------------------------------------------
+// 4 x ceil(d/16) outputs from registers, over the same live tiles.  The
+// paged form reads its rows through the same table and does not split: it
+// carries the tests and the card's comparisons, never a serving path.
+#include "common.cuh"
+
 namespace repro {
 
 constexpr int FAD_BQ = 64;       // query rows per block
 constexpr int FAD_KT = 32;       // key rows per tile (one per lane in the softmax)
 constexpr int FAD_THREADS = 256;
+constexpr int FAP_SPLIT = 128;   // key rows per piece of a paged slot (bf16)
 
 struct Strides3 {
   long long b, h, s;  // elements; the d stride is 1
 };
 
-template <typename T, int CH>  // CH = ceil(d / 16): output columns per thread
+// The paged form's extra operands: page tables [B, npp], q_start and k_len
+// [B]; the bf16 split's partials (per (slot, head, query tile, piece):
+// O [64][d], then m [64], then l [64], f32) and one ticket counter per
+// (slot, head, query tile), all 0 between launches.
+struct Paged {
+  const int* pages;
+  const int* q_start;
+  const int* k_len;
+  float* part;
+  int* counter;
+  int npp, ps, nsplit;
+};
+
+template <typename T, int CH, bool PAGED>  // CH = ceil(d / 16): output columns per thread
 __global__ void __launch_bounds__(FAD_THREADS)
 flash_attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, T* __restrict__ out, Strides3 qs,
                              Strides3 ks, Strides3 vs, Strides3 os, int H, int Kh, int Sq,
                              int Sk, int d, int causal, int window, float scale,
-                             float softcap) {
+                             float softcap, Paged pg) {
   extern __shared__ float smem[];
   constexpr int BQ = FAD_BQ, KT = FAD_KT, NW = FAD_THREADS / 32, SP = KT + 1;
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -260,10 +144,20 @@ flash_attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* l_s = m_s + BQ;       // [BQ] running denominator
   float* a_s = l_s + BQ;       // [BQ] this tile's rescale factor
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = iq * BQ, off = Sk - Sq;
+  int off = Sk - Sq, kn = Sk;
   const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kh * ks.h;
-  const T* vb = v + b * vs.b + kh * vs.h;
+  const T* kb = k + kh * ks.h;
+  const T* vb = v + kh * vs.h;
+  const int* tbl = nullptr;
+  if constexpr (PAGED) {
+    off = pg.q_start[b];
+    kn = min(pg.k_len[b], pg.npp * pg.ps);
+    tbl = pg.pages + (size_t)b * pg.npp;
+  } else {
+    kb += b * ks.b;
+    vb += b * vs.b;
+  }
+  const int q0 = iq * BQ;
 
   for (int e = tid; e < BQ * d; e += FAD_THREADS) {
     const int i = e / d, c = e % d;
@@ -285,15 +179,18 @@ flash_attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // live keys of the tile: [key_lo, key_hi]; none live -> the rows stay 0
   const int qlo = q0 + off, qhi = min(q0 + BQ, Sq) - 1 + off;
-  const int key_hi = causal ? min(Sk - 1, qhi) : Sk - 1;
+  const int key_hi = causal ? min(kn - 1, qhi) : kn - 1;
   const int key_lo = window > 0 ? max(0, qlo - window + 1) : 0;
   __syncthreads();
-  for (int t0 = key_hi >= key_lo ? (key_lo / KT) * KT : Sk; t0 <= key_hi; t0 += KT) {
+  for (int t0 = key_hi >= key_lo ? (key_lo / KT) * KT : kn; t0 <= key_hi; t0 += KT) {
     for (int e = tid; e < KT * d; e += FAD_THREADS) {
       const int j = e / d, c = e % d;
-      const bool ok = t0 + j < Sk;
-      k_s[j * dp + c] = ok ? to_f(kb[(t0 + j) * ks.s + c]) : 0.f;
-      v_s[j * d + c] = ok ? to_f(vb[(t0 + j) * vs.s + c]) : 0.f;
+      const int r = t0 + j;
+      const bool ok = r < kn;
+      long long row = r;  // the key row's index in the K/V operand's rows
+      if constexpr (PAGED) row = ok ? (long long)tbl[r / pg.ps] * pg.ps + r % pg.ps : 0;
+      k_s[j * dp + c] = ok ? to_f(kb[row * ks.s + c]) : 0.f;
+      v_s[j * d + c] = ok ? to_f(vb[row * vs.s + c]) : 0.f;
     }
     __syncthreads();
     float sc[2][4];
@@ -318,7 +215,7 @@ flash_attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < 4; ++u) {
         const int i = sr + 32 * r, j = sk + 8 * u;
         const int qpos = q0 + i + off, kpos = t0 + j;
-        bool valid = kpos < Sk;
+        bool valid = kpos < kn;
         if (causal) valid = valid && kpos <= qpos;
         if (window > 0) valid = valid && kpos > qpos - window;
         float x = sc[r][u] * scale;
@@ -377,15 +274,15 @@ flash_attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int CH>
+template <typename T, int CH, bool PAGED>
 int launch_dense(const void* q, const void* k, const void* v, void* out, Strides3 qs,
                  Strides3 ks, Strides3 vs, Strides3 os, int B, int H, int Kh, int Sq, int Sk,
-                 int d, int causal, int window, float scale, float softcap,
+                 int d, int causal, int window, float scale, float softcap, Paged pg,
                  cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)(FAD_BQ + FAD_KT) * (d + 1) +
                                        (size_t)FAD_KT * d + FAD_BQ * (FAD_KT + 1) +
                                        3 * FAD_BQ);
-  auto kern = flash_attention_dense_kernel<T, CH>;
+  auto kern = flash_attention_dense_kernel<T, CH, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -393,18 +290,18 @@ int launch_dense(const void* q, const void* k, const void* v, void* out, Strides
   kern<<<grid, FAD_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), qs, ks, vs, os, H, Kh, Sq, Sk, d, causal, window, scale,
-      softcap);
+      softcap, pg);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool PAGED>
 int dispatch_dense(const void* q, const void* k, const void* v, void* out, Strides3 qs,
                    Strides3 ks, Strides3 vs, Strides3 os, int B, int H, int Kh, int Sq,
                    int Sk, int d, int causal, int window, float scale, float softcap,
-                   cudaStream_t s) {
-#define REPRO_FAD(CH)                                                                   \
-  return launch_dense<T, CH>(q, k, v, out, qs, ks, vs, os, B, H, Kh, Sq, Sk, d, causal, \
-                             window, scale, softcap, s)
+                   Paged pg, cudaStream_t s) {
+#define REPRO_FAD(CH)                                                                  \
+  return launch_dense<T, CH, PAGED>(q, k, v, out, qs, ks, vs, os, B, H, Kh, Sq, Sk, d, \
+                                    causal, window, scale, softcap, pg, s)
   if (d <= 16) REPRO_FAD(1);
   if (d <= 32) REPRO_FAD(2);
   if (d <= 64) REPRO_FAD(4);
@@ -418,7 +315,10 @@ int dispatch_dense(const void* q, const void* k, const void* v, void* out, Strid
 // DENSE_TC_RESOURCES (nvcc -Xptxas -v, sm_90a; registers a thread / spill
 // bytes / dynamic shared memory a block, fat_smem): D = 256 (KT 32): 246 /
 // 0 / 101,376; D = 128 (KT 64): 180 / 0 / 87,040; D = 64: 137 / 0 / 46,080;
-// D = 32: 127 / 0 / 25,600; D = 16: 115 / 0 / 15,360.
+// D = 32: 127 / 0 / 25,600; D = 16: 115 / 0 / 15,360.  Paged (one block
+// an SM): D = 256: 247 / 0; D = 128: 214 / 0, plus the merge's
+// 4 * (2 * pieces + 1) * 64 bytes where that exceeds the ring.
+// chip_smoke.py prints every instantiation's line.
 constexpr int FAT_BQ = 64;  // query rows per block: 4 warps x 16 rows
 constexpr int FAT_THREADS = 128;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -442,32 +342,43 @@ __host__ __device__ constexpr int fat_smem(int D) {
   return 2 * (FAT_BQ + 2 * FAT_ST * fat_kt(D)) * (D + 8);
 }
 
-template <int D>  // d padded to D (a power of two, 16..256)
-__global__ void __launch_bounds__(FAT_THREADS)
-flash_attention_dense_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k,
-                                const __nv_bfloat16* __restrict__ v,
-                                __nv_bfloat16* __restrict__ out, Strides3 qs, Strides3 ks,
-                                Strides3 vs, Strides3 os, int B, int H, int Kh, int Sq,
-                                int Sk, int d, int causal, int window, float scale,
-                                float softcap, int vec) {
+// The tile loop of both forms; the two kernels below are its entries.
+template <int D, bool PAGED>  // d padded to D (a power of two, 16..256)
+__device__ __forceinline__ void
+fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, Strides3 qs,
+         Strides3 ks, Strides3 vs, Strides3 os, int B, int H, int Kh, int Sq, int Sk, int d,
+         int causal, int window, float scale, float softcap, int vec, Paged pg) {
   using bf16 = __nv_bfloat16;
   constexpr int BQ = FAT_BQ, KT = fat_kt(D), ST = FAT_ST, RS = D + 8;  // RS: shared row stride
   extern __shared__ __align__(16) unsigned char fat_smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(fat_smem_raw);  // [BQ][RS]
   bf16* kv_s = q_s + BQ * RS;                         // [ST stages][K, V][KT][RS]
 
-  // heaviest causal query tile first; the heads of one kv-head side by side
+  // heaviest causal query tile first; the heads of one kv-head side by
+  // side; paged: then the key pieces of a query tile
   const int nq = (Sq + BQ - 1) / BQ;
-  const int iq = nq - 1 - static_cast<int>(blockIdx.x / (B * H));
+  const int tile = static_cast<int>(blockIdx.x / (B * H));
+  const int piece = PAGED ? tile % pg.nsplit : 0;
+  const int iq = nq - 1 - (PAGED ? tile / pg.nsplit : tile);
   const int bh = blockIdx.x % (B * H), h = bh % H, b = bh / H;
   const int kh = h / (H / Kh);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int q0 = iq * BQ, off = Sk - Sq;
+  const int q0 = iq * BQ;
+  int off = Sk - Sq, kn = Sk;
   const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + kh * ks.h;
-  const bf16* vb = v + b * vs.b + kh * vs.h;
+  const bf16* kb = k + kh * ks.h;
+  const bf16* vb = v + kh * vs.h;
+  const int* tbl = nullptr;
+  if constexpr (PAGED) {
+    off = pg.q_start[b];
+    kn = min(pg.k_len[b], pg.npp * pg.ps);
+    tbl = pg.pages + (size_t)b * pg.npp;
+  } else {
+    kb += b * ks.b;
+    vb += b * vs.b;
+  }
 
   // rows [row0, row0 + rows) of a [n, d] matrix with row stride rs into a
   // [rows][RS] shared tile; rows >= n and columns >= d are zero
@@ -487,17 +398,59 @@ flash_attention_dense_tc_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   };
+  // paged: key rows [row0, row0 + KT) into a K and a V tile, each row's
+  // pool row looked up once for both; rows >= kn and columns >= d are zero
+  auto pool_row = [&](int lr) { return (long long)tbl[lr / pg.ps] * pg.ps + lr % pg.ps; };
+  auto copy_paged = [&](bf16* dst_k, bf16* dst_v, int row0) {
+    if (vec) {
+      constexpr int CH = D / 8;
+      for (int e = tid; e < KT * CH; e += FAT_THREADS) {
+        const int r = e / CH, col = (e % CH) * 8;
+        const bool ok = row0 + r < kn && col < d;
+        const long long prow = ok ? pool_row(row0 + r) : 0;
+        cp_async16(dst_k + r * RS + col, ok ? kb + prow * ks.s + col : kb, ok);
+        cp_async16(dst_v + r * RS + col, ok ? vb + prow * vs.s + col : vb, ok);
+      }
+    } else {
+      for (int e = tid; e < KT * D; e += FAT_THREADS) {
+        const int r = e / D, col = e % D;
+        const bool ok = row0 + r < kn && col < d;
+        const long long prow = ok ? pool_row(row0 + r) : 0;
+        dst_k[r * RS + col] = ok ? kb[prow * ks.s + col] : __float2bfloat16(0.f);
+        dst_v[r * RS + col] = ok ? vb[prow * vs.s + col] : __float2bfloat16(0.f);
+      }
+    }
+  };
 
-  // key tiles live for some row of the block: [t_first, t_first + ntiles)
+  // key tiles live for some row of the block: [t_first, t_first + ntiles);
+  // paged: within the block's piece of the slot's keys
   const int qlo = q0 + off, qhi = min(q0 + BQ, Sq) - 1 + off;
-  const int key_hi = causal ? min(Sk - 1, qhi) : Sk - 1;
-  const int key_lo = window > 0 ? max(0, qlo - window + 1) : 0;
+  int key_hi = causal ? min(kn - 1, qhi) : kn - 1;
+  int key_lo = window > 0 ? max(0, qlo - window + 1) : 0;
+  // paged: the query tile's live pieces [plo, phi], a function of the
+  // slot's own rows that every block computes; blocks of other pieces exit
+  // at once (piece 0 of a tile with no key writes its zeros), and a tile
+  // with one live piece writes its output directly
+  int plo = 0, phi = 0;
+  if constexpr (PAGED) {
+    if (key_hi >= key_lo) {
+      plo = key_lo / FAP_SPLIT;
+      phi = key_hi / FAP_SPLIT;
+    }
+    if (piece < plo || piece > phi) return;
+    key_lo = max(key_lo, piece * FAP_SPLIT);
+    key_hi = min(key_hi, piece * FAP_SPLIT + FAP_SPLIT - 1);
+  }
   const int t_first = key_lo / KT;
   const int ntiles = key_hi >= key_lo ? key_hi / KT - t_first + 1 : 0;
   auto load_kv = [&](int t) {  // tile t into stage t % ST
     bf16* ks_ = kv_s + (t % ST) * 2 * KT * RS;
-    copy_tile(ks_, kb, ks.s, (t_first + t) * KT, Sk, KT);
-    copy_tile(ks_ + KT * RS, vb, vs.s, (t_first + t) * KT, Sk, KT);
+    if constexpr (PAGED) {
+      copy_paged(ks_, ks_ + KT * RS, (t_first + t) * KT);
+    } else {
+      copy_tile(ks_, kb, ks.s, (t_first + t) * KT, kn, KT);
+      copy_tile(ks_ + KT * RS, vb, vs.s, (t_first + t) * KT, kn, KT);
+    }
   };
   // groups: {Q, tile 0}, {tile 1}, ..., {tile ST-2}, then one per iteration
   copy_tile(q_s, qb, qs.s, q0, Sq, BQ);
@@ -527,7 +480,7 @@ flash_attention_dense_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int t0 = (t_first + t) * KT;
     const bool dead = (causal && t0 > whi) || (window > 0 && t0 + KT - 1 <= wlo - window);
     if (dead) continue;  // warp-uniform
-    const bool edge = t0 + KT > Sk || (causal && t0 + KT - 1 > wlo) ||
+    const bool edge = t0 + KT > kn || (causal && t0 + KT - 1 > wlo) ||
                       (window > 0 && t0 <= whi - window);
     float s[KT / 8][4];
 #pragma unroll
@@ -556,7 +509,7 @@ flash_attention_dense_tc_kernel(const __nv_bfloat16* __restrict__ q,
                                 : s[j][r] * sl2;
         if (edge) {
           const int qp = wlo + g + (r >= 2 ? 8 : 0), kp = t0 + 8 * j + 2 * c + (r & 1);
-          bool ok = kp < Sk;
+          bool ok = kp < kn;
           if (causal) ok = ok && kp <= qp;
           if (window > 0) ok = ok && kp > qp - window;
           if (!ok) x = NEG;
@@ -615,14 +568,129 @@ flash_attention_dense_tc_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<0>();
 
   bf16* ob = out + b * os.b + h * os.h;
+  float lsum[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    float li = l[i];
-    li += __shfl_xor_sync(0xffffffffu, li, 1);
-    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    lsum[i] = l[i];
+    lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 1);
+    lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 2);
+  }
+  if constexpr (PAGED) {
+    if (phi > plo) {  // partial, ticket, and the last block merges
+      __shared__ int last;
+      const int pidx = (b * H + h) * nq + iq;
+      const size_t pstride = (size_t)BQ * (d + 2);
+      const float* base = pg.part + (size_t)pidx * pg.nsplit * pstride;
+      float* mine = pg.part + ((size_t)pidx * pg.nsplit + piece) * pstride;  // O, m, l
+      const bool even = (d & 1) == 0;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = warp * 16 + g + 8 * i;
+        if (c == 0) {
+          mine[BQ * d + row] = m[i];
+          mine[BQ * d + BQ + row] = lsum[i];
+        }
+        if (ntiles == 0) continue;  // the merge skips a partial whose sum is 0
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int col = 8 * j + 2 * c;
+          float* dst = mine + row * d + col;
+          if (even && col + 1 < d) {
+            *reinterpret_cast<float2*>(dst) = make_float2(o[j][2 * i], o[j][2 * i + 1]);
+          } else {
+            if (col < d) dst[0] = o[j][2 * i];
+            if (col + 1 < d) dst[1] = o[j][2 * i + 1];
+          }
+        }
+      }
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) last = atomicAdd(&pg.counter[pidx], 1) == phi - plo;
+      __syncthreads();
+      if (!last) return;
+      __threadfence();
+      // merge factors 2^(m_p - M) per (piece, row), then 1 / sum, in shared
+      // memory (the ring is free: every warp has passed its last tile); the
+      // m and l of every live piece come in one sweep
+      const int nlive = phi - plo + 1;
+      base += (size_t)plo * pstride;  // the live pieces' partials
+      float* fac = reinterpret_cast<float*>(fat_smem_raw);  // [nlive][BQ] m, then factors
+      float* ls_ = fac + nlive * BQ;                         // [nlive][BQ] l
+      float* inv = ls_ + nlive * BQ;                         // [BQ]
+      for (int e = tid; e < nlive * BQ; e += FAT_THREADS) {
+        const float* pp = base + (e / BQ) * pstride + BQ * d + e % BQ;
+        fac[e] = __ldcg(pp);
+        ls_[e] = __ldcg(pp + BQ);
+      }
+      __syncthreads();
+      for (int row = tid; row < BQ; row += FAT_THREADS) {
+        float mm = NEG;
+        for (int p = 0; p < nlive; ++p)
+          if (ls_[p * BQ + row] > 0.f) mm = fmaxf(mm, fac[p * BQ + row]);
+        float ls = 0.f;
+        for (int p = 0; p < nlive; ++p) {  // piece order
+          const float lp = ls_[p * BQ + row];
+          const float f = lp > 0.f ? exp2_ftz(fac[p * BQ + row] - mm) : 0.f;
+          fac[p * BQ + row] = f;
+          ls = fmaf(lp, f, ls);
+        }
+        inv[row] = 1.f / fmaxf(ls, 1e-30f);
+      }
+      __syncthreads();
+      // O = sum over pieces of fac * O_p, in piece order; MG 16-byte groups
+      // a thread per pass.  A live piece wrote all of its O (0 where a row
+      // had no key), so every load is unconditional and a piece's MG loads
+      // are in flight at once.
+      constexpr int MG = 8;
+      const int vw = d % 4 == 0 ? 4 : 1;  // floats a load
+      const int n = BQ * d / vw;
+      for (int e0 = tid; e0 < n; e0 += MG * FAT_THREADS) {
+        float a[MG][4];
+        int row[MG];
+#pragma unroll
+        for (int i = 0; i < MG; ++i) {
+          row[i] = min(e0 + i * FAT_THREADS, n - 1) * vw / d;
+#pragma unroll
+          for (int w = 0; w < 4; ++w) a[i][w] = 0.f;
+        }
+#pragma unroll 2
+        for (int p = 0; p < nlive; ++p) {
+          const float* src = base + p * pstride;
+#pragma unroll
+          for (int i = 0; i < MG; ++i) {
+            const int e = min(e0 + i * FAT_THREADS, n - 1);
+            const float f = fac[p * BQ + row[i]];
+            if (vw == 4) {
+              const float4 x = __ldcg(reinterpret_cast<const float4*>(src) + e);
+              a[i][0] = fmaf(x.x, f, a[i][0]);
+              a[i][1] = fmaf(x.y, f, a[i][1]);
+              a[i][2] = fmaf(x.z, f, a[i][2]);
+              a[i][3] = fmaf(x.w, f, a[i][3]);
+            } else {
+              a[i][0] = fmaf(__ldcg(src + e), f, a[i][0]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < MG; ++i) {
+          const int e = e0 + i * FAT_THREADS;
+          if (e >= n || q0 + row[i] >= Sq) continue;
+          const int col = e * vw - row[i] * d;
+#pragma unroll
+          for (int w = 0; w < 4; ++w)
+            if (w < vw)
+              ob[(q0 + row[i]) * os.s + col + w] = __float2bfloat16(a[i][w] * inv[row[i]]);
+        }
+      }
+      if (tid == 0) pg.counter[pidx] = 0;  // every block has drawn its ticket
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
     const int row = q0 + warp * 16 + g + 8 * i;
     if (row >= Sq) continue;
-    const float inv_l = 1.f / fmaxf(li, 1e-30f);
+    const float inv_l = 1.f / fmaxf(lsum[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * c;
@@ -633,10 +701,38 @@ flash_attention_dense_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
+__global__ void __launch_bounds__(FAT_THREADS)
+flash_attention_dense_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                __nv_bfloat16* __restrict__ out, Strides3 qs, Strides3 ks,
+                                Strides3 vs, Strides3 os, int B, int H, int Kh, int Sq,
+                                int Sk, int d, int causal, int window, float scale,
+                                float softcap, int vec, Paged pg) {
+  fat_body<D, false>(q, k, v, out, qs, ks, vs, os, B, H, Kh, Sq, Sk, d, causal, window, scale,
+                     softcap, vec, pg);
+}
+
+// One block an SM is all a 64-row chunk needs; the minimum lets ptxas keep
+// the page lookups and the merge in registers (no spills at D = 128).
+template <int D>
+__global__ void __launch_bounds__(FAT_THREADS, 1)
+flash_attention_paged_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                __nv_bfloat16* __restrict__ out, Strides3 qs, Strides3 ks,
+                                Strides3 vs, Strides3 os, int B, int H, int Kh, int Sq,
+                                int Sk, int d, int causal, int window, float scale,
+                                float softcap, int vec, Paged pg) {
+  fat_body<D, true>(q, k, v, out, qs, ks, vs, os, B, H, Kh, Sq, Sk, d, causal, window, scale,
+                    softcap, vec, pg);
+}
+
+template <int D, bool PAGED>
 int launch_dense_tc(const void* q, const void* k, const void* v, void* out, Strides3 qs,
                     Strides3 ks, Strides3 vs, Strides3 os, int B, int H, int Kh, int Sq,
                     int Sk, int d, int causal, int window, float scale, float softcap,
-                    cudaStream_t stream) {
+                    Paged pg, cudaStream_t stream) {
   // 16-byte cp.async needs 16-byte aligned rows: d, every stride and every
   // base a multiple of 8 elements
   auto rows16 = [](const void* p, const Strides3& st) {
@@ -644,26 +740,32 @@ int launch_dense_tc(const void* q, const void* k, const void* v, void* out, Stri
            st.s % 8 == 0;
   };
   const bool vec = d % 8 == 0 && rows16(q, qs) && rows16(k, ks) && rows16(v, vs);
-  constexpr int smem = fat_smem(D);
-  auto kern = flash_attention_dense_tc_kernel<D>;
+  // the split's merge keeps m (then the factor) and l per (piece, row) and
+  // 1/sum per row
+  int smem = fat_smem(D);
+  const int merge = static_cast<int>(sizeof(float)) * (2 * pg.nsplit + 1) * FAT_BQ;
+  if (PAGED && pg.nsplit > 1 && merge > smem) smem = merge;
+  auto kern = PAGED ? flash_attention_paged_tc_kernel<D> : flash_attention_dense_tc_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = (unsigned)((Sq + FAT_BQ - 1) / FAT_BQ) * B * H;
+  const unsigned blocks =
+      (unsigned)((Sq + FAT_BQ - 1) / FAT_BQ) * (PAGED ? pg.nsplit : 1) * B * H;
   kern<<<blocks, FAT_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), qs, ks, vs,
-      os, B, H, Kh, Sq, Sk, d, causal, window, scale, softcap, vec ? 1 : 0);
+      os, B, H, Kh, Sq, Sk, d, causal, window, scale, softcap, vec ? 1 : 0, pg);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool PAGED>
 int dispatch_dense_tc(const void* q, const void* k, const void* v, void* out, Strides3 qs,
                       Strides3 ks, Strides3 vs, Strides3 os, int B, int H, int Kh, int Sq,
                       int Sk, int d, int causal, int window, float scale, float softcap,
-                      cudaStream_t s) {
-#define REPRO_FAT(D)                                                                    \
-  return launch_dense_tc<D>(q, k, v, out, qs, ks, vs, os, B, H, Kh, Sq, Sk, d, causal, \
-                            window, scale, softcap, s)
+                      Paged pg, cudaStream_t s) {
+#define REPRO_FAT(D)                                                                   \
+  return launch_dense_tc<D, PAGED>(q, k, v, out, qs, ks, vs, os, B, H, Kh, Sq, Sk, d, \
+                                   causal, window, scale, softcap, pg, s)
   if (d <= 16) REPRO_FAT(16);
   if (d <= 32) REPRO_FAT(32);
   if (d <= 64) REPRO_FAT(64);
@@ -687,9 +789,44 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   const repro::Strides3 ks{strides[3], strides[4], strides[5]};
   const repro::Strides3 vs{strides[6], strides[7], strides[8]};
   const repro::Strides3 os{strides[9], strides[10], strides[11]};
+  const repro::Paged none{};
   if (is_bf16)
-    return repro::dispatch_dense_tc(q, k, v, out, qs, ks, vs, os, B, H, Kh, Sq, Sk, d,
-                                    causal, window, scale, softcap, s);
-  return repro::dispatch_dense<float>(q, k, v, out, qs, ks, vs, os, B, H, Kh, Sq, Sk, d,
-                                      causal, window, scale, softcap, s);
+    return repro::dispatch_dense_tc<false>(q, k, v, out, qs, ks, vs, os, B, H, Kh, Sq, Sk, d,
+                                           causal, window, scale, softcap, none, s);
+  return repro::dispatch_dense<float, false>(q, k, v, out, qs, ks, vs, os, B, H, Kh, Sq, Sk,
+                                             d, causal, window, scale, softcap, none, s);
+}
+
+// Paged chunk prefill.  q [B,H,C,d] and out [B,H,C,d], each given by base
+// pointer and (batch, head, row) strides (q_strides, o_strides) with unit
+// stride along d; k/v pools [P,ps,Kh,d] (contiguous; v may be k); pages
+// [B,npp]; q_start, k_len [B].  bf16 with nsplit > 1: part holds
+// B*H*ceil(C/64)*nsplit*64*(d+2) f32 and counter B*H*ceil(C/64) int32, all
+// 0 (every launch leaves them 0 again); nsplit = ceil(npp*ps / 128).  f32
+// reads neither.  window <= 0 and softcap <= 0 are off.  One launch.
+extern "C" int repro_flash_attention_paged(const void* q, const void* k, const void* v,
+                                           const void* pages, const void* q_start,
+                                           const void* k_len, void* part, void* counter,
+                                           void* out, const long long* q_strides,
+                                           const long long* o_strides, int B, int H,
+                                           int Kh, int C, int d, int ps, int npp,
+                                           int nsplit, int window, float scale,
+                                           float softcap, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long S = (long long)npp * ps;
+  if (is_bf16 && ((long long)(nsplit - 1) * repro::FAP_SPLIT >= S ||
+                  (long long)nsplit * repro::FAP_SPLIT < S))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const repro::Strides3 qs{q_strides[0], q_strides[1], q_strides[2]};
+  const repro::Strides3 os{o_strides[0], o_strides[1], o_strides[2]};
+  // a pool row is [Kh][d]: kv-head kh at kh*d, row stride Kh*d
+  const repro::Strides3 kvs{0, d, (long long)Kh * d};
+  const repro::Paged pg{static_cast<const int*>(pages), static_cast<const int*>(q_start),
+                        static_cast<const int*>(k_len), static_cast<float*>(part),
+                        static_cast<int*>(counter), npp, ps, is_bf16 ? nsplit : 1};
+  if (is_bf16)
+    return repro::dispatch_dense_tc<true>(q, k, v, out, qs, kvs, kvs, os, B, H, Kh, C, 0, d,
+                                          1, window, scale, softcap, pg, s);
+  return repro::dispatch_dense<float, true>(q, k, v, out, qs, kvs, kvs, os, B, H, Kh, C, 0,
+                                            d, 1, window, scale, softcap, pg, s);
 }

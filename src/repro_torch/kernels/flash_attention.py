@@ -93,12 +93,34 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 flash_attention.launches = 0
 
 
+_SPLIT = 128  # key rows per piece of a paged slot (FAP_SPLIT in the source)
+
+
+def key_pieces(npp: int, ps: int) -> int:
+    """Pieces the bf16 paged kernel splits every slot's keys into: one per
+    128 logical rows of the table.  A function of the table's shape alone,
+    never of the batch, the heads or the grid, so a slot's sums are the
+    same alone and in a batch."""
+    return -(-npp * ps // _SPLIT)
+
+
+def paged_scratch(B: int, H: int, C: int, d: int, npp: int, ps: int) -> tuple[int, int]:
+    """(f32 partials, int32 tickets) one bf16 paged launch needs: per (slot,
+    head, 64-row query tile, piece) O [64, d], m [64] and l [64], and one
+    ticket per (slot, head, query tile); none with a single piece."""
+    n = key_pieces(npp, ps)
+    if n == 1:
+        return 0, 0
+    tiles = B * H * -(-C // 64)
+    return tiles * n * 64 * (d + 2), tiles
+
+
 def _entry():
     global _fn
     if _fn is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         _fn = _build.bind("flash_attention", "repro_flash_attention_paged",
-                          [P] * 7 + [I] * 8 + [F, F, I, P])
+                          [P] * 11 + [I] * 9 + [F, F, I, P])
     return _fn
 
 
@@ -107,7 +129,13 @@ def flash_attention_paged(q, k, v, pages, q_start, k_len, *, window: int = 0,
     """q: [B,H,C,d] query chunk; k/v: page pools [P,ps,K,d]; pages: [B,npp]
     int32; q_start/k_len: [B] int32 -> [B,H,C,d].  Query row ``i`` sits at
     logical position ``q_start[b] + i`` and attends causally over rows
-    ``[0, k_len[b])``; rows with no valid key give 0."""
+    ``[0, k_len[b])``; rows with no valid key give 0.
+
+    On the card q may be any view with a unit stride along d (the layers
+    pass a transposed view of their [B,C,H,d] tensor) and the result is a
+    [B,H,C,d] view of a [B,C,H,d] buffer.  bf16 splits each slot's keys
+    into :func:`key_pieces` pieces, one CUDA block each, merged in piece
+    order by the last block to finish, in the same launch."""
     if q.device.type == "cpu":
         return flash_attention_paged_ref(q, k, v, pages, q_start, k_len,
                                          window=window, scale=scale,
@@ -115,16 +143,20 @@ def flash_attention_paged(q, k, v, pages, q_start, k_len, *, window: int = 0,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_paged: q on {q.device}")
     dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v), ("pages", pages),
-                    ("q_start", q_start), ("k_len", k_len)):
+    for name, t in (("k", k), ("v", v), ("pages", pages), ("q_start", q_start),
+                    ("k_len", k_len)):
         if t.device != dev:
             raise ValueError(f"flash_attention_paged: {name} on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_paged: {name} must be contiguous")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention_paged: dtypes q={q.dtype} k={k.dtype} v={v.dtype}")
+    if q.dim() != 4 or q.stride(3) != 1:
+        raise ValueError("flash_attention_paged: q must be [B,H,C,d] with a unit stride "
+                         "along d")
     B, H, C, d = q.shape
-    if k.dim() != 4 or k.shape != v.shape or k.shape[3] != d or H % k.shape[2]:
+    if k.dim() != 4 or k.shape != v.shape or k.shape[3] != d or H % k.shape[2] \
+            or d > 256:
         raise ValueError(f"flash_attention_paged: q {tuple(q.shape)} vs pools "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if pages.dim() != 2 or pages.shape[0] != B or q_start.shape != (B,) \
@@ -132,17 +164,25 @@ def flash_attention_paged(q, k, v, pages, q_start, k_len, *, window: int = 0,
         raise ValueError("flash_attention_paged: pages [B,npp], q_start/k_len [B]")
     if any(t.dtype != torch.int32 for t in (pages, q_start, k_len)):
         raise TypeError("flash_attention_paged: pages/q_start/k_len must be int32")
-    if 4 * (2 * 8 * d + 2 * 32 * (d + 1) + 8 * 32 + 24) > 200 * 1024:
-        raise ValueError(f"flash_attention_paged: head dim {d} exceeds shared memory")
-    out = torch.empty_like(q)
-    if B == 0 or C == 0:
+    out = torch.empty((B, C, H, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    if B == 0 or C == 0 or H == 0:
         return out
+    ps, npp = k.shape[1], pages.shape[1]
+    bf16 = q.dtype == torch.bfloat16
+    stream = _build.stream_ptr(dev)
+    n_part, n_tickets = paged_scratch(B, H, C, d, npp, ps) if bf16 else (0, 0)
+    part = tickets = None
+    if n_part:
+        part, tickets = _build.scratch(dev, stream, n_part, n_tickets)
     scale = scale if scale is not None else d ** -0.5
+    strides = [(ctypes.c_longlong * 3)(*t.stride()[:3]) for t in (q, out)]
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pages.data_ptr(),
-                   q_start.data_ptr(), k_len.data_ptr(), out.data_ptr(),
-                   B, H, k.shape[2], C, d, k.shape[1], pages.shape[1],
-                   int(window or 0), float(scale), float(softcap or 0.0),
-                   int(q.dtype == torch.bfloat16), _build.stream_ptr(dev))
+                   q_start.data_ptr(), k_len.data_ptr(),
+                   part.data_ptr() if part is not None else None,
+                   tickets.data_ptr() if tickets is not None else None,
+                   out.data_ptr(), *strides, B, H, k.shape[2], C, d, ps, npp,
+                   key_pieces(npp, ps), int(window or 0), float(scale),
+                   float(softcap or 0.0), int(bf16), stream)
     _build.check(err, "flash_attention_paged")
     flash_attention_paged.launches += 1
     return out

@@ -294,10 +294,10 @@ def attn_chunk_prefill(cfg: ArchConfig, p: dict, cache: dict, x, rows: StepRows,
     Returns (out, cache)."""
     q, k, v = _attn_inputs(cfg, p, cache, x, rows, local)
     window = cfg.window_size if local else 0
-    o = attention(q.transpose(1, 2).contiguous(), k, v, window=window,
+    o = attention(q.transpose(1, 2), k, v, window=window,
                   softcap=cfg.logit_softcap, pages=rows.pages,
                   q_start=rows.pos0(), k_len=rows.k_len())
-    o = o.transpose(1, 2).contiguous()  # [B, C, H, dh]
+    o = o.transpose(1, 2)  # [B, C, H, dh]; free on the card (see flash_attention_paged)
     out = dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"])
     return out, {"k": k, "v": v}
 

@@ -24,10 +24,11 @@ from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.block_gemm import (block_gemm, block_gemm_int8, gemm_splits,
                                             int8_route, int8_splits)
+from repro_torch.kernels.decode_attention import decode_scratch, flash_decode_paged
 from repro_torch.kernels.decode_attention import flash_decode as t_flash_decode
-from repro_torch.kernels.decode_attention import flash_decode_paged
 from repro_torch.kernels.flash_attention import flash_attention as t_flash_attention
-from repro_torch.kernels.flash_attention import dense_smem_bytes, flash_attention_paged
+from repro_torch.kernels.flash_attention import (dense_smem_bytes, flash_attention_paged,
+                                                 key_pieces, paged_scratch)
 from repro_torch.kernels.ops import attend_decode, attention
 from repro_torch.kernels.quantize import quantize_rows
 from repro_torch.models import layers as TL
@@ -451,13 +452,30 @@ def _rand_paged(seed, B=2, H=4, K=2, C=16, ps=16, npp=3, d=16,
     return q, kp, vp, pages, qs, qs + np.array(n[:B], np.int32)
 
 
-@pytest.mark.parametrize("window,softcap",
-                         [(0, 0.0), (20, 0.0), (0, 15.0), (12, 9.0)])
-@pytest.mark.parametrize("K", [2, 4])  # GQA (G=2) and MHA
-def test_paged_prefill_plain_matches_jax(window, softcap, K):
+# (K, window, softcap) at the default shapes, ids as "K-window-softcap"; then
+# the card kernel's edges: page sizes 8 and 128 (key tiles spanning pages,
+# or half of one), G = 8, a window crossing pages, d = 256, a chunk that
+# starts mid-page
+PREFILL_CASES = [dict(K=K, window=w, softcap=c) for K in (2, 4)
+                 for w, c in ((0, 0.0), (20, 0.0), (0, 15.0), (12, 9.0))]
+PREFILL_IDS = [f"{c['K']}-{c['window']}-{c['softcap']}" for c in PREFILL_CASES]
+PREFILL_CASES += [
+    dict(ps=8, npp=6, q_start=(19, 5), n=(16, 11)),
+    dict(ps=128, npp=2, q_start=(150, 3), n=(16, 16), window=40),
+    dict(H=8, K=1, ps=16, npp=4, q_start=(37, 0), n=(16, 9)),
+    dict(ps=8, npp=8, q_start=(41, 22), n=(16, 16), window=12, softcap=9.0),
+    dict(H=2, K=1, d=256, ps=8, npp=5, q_start=(21, 0), n=(16, 16), window=20),
+]
+PREFILL_IDS += ["ps8", "ps128-window", "G8", "ps8-window-across-pages", "d256"]
+
+
+@pytest.mark.parametrize("case", PREFILL_CASES, ids=PREFILL_IDS)
+def test_paged_prefill_plain_matches_jax(case):
     """The plain version == the JAX oracle == the interpret-mode Pallas
     kernel, with ``q_start > 0`` on slot 0."""
-    q, kp, vp, pages, qs, kl = _rand_paged(3, K=K)
+    case = dict(case)
+    window, softcap = case.pop("window", 0), case.pop("softcap", 0.0)
+    q, kp, vp, pages, qs, kl = _rand_paged(3, **case)
     got = attention(t(q), t(kp), t(vp), window=window, softcap=softcap,
                     pages=t(pages), q_start=t(qs), k_len=t(kl))
     want = jref.flash_attention_paged_ref(
@@ -469,6 +487,40 @@ def test_paged_prefill_plain_matches_jax(window, softcap, K):
                              k_len=jnp.asarray(kl), window=window,
                              softcap=softcap, interpret=True)
     close(got, pallas)
+
+
+def test_paged_prefill_reads_transposed_views():
+    """The layers hand q over as a [B,H,C,d] view of their [B,C,H,d]
+    tensor; the result has q's shape and equals the contiguous call."""
+    q, kp, vp, pages, qs, kl = _rand_paged(21, ps=8, npp=6, q_start=(19, 5), n=(16, 11))
+    args = (t(kp), t(vp), t(pages), t(qs), t(kl))
+    view = t(q).transpose(1, 2).contiguous().transpose(1, 2)
+    assert not view.is_contiguous()
+    got = flash_attention_paged(view, *args, window=9)
+    assert got.shape == q.shape
+    torch.testing.assert_close(got, flash_attention_paged(t(q), *args, window=9),
+                               rtol=0, atol=0)
+
+
+def test_paged_splits_depend_on_the_slot_rows_only():
+    """The bf16 chunk kernel splits a slot's keys into 128-row pieces: a
+    function of the table's shape alone, never of the batch, the heads or
+    the grid, so a slot's sums are the same alone and in a batch.  Both
+    paged kernels' scratch is a per-slot share times the slots."""
+    assert list(inspect.signature(key_pieces).parameters) == ["npp", "ps"]
+    for npp, ps in ((16, 64), (128, 8), (8, 128), (64, 16), (3, 8)):
+        assert key_pieces(npp, ps) == -(-npp * ps // 128)
+    assert paged_scratch(4, 16, 64, 128, 2, 64) == (0, 0)  # one piece: no split
+    for H, C, d, npp, ps in ((16, 64, 128, 16, 64), (8, 100, 256, 32, 64)):
+        one = paged_scratch(1, H, C, d, npp, ps)
+        assert one == (H * -(-C // 64) * key_pieces(npp, ps) * 64 * (d + 2),
+                       H * -(-C // 64))
+        for B in (2, 8):
+            assert paged_scratch(B, H, C, d, npp, ps) == (B * one[0], B * one[1])
+    for H, K, S, dv in ((16, 16, 1024, 128), (64, 8, 1024, 128), (8, 4, 1600, 256)):
+        one = decode_scratch(1, H, K, S, dv)
+        assert one == (K * -(-S // 64) * (H // K) * (dv + 2), K)
+        assert decode_scratch(8, H, K, S, dv) == (8 * one[0], 8 * one[1])
 
 
 def test_paged_prefill_partial_chunk_and_shared_kv():
@@ -490,7 +542,7 @@ def test_paged_prefill_partial_chunk_and_shared_kv():
 # paged flash-decode
 # ---------------------------------------------------------------------------
 
-def _rand_decode(seed, B=5, H=4, K=2, ps=8, npp=4, d=16):
+def _rand_decode(seed, B=5, H=4, K=2, ps=8, npp=4, d=16, pos=None, start=None):
     rng = np.random.RandomState(seed)
     P = 1 + B * npp
     q = rng.randn(B, H, d).astype(np.float32)
@@ -499,24 +551,44 @@ def _rand_decode(seed, B=5, H=4, K=2, ps=8, npp=4, d=16):
     pages = (1 + rng.permutation(P - 1)[: B * npp]).reshape(B, npp).astype(np.int32)
     # empty slot (start > pos), mid-page, page boundary, pos at capacity
     # (npp * ps: a frozen full slot), and a window-style start
-    pos = np.array([2, 13, 16, npp * ps, 30], np.int32)[:B]
-    start = np.array([3, 0, 0, 0, 9], np.int32)[:B]
+    pos = np.array(pos or [2, 13, 16, npp * ps, 30], np.int32)[:B]
+    start = np.array(start or [3, 0, 0, 0, 9], np.int32)[:B]
     return q, kp, vp, pages, pos, start
 
 
-@pytest.mark.parametrize("softcap", [0.0, 20.0])
-@pytest.mark.parametrize("K", [1, 2, 4])  # MQA, GQA, MHA
-def test_paged_decode_plain_matches_jax(softcap, K):
-    q, kp, vp, pages, pos, start = _rand_decode(5, K=K)
-    got = attend_decode(t(q), t(kp), t(vp), t(pos), t(start), pages=t(pages),
-                        softcap=softcap)
-    want = jref.flash_decode_ref(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
-                                 jnp.asarray(pos), jnp.asarray(start),
-                                 pages=jnp.asarray(pages), softcap=softcap)
+# (K, softcap) at the default shapes, ids as "K-softcap"; then the card
+# kernel's edges: page sizes 16 and 128 (a 64-row block spans 4 pages or
+# half of one), G = 8, window-style starts mid-page, and MLA-style dv
+# narrowing with one pool as k and v at d = 256; slot 0 is always empty
+# (start > pos) and one slot frozen full (pos == npp * ps)
+DECODE_CASES = [dict(K=K, softcap=c) for K in (1, 2, 4) for c in (0.0, 20.0)]
+DECODE_IDS = [f"{c['K']}-{c['softcap']}" for c in DECODE_CASES]
+DECODE_CASES += [
+    dict(ps=16, npp=5, pos=[2, 70, 16, 80, 33], start=[3, 0, 16, 0, 9]),
+    dict(ps=128, npp=2, pos=[2, 200, 127, 256, 130], start=[3, 0, 0, 0, 100]),
+    dict(H=8, K=1, ps=8, npp=6, softcap=20.0),
+    dict(ps=8, npp=8, pos=[2, 60, 63, 64, 45], start=[3, 37, 33, 1, 22]),
+    dict(H=4, K=1, d=256, ps=8, npp=5, dv=128, shared=True,
+         pos=[1, 39, 40, 17, 24], start=[2, 0, 3, 9, 24]),
+]
+DECODE_IDS += ["ps16", "ps128", "G8", "window-starts-mid-page", "d256-shared-kv-dv128"]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=DECODE_IDS)
+def test_paged_decode_plain_matches_jax(case):
+    case = dict(case)
+    softcap, dv, shared = case.pop("softcap", 0.0), case.pop("dv", None), case.pop("shared", False)
+    q, kp, vp, pages, pos, start = _rand_decode(5, **case)
+    tk, jk = t(kp), jnp.asarray(kp)
+    tv, jv = (tk, jk) if shared else (t(vp), jnp.asarray(vp))  # v is k: one pool
+    got = attend_decode(t(q), tk, tv, t(pos), t(start), pages=t(pages),
+                        softcap=softcap, dv=dv)
+    want = jref.flash_decode_ref(jnp.asarray(q), jk, jv, jnp.asarray(pos),
+                                 jnp.asarray(start), pages=jnp.asarray(pages),
+                                 softcap=softcap, dv=dv)
     close(got, want)
-    pallas = flash_decode(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
-                          jnp.asarray(pos), jnp.asarray(start),
-                          pages=jnp.asarray(pages), softcap=softcap,
+    pallas = flash_decode(jnp.asarray(q), jk, jv, jnp.asarray(pos), jnp.asarray(start),
+                          pages=jnp.asarray(pages), softcap=softcap, dv=dv,
                           interpret=True)
     close(got, pallas)
     assert torch.count_nonzero(got[0]) == 0  # empty slot: exact zeros
