@@ -24,23 +24,37 @@ Phases (any failure exits non-zero, and no result line is printed):
    version bit for bit;
 3. edge: the paper's int8 path on full-width gemma3-4b (34 layers, seeded
    random weights, ``quantize_params``): ``prefill`` of 2 x 1536 tokens
-   into linear and ring caches, then 32 greedy ``decode_step``s.  The int8
-   GEMM and the quantize kernel must launch once per w8a8 GEMM (239 a
-   prefill and a step), slot flash-decode once per layer a step, dense
-   flash attention must launch, the bf16 GEMM must not, and the traces
-   must show no merge kernel and no per-GEMM PyTorch reduction; a reduced
-   gemma3-4b must give the same logits on
-   the card as on the CPU's plain versions (under w8a8, up to one-step
-   int8 flips at rounding boundaries, which ``flip_witness`` finds and
-   checks); the bf16 model's argmax agreement on the same tokens is
-   printed;
-4. engine: full-width, full-depth olmo-1b in bf16 with seeded random
-   weights serves 8 greedy requests (four share a prefix, so radix hits
-   and copy-on-write pages happen) through ``repro_torch.serving.Engine``;
-   every paged-path kernel's launch count must rise, the page pool must
-   reconcile, and two prompts served alone must give the same tokens; then
-   a short ``EngineConfig(quant="w8a8")`` pass runs the int8 GEMM on the
-   paged path;
+   into linear and ring caches, then 32 greedy decode steps replayed as a
+   CUDA graph (``models.graph.DecodeGraph``, captured at step 0).  A
+   prefill and a step launch the int8 GEMM once per w8a8 GEMM (239) and the
+   quantize kernel once per distinct activation (137), slot flash-decode
+   once per layer a step; dense flash attention must launch, the bf16 GEMM
+   must not, and the traces must show one ``cudaGraphLaunch`` a step, no
+   merge kernel and no per-GEMM PyTorch reduction.  The graph must replay
+   bit-equal to its eager run, also after a larger eager call grew its
+   stream's scratch, and count its captured launches per replay.  A reduced
+   gemma3-4b must give the same logits on the card as on the CPU's plain
+   versions (under w8a8, up to one-step int8 flips at rounding boundaries,
+   which ``flip_witness`` finds and checks); the bf16 model's argmax
+   agreement on the same tokens is printed;
+4. engine: first ``paged_reference_check`` — reduced olmo-1b on the paged
+   path, ``chunk_step`` + paged ``decode_step`` and then a small engine, on
+   the card against the CPU (logits within 1e-4, equal greedy tokens; w8a8
+   under the flip rule).  Then full-width, full-depth olmo-1b in bf16 with
+   seeded random weights serves 8 greedy requests (four share a prefix, so
+   radix hits and copy-on-write pages happen) through
+   ``repro_torch.serving.Engine``, whose decode steps replay one CUDA graph
+   (``decode_chunk`` replays a decode tick, one a mixed tick); every
+   paged-path kernel's launch count must rise, the page pool must
+   reconcile, the graph must pass the checks of phase 3, and two prompts
+   served alone must give the same tokens.  A traced decode tick may launch
+   the graph at most ``decode_chunk`` times and fewer than 300 other
+   kernels.  A short ``EngineConfig(quant="w8a8")`` pass runs the int8 GEMM
+   on the paged path (and its graph is checked).  Last, a chaos run:
+   full-width olmo-1b (f32) under ``preemption="recompute"`` and a
+   schedule of every fault point must give one FAULT, one DEADLINE, at
+   least one preemption, the other requests' tokens equal to a run without
+   chaos, and a pool that reconciles on ``close()``;
 5. a JSON ``added_kernels`` line (the quantize kernel), a JSON ``kernels``
    line (the six ported TPU kernels), then the JSON result as the last
    line.
@@ -841,9 +855,11 @@ def _to_cuda(tree):
 
 class _Int8Recorder:
     """Records every w8a8 GEMM of ``core.gemm`` by device, in call order: the
-    float activation, its int8 row quantization (``quantize_rows``: the
-    kernel on the card, its plain version on the CPU) and the GEMM's
-    output."""
+    float activation it reads, that activation's int8 row quantization
+    (``quantize_rows``: the kernel on the card, its plain version on the
+    CPU) and the GEMM's output.  One quantization feeds several GEMMs (wq /
+    wk / wv, w_gate / w_up): each GEMM gets an entry of its own.  Eager
+    calls only: a graph replay runs no Python."""
 
     def __init__(self):
         from repro_torch.core import gemm
@@ -852,16 +868,17 @@ class _Int8Recorder:
     def __enter__(self):
         g = self.gemm
         self._quantize, self._matmul = g.quantize_rows, g.cgra_matmul_int8
+        last = {}
 
         def quantize_rows(x):
             q, scale = self._quantize(x)
-            self.calls[x.device.type].append(
-                dict(x=x.float().cpu(), q=q.cpu(), scale=scale.cpu()))
+            last[x.device.type] = dict(x=x.float().cpu(), q=q.cpu(), scale=scale.cpu())
             return q, scale
 
         def matmul(*args, **kw):
             out = self._matmul(*args, **kw)
-            self.calls[out.device.type][-1]["out"] = out.float().cpu()
+            dev = out.device.type
+            self.calls[dev].append(dict(last[dev], out=out.float().cpu()))
             return out
         g.quantize_rows, g.cgra_matmul_int8 = quantize_rows, matmul
         return self
@@ -898,10 +915,9 @@ def flip_witness(rec) -> dict:
                 gemm_gap_before_flip=gemm_gap)
 
 
-def small_reference_check():
-    """Reduced gemma3-4b (f32 compute, window 32) on the card's kernels
-    against the CPU's plain versions: prefill of a 40-token prompt, then 12
-    decode steps past the window on the same tokens.
+def _card_vs_cpu(name, quant, pairs, rec):
+    """The gate of a reduced model on the card's kernels against the CPU's
+    plain versions over ``pairs`` of (CPU, card) logits.
 
     Float weights: max logits gap <= 1e-4 (the kernels sum in another
     order: f32 rounding only).  w8a8: the same bound while no int8
@@ -912,6 +928,30 @@ def small_reference_check():
     outputs equal to 1e-4 up to there.  From the flip on, one step (1/127 of
     a row's max) moves the logits by up to ~1e-2 here, so the gate is then
     5e-2 on the gap and 0.9 on the argmax agreement; all are printed."""
+    gap = max(float((b - a).abs().max()) for a, b in pairs)
+    agree = statistics.mean(float((a.argmax(-1) == b.argmax(-1)).float().mean())
+                            for a, b in pairs)
+    bound, witness = 1e-4, None
+    if quant == "w8a8":
+        witness = flip_witness(rec)
+        first = witness["first_flip"]
+        log(f"{name} w8a8 witness: {json.dumps(witness)}")
+        if witness["gemm_gap_before_flip"] > 1e-4:
+            fail(f"{name}: w8a8 GEMM outputs before the first flip differ by "
+                 f"{witness['gemm_gap_before_flip']:.3e} (bound 1e-4)")
+        if first is not None:
+            if first["max_step"] > 1 or first["input_gap_steps"] > 1e-2:
+                fail(f"{name}: w8a8 first flip is not a boundary rounding: {first}")
+            bound = 5e-2
+    if not math.isfinite(gap) or gap > bound or agree < 0.9:
+        fail(f"{name} {quant}: card vs CPU gap {gap:.3e}, agreement {agree}")
+    return dict(gap=gap, bound=bound, argmax_agreement=agree, witness=witness)
+
+
+def small_reference_check():
+    """Reduced gemma3-4b (f32 compute, window 32) on the card's kernels
+    against the CPU's plain versions: prefill of a 40-token prompt, then 12
+    decode steps past the window on the same tokens (gate: ``_card_vs_cpu``)."""
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.models import model as M
     toks = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (2, 40)).astype(np.int32))
@@ -931,33 +971,170 @@ def small_reference_check():
                 lc, cc = M.decode_step(cfg, p_cpu, cc, tok, 40 + i)
                 lg, cg = M.decode_step(cfg, p_gpu, cg, tok.cuda(), 40 + i)
                 pairs.append((lc, lg.cpu()))
-        gap = max(float((b - a).abs().max()) for a, b in pairs)
-        agree = statistics.mean(float((a.argmax(-1) == b.argmax(-1)).float().mean())
-                                for a, b in pairs)
-        bound, witness = 1e-4, None
-        if quant == "w8a8":
-            witness = flip_witness(rec)
-            first = witness["first_flip"]
-            log(f"reduced gemma3-4b w8a8 witness: {json.dumps(witness)}")
-            if witness["gemm_gap_before_flip"] > 1e-4:
-                fail(f"w8a8 GEMM outputs before the first flip differ by "
-                     f"{witness['gemm_gap_before_flip']:.3e} (bound 1e-4)")
-            if first is not None:
-                if first["max_step"] > 1 or first["input_gap_steps"] > 1e-2:
-                    fail(f"w8a8 first flip is not a boundary rounding: {first}")
-                bound = 5e-2
+        out[quant] = _card_vs_cpu("reduced gemma3-4b", quant, pairs, rec)
         log(f"reduced gemma3-4b {quant}, card kernels vs CPU plain versions: prefill + 12 "
-            f"decode steps, max logits gap {gap:.3e} (bound {bound:g}), argmax "
-            f"agreement {agree:.4f}")
-        if not math.isfinite(gap) or gap > bound or agree < 0.9:
-            fail(f"reduced gemma3-4b {quant}: card vs CPU gap {gap:.3e}, agreement {agree}")
-        out[quant] = dict(gap=gap, bound=bound, argmax_agreement=agree, witness=witness)
+            f"decode steps, max logits gap {out[quant]['gap']:.3e} (bound "
+            f"{out[quant]['bound']:g}), argmax agreement {out[quant]['argmax_agreement']:.4f}")
     return out
 
 
-def edge_phase(counters):
+def paged_reference_check():
+    """Reduced olmo-1b (f32 compute, page size 16, two slots, seed-0
+    weights) on the card's kernels against the CPU's plain versions on the
+    paged path, in float and w8a8 weights.
+
+    Part 1, the model steps: ``chunk_step`` over a 40-token prompt in 16-row
+    chunks, then 12 paged ``decode_step``s, on the same page tables and
+    tokens (gate: ``_card_vs_cpu``: 1e-4, or the flip rule in w8a8).
+    Part 2, a small engine: ``EngineConfig(max_batch=4, max_len=128,
+    page_size=16, chunk_tokens=16, decode_chunk=4)``, four prompts of which
+    two share a 24-token prefix (a page by reference, half a page
+    copy-on-write), 16 greedy tokens each, on the card (decode steps
+    replayed as a CUDA graph) and on the CPU.  Gate: equal greedy tokens; in
+    w8a8, once Part 1 has shown a one-step boundary flip, argmax agreement
+    >= 0.9 (the flip rule)."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, EngineConfig, check_invariants
+    cfg = reduce_config(get_config("olmo-1b"))
+    V = cfg.vocab_size
+    rng = np.random.RandomState(3)
+    B, ps, npp, S, C, steps = 2, 16, 4, 40, 16, 12
+    toks = torch.from_numpy(rng.randint(0, V, (B, S + steps)).astype(np.int32))
+    pages = torch.from_numpy(rng.permutation(np.arange(1, B * npp + 1))
+                             .reshape(B, npp).astype(np.int32))
+    prefix = rng.randint(0, V, 24).tolist()
+    prompts = [prefix + rng.randint(0, V, 10).tolist(), rng.randint(0, V, 30).tolist(),
+               prefix + rng.randint(0, V, 5).tolist(), rng.randint(0, V, 45).tolist()]
+    out = {}
+    for quant in ("none", "w8a8"):
+        p_cpu = M.init(cfg, seed=0, device="cpu")
+        if quant == "w8a8":
+            p_cpu = M.quantize_params(cfg, p_cpu)
+        params = {"cpu": p_cpu, "cuda": _to_cuda(p_cpu)}
+        caches = {d: M.init_paged_cache(cfg, B, B * npp + 1, ps, device=d) for d in params}
+        pairs = []
+        with _Int8Recorder() as rec:
+            for past in range(0, S, C):
+                n = min(C, S - past)
+                buf = torch.zeros(B, C, dtype=torch.int32)
+                buf[:, :n] = toks[:, past: past + n]
+                lg = {d: M.chunk_step(cfg, params[d], caches[d], buf.to(d), pages.to(d),
+                                      past, n)[0].cpu() for d in params}
+                pairs.append((lg["cpu"], lg["cuda"]))
+            for i in range(steps):
+                pos = torch.full((B,), S + i, dtype=torch.int32)
+                lg = {d: M.decode_step(cfg, params[d], caches[d], toks[:, S + i: S + i + 1].to(d),
+                                       pos.to(d), pages=pages.to(d))[0].cpu() for d in params}
+                pairs.append((lg["cpu"], lg["cuda"]))
+        res = _card_vs_cpu("reduced olmo-1b paged", quant, pairs, rec)
+        econf = EngineConfig(max_batch=4, max_len=128, page_size=ps, chunk_tokens=C,
+                             decode_chunk=4, quant=None if quant == "none" else quant)
+        gens = {}
+        for d in params:
+            eng = Engine(cfg, params[d], econf, device=d)
+            rids = [eng.submit(p, max_new=16) for p in prompts]
+            by = {r.rid: r for r in eng.run()}
+            gens[d] = [by[r].generated for r in rids]
+            if eng.stats.prefix_hit_tokens < 24 or check_invariants(
+                    eng.pool, eng.radix, tables=eng.sched.owned):
+                fail(f"reduced olmo-1b engine {quant} on {d}: no prefix hit or bad paging state")
+            if d == "cuda" and eng.runner.graph.replays == 0:
+                fail("reduced olmo-1b engine: the decode graph was never replayed")
+        agree = statistics.mean(float(np.mean(np.array(a) == np.array(b)))
+                                for a, b in zip(gens["cpu"], gens["cuda"]))
+        flipped = res["witness"] is not None and res["witness"]["first_flip"] is not None
+        if (agree < 1.0 and not flipped) or agree < 0.9:
+            fail(f"reduced olmo-1b engine {quant}: card and CPU greedy tokens agree at "
+                 f"{agree:.4f} (flip shown: {flipped})")
+        res["engine_token_agreement"] = agree
+        out[quant] = res
+        log(f"reduced olmo-1b paged {quant}, card kernels vs CPU plain versions: 3 chunks + "
+            f"{steps} paged decode steps, max logits gap {res['gap']:.3e} (bound "
+            f"{res['bound']:g}), argmax agreement {res['argmax_agreement']:.4f}; engine "
+            f"(4 requests x 16 tokens, radix hits, decode graph on the card) greedy tokens "
+            f"card == CPU at {agree:.4f} of positions")
+    return out
+
+
+def graph_check(name, g, load, gen):
+    """Hold a ``DecodeGraph`` ``g`` (inputs filled by ``load()``) to its
+    eager run: the replay equals ``g.eager()`` bit for bit (NaN rows of the
+    poisoned slot included); the eager run launches exactly what the graph
+    adds to the counters per replay; a larger eager decode call on the
+    graph's own stream (growing its scratch entry) and on the current stream
+    between two replays leaves the replay bit-equal; and a replay adds
+    ``per_replay`` to every counter and nothing else.  Under w8a8 every int8
+    GEMM of the step must take an ``mma.sync`` route (no TMA descriptor in
+    the graph).  Returns {counter: launches a replay}."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.block_gemm import int8_route
+    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.kernels.ops import LAUNCH_COUNTERS
+    B = g.cur.numel()
+    widths = sorted({t.q.shape[-2] for t in _qtensors(g.params)})
+    if any(int8_route(B, n) >= 2 for n in widths):
+        fail(f"{name}: an int8 GEMM of the graph would take the TMA route")
+
+    def same(a, b):
+        return all(torch.allclose(x, y, rtol=0, atol=0, equal_nan=True) for x, y in zip(a, b))
+
+    load()
+    first = tuple(t.clone() for t in g.run())
+    before = {c: c.launches for c in LAUNCH_COUNTERS}
+    eager = g.eager()
+    eager_n = {c.__name__: c.launches - before[c] for c in LAUNCH_COUNTERS
+               if c.launches != before[c]}
+    per_replay = {c.__name__: n for c, n in g.per_replay.items()}
+    if not same(eager, first):
+        fail(f"{name}: graph replay differs from the eager step")
+    if eager_n != per_replay:
+        fail(f"{name}: eager step launches {eager_n}, a replay counts {per_replay}")
+    held = [p.data_ptr() for p, _ in _build.stream_scratch(g.stream.cuda_stream)]
+    q = torch.randn(16, 16, 128, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(16, 4096, 16, 128, generator=gen, device="cuda").bfloat16()
+    pos = torch.full((16,), 4095, dtype=torch.int32, device="cuda")
+    g.stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(g.stream):
+        flash_decode(q, k, k, pos, None)
+    flash_decode(q, k, k, pos, None)
+    torch.cuda.synchronize()
+    grown = [p.data_ptr() for p, _ in _build.stream_scratch(g.stream.cuda_stream)]
+    del q, k
+    if grown == held:
+        fail(f"{name}: the larger call did not grow the graph stream's scratch")
+    before = {c: c.launches for c in LAUNCH_COUNTERS}
+    load()
+    again = g.run()
+    delta = {c.__name__: c.launches - before[c] for c in LAUNCH_COUNTERS
+             if c.launches != before[c]}
+    if not same(again, first):
+        fail(f"{name}: a replay after a larger eager call differs")
+    if delta != per_replay:
+        fail(f"{name}: a replay counted {delta}, not {per_replay}")
+    torch.cuda.synchronize()
+    log(f"{name} decode graph: replay == eager bit for bit (poisoned slot NaN), again "
+        f"after a larger eager call that grew its stream's scratch; per replay "
+        f"{json.dumps(per_replay)} launches; capture {g.capture_s * 1e3:.1f} ms")
+    return per_replay
+
+
+def _qtensors(tree):
+    from repro_torch.core.quant import QTensor
+    if isinstance(tree, QTensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _qtensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _qtensors(v)
+
+
+def edge_phase(counters, gen):
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
+    from repro_torch.models.graph import DecodeGraph
     names = {c.__name__: c for c in counters}
     small_gap = small_reference_check()
     cfg = get_config("gemma3-4b")
@@ -980,28 +1157,34 @@ def edge_phase(counters):
         0, V, (B, S)).astype(np.int32)).cuda()
 
     def run(c, p, forced=None, n=steps):
-        """prefill -> ``n`` greedy decode steps (or the ``forced`` tokens);
-        returns (per-step logits, tokens, prefill s, decode s)."""
+        """prefill -> ``n`` greedy decode steps (or the ``forced`` tokens)
+        through a ``DecodeGraph`` on the slot caches the prefill returns:
+        step 0 captures it (timed apart), steps 1.. replay it.  Returns
+        (per-step logits, tokens, prefill s, s a replayed step, the graph)."""
         torch.cuda.synchronize()
         t0 = time.time()
         logits, caches = M.prefill(c, p, prompts, cache_len=cache_len)
         torch.cuda.synchronize()
         t_pre = time.time() - t0
-        outs, toks = [logits[:, -1]], []
-        t0 = time.time()
+        g = DecodeGraph(c, p, caches, B)
+        outs, toks = [logits[:, -1, :V]], []
         for i in range(n):
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.time()
             tok = (forced[i] if forced is not None
-                   else torch.argmax(outs[-1][:, :V], -1).to(torch.int32))
+                   else torch.argmax(outs[-1], -1).to(torch.int32))
             toks.append(tok)
-            logits, caches = M.decode_step(c, p, caches, tok[:, None], S + i)
-            outs.append(logits[:, -1])
+            g.cur.copy_(tok)
+            g.pos.fill_(S + i)
+            outs.append(g.run()[0].clone())
         torch.cuda.synchronize()
-        return outs, toks, t_pre, time.time() - t0
+        return outs, toks, t_pre, (time.time() - t0) / max(n - 1, 1), g
 
     run(cfg, params_q, n=2)  # warm-up: first launches, allocator
     for c in counters:
         c.launches = 0
-    outs, toks, t_pre, t_dec = run(cfg, params_q)
+    outs, toks, t_pre, t_step, graph = run(cfg, params_q)
     launches = {n: c.launches for n, c in names.items()}
     for n in ("block_gemm_int8", "quantize_rows", "flash_attention", "flash_decode"):
         if launches[n] <= 0:
@@ -1009,50 +1192,66 @@ def edge_phase(counters):
     if launches["block_gemm"] != 0:
         fail("the bf16 block_gemm was launched under w8a8")
     for i, lg in enumerate(outs):
-        if lg.shape != (B, cfg.padded_vocab) or not bool(torch.isfinite(lg).all()):
+        if lg.shape != (B, V) or not bool(torch.isfinite(lg).all()):
             fail(f"edge logits {i}: shape {tuple(lg.shape)} or non-finite values")
-    for n in names:  # per prefill / per decode step, from one more counted prefill
+    for n in names:  # per prefill, from one more counted prefill
         names[n].launches = 0
     M.prefill(cfg, params_q, prompts, cache_len=cache_len)
     per_prefill = {n: c.launches for n, c in names.items()}
-    per_step = {n: (launches[n] - per_prefill[n]) / steps for n in names}
-    # every w8a8 GEMM (7 projections a layer and the tied head) is one
-    # quantize launch and one GEMM launch; slot decode is one launch a layer
-    n_gemm = 7 * cfg.num_layers + 1
-    for n, want in (("block_gemm_int8", n_gemm), ("quantize_rows", n_gemm)):
+    per_step = {n: graph.per_replay.get(c, 0) for n, c in names.items()}
+    # every w8a8 GEMM (7 projections a layer and the tied head) is one int8
+    # GEMM launch; one quantize launch serves each distinct activation (q/k/v
+    # share one, gate/up one, then wo, w_down and the head); slot decode is
+    # one launch a layer.  The main run = a prefill, the warm-up step before
+    # the capture, and one replay a step.
+    n_gemm, n_quant = 7 * cfg.num_layers + 1, 4 * cfg.num_layers + 1
+    for n, want in (("block_gemm_int8", n_gemm), ("quantize_rows", n_quant)):
         if per_prefill[n] != want or per_step[n] != want:
             fail(f"edge {n}: {per_prefill[n]} launches per prefill and {per_step[n]} per "
                  f"decode step, not {want}")
     if per_step["flash_decode"] != cfg.num_layers:
         fail(f"edge flash_decode: {per_step['flash_decode']} launches per decode step, "
              f"not {cfg.num_layers}")
+    for n in names:
+        if launches[n] != per_prefill[n] + (steps + 1) * per_step[n]:
+            fail(f"edge {n}: {launches[n]} launches in the run, not a prefill + "
+                 f"{steps + 1} steps' worth")
+    if graph.replays != steps:
+        fail(f"edge decode graph replayed {graph.replays} times for {steps} steps")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    tokens_per_s = B * steps / t_dec
-    log(f"edge w8a8: prefill {B}x{S} in {t_pre * 1e3:.1f} ms, {steps} decode steps at "
-        f"{t_dec / steps * 1e3:.2f} ms ({tokens_per_s:.1f} tokens/s at batch {B}); peak "
+    tokens_per_s = B / t_step
+    log(f"edge w8a8: prefill {B}x{S} in {t_pre * 1e3:.1f} ms; decode step as a CUDA graph "
+        f"(captured in {graph.capture_s * 1e3:.1f} ms at step 0), {steps - 1} replayed steps at "
+        f"{t_step * 1e3:.3f} ms ({tokens_per_s:.1f} tokens/s at batch {B}); peak "
         f"device memory {peak:.2f} GiB")
     log(f"edge launches: total {json.dumps(launches)}; per prefill "
-        f"{json.dumps(per_prefill)}; per decode step {json.dumps(per_step)}")
-    trace = trace_edge(cfg, params_q, prompts, cache_len, t_pre, t_dec / steps, n_gemm)
+        f"{json.dumps(per_prefill)}; per decode step (one replay) {json.dumps(per_step)}")
+    graph_launches = graph_check("edge gemma3-4b w8a8 slot caches", graph, lambda: (
+        graph.load(toks[-1], torch.full((B,), S + steps, dtype=torch.int32),
+                   nanmask=torch.tensor([False, True]))), gen)
+    trace = trace_edge(cfg, params_q, prompts, cache_len, t_pre, t_step, graph, n_gemm)
+    del graph
     # bf16 on the same tokens: argmax agreement (information, not a gate)
-    outs_bf, _, t_pre_bf, t_dec_bf = run(cfg, params, forced=toks)
+    outs_bf, _, t_pre_bf, t_step_bf, _ = run(cfg, params, forced=toks)
     agree = float(torch.mean(torch.stack([
-        (torch.argmax(a[:, :V], -1) == torch.argmax(b[:, :V], -1)).float()
+        (torch.argmax(a, -1) == torch.argmax(b, -1)).float()
         for a, b in zip(outs, outs_bf)])))
     log(f"edge bf16 on the same tokens: prefill {t_pre_bf * 1e3:.1f} ms, "
-        f"{t_dec_bf / steps * 1e3:.2f} ms per step; w8a8 vs bf16 argmax agreement "
+        f"{t_step_bf * 1e3:.3f} ms per replayed step; w8a8 vs bf16 argmax agreement "
         f"{agree:.4f} over {len(outs) * B} positions")
-    return launches, dict(prefill_ms=t_pre * 1e3, decode_step_ms=t_dec / steps * 1e3,
+    return launches, dict(prefill_ms=t_pre * 1e3, decode_step_ms=t_step * 1e3,
                           tokens_per_s=tokens_per_s, peak_gib=peak,
                           per_prefill=per_prefill, per_step=per_step,
+                          graph_per_replay=graph_launches,
                           argmax_agreement=agree, small_gap=small_gap,
                           bf16_prefill_ms=t_pre_bf * 1e3,
-                          bf16_decode_step_ms=t_dec_bf / steps * 1e3, trace=trace)
+                          bf16_decode_step_ms=t_step_bf * 1e3, trace=trace)
 
 
 def _traced(fn):
     """Device time by kernel of ``fn`` under torch.profiler: (total ms, the
-    top 8 {name xcount: ms}, every kernel's (name, launches))."""
+    top 8 {name xcount: ms}, every kernel's (name, launches), (CUDA graph
+    launches, other kernel launches))."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1063,30 +1262,44 @@ def _traced(fn):
     top = sorted(kernels, key=_device_us, reverse=True)[:8]
     return (sum(_device_us(e) for e in kernels) / 1e3,
             {f"{e.key[:60]} x{e.count}": _device_us(e) / 1e3 for e in top},
-            [(e.key, e.count) for e in kernels])
+            [(e.key, e.count) for e in kernels], _launch_counts(events))
 
 
-def trace_edge(cfg, params, prompts, cache_len, prefill_s, step_s, n_gemm):
-    """Traced prefill and decode step of the edge path, set against the
-    untraced times: idle share = 1 - device time / untraced time.  Neither
-    may show slot decode's old merge kernel, nor a PyTorch reduction that
-    runs once per w8a8 GEMM (``n_gemm`` times or more: the eager activation
-    quantization's amax)."""
+def _launch_counts(events) -> tuple[int, int]:
+    """(CUDA graph launches, other kernel launches) among a trace's host
+    runtime calls."""
+    graphs = sum(e.count for e in events if e.key.startswith("cudaGraphLaunch"))
+    kernels = sum(e.count for e in events if e.key.startswith(("cudaLaunchKernel",
+                                                                "cuLaunchKernel")))
+    return graphs, kernels
+
+
+def trace_edge(cfg, params, prompts, cache_len, prefill_s, step_s, graph, n_gemm):
+    """Traced prefill and decode step (one replay of ``graph`` and the next
+    token's argmax) of the edge path, set against the untraced times: idle
+    share = 1 - device time / untraced time.  Neither may show slot decode's
+    old merge kernel, nor a PyTorch reduction that runs once per w8a8 GEMM
+    (``n_gemm`` times or more: the eager activation quantization's amax)."""
     from repro_torch.models import model as M
     box = {}
 
     def pre():
         box["lc"] = M.prefill(cfg, params, prompts, cache_len=cache_len)
     out = {}
-    dev, top, every = _traced(pre)
+    dev, top, every, _ = _traced(pre)
     out["prefill"] = dict(device_ms=dev, untraced_ms=prefill_s * 1e3, top=top,
                           idle_share=1 - dev / (prefill_s * 1e3) if dev else None)
-    logits, caches = box["lc"]
-    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
-    S = prompts.shape[1]
-    dev, top, every_step = _traced(lambda: M.decode_step(cfg, params, caches, tok, S))
+    del box
+
+    def step():
+        lf, _ = graph.run()
+        graph.cur.copy_(torch.argmax(lf, -1).to(torch.int32))
+    dev, top, every_step, (n_graph, n_kernel) = _traced(step)
     out["decode"] = dict(device_ms=dev, untraced_ms=step_s * 1e3, top=top,
-                         idle_share=1 - dev / (step_s * 1e3) if dev else None)
+                         idle_share=1 - dev / (step_s * 1e3) if dev else None,
+                         graph_launches=n_graph, kernel_launches=n_kernel)
+    if n_graph != 1:
+        fail(f"traced edge decode step: {n_graph} CUDA graph launches, not 1")
     for kind, kernels in (("prefill", every), ("decode", every_step)):
         for name, count in kernels:
             if "merge_kernel" in name or ("reduce_kernel" in name and count >= n_gemm):
@@ -1097,6 +1310,8 @@ def trace_edge(cfg, params, prompts, cache_len, prefill_s, step_s, n_gemm):
             + ", ".join(f"{k} {v:.3f}" for k, v in o["top"].items())
             if o["device_ms"] else f"traced edge {kind}: the profiler saw no device "
             "time (not measured)")
+    log(f"traced edge decode step: {n_graph} cudaGraphLaunch, {n_kernel} other kernel "
+        f"launches")
     return out
 
 
@@ -1104,10 +1319,11 @@ def trace_edge(cfg, params, prompts, cache_len, prefill_s, step_s, n_gemm):
 # phase 4: the engine at full width
 # ---------------------------------------------------------------------------
 
-def engine_phase(counters, paged_path):
+def engine_phase(counters, paged_path, gen):
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.serving import Engine, EngineConfig, FinishReason, check_invariants
+    paged_ref = paged_reference_check()
     cfg = get_config("olmo-1b")
     t0 = time.time()
     params = M.init(cfg, seed=0, device="cuda")
@@ -1153,20 +1369,40 @@ def engine_phase(counters, paged_path):
     if bad:
         fail("paging invariants: " + "; ".join(bad))
     st = eng.stats
+    graph = eng.runner.graph
+    if graph.replays != st.chunks * econf.decode_chunk + st.mixed_steps:
+        fail(f"engine decode graph: {graph.replays} replays for {st.chunks} decode ticks "
+             f"and {st.mixed_steps} mixed ticks")
     ttft = sorted(r.ttft_s for r in results.values())
     ticks = st.mixed_steps + st.chunks
+    # the first tick (a mixed one) captured the graph: its capture is
+    # reported apart, not spread over the mixed ticks
+    mixed_ms = (st.prefill_s - graph.capture_s) / max(st.mixed_steps, 1) * 1e3
     log(f"engine: {len(prompts)} requests, {st.tokens_out} tokens in {wall:.3f} s "
         f"({st.tokens_out / wall:.2f} tokens/s end to end), TTFT p50 "
         f"{statistics.median(ttft) * 1e3:.1f} ms, {ticks} ticks ({st.mixed_steps} "
-        f"mixed at {st.prefill_s / max(st.mixed_steps, 1) * 1e3:.2f} ms, "
+        f"mixed at {mixed_ms:.2f} ms without the capture, "
         f"{st.chunks} decode-only x{econf.decode_chunk} steps at "
         f"{st.decode_s / max(st.chunks, 1) * 1e3:.2f} ms), prefix hit rate "
         f"{st.prefix_hit_rate:.4f} ({st.prefix_hit_tokens} tokens)")
-    log(f"engine launches: {json.dumps(launches)}")
+    log(f"engine launches: {json.dumps(launches)}; decode graph: captured in "
+        f"{graph.capture_s * 1e3:.1f} ms, {graph.replays} replays over {ticks} ticks "
+        f"({econf.decode_chunk} a decode tick, 1 a mixed tick), "
+        f"{json.dumps({c.__name__: n for c, n in graph.per_replay.items()})} launches a replay")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"peak device memory {peak:.2f} GiB")
     batched = {tuple(p): results[rid].generated for rid, p in zip(rids, prompts)}
-    del eng
+    capture_ms = graph.capture_s * 1e3
+    B, npp = econf.max_batch, econf.cache_spec().pages_per_seq
+    table = torch.from_numpy(rng.permutation(np.arange(1, econf.n_pages))[: B * npp]
+                             .reshape(B, npp).astype(np.int32))
+    poison = torch.zeros(B, dtype=torch.bool)
+    poison[3] = True
+    cur = torch.from_numpy(rng.randint(0, V, B).astype(np.int32))
+    graphs = {"bf16": graph_check("engine olmo-1b bf16 pools", graph, lambda: graph.load(
+        cur, torch.tensor([0, 63, 64, 300, 511, 700, 1000, 1023], dtype=torch.int32),
+        table, poison), gen)}
+    del eng, graph
     for p in (shared[2], other[1]):
         solo = Engine(cfg, params, econf)
         solo.submit(p, max_new=max_new)
@@ -1177,10 +1413,11 @@ def engine_phase(counters, paged_path):
     log("solo == batched greedy tokens for 2 prompts")
     summary = dict(tokens_per_s=st.tokens_out / wall, wall_s=wall,
                    ttft_p50_ms=statistics.median(ttft) * 1e3,
-                   mixed_tick_ms=st.prefill_s / max(st.mixed_steps, 1) * 1e3,
-                   decode_tick_ms=st.decode_s / max(st.chunks, 1) * 1e3)
+                   mixed_tick_ms=mixed_ms,
+                   decode_tick_ms=st.decode_s / max(st.chunks, 1) * 1e3,
+                   capture_ms=capture_ms, paged_reference=paged_ref)
     summary["trace"] = trace_ticks(Engine(cfg, params, econf), prompts, max_new,
-                                   summary)
+                                   summary, counters)
     # w8a8 through the paged engine: the int8 GEMM on the paged path
     qconf = EngineConfig(max_batch=4, max_len=1024, page_size=64, chunk_tokens=64,
                          decode_chunk=8, quant="w8a8")
@@ -1196,17 +1433,111 @@ def engine_phase(counters, paged_path):
     for rid in qrids:
         if len(qres[rid].generated) != 16 or not all(0 <= t < V for t in qres[rid].generated):
             fail(f"w8a8 engine rid {rid}: bad output {qres[rid].generated}")
+    # a forward pass (a chunk or a decode step) is 7 int8 GEMMs a layer and
+    # the head's, after 4 quantize launches a layer and the head's
+    n_gemm, n_quant = 7 * cfg.num_layers + 1, 4 * cfg.num_layers + 1
     if qlaunch["block_gemm_int8"] <= 0 or qlaunch["block_gemm"] != 0 \
-            or qlaunch["quantize_rows"] != qlaunch["block_gemm_int8"]:
+            or qlaunch["quantize_rows"] * n_gemm != qlaunch["block_gemm_int8"] * n_quant:
         fail(f"w8a8 engine launches {qlaunch}: the int8 GEMM must carry every GEMM, "
-             f"each after one quantize launch")
+             f"{n_quant} quantize launches for every {n_gemm} GEMMs")
     agree = statistics.mean(
         sum(a == b for a, b in zip(qres[q].generated, batched[tuple(p)])) / 16
         for q, p in zip(qrids, prompts[:4]))
     log(f"engine w8a8: 4 requests x 16 tokens in {qwall:.3f} s; launches "
         f"{json.dumps(qlaunch)}; greedy tokens equal to bf16's at {agree:.4f} of positions")
+    qg = qeng.runner.graph
+    qB = qconf.max_batch
+    qtable = torch.from_numpy(rng.permutation(np.arange(1, qconf.n_pages))[: qB * npp]
+                              .reshape(qB, npp).astype(np.int32))
+    graphs["w8a8"] = graph_check("engine olmo-1b w8a8 pools", qg, lambda: qg.load(
+        cur[:qB], torch.tensor([5, 64, 400, 1023], dtype=torch.int32), qtable,
+        poison[:qB]), gen)
+    del qeng, qg
     summary["w8a8"] = dict(wall_s=qwall, launches=qlaunch, token_agreement=agree)
+    summary["graph_per_replay"] = graphs
+    summary["chaos"] = chaos_run(cfg)
     return launches, summary
+
+
+def chaos_run(cfg):
+    """Full-width olmo-1b through the engine under a chaos schedule against
+    the same requests without chaos.  f32 compute: the preempted requests
+    re-prefill their tokens through chunk attention, whose rounding is not
+    the decode kernel's, and f32 keeps that from flipping a greedy token, so
+    equality tests the engine's bookkeeping and not bf16 rounding.
+
+    Six requests on four slots, ``preemption="recompute"`` with 10 usable
+    pages against the 12 four finishing requests need, so decode growth
+    preempts.  The schedule fires ``clock.skew`` (+1000 s) at the second
+    tick, past the 100 s deadline of the last request (queued), ``runner
+    .mixed`` twice, ``pool.alloc`` twice (both during the first four
+    admissions) and ``logits.nan`` once.
+    Gates: exactly one FAULT (tokens a prefix of the reference's) and one
+    DEADLINE, every other request LENGTH with the reference's tokens, at
+    least one preemption, counters equal to those exits, every fault point
+    fired as scheduled, and ``close()`` reconciling the pool
+    (``check_invariants``)."""
+    from repro_torch.models import model as M
+    from repro_torch.serving import ChaosInjector, Engine, EngineConfig, FinishReason
+    fcfg = cfg.with_(compute_dtype=torch.float32)
+    params = M.init(fcfg, seed=0, device="cuda")
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, cfg.vocab_size, n).tolist() for n in (100, 110, 120, 125, 115, 105)]
+    max_new = 48
+    base = dict(max_batch=4, max_len=256, page_size=64, chunk_tokens=64, decode_chunk=8)
+    ref = Engine(fcfg, params, EngineConfig(**base))
+    rr = [ref.submit(p, max_new=max_new) for p in prompts]
+    by = {r.rid: r for r in ref.run()}
+    want = [by[r].generated for r in rr]
+    del ref
+    chaos = ChaosInjector(schedule={"clock.skew": {1}, "runner.mixed": {2, 5},
+                                    "pool.alloc": {3, 8}, "logits.nan": {6}},
+                          skew_s=1000.0)
+    t0 = time.time()
+    eng = Engine(fcfg, params, EngineConfig(**base, n_pages=11, preemption="recompute"),
+                 chaos=chaos)
+    rids = [eng.submit(p, max_new=max_new, deadline_s=100.0 if i == 5 else None)
+            for i, p in enumerate(prompts)]
+    results = {}
+    while eng.num_queued or eng.num_active:
+        results.update((r.rid, r) for r in eng.step())
+    wall = time.time() - t0
+    got = [results[r] for r in rids]
+    reasons = [r.finish_reason for r in got]
+    st = eng.stats
+    counts = {p: chaos.count(p) for p in ("clock.skew", "runner.mixed", "pool.alloc",
+                                          "logits.nan")}
+    if sorted(results) != sorted(rids):
+        fail(f"chaos run: results for {sorted(results)}, submitted {rids}")
+    if reasons.count(FinishReason.FAULT) != 1 or reasons[5] != FinishReason.DEADLINE \
+            or reasons.count(FinishReason.DEADLINE) != 1:
+        fail(f"chaos run: finish reasons {[r.value for r in reasons]}")
+    for r, w, reason in zip(got, want, reasons):
+        if reason == FinishReason.LENGTH and r.generated != w:
+            fail(f"chaos run: rid {r.rid} ({len(r.generated)} tokens) differs from the "
+                 f"run without chaos")
+        if r.generated != w[: len(r.generated)]:
+            fail(f"chaos run: rid {r.rid} ({reason.value}) is no prefix of the run "
+                 f"without chaos")
+        if reason not in (FinishReason.LENGTH, FinishReason.FAULT, FinishReason.DEADLINE):
+            fail(f"chaos run: rid {r.rid} finished {reason.value}")
+    if (st.faults_isolated, st.deadline_expired, st.cancelled, st.rejected) != (1, 1, 0, 0) \
+            or st.preempted < 1:
+        fail(f"chaos run: counters preempted {st.preempted}, faults {st.faults_isolated}, "
+             f"deadline {st.deadline_expired}, cancelled {st.cancelled}, rejected {st.rejected}")
+    if counts != {"clock.skew": 1, "runner.mixed": 2, "pool.alloc": 2, "logits.nan": 1}:
+        fail(f"chaos run: fault points fired {counts}")
+    if eng.close() != []:
+        fail("chaos run: close() found requests left")
+    out = dict(wall_s=wall, reasons=[r.value for r in reasons], preempted=st.preempted,
+               events=[list(e) for e in chaos.events], fired=counts,
+               graph_replays=eng.runner.graph.replays, ticks=st.mixed_steps + st.chunks)
+    log(f"chaos run (olmo-1b f32, 6 requests, 4 slots, 10 usable pages): reasons "
+        f"{out['reasons']}, {st.preempted} preemptions, fault points fired "
+        f"{json.dumps(counts)}; healthy tokens == the run without chaos, pool reconciled "
+        f"after close(); {out['ticks']} ticks, {out['graph_replays']} graph replays, "
+        f"{wall:.2f} s")
+    return out
 
 
 def _device_us(event) -> float:
@@ -1216,10 +1547,13 @@ def _device_us(event) -> float:
     return 0.0
 
 
-def trace_ticks(eng, prompts, max_new, summary):
+def trace_ticks(eng, prompts, max_new, summary, counters):
     """Device time of one mixed tick and one decode-only tick under
     torch.profiler, by kernel, set against the untraced tick times of the
-    main run: idle share = 1 - device time / untraced tick time."""
+    main run: idle share = 1 - device time / untraced tick time.  The
+    decode tick may launch the decode graph at most ``decode_chunk`` times
+    and fewer than 300 other kernels; each tick's graph replays and kernel
+    launches (by wrapper, and on the host) are printed."""
     from torch.profiler import ProfilerActivity, profile
     for p in prompts:
         eng.submit(p, max_new=max_new)
@@ -1234,10 +1568,16 @@ def trace_ticks(eng, prompts, max_new, summary):
                 eng.step()
             assert eng.num_active > 0
         torch.cuda.synchronize()
+        before = {c.__name__: c.launches for c in counters}
+        replays = eng.runner.graph.replays
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             eng.step()
             torch.cuda.synchronize()
+        wrapped = {c.__name__: c.launches - before[c.__name__] for c in counters
+                   if c.launches != before[c.__name__]}
+        replays = eng.runner.graph.replays - replays
         events = prof.key_averages()
+        n_graph, n_kernel = _launch_counts(events)
         # device activity only: an aten:: op's device time repeats that of
         # the kernels it launched
         kernels = [e for e in events
@@ -1248,9 +1588,13 @@ def trace_ticks(eng, prompts, max_new, summary):
         host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
         out[kind] = dict(device_ms=dev_ms, untraced_tick_ms=tick_ms,
                          idle_share=(1 - dev_ms / tick_ms) if dev_ms else None,
+                         graph_launches=n_graph, kernel_launches=n_kernel,
+                         graph_replays=replays, wrapper_launches=wrapped,
                          top={e.key[:60]: _device_us(e) / 1e3 for e in top},
                          host_top={f"{e.key[:50]} x{e.count}":
                                    e.self_cpu_time_total / 1e3 for e in host})
+        log(f"traced {kind} tick: {replays} graph replays, {n_graph} cudaGraphLaunch, "
+            f"{n_kernel} other kernel launches; wrapper launches {json.dumps(wrapped)}")
         log(f"traced {kind} tick host self time (ms): " + ", ".join(
             f"{k} {v:.3f}" for k, v in out[kind]["host_top"].items()))
         log(f"traced {kind} tick: device {dev_ms:.3f} ms of an untraced "
@@ -1258,6 +1602,11 @@ def trace_ticks(eng, prompts, max_new, summary):
             + ", ".join(f"{k} {v:.3f}" for k, v in out[kind]["top"].items())
             if dev_ms else f"traced {kind} tick: the profiler saw no device "
             "time (not measured)")
+    dec = out["decode"]
+    chunk = eng.config.decode_chunk
+    if not (1 <= dec["graph_launches"] <= chunk) or dec["kernel_launches"] >= 300:
+        fail(f"traced decode tick: {dec['graph_launches']} cudaGraphLaunch (at most "
+             f"{chunk}) and {dec['kernel_launches']} other kernel launches (fewer than 300)")
     eng.run()
     return out
 
@@ -1280,10 +1629,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.kernels import _build
-    from repro_torch.kernels.block_gemm import block_gemm, block_gemm_int8
-    from repro_torch.kernels.decode_attention import flash_decode, flash_decode_paged
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_paged
-    from repro_torch.kernels.quantize import quantize_rows
+    from repro_torch.kernels.ops import LAUNCH_COUNTERS
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1309,8 +1655,7 @@ def main() -> int:
 
     flush = L2Flush()
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    counters = [block_gemm, block_gemm_int8, quantize_rows, flash_decode_paged,
-                flash_decode, flash_attention_paged, flash_attention]
+    counters = LAUNCH_COUNTERS
     rows, errs, launches, report = {}, {}, {}, {"ptxas": resources}
     errs["block_gemm"], rows["block_gemm"] = gemm_phase(flush, gen)
     errs["block_gemm_int8"], rows["block_gemm_int8"] = int8_phase(flush, gen)
@@ -1320,11 +1665,11 @@ def main() -> int:
     errs["flash_decode_paged"], rows["flash_decode_paged"] = decode_phase(flush, gen)
     errs["flash_attention_paged"], rows["flash_attention_paged"] = chunk_phase(flush, gen)
     del flush
-    edge_launch, report["edge"] = edge_phase(counters)
+    edge_launch, report["edge"] = edge_phase(counters, gen)
     for n in ("block_gemm_int8", "quantize_rows", "flash_attention", "flash_decode"):
         launches[n] = edge_launch[n]
     eng_launch, report["engine"] = engine_phase(
-        counters, ["block_gemm", "flash_decode_paged", "flash_attention_paged"])
+        counters, ["block_gemm", "flash_decode_paged", "flash_attention_paged"], gen)
     for n in ("block_gemm", "flash_decode_paged", "flash_attention_paged"):
         launches[n] = eng_launch[n]
 

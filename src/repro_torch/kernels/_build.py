@@ -166,3 +166,11 @@ def scratch(dev, stream: int, n_part: int, n_tickets: int):
         tickets = torch.zeros(max(n_tickets, 1), dtype=torch.int32, device=dev)
     _SCRATCH[key] = (part, tickets)
     return part, tickets
+
+
+def stream_scratch(stream: int) -> list:
+    """The (partials, tickets) entries of ``stream`` on every device: what a
+    CUDA graph captured on that stream launches with.  Holding them keeps
+    their memory out of the allocator's hands when a later call grows an
+    entry."""
+    return [v for (_, s), v in _SCRATCH.items() if s == stream]

@@ -12,7 +12,11 @@ from repro_torch.core.cache import CacheLayout
 from repro_torch.kernels.block_gemm import block_gemm, block_gemm_int8
 from repro_torch.kernels.decode_attention import flash_decode, flash_decode_paged
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_paged
-from repro_torch.kernels.quantize import quantize_rows  # noqa: F401 (w8a8 activations)
+from repro_torch.kernels.quantize import quantize_rows
+
+#: every kernel wrapper; each counts its launches in ``.launches``
+LAUNCH_COUNTERS = (block_gemm, block_gemm_int8, quantize_rows, flash_attention,
+                   flash_attention_paged, flash_decode, flash_decode_paged)
 
 
 def cgra_matmul(a, b, out_dtype=None, trans_b: bool = False):

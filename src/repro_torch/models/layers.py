@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.cache import CacheLayout
-from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8
+from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8, quantize_act
 from repro_torch.core.quant import QTensor
 from repro_torch.kernels.ops import attend_decode, attention
 from repro_torch.models.params import ParamSpec
@@ -41,7 +41,9 @@ def dense_proj(cfg: ArchConfig, x, w, out_shape: tuple = (), out_dtype=None):
     stored in the compute dtype at load, or a ``QTensor`` packed by
     ``model.quantize_params`` (q [N, K] int8), served by the int8 GEMM.
     ``out_dtype`` overrides the accumulator's store dtype (default the
-    compute dtype; the LM head asks for f32)."""
+    compute dtype; the LM head asks for f32).  Under w8a8, ``x`` may be the
+    activation already quantized by :func:`shared_input` (one quantize for
+    every projection that reads it)."""
     if isinstance(w, QTensor):
         out = cgra_gemm_w8a8(x, w, out_dtype=out_dtype or cfg.compute_dtype)
     else:
@@ -49,6 +51,13 @@ def dense_proj(cfg: ArchConfig, x, w, out_shape: tuple = (), out_dtype=None):
     if out_shape:
         out = out.reshape(*out.shape[:-1], *out_shape)
     return out
+
+
+def shared_input(x, w):
+    """``x`` for several projections with weights like ``w``: quantized once
+    here when ``w`` is a w8a8 ``QTensor`` (the int8 values and every output
+    stay bit-identical to quantizing per projection), else ``x``."""
+    return quantize_act(x) if isinstance(w, QTensor) else x
 
 
 # ---------------------------------------------------------------------------
@@ -139,9 +148,10 @@ def attn_cache_specs(cfg: ArchConfig, batch: int, seq: int,
 
 def _qkv(cfg, p, x):
     H, K, dh = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
-    q = dense_proj(cfg, x, p["wq"], (H, dh))
-    k = dense_proj(cfg, x, p["wk"], (K, dh))
-    v = dense_proj(cfg, x, p["wv"], (K, dh))
+    xs = shared_input(x, p["wq"])
+    q = dense_proj(cfg, xs, p["wq"], (H, dh))
+    k = dense_proj(cfg, xs, p["wk"], (K, dh))
+    v = dense_proj(cfg, xs, p["wv"], (K, dh))
     if "q_norm" in p:
         q = rms_only(q, p["q_norm"])
         k = rms_only(k, p["k_norm"])
@@ -368,8 +378,9 @@ def ffn_specs(cfg: ArchConfig) -> dict:
 
 
 def ffn_forward(cfg: ArchConfig, p: dict, x):
-    g = dense_proj(cfg, x, p["w_gate"])
-    u = dense_proj(cfg, x, p["w_up"])
+    xs = shared_input(x, p["w_gate"])
+    g = dense_proj(cfg, xs, p["w_gate"])
+    u = dense_proj(cfg, xs, p["w_up"])
     act = (F.gelu(g, approximate="tanh") if ffn_kind(cfg) == "geglu"
            else F.silu(g))
     return dense_proj(cfg, act * u, p["w_down"])

@@ -1,8 +1,8 @@
 """Serving configuration (port of ``repro.serving.config``): ``EngineConfig``
 with the fields this port implements, and the ``CacheSpec`` it derives.
 
-Deadlines, queue bounds, preemption, mesh placement and the kernel-mode
-override wait for later slices."""
+Mesh placement waits for the multi-GPU slice; the port has no kernel-mode
+override (a tensor's device picks the kernel or its plain version)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -40,6 +40,21 @@ class EngineConfig:
     chunk_tokens: prompt tokens per mixed tick; ``None`` prefills each
                   prompt's whole suffix in one chunk (power-of-two buffer)
     eos_id:       optional stop token
+    max_queue:    admission queue bound; past it ``submit`` finishes the
+                  request at once as ``FinishReason.REJECTED`` with a
+                  ``retry_after_s`` hint (never a silent drop)
+    deadline_s:   default per-request deadline (seconds from submission,
+                  queueing included); past it a request retires
+                  ``FinishReason.DEADLINE``.  ``None``: no deadline;
+                  ``submit(deadline_s=...)`` overrides it per request
+    preemption:   page-pressure policy.  ``"off"``: admission reserves each
+                  request's full page need.  ``"recompute"``: admission
+                  reserves the prompt's pages only, decode rows grow
+                  lazily, and on exhaustion the decoding slot with the
+                  fewest tokens (ties: the latest arrival) is preempted and
+                  requeued; its tokens recompute through chunked prefill.
+                  ``"drop"``: the same victim retires
+                  ``FinishReason.PREEMPTED`` with its partial output
     quant:        "w8a8" int8-quantizes the weights once at init
                   (``model.quantize_params``); None or "none" serves them as
                   given
@@ -52,6 +67,9 @@ class EngineConfig:
     decode_chunk: int = 8
     chunk_tokens: int | None = None
     eos_id: int | None = None
+    max_queue: int = 1024
+    deadline_s: float | None = None
+    preemption: str = "off"
     quant: str | None = None
 
     def __post_init__(self):
@@ -63,6 +81,12 @@ class EngineConfig:
         if self.chunk_tokens is not None and self.chunk_tokens < 1:
             raise ValueError(f"chunk_tokens={self.chunk_tokens} must be >= 1 "
                              f"(or None for whole-suffix prefill)")
+        if self.preemption not in ("off", "recompute", "drop"):
+            raise ValueError(f"preemption={self.preemption!r} must be one of "
+                             f"'off', 'recompute', 'drop'")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError(f"deadline_s={self.deadline_s} must be > 0 "
+                             f"(or None for no deadline)")
         if self.decode_chunk < 1:
             raise ValueError(f"decode_chunk={self.decode_chunk} must be >= 1")
         if self.max_len % self.page_size:

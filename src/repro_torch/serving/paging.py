@@ -38,6 +38,12 @@ class PagePool:
         self._free = list(range(n_pages - 1, 0, -1))  # pop() yields 1, 2, ...
         self._rc = [0] * n_pages
         self._rc[0] = 1  # trash page: pinned forever
+        #: optional fault hook (chaos harness point ``pool.alloc``): a
+        #: zero-arg callable; when it returns True, ``alloc`` reports
+        #: exhaustion even if a free page exists.  Callers already handle
+        #: ``None`` (evict / requeue / preempt), so an injected failure
+        #: exercises exactly the real exhaustion paths.
+        self.fault = None
 
     @property
     def num_free(self) -> int:
@@ -53,6 +59,8 @@ class PagePool:
     def alloc(self) -> int | None:
         """One page with refcount 1, or ``None`` when the pool is exhausted
         (callers evict from the radix cache and retry, or stay queued)."""
+        if self.fault is not None and self.fault():
+            return None
         if not self._free:
             return None
         pid = self._free.pop()
