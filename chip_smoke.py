@@ -21,7 +21,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    their type);
    the bf16 and int8 GEMMs' rows must be bit-identical across M; the
    per-row activation quantize kernel the port adds must equal its plain
-   version bit for bit;
+   version bit for bit; and at minicpm3-4b's shapes: slot and paged
+   flash-decode at the latent call (B = 8, 40 query heads over one kv-head,
+   dq 288, dv 256, v is k; a linear slot cache and pools of page size 16
+   and 64; f32 and bf16; empty and frozen full slots; each slot alone ==
+   batched) timed beside SDPA on gathered K/V, the bf16 GEMM at its eight
+   (K, N) pairs for M in {1, 8, 64, 500} (rows bit-identical across M) and
+   the int8 GEMM exactly at its six w8a8 pairs on every route the MLA path
+   takes;
 3. edge: the paper's int8 path on full-width gemma3-4b (34 layers, seeded
    random weights, ``quantize_params``): ``prefill`` of 2 x 1536 tokens
    into linear and ring caches, then 32 greedy decode steps replayed as a
@@ -55,9 +62,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    schedule of every fault point must give one FAULT, one DEADLINE, at
    least one preemption, the other requests' tokens equal to a run without
    chaos, and a pool that reconciles on ``close()``;
-5. a JSON ``added_kernels`` line (the quantize kernel), a JSON ``kernels``
-   line (the six ported TPU kernels), then the JSON result as the last
-   line.
+5. MLA: first ``mla_reference_check`` -- reduced minicpm3-4b on the card
+   against the CPU (whole prefill, 12 paged ``decode_step``s, then a small
+   engine; logits within 1e-4, equal greedy tokens; w8a8 under the flip
+   rule).  Then full-width, full-depth minicpm3-4b (bf16, seeded random
+   weights) serves 8 greedy requests through the engine: each prompt
+   prefills whole at admission, every tick is a decode tick replaying the
+   decode graph over the fused [latent | k_rope] pools; only the bf16 GEMM
+   and paged flash-decode may launch, paged decode once a layer a replay;
+   the pool reconciles, the graph passes ``graph_check``, two prompts
+   served alone give the same tokens, and a traced decode tick is held as
+   in phase 4.  A short w8a8 pass and the direct ``prefill(cache_len=...)``
+   -> 8 ``decode_step``s on linear slot caches follow;
+6. a JSON ``added_kernels`` line (the quantize kernel), a JSON
+   ``mla_kernels`` line (both decode kernels at the latent shape), a JSON
+   ``kernels`` line (the six ported TPU kernels), then the JSON result as
+   the last line.
 
 It needs CUDA: without a card it exits 2 before printing anything else.
 """
@@ -262,17 +282,18 @@ def gemm_phase(flush, gen):
     return max(err_bf16, err_f32), rows
 
 
-def gemm_row_invariance(gen):
+def gemm_row_invariance(gen, cases=None):
     """Every output row of the bf16 GEMM is the same f32 sum whatever M is:
     ``block_gemm(A[:M], B)`` equals the first M rows of ``block_gemm(A, B)``
     bit for bit, for M across both tilings (<= 16 and > 16) and past one
-    64-row tile, at each engine (K, N) and for the [N, K] head; f32 and bf16
-    out.  This is what makes a prompt served alone give the same greedy
-    tokens as in a batch."""
+    64-row tile, at each engine (K, N) and for the [N, K] head (or at
+    ``cases``, (K, N, trans_b) triples); f32 and bf16 out.  This is what
+    makes a prompt served alone give the same greedy tokens as in a
+    batch."""
     from repro_torch.kernels.block_gemm import block_gemm
     Ms = (1, 8, 16, 17, 33, 64, 72)
-    cases = [(2048, 2048, False), (2048, 8192, False), (8192, 2048, False),
-             (2048, 50432, True)]
+    cases = cases or [(2048, 2048, False), (2048, 8192, False), (8192, 2048, False),
+                      (2048, 50432, True)]
     for K, N, tb in cases:
         a = torch.randn(max(Ms), K, generator=gen, device="cuda").bfloat16()
         b = (torch.randn(*((N, K) if tb else (K, N)), generator=gen, device="cuda")
@@ -837,6 +858,224 @@ def chunk_phase(flush, gen):
     return _bf16_max(err), \
         dict(shape=f"C{C} H{H} d{d} q_start{qs} k_len{qs + n}", ms=ms, plain_ms=plain,
              library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+# ---------------------------------------------------------------------------
+# phase 2, MLA (minicpm3-4b): the latent decode shape and the new GEMM shapes
+# ---------------------------------------------------------------------------
+
+# minicpm3-4b's latent decode call: 40 query heads over one kv-head, q and
+# the fused [latent | k_rope] cache 256 + 32 wide, v the cache's first 256
+# columns, scale (qk_nope 64 + qk_rope 32)^-0.5
+MLA_H, MLA_DQ, MLA_DV, MLA_SCALE = 40, 288, 256, 96 ** -0.5
+# an engine decode state of the full-width phase (prompts 100-500, 16 tokens in)
+MLA_POS = [136, 349, 496, 221, 116, 276, 431, 516]
+
+
+def _mla_decode_row(name, fn, plain, lib_fn, want, flush, pos, start, table_bytes):
+    """Time one latent-shape decode call beside its plain version and SDPA,
+    with the bound; the SDPA output's row error against the plain version
+    is printed (no gate: it is the yardstick)."""
+    ms, plain_ms, lib = time_ms(fn, flush), time_ms(plain, flush), time_ms(lib_fn, flush)
+    lib_rel = check_rows(f"SDPA yardstick {name}", lib_fn()[:, :, 0], want, rtol=math.inf)[1]
+    B = len(pos)
+    live = sum(max(0, min(p, 1023) - s + 1) for p, s in zip(pos, start))
+    # q, the live cache rows (k and v are one tensor: read once), out, pos/start
+    n_bytes = 2 * (B * MLA_H * MLA_DQ + live * MLA_DQ + B * MLA_H * MLA_DV) + 8 * B \
+        + table_bytes
+    bms, by = bound_ms(n_bytes, 2 * live * MLA_H * (MLA_DQ + MLA_DV), torch.bfloat16)
+    log(f"  {name} bf16 B={B} H={MLA_H} Kh=1 dq={MLA_DQ} dv={MLA_DV} ({live} live rows): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA (GQA, Ev != E, live-row mask) "
+        f"{lib:.4f} ms (row relative error vs plain {lib_rel:.3e}), bound {bms:.4f} ms ({by})")
+    return dict(shape=f"B{B} H{MLA_H} Kh1 dq{MLA_DQ} dv{MLA_DV} live{live}", ms=ms,
+                plain_ms=plain_ms, library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+def mla_decode_phase(flush, gen):
+    """Slot and paged flash-decode at minicpm3-4b's latent call: B = 8, H =
+    40 over Kh = 1 (five head groups of 8), dq = 288, dv = 256, v is k,
+    f32 and bf16, on a linear slot cache of 1024 rows and on pools of page
+    size 16 and 64 (1024-row tables).  Tolerances (``check_attn``): f32
+    2e-5 elementwise, bf16 2^-7 per row; the empty slot (start > pos) is
+    exactly 0, a frozen full slot (pos = 1024) reads all its rows, every
+    slot of a batched call equals its call alone bit for bit, and a repeated
+    slot-cache call gives the same bits.  Then each layout timed in bf16 at
+    an engine decode state beside its plain version, SDPA on K/V gathered
+    from the cache (GQA over the one kv-head, Ev 256 != E 288; the gather
+    not timed) and the bound.  Returns (max bf16 error, {layout: row})."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import (flash_decode, flash_decode_paged,
+                                                      head_groups)
+    B, S = 8, 1024
+    pos, start = [3, 100, 257, 511, 700, 1024, 63, 5], [0, 0, 0, 200, 0, 0, 0, 6]
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    st = torch.tensor(start, dtype=torch.int32, device="cuda")
+    kw = dict(scale=MLA_SCALE, dv=MLA_DV)
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(B, MLA_H, MLA_DQ, generator=gen, device="cuda").to(dtype)
+        kv = torch.randn(B, S, 1, MLA_DQ, generator=gen, device="cuda").to(dtype)
+        cases = [("linear1024", lambda sl: flash_decode(q[sl], kv[sl], kv[sl], p[sl], st[sl], **kw),
+                  ref.flash_decode_ref(q, kv, kv, p, st, **kw))]
+        for ps in (16, 64):
+            npp = S // ps
+            P = B * npp + 1
+            pages = _tables(B, npp, P, 40 + ps)
+            pool = torch.randn(P, ps, 1, MLA_DQ, generator=gen, device="cuda").to(dtype)
+            cases.append((f"pool ps{ps}", lambda sl, pool=pool, pages=pages: flash_decode_paged(
+                q[sl], pool, pool, p[sl], st[sl], pages[sl], **kw),
+                ref.flash_decode_ref(q, pool, pool, p, st, pages=pages, **kw)))
+        for name, call, want in cases:
+            got = call(slice(0, B))
+            err[(dtype, name)] = check_attn(f"MLA flash-decode {dtype} {name}", got, want, dtype)
+            if float(got[7].abs().max()) != 0.0:
+                fail(f"MLA flash-decode {dtype} {name}: the empty slot is not exactly 0")
+            if name.startswith("linear") and not torch.equal(got, call(slice(0, B))):
+                fail(f"MLA flash-decode {dtype} {name}: a repeated call differs")
+            _slot_invariance(f"MLA flash-decode {dtype} {name}", call, B)
+    torch.cuda.synchronize()
+    log(f"MLA flash-decode (G = {MLA_H}, {head_groups(MLA_H, MLA_DQ)} head groups, dq {MLA_DQ}, "
+        f"dv {MLA_DV}, v is k): linear slot cache and pools of page size 16 and 64 x "
+        f"(f32, bf16) agree, empty slot exactly 0, every slot alone == batched, repeated "
+        f"slot calls bit-equal; " + _errs(err))
+    rows = {}
+    p = torch.tensor(MLA_POS, dtype=torch.int32, device="cuda")
+    st = torch.zeros(B, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, MLA_H, MLA_DQ, generator=gen, device="cuda").bfloat16()
+    mask = _live_mask(p, st, S, False)[:, None, None, :]
+    q4 = q[:, :, None]
+    kv = torch.randn(B, S, 1, MLA_DQ, generator=gen, device="cuda").bfloat16()
+    kt = kv.transpose(1, 2).contiguous()
+    vt = kt[..., :MLA_DV].contiguous()
+    rows["slot"] = _mla_decode_row(
+        "MLA flash_decode linear S1024", lambda: flash_decode(q, kv, kv, p, st, **kw),
+        lambda: ref.flash_decode_ref(q, kv, kv, p, st, **kw),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask, enable_gqa=True, scale=MLA_SCALE),
+        ref.flash_decode_ref(q, kv, kv, p, st, **kw), flush, MLA_POS, [0] * B, 0)
+    del kv, kt, vt
+    ps = 64
+    npp, P = S // ps, B * (S // ps) + 1
+    pages = _tables(B, npp, P, 7)
+    pool = torch.randn(P, ps, 1, MLA_DQ, generator=gen, device="cuda").bfloat16()
+    kg = _gathered(pool, pages)
+    vg = kg[..., :MLA_DV].contiguous()
+    rows["paged"] = _mla_decode_row(
+        "MLA flash_decode_paged ps64",
+        lambda: flash_decode_paged(q, pool, pool, p, st, pages, **kw),
+        lambda: ref.flash_decode_ref(q, pool, pool, p, st, pages=pages, **kw),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask, enable_gqa=True, scale=MLA_SCALE),
+        ref.flash_decode_ref(q, pool, pool, p, st, pages=pages, **kw), flush, MLA_POS,
+        [0] * B, 4 * B * npp)
+    return _bf16_max(err), rows
+
+
+# every bf16 GEMM of minicpm3-4b (K, N): wq_a, wq_b, wkv_a, wkv_b (prefill's
+# latent expansion), wo, w_gate / w_up, w_down, the head
+MINICPM_BF16_KN = ((2560, 768), (768, 3840), (2560, 288), (256, 5120), (2560, 2560),
+                   (2560, 6400), (6400, 2560), (2560, 73472))
+# its w8a8 GEMMs: wq_a, wkv_a, wo, w_gate / w_up, w_down, the head (wq_b and
+# wkv_b stay float)
+MINICPM_INT8_KN = ((2560, 768), (2560, 288), (2560, 2560), (2560, 6400), (6400, 2560),
+                   (2560, 73472))
+# the M the int8 GEMM meets on the MLA path: decode batches, and whole
+# prefills of 100-500 rows (the head's prefill M is 1: the last row)
+MINICPM_INT8_M = (1, 4, 8, 67, 100, 120, 205, 333, 480, 500)
+
+
+def mla_gemm_phase(flush, gen):
+    """The GEMMs at minicpm3-4b's (K, N) pairs.  bf16 GEMM, M in {1, 8, 64,
+    500}, against the plain version with ``gemm_phase``'s tolerances (bf16
+    out: 1e-4 + 2^-7 relative; bf16 -> f32 and f32: 1e-4 + 1e-5), rows
+    bit-identical across M (``gemm_row_invariance``); int8 GEMM exactly
+    (``int8_phase``'s integer and scaled cases, tolerance 0) at every w8a8
+    pair for the M of ``MINICPM_INT8_M``, over every route ``int8_route``
+    picks for them.  Each pair timed at M = 8 (decode) and M = 500 (prefill)
+    beside the plain version, the library call and the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_gemm import (block_gemm, block_gemm_int8, gemm_splits,
+                                                int8_route)
+    n = 0
+    for K, N in MINICPM_BF16_KN:
+        for M in (1, 8, 64, 500):
+            a = torch.randn(M, K, generator=gen, device="cuda")
+            b = torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)
+            check_close(f"block_gemm f32 {M}x{K}x{N}", block_gemm(a, b),
+                        ref.block_gemm_ref(a, b), 1e-4, 1e-5)
+            ab, bb = a.bfloat16(), b.bfloat16()
+            check_close(f"block_gemm bf16 {M}x{K}x{N}", block_gemm(ab, bb),
+                        ref.block_gemm_ref(ab, bb), 1e-4, 2.0 ** -7)
+            check_close(f"block_gemm bf16->f32 {M}x{K}x{N}",
+                        block_gemm(ab, bb, out_dtype=torch.float32),
+                        ref.block_gemm_ref(ab, bb, torch.float32), 1e-4, 1e-5)
+            n += 1
+    torch.cuda.synchronize()
+    log(f"block_gemm at minicpm3-4b's (K, N): {n} shapes x (f32, bf16, bf16->f32) agree")
+    gemm_row_invariance(gen, [(K, N, False) for K, N in MINICPM_BF16_KN])
+    routes, n = set(), 0
+    for K, N in MINICPM_INT8_KN:
+        for M in MINICPM_INT8_M:
+            routes.add(int8_route(M, N, tma_ok=K % 16 == 0))
+            a = torch.randint(-7, 8, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+            b = torch.randint(-7, 8, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+            ones_m, ones_n = torch.ones(M, 1, device="cuda"), torch.ones(1, N, device="cuda")
+            check_close(f"block_gemm_int8 exact {M}x{K}x{N}",
+                        block_gemm_int8(a, b, ones_m, ones_n),
+                        ref.block_gemm_int8_ref(a, b, ones_m, ones_n), 0.0, 0.0)
+            a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+            b = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+            sa = torch.rand(M, 1, generator=gen, device="cuda") * 0.01 + 1e-4
+            sb = torch.rand(1, N, generator=gen, device="cuda") * 0.01 + 1e-4
+            for dt in (torch.float32, torch.bfloat16):
+                check_close(f"block_gemm_int8 scaled {dt} {M}x{K}x{N}",
+                            block_gemm_int8(a, b, sa, sb, dt),
+                            ref.block_gemm_int8_ref(a, b, sa, sb, dt), 0.0, 0.0)
+            n += 1
+    torch.cuda.synchronize()
+    log(f"block_gemm_int8 at minicpm3-4b's w8a8 (K, N): {n} shapes exact (integer and scaled, "
+        f"f32 and bf16 out) over routes {sorted(routes)}, every route int8_route picks for "
+        f"M in {MINICPM_INT8_M}")
+    rows = {"bf16": [], "int8": []}
+    for K, N in MINICPM_BF16_KN:
+        for M in (8, 500):
+            a = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+            b = (torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)).bfloat16()
+            out_dtype = torch.float32 if N == 73472 else torch.bfloat16
+            ms = time_ms(lambda: block_gemm(a, b, out_dtype=out_dtype), flush)
+            plain = time_ms(lambda: ref.block_gemm_ref(a, b, out_dtype), flush)
+            lib = time_ms(lambda: torch.matmul(a, b), flush)
+            out_bytes = M * N * (4 if out_dtype == torch.float32 else 2)
+            bms, by = bound_ms(2 * (M * K + K * N) + out_bytes, 2 * M * N * K, torch.bfloat16)
+            rows["bf16"].append(dict(shape=f"{M}x{K}x{N}", ms=ms, plain_ms=plain,
+                                     library_ms=lib, bound_ms=bms, bound_by=by))
+            log(f"  block_gemm bf16 {M}x{K}x{N} (K split {gemm_splits(K, N)}): kernel "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul {lib:.4f} ms, bound "
+                f"{bms:.4f} ms ({by})")
+    for K, N in MINICPM_INT8_KN:
+        for M in (8, 500):
+            a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+            b = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+            sa = torch.rand(M, 1, generator=gen, device="cuda") * 0.01 + 1e-4
+            sb = torch.rand(1, N, generator=gen, device="cuda") * 0.01 + 1e-4
+            out_dtype = torch.float32 if N == 73472 else torch.bfloat16
+            ms = time_ms(lambda: block_gemm_int8(a, b, sa, sb, out_dtype), flush)
+            plain = time_ms(lambda: ref.block_gemm_int8_ref(a, b, sa, sb, out_dtype), flush,
+                            reps=5)
+            bt = b.T
+            a32 = a if M > 16 else torch.cat([a, a.new_zeros(32 - M, K)])
+            lib = time_ms(lambda: (torch._int_mm(a32, bt)[:M].float() * sa * sb).to(
+                out_dtype), flush)
+            out_bytes = M * N * (4 if out_dtype == torch.float32 else 2)
+            bms, by = bound_ms(M * K + N * K + 4 * (M + N) + out_bytes, 2 * M * N * K,
+                               torch.int8)
+            route = int8_route(M, N)
+            rows["int8"].append(dict(shape=f"{M}x{K}x{N}", ms=ms, plain_ms=plain,
+                                     library_ms=lib, bound_ms=bms, bound_by=by, route=route))
+            log(f"  block_gemm_int8 M={M} K={K} N={N} (route {route}): kernel {ms:.4f} ms, "
+                f"plain {plain:.4f} ms, torch._int_mm+epilogue{' (A padded to 32 rows)' if M <= 16 else ''} "
+                f"{lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1540,6 +1779,283 @@ def chaos_run(cfg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: MLA (minicpm3-4b) through the engine's whole-prompt prefill
+# ---------------------------------------------------------------------------
+
+def _scatter_prefill(pools, small, pages, n: int, ps: int):
+    """Write a prefill's cache rows (``small``: [R, B, n, ...] a leaf) to
+    logical rows [0, n) of each slot's pages, as the engine's whole prefill
+    does for one slot."""
+    j = torch.arange(n, device=pages.device)
+    for stage, new in zip(pools, small):
+        for gi, group in stage.items():
+            for name, pool in group.items():
+                for b in range(pages.shape[0]):
+                    pool[:, pages[b, j // ps].long(), j % ps] = new[gi][name][:, b].to(pool.dtype)
+
+
+def mla_reference_check():
+    """Reduced minicpm3-4b (f32 compute; MLA ranks q 32, kv 16, rope 8, nope
+    8, v 16; seed-0 weights) on the card's kernels against the CPU's plain
+    versions, in float and w8a8 weights.
+
+    Part 1, the model steps: a whole prefill of two 40-token prompts, its
+    fused kv rows written into pools of page size 16 through permuted
+    tables, then 12 paged ``decode_step``s on the same tokens (gate:
+    ``_card_vs_cpu``: logits within 1e-4, or the flip rule in w8a8).  Part
+    2, a small engine, ``EngineConfig(max_batch=4, max_len=128, page_size=16,
+    decode_chunk=4)``: four prompts, 16 greedy tokens each, prefilled whole
+    at admission, decode steps replayed as a CUDA graph on the card; the
+    same on the CPU.  Gate: equal greedy tokens (w8a8: unless Part 1 showed
+    a boundary flip, then >= 0.9)."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, EngineConfig, check_invariants
+    cfg = reduce_config(get_config("minicpm3-4b"))
+    V = cfg.vocab_size
+    rng = np.random.RandomState(6)
+    B, ps, npp, S, steps = 2, 16, 4, 40, 12
+    toks = torch.from_numpy(rng.randint(0, V, (B, S + steps)).astype(np.int32))
+    pages = torch.from_numpy(rng.permutation(np.arange(1, B * npp + 1))
+                             .reshape(B, npp).astype(np.int32))
+    prompts = [rng.randint(0, V, n).tolist() for n in (34, 30, 39, 45)]
+    out = {}
+    for quant in ("none", "w8a8"):
+        p_cpu = M.init(cfg, seed=0, device="cpu")
+        if quant == "w8a8":
+            p_cpu = M.quantize_params(cfg, p_cpu)
+        params = {"cpu": p_cpu, "cuda": _to_cuda(p_cpu)}
+        caches = {d: M.init_paged_cache(cfg, B, B * npp + 1, ps, device=d) for d in params}
+        pairs = []
+        with _Int8Recorder() as rec:
+            lg = {}
+            for d in params:
+                lg[d], small = M.prefill(cfg, params[d], toks[:, :S].to(d))
+                _scatter_prefill(caches[d], small, pages.to(d), S, ps)
+            pairs.append((lg["cpu"], lg["cuda"].cpu()))
+            for i in range(steps):
+                pos = torch.full((B,), S + i, dtype=torch.int32)
+                lg = {d: M.decode_step(cfg, params[d], caches[d], toks[:, S + i: S + i + 1].to(d),
+                                       pos.to(d), pages=pages.to(d))[0].cpu() for d in params}
+                pairs.append((lg["cpu"], lg["cuda"]))
+        res = _card_vs_cpu("reduced minicpm3-4b paged", quant, pairs, rec)
+        econf = EngineConfig(max_batch=4, max_len=128, page_size=ps, decode_chunk=4,
+                             quant=None if quant == "none" else quant)
+        gens = {}
+        for d in params:
+            eng = Engine(cfg, params[d], econf, device=d)
+            rids = [eng.submit(p, max_new=16) for p in prompts]
+            by = {r.rid: r for r in eng.run()}
+            gens[d] = [by[r].generated for r in rids]
+            if eng.radix is not None or eng.stats.mixed_steps or eng.stats.prefills != 4 \
+                    or check_invariants(eng.pool, eng.radix, tables=eng.sched.owned):
+                fail(f"reduced minicpm3-4b engine {quant} on {d}: a radix tree, a mixed tick, "
+                     f"{eng.stats.prefills} prefills or a bad paging state")
+            if d == "cuda" and eng.runner.graph.replays == 0:
+                fail("reduced minicpm3-4b engine: the decode graph was never replayed")
+        agree = statistics.mean(float(np.mean(np.array(a) == np.array(b)))
+                                for a, b in zip(gens["cpu"], gens["cuda"]))
+        flipped = res["witness"] is not None and res["witness"]["first_flip"] is not None
+        if (agree < 1.0 and not flipped) or agree < 0.9:
+            fail(f"reduced minicpm3-4b engine {quant}: card and CPU greedy tokens agree at "
+                 f"{agree:.4f} (flip shown: {flipped})")
+        res["engine_token_agreement"] = agree
+        out[quant] = res
+        log(f"reduced minicpm3-4b {quant}, card kernels vs CPU plain versions: whole prefill + "
+            f"{steps} paged decode steps, max logits gap {res['gap']:.3e} (bound "
+            f"{res['bound']:g}), argmax agreement {res['argmax_agreement']:.4f}; engine "
+            f"(4 requests x 16 tokens, whole prefills, decode graph on the card) greedy tokens "
+            f"card == CPU at {agree:.4f} of positions")
+    return out
+
+
+# the kernels of the MLA engine path: the bf16 GEMM (every projection and
+# the head) and paged flash-decode at the latent shape; prefill attention is
+# plain PyTorch
+MLA_PATH = ("block_gemm", "flash_decode_paged")
+
+
+def mla_engine_phase(counters, gen):
+    """Full-width minicpm3-4b (62 layers, seeded random bf16 weights)
+    through ``repro_torch.serving.Engine``: 8 greedy requests (prompts
+    100-500 tokens, 32 new), ``EngineConfig(max_batch=8, max_len=1024,
+    page_size=64, decode_chunk=8)``.  Each prompt prefills whole at
+    admission; every tick is a decode tick replaying the decode graph over
+    the fused [latent | k_rope] pools.  Gates: every request LENGTH with 32
+    in-vocabulary tokens; no radix tree and no mixed tick; the bf16 GEMM and
+    paged flash-decode launched and no other kernel (prefill attention is
+    plain), paged decode once a layer a replay and in all (replays + 1) x
+    62 times (the one eager warm-up before capture); the pool reconciles
+    (every page free after the run); ``graph_check``; two prompts served
+    alone give the batched tokens; a traced decode tick as
+    ``trace_ticks``.  Then a short w8a8 pass (4 requests x 16 tokens: the
+    int8 GEMM carries wq_a, wkv_a, wo, the FFN and the head, 4 quantize
+    launches for every 6 int8 GEMMs a layer; its graph checked), and the
+    direct ``prefill(cache_len=...)`` -> 8 greedy ``decode_step``s on the
+    linear slot caches (slot flash-decode once a layer a step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, EngineConfig, FinishReason, check_invariants
+    names = {c.__name__: c for c in counters}
+    ref_check = mla_reference_check()
+    cfg = get_config("minicpm3-4b")
+    t0 = time.time()
+    params = M.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"minicpm3-4b: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} heads, "
+        f"MLA ranks q {cfg.q_lora_rank} kv {cfg.kv_lora_rank} (rope {cfg.qk_rope_dim}, nope "
+        f"{cfg.qk_nope_dim}, v {cfg.v_head_dim}), vocab {cfg.vocab_size} -> "
+        f"{cfg.padded_vocab}, {n_params / 1e9:.3f} B parameters in bf16, init "
+        f"{time.time() - t0:.1f} s")
+    econf = EngineConfig(max_batch=8, max_len=1024, page_size=64, decode_chunk=8)
+    rng = np.random.RandomState(5)
+    V, L = cfg.vocab_size, cfg.num_layers
+    prompts = [rng.randint(0, V, n).tolist() for n in (120, 333, 480, 205, 100, 260, 415, 500)]
+    max_new = 32
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    eng = Engine(cfg, params, econf)
+    t0 = time.time()
+    rids = [eng.submit(p, max_new=max_new) for p in prompts]
+    results = {r.rid: r for r in eng.run()}
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    for rid in rids:
+        r = results[rid]
+        if r.finish_reason != FinishReason.LENGTH or len(r.generated) != max_new \
+                or not all(0 <= t < V for t in r.generated):
+            fail(f"minicpm3-4b rid {rid}: {r.finish_reason} with {len(r.generated)} tokens")
+    st, graph = eng.stats, eng.runner.graph
+    if eng.radix is not None or st.mixed_steps or st.prefills != len(prompts):
+        fail(f"minicpm3-4b engine: radix {eng.radix}, {st.mixed_steps} mixed ticks, "
+             f"{st.prefills} prefills")
+    for n, c in launches.items():
+        if (n in MLA_PATH) != (c > 0):
+            fail(f"minicpm3-4b engine: {n} launched {c} times (the path: {MLA_PATH})")
+    per_replay = {c.__name__: n for c, n in graph.per_replay.items()}
+    if graph.replays != st.chunks * econf.decode_chunk \
+            or per_replay.get("flash_decode_paged") != L \
+            or launches["flash_decode_paged"] != (graph.replays + 1) * L:
+        fail(f"minicpm3-4b engine: {graph.replays} replays for {st.chunks} decode ticks, "
+             f"{per_replay} launches a replay, {launches['flash_decode_paged']} paged decode "
+             f"launches in all")
+    bad = check_invariants(eng.pool, eng.radix, tables=eng.sched.owned)
+    if bad or eng.pool.num_free != eng.pool.n_pages - 1:
+        fail("minicpm3-4b paging state: " + "; ".join(bad) + f"; {eng.pool.num_free} free")
+    ttft = sorted(r.ttft_s for r in results.values())
+    # the first decode tick captured the graph: its capture is reported
+    # apart, not spread over the ticks
+    summary = dict(tokens_per_s=st.tokens_out / wall, wall_s=wall,
+                   ttft_p50_ms=statistics.median(ttft) * 1e3,
+                   prefill_ms=st.prefill_s / st.prefills * 1e3,
+                   decode_tick_ms=(st.decode_s - graph.capture_s) / max(st.chunks, 1) * 1e3,
+                   capture_ms=graph.capture_s * 1e3, launches=launches,
+                   per_replay=per_replay, reference=ref_check)
+    log(f"minicpm3-4b engine: {len(prompts)} requests, {st.tokens_out} tokens in {wall:.3f} s "
+        f"({summary['tokens_per_s']:.2f} tokens/s end to end), TTFT p50 "
+        f"{summary['ttft_p50_ms']:.1f} ms, {st.prefills} whole prefills at "
+        f"{summary['prefill_ms']:.2f} ms, {st.chunks} decode ticks x{econf.decode_chunk} at "
+        f"{summary['decode_tick_ms']:.2f} ms without the graph's capture ("
+        f"{summary['capture_ms']:.1f} ms); launches {json.dumps(launches)}; "
+        f"{json.dumps(per_replay)} a replay")
+    log(f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    batched = {tuple(p): results[rid].generated for rid, p in zip(rids, prompts)}
+    B, npp = econf.max_batch, econf.cache_spec().pages_per_seq
+    table = torch.from_numpy(rng.permutation(np.arange(1, econf.n_pages))[: B * npp]
+                             .reshape(B, npp).astype(np.int32))
+    poison = torch.zeros(B, dtype=torch.bool)
+    poison[2] = True
+    cur = torch.from_numpy(rng.randint(0, V, B).astype(np.int32))
+    graphs = {"bf16": graph_check("engine minicpm3-4b bf16 pools", graph, lambda: graph.load(
+        cur, torch.tensor([0, 63, 64, 300, 511, 700, 1000, 1023], dtype=torch.int32),
+        table, poison), gen)}
+    del eng, graph
+    for p in (prompts[2], prompts[5]):
+        solo = Engine(cfg, params, econf)
+        solo.submit(p, max_new=max_new)
+        if solo.run()[0].generated != batched[tuple(p)]:
+            fail(f"minicpm3-4b: solo greedy tokens differ from batched for a {len(p)}-token "
+                 f"prompt")
+        del solo
+    log("minicpm3-4b: solo == batched greedy tokens for 2 prompts")
+    summary["trace"] = trace_ticks(Engine(cfg, params, econf), prompts, max_new, summary,
+                                   counters, kinds=("decode",))
+    qconf = EngineConfig(max_batch=4, max_len=1024, page_size=64, decode_chunk=8,
+                         quant="w8a8")
+    qeng = Engine(cfg, params, qconf)
+    for c in counters:
+        c.launches = 0
+    t0 = time.time()
+    qrids = [qeng.submit(p, max_new=16) for p in prompts[:4]]
+    qres = {r.rid: r for r in qeng.run()}
+    torch.cuda.synchronize()
+    qwall = time.time() - t0
+    qlaunch = {c.__name__: c.launches for c in counters}
+    for rid in qrids:
+        if len(qres[rid].generated) != 16 or not all(0 <= t < V for t in qres[rid].generated):
+            fail(f"minicpm3-4b w8a8 engine rid {rid}: bad output {qres[rid].generated}")
+    # a forward pass (a whole prefill or a decode step): 6 int8 GEMMs a layer
+    # and the head's, after 4 quantize launches a layer and the head's; wq_b
+    # and wkv_b stay on the bf16 GEMM
+    n_gemm, n_quant = 6 * L + 1, 4 * L + 1
+    if qlaunch["block_gemm_int8"] <= 0 or qlaunch["block_gemm"] <= 0 \
+            or qlaunch["flash_decode_paged"] <= 0 \
+            or qlaunch["quantize_rows"] * n_gemm != qlaunch["block_gemm_int8"] * n_quant:
+        fail(f"minicpm3-4b w8a8 engine launches {qlaunch}: {n_quant} quantize launches for "
+             f"every {n_gemm} int8 GEMMs, the bf16 GEMM for wq_b / wkv_b")
+    agree = statistics.mean(
+        sum(a == b for a, b in zip(qres[q].generated, batched[tuple(p)])) / 16
+        for q, p in zip(qrids, prompts[:4]))
+    log(f"minicpm3-4b engine w8a8: 4 requests x 16 tokens in {qwall:.3f} s; launches "
+        f"{json.dumps(qlaunch)}; greedy tokens equal to bf16's at {agree:.4f} of positions")
+    qg, qB = qeng.runner.graph, qconf.max_batch
+    qtable = torch.from_numpy(rng.permutation(np.arange(1, qconf.n_pages))[: qB * npp]
+                              .reshape(qB, npp).astype(np.int32))
+    graphs["w8a8"] = graph_check("engine minicpm3-4b w8a8 pools", qg, lambda: qg.load(
+        cur[:qB], torch.tensor([5, 64, 400, 1023], dtype=torch.int32), qtable,
+        poison[:qB]), gen)
+    del qeng, qg
+    summary["w8a8"] = dict(wall_s=qwall, launches=qlaunch, token_agreement=agree)
+    summary["graph_per_replay"] = graphs
+    # the direct loop on linear slot caches: prefill(cache_len) -> 8 steps
+    Bd, Sd, steps, cache_len = 2, 300, 8, 512
+    toks = torch.from_numpy(rng.randint(0, V, (Bd, Sd)).astype(np.int32)).cuda()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits, caches = M.prefill(cfg, params, toks, cache_len=cache_len)
+    torch.cuda.synchronize()
+    t_pre = time.time() - t0
+    pre = {n: c.launches for n, c in names.items()}
+    t0 = time.time()
+    for i in range(steps):
+        tok = torch.argmax(logits[:, -1, :V], -1).to(torch.int32)[:, None]
+        logits, caches = M.decode_step(cfg, params, caches, tok, Sd + i)
+        if logits.shape != (Bd, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+            fail(f"minicpm3-4b direct decode step {i}: shape {tuple(logits.shape)} or "
+                 f"non-finite logits")
+    torch.cuda.synchronize()
+    t_step = (time.time() - t0) / steps
+    direct = {n: c.launches for n, c in names.items()}
+    kv = caches[0]["0"]["kv"]
+    if tuple(kv.shape) != (L, Bd, cache_len, cfg.kv_lora_rank + cfg.qk_rope_dim) \
+            or direct["flash_decode"] != steps * L or pre["flash_decode"] != 0 \
+            or direct["flash_decode_paged"] != 0 or pre["block_gemm"] <= 0:
+        fail(f"minicpm3-4b direct loop: cache {tuple(kv.shape)}, launches after the prefill "
+             f"{pre}, after {steps} steps {direct}")
+    summary["direct"] = dict(prefill_ms=t_pre * 1e3, eager_step_ms=t_step * 1e3,
+                             launches=direct)
+    log(f"minicpm3-4b direct loop: prefill {Bd}x{Sd} (cache_len {cache_len}) in "
+        f"{t_pre * 1e3:.1f} ms, {steps} eager decode steps on the slot caches at "
+        f"{t_step * 1e3:.2f} ms; launches {json.dumps(direct)}")
+    return launches, summary
+
+
 def _device_us(event) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
@@ -1547,18 +2063,19 @@ def _device_us(event) -> float:
     return 0.0
 
 
-def trace_ticks(eng, prompts, max_new, summary, counters):
-    """Device time of one mixed tick and one decode-only tick under
-    torch.profiler, by kernel, set against the untraced tick times of the
-    main run: idle share = 1 - device time / untraced tick time.  The
-    decode tick may launch the decode graph at most ``decode_chunk`` times
-    and fewer than 300 other kernels; each tick's graph replays and kernel
-    launches (by wrapper, and on the host) are printed."""
+def trace_ticks(eng, prompts, max_new, summary, counters, kinds=("mixed", "decode")):
+    """Device time of one mixed tick and one decode-only tick (``kinds``:
+    an engine without chunks has no mixed tick) under torch.profiler, by
+    kernel, set against the untraced tick times of the main run: idle share
+    = 1 - device time / untraced tick time.  The decode tick may launch the
+    decode graph at most ``decode_chunk`` times and fewer than 300 other
+    kernels; each tick's graph replays and kernel launches (by wrapper, and
+    on the host) are printed."""
     from torch.profiler import ProfilerActivity, profile
     for p in prompts:
         eng.submit(p, max_new=max_new)
     out = {}
-    for kind in ("mixed", "decode"):
+    for kind in kinds:
         if kind == "mixed":
             for _ in range(12):  # mid-run: a prompt streams, others decode
                 eng.step()
@@ -1664,6 +2181,8 @@ def main() -> int:
     errs["flash_decode"], rows["flash_decode"] = slot_decode_phase(flush, gen)
     errs["flash_decode_paged"], rows["flash_decode_paged"] = decode_phase(flush, gen)
     errs["flash_attention_paged"], rows["flash_attention_paged"] = chunk_phase(flush, gen)
+    mla_err, mla_rows = mla_decode_phase(flush, gen)
+    mla_gemm_rows = mla_gemm_phase(flush, gen)
     del flush
     edge_launch, report["edge"] = edge_phase(counters, gen)
     for n in ("block_gemm_int8", "quantize_rows", "flash_attention", "flash_decode"):
@@ -1672,6 +2191,8 @@ def main() -> int:
         counters, ["block_gemm", "flash_decode_paged", "flash_attention_paged"], gen)
     for n in ("block_gemm", "flash_decode_paged", "flash_attention_paged"):
         launches[n] = eng_launch[n]
+    _, report["mla"] = mla_engine_phase(counters, gen)
+    report["mla"].update(decode_max_abs_err_bf16=mla_err, decode=mla_rows, gemm=mla_gemm_rows)
 
     def pick(name, shape):  # the row's contract keys
         row = next(r for r in rows[name] if r["shape"] == shape)
@@ -1715,6 +2236,14 @@ def main() -> int:
     report["quantize_rows"] = quant
     log(json.dumps({"kernel_shapes": rows, **report}))
     log(json.dumps({"added_kernels": [quant]}))
+    # the two decode kernels at minicpm3-4b's latent shape, launches from the
+    # MLA engine run (paged) and the direct slot-cache loop (slot)
+    mla = report["mla"]
+    log(json.dumps({"mla_kernels": [
+        dict(name="flash_decode_paged", launches=mla["launches"]["flash_decode_paged"],
+             max_abs_err=mla_err, **mla_rows["paged"]),
+        dict(name="flash_decode", launches=mla["direct"]["launches"]["flash_decode"],
+             max_abs_err=mla_err, **mla_rows["slot"])]}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -78,10 +78,18 @@ class ArchConfig:
     logit_softcap: float = 0.0
     use_qk_norm: bool = False
 
+    # Multi-head latent attention (MLA): low-rank q and a compressed
+    # [latent | k_rope] KV cache of kv_lora_rank + qk_rope_dim columns
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
     # structural families the port does not serve yet: kept so that
     # layer_specs / reduce_config match the JAX config, and so that a config
     # using them is refused
-    use_mla: bool = False
     num_experts: int = 0
     moe_every: int = 1
     ssm_every: int = 0

@@ -59,13 +59,33 @@
 // rows and every sum's order depend on nothing but the slot's own rows: no
 // atomics on values, nothing chosen by the batch.  Softcap and dv
 // narrowing (v may alias k, MLA-style: v's rows are v_row wide) are
-// supported, G = H / K from 1 up, d <= 256.  Slot caches: two blocks an
+// supported, G = H / K from 1 up, dq and dv <= 288.  Slot caches: two blocks an
 // SM, 103 registers a thread at bf16 (ptxas -v, sm_90a), no spills, 52 KB
 // of shared memory at G = 2, d = 256.  Pools: compiled for three blocks an
 // SM (80 registers at bf16, 32 bytes spilled), which hid more of the
 // load latency than two at the engine's decode shape (B = 8, H = K = 16,
 // d = 128) and than four; slot caches measured no gain from a third block.
 // chip_smoke.py prints every instantiation's ptxas line.
+//
+// MLA's latent call (minicpm3-4b: H = 40 query heads over one latent
+// kv-head, dq = kv_lora_rank + qk_rope = 288, dv = 256, v aliasing k)
+// would need ~417 KB of shared memory a block with all G = 40 heads in one
+// block, the warp sums [8][G][dv] most of it.  So a kv-head's G query heads
+// are split into `ng` head groups of at most 8 heads, one block each: the
+// grid is (row blocks, Kh * ng, B), and each (slot, kv-head, head group)
+// has its own ticket and partials, merged in block order as above.  Every
+// group re-reads the same K/V rows (576 B a latent row), mostly from L2;
+// the groups add the parallelism one latent head lacks.  Head groups exist
+// only in the instantiations for rows wider than 256 columns (CH = 2
+// chunks a lane in bf16, 3 in f32, up to SD_MAX_D columns); every narrower
+// one has ng = 1 folded in at compile time, its code unchanged.  ng depends
+// on G and the row width alone (the wrapper's head_groups), so a CUDA
+// graph's grid stays fixed.  The wide instantiations are compiled for one
+// block an SM: eight K rows of CH 16-byte chunks take 16 CH registers a
+// lane, and a group's ~110 KB (bf16) / ~140 KB (f32) of shared memory
+// leaves room for no more.
+// Bound: at G = 40 each latent row meets 40 heads, ~80 operations a byte,
+// still under the card's bf16 balance in the operations the CUDA cores do.
 #include "common.cuh"
 
 namespace repro {
@@ -73,6 +93,7 @@ namespace repro {
 constexpr int SD_ROWS = 64;  // cache rows per block: 8 warps x 8 rows
 constexpr int SD_THREADS = 256;
 constexpr int SD_WARPS = SD_THREADS / 32;
+constexpr int SD_MAX_D = 288;  // widest q or v row: MLA's kv_lora_rank + qk_rope
 
 // Dynamic shared memory of a block, in floats, each part 16-byte aligned:
 // q [G][dq], scores [G][SD_ROWS] and max/sum [G][2] (slot_head), the warp
@@ -137,9 +158,13 @@ struct PageRows {
 };
 
 // CH: 16-byte chunks of a row a lane holds (column c0 = V * (lane + 32 t));
-// S: logical rows of a slot (npp * ps for pools)
+// S: logical rows of a slot (npp * ps for pools).  Grid (row blocks,
+// Kh * head groups, B): G below counts the query heads of this block's
+// group, h0 its first head.  Compiled for the row functor's blocks an SM
+// up to 256-column rows, for one past them (see the head note).
 template <typename T, int CH, typename Rows>
-__global__ void __launch_bounds__(SD_THREADS, Rows::min_blocks)
+__global__ void __launch_bounds__(SD_THREADS,
+                                  (CH * 32 * (16 / sizeof(T)) > 256 ? 1 : Rows::min_blocks))
 flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const int* __restrict__ pos,
                          const int* __restrict__ start, float* __restrict__ part,
@@ -149,8 +174,12 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int V = 16 / sizeof(T);
   extern __shared__ __align__(16) float sd_smem[];
   __shared__ int last;
-  const int blk = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, nblk = gridDim.x;
-  const int G = H / Kh, W = dv + 2;
+  constexpr bool wide = CH * 32 * V > 256;  // rows past 256 columns: head groups
+  const int blk = blockIdx.x, b = blockIdx.z, nblk = gridDim.x;
+  const int ng = wide ? gridDim.y / Kh : 1, kh = blockIdx.y / ng;  // ng head groups a kv-head
+  const int G = H / Kh / ng, W = dv + 2;
+  const int h0 = kh * (H / Kh) + (blockIdx.y % ng) * G;
+  const int grp = b * Kh * ng + blockIdx.y;  // this (slot, kv-head, head group)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float* q_s = sd_smem;                   // [G][dq]
   float* p_s = q_s + G * dq;              // [G][SD_ROWS] scores, then P
@@ -158,8 +187,9 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* red = sd_smem + slot_head(G, dq);  // [SD_WARPS][G][dv] warp sums; then the merge's
   const int dvs = (dv + V - 1) / V * V;   // a row of v_s, in elements
   T* v_s = reinterpret_cast<T*>(red + slot_tail(G, dv, nblk));  // [SD_ROWS][dvs]
-  // partials of this (slot, kv-head): per block, per head [m, l, acc[dv]]
-  float* pbase = part + ((size_t)b * Kh + kh) * nblk * (size_t)G * W;
+  // partials of this (slot, kv-head, head group): per block, per head
+  // [m, l, acc[dv]]
+  float* pbase = part + (size_t)grp * nblk * (size_t)G * W;
   float* mine = pbase + (size_t)blk * G * W;
 
   const int p_b = pos[b], s_b = start[b];
@@ -181,7 +211,7 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if constexpr (Rows::paged) {
     if (blk < blo || blk > bhi) {
       if (nlive <= 0 && blk == 0) {
-        T* ob = out + ((size_t)b * H + (size_t)kh * G) * dv;
+        T* ob = out + ((size_t)b * H + h0) * dv;
         for (int e = tid; e < G * dv; e += SD_THREADS) ob[e] = from_f<T>(0.f);
       }
       return;
@@ -226,7 +256,7 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     cp_async_commit();
-    const T* qb = q + ((size_t)b * H + (size_t)kh * G) * dq;
+    const T* qb = q + ((size_t)b * H + h0) * dq;
     for (int e = tid; e < G * dq; e += SD_THREADS) q_s[e] = to_f(qb[e]);
     __syncthreads();
 
@@ -308,7 +338,7 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     if (Rows::paged && nlive == 1) {  // one live block: the merge of its lone partial
-      T* ob = out + ((size_t)b * H + (size_t)kh * G) * dv;
+      T* ob = out + ((size_t)b * H + h0) * dv;
       for (int e = tid; e < G * dv; e += SD_THREADS) {  // the warps' sums in warp order
         const int g = e / dv, c = e % dv;
         float a = red[(size_t)g * dv + c];
@@ -333,10 +363,11 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int g = tid; g < G; g += SD_THREADS) mine[g * W + 1] = 0.f;
   }
 
-  // the block that takes the last ticket of its (slot, kv-head) merges
+  // the block that takes the last ticket of its (slot, kv-head, head
+  // group) merges
   __threadfence();
   __syncthreads();
-  if (tid == 0) last = atomicAdd(&counter[b * Kh + kh], 1) == nlive - 1;
+  if (tid == 0) last = atomicAdd(&counter[grp], 1) == nlive - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
@@ -359,7 +390,7 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mf[i * G + g] = lf[i * G + g] > 0.f ? expf(mf[i * G + g] - m) : 0.f;
   }
   __syncthreads();
-  T* ob = out + ((size_t)b * H + (size_t)kh * G) * dv;
+  T* ob = out + ((size_t)b * H + h0) * dv;
   for (int e = tid; e < G * dv; e += SD_THREADS) {
     const int g = e / dv, c = e % dv;
     float l = 0.f, a = 0.f;
@@ -374,7 +405,7 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     ob[e] = from_f<T>(a / fmaxf(l, 1e-30f));
   }
-  if (tid == 0) counter[b * Kh + kh] = 0;  // every block has drawn its ticket
+  if (tid == 0) counter[grp] = 0;  // every block has drawn its ticket
 }
 
 template <typename T>
@@ -386,10 +417,10 @@ size_t slot_smem(int G, int dq, int dv, int nblk) {
 
 template <typename T, int CH, typename Rows>
 int launch_slot(const void* q, const void* k, const void* v, const int* pos, const int* start,
-                float* part, int* counter, void* out, int B, int H, int Kh, int S, int dq,
-                int dv, int v_row, int ring, float scale, float softcap, Rows rows,
+                float* part, int* counter, void* out, int B, int H, int Kh, int ng, int S,
+                int dq, int dv, int v_row, int ring, float scale, float softcap, Rows rows,
                 cudaStream_t stream) {
-  const int G = H / Kh, nblk = (S + SD_ROWS - 1) / SD_ROWS;
+  const int G = H / Kh / ng, nblk = (S + SD_ROWS - 1) / SD_ROWS;  // G: heads a block
   const size_t smem = slot_smem<T>(G, dq, dv, nblk);
   auto kern = flash_decode_slot_kernel<T, CH, Rows>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -398,7 +429,7 @@ int launch_slot(const void* q, const void* k, const void* v, const int* pos, con
   // 16-byte row loads need 16-byte aligned rows
   const int veck = (reinterpret_cast<uintptr_t>(k) % 16 == 0) && (dq * sizeof(T)) % 16 == 0;
   const int vecv = (reinterpret_cast<uintptr_t>(v) % 16 == 0) && (v_row * sizeof(T)) % 16 == 0;
-  kern<<<dim3(nblk, Kh, B), SD_THREADS, smem, stream>>>(
+  kern<<<dim3(nblk, Kh * ng, B), SD_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
       start, part, counter, static_cast<T*>(out), H, Kh, S, dq, dv, v_row, ring, scale,
       softcap, veck, vecv, rows);
@@ -408,17 +439,21 @@ int launch_slot(const void* q, const void* k, const void* v, const int* pos, con
 template <typename T, typename Rows>
 int dispatch_slot(const void* q, const void* k, const void* v, const int* pos,
                   const int* start, float* part, int* counter, void* out, int B, int H, int Kh,
-                  int S, int dq, int dv, int v_row, int ring, float scale, float softcap,
-                  Rows rows, cudaStream_t s) {
+                  int ng, int S, int dq, int dv, int v_row, int ring, float scale,
+                  float softcap, Rows rows, cudaStream_t s) {
   const int dmax = dq > dv ? dq : dv;
-  const int per = 32 * (16 / static_cast<int>(sizeof(T)));  // columns a warp's chunk holds
-#define REPRO_SLOT(CH)                                                                        \
-  return launch_slot<T, CH, Rows>(q, k, v, pos, start, part, counter, out, B, H, Kh, S, dq, \
-                                  dv, v_row, ring, scale, softcap, rows, s)
+  constexpr int per = 32 * (16 / static_cast<int>(sizeof(T)));  // columns a warp's chunk holds
+  constexpr int wide = (SD_MAX_D + per - 1) / per;  // chunks a lane for SD_MAX_D: 2 bf16, 3 f32
+  if (ng <= 0 || (H / Kh) % ng || (dmax <= 256 && ng != 1))  // groups on wide rows only
+    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_SLOT(CH)                                                                     \
+  return launch_slot<T, CH, Rows>(q, k, v, pos, start, part, counter, out, B, H, Kh, ng, \
+                                  S, dq, dv, v_row, ring, scale, softcap, rows, s)
   if (dmax <= per) REPRO_SLOT(1);
   if constexpr (sizeof(T) == 4) {  // f32 rows up to 256 wide take two chunks a lane
     if (dmax <= 2 * per) REPRO_SLOT(2);
   }
+  if (dmax <= SD_MAX_D) REPRO_SLOT(wide);
 #undef REPRO_SLOT
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -426,13 +461,13 @@ int dispatch_slot(const void* q, const void* k, const void* v, const int* pos,
 template <typename Rows>
 int dispatch_type(const void* q, const void* k, const void* v, const int* pos,
                   const int* start, float* part, int* counter, void* out, int B, int H, int Kh,
-                  int S, int dq, int dv, int v_row, int ring, float scale, float softcap,
-                  int is_bf16, Rows rows, cudaStream_t s) {
+                  int ng, int S, int dq, int dv, int v_row, int ring, float scale,
+                  float softcap, int is_bf16, Rows rows, cudaStream_t s) {
   if (is_bf16)
-    return dispatch_slot<__nv_bfloat16>(q, k, v, pos, start, part, counter, out, B, H, Kh, S,
-                                        dq, dv, v_row, ring, scale, softcap, rows, s);
-  return dispatch_slot<float>(q, k, v, pos, start, part, counter, out, B, H, Kh, S, dq, dv,
-                              v_row, ring, scale, softcap, rows, s);
+    return dispatch_slot<__nv_bfloat16>(q, k, v, pos, start, part, counter, out, B, H, Kh,
+                                        ng, S, dq, dv, v_row, ring, scale, softcap, rows, s);
+  return dispatch_slot<float>(q, k, v, pos, start, part, counter, out, B, H, Kh, ng, S, dq,
+                              dv, v_row, ring, scale, softcap, rows, s);
 }
 
 }  // namespace repro
@@ -440,15 +475,18 @@ int dispatch_type(const void* q, const void* k, const void* v, const int* pos,
 // q [B,H,dq]; k [B,S,Kh,dq] and v [B,S,Kh,v_row] slot caches, or, with
 // pages [B,npp] not null, pools k [P,ps,Kh,dq] and v [P,ps,Kh,v_row] over
 // S = npp*ps logical rows (linear validity); the first dv columns of v are
-// read.  pos, start [B]; part: B*Kh*ceil(S/64)*(H/Kh)*(dv+2) f32 scratch;
-// counter: B*Kh int32, all 0 (every launch leaves them 0 again); out
-// [B,H,dv].  ring: 0 linear, 1 ring (slot caches only).  softcap <= 0 is
-// off.  One launch.
+// read; dq, dv <= 288.  ng: head groups a kv-head (dividing H/Kh; 1 when
+// dq, dv <= 256).  pos,
+// start [B]; part: B*Kh*ceil(S/64)*(H/Kh)*(dv+2) f32 scratch; counter:
+// B*Kh*ng int32, all 0 (every launch leaves them 0 again); out [B,H,dv].
+// ring: 0 linear, 1 ring (slot caches only).  softcap <= 0 is off.  One
+// launch.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   const void* pages, const void* pos, const void* start,
                                   void* part, void* counter, void* out, int B, int H, int Kh,
-                                  int S, int dq, int dv, int v_row, int ring, int ps, int npp,
-                                  float scale, float softcap, int is_bf16, void* stream) {
+                                  int ng, int S, int dq, int dv, int v_row, int ring, int ps,
+                                  int npp, float scale, float softcap, int is_bf16,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   const int* st = static_cast<const int*>(start);
@@ -458,9 +496,9 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
     if (ring || ps <= 0 || npp <= 0 || S != npp * ps)
       return static_cast<int>(cudaErrorInvalidValue);
     const repro::PageRows rows{static_cast<const int*>(pages), ps, npp};
-    return repro::dispatch_type(q, k, v, p, st, pt, ct, out, B, H, Kh, S, dq, dv, v_row, 0,
-                                scale, softcap, is_bf16, rows, s);
+    return repro::dispatch_type(q, k, v, p, st, pt, ct, out, B, H, Kh, ng, S, dq, dv, v_row,
+                                0, scale, softcap, is_bf16, rows, s);
   }
-  return repro::dispatch_type(q, k, v, p, st, pt, ct, out, B, H, Kh, S, dq, dv, v_row, ring,
-                              scale, softcap, is_bf16, repro::SlotRows{S}, s);
+  return repro::dispatch_type(q, k, v, p, st, pt, ct, out, B, H, Kh, ng, S, dq, dv, v_row,
+                              ring, scale, softcap, is_bf16, repro::SlotRows{S}, s);
 }

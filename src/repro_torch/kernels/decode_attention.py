@@ -6,7 +6,10 @@ Ports of ``repro.kernels.decode_attention.flash_decode`` (TPU kernel
 ``_flash_decode_paged`` (``_fd_kernel_paged``).  Both launch the one CUDA
 kernel: the rows of every slot are split into 64-row blocks, one CUDA
 block each, and the last block of each (slot, kv-head) to finish merges
-the partials in block order, in the same launch.  Each wrapper's
+the partials in block order, in the same launch.  On rows wider than 256
+columns (MLA's latent call: 40 heads over one latent head, q 288 wide) a
+kv-head with more than 8 query heads has them split into
+:func:`head_groups` groups, a CUDA block each.  Each wrapper's
 ``.launches`` counts its launches.
 """
 from __future__ import annotations
@@ -20,6 +23,8 @@ from repro_torch.kernels.ref import flash_decode_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _ROWS = 64  # logical rows per CUDA block
+_GROUP = 8  # most query heads a CUDA block takes
+MAX_D = 288  # widest q or v row the kernel takes (MLA: kv_lora_rank 256 + qk_rope 32)
 _fn = None
 
 
@@ -28,16 +33,31 @@ def _entry():
     if _fn is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         _fn = _build.bind("decode_attention", "repro_flash_decode",
-                          [P] * 9 + [I] * 10 + [F, F, I, P])
+                          [P] * 9 + [I] * 11 + [F, F, I, P])
     return _fn
 
 
-def decode_scratch(B: int, H: int, K: int, S: int, dv: int) -> tuple[int, int]:
+def head_groups(G: int, d: int) -> int:
+    """Groups the G query heads of a kv-head are split into, one CUDA block
+    each, for rows ``d = max(dq, dv)`` wide: 1 up to 256 columns (every GQA
+    shape keeps its one-group kernel) or up to 8 heads; else G over its
+    largest divisor <= 8 (MLA's G = 40 at d = 288: 5 groups of 8).  A
+    function of the shape alone, so a captured decode graph's grid never
+    changes."""
+    if d <= 256 or G <= _GROUP:
+        return 1
+    return G // max(k for k in range(1, _GROUP + 1) if G % k == 0)
+
+
+def decode_scratch(B: int, H: int, K: int, S: int, dv: int,
+                   dq: int | None = None) -> tuple[int, int]:
     """(f32 partials, int32 tickets) one launch needs over ``S`` logical
     rows a slot: per (slot, kv-head, 64-row block) ``[m, l, acc[dv]]`` for
-    each of the H/K query heads, and one ticket per (slot, kv-head).  A
-    slot's share is a function of S, H, K and dv alone."""
-    return B * K * -(-S // _ROWS) * (H // K) * (dv + 2), B * K
+    each of the H/K query heads, and one ticket per (slot, kv-head, head
+    group; ``dq`` defaults to ``dv``).  A slot's share is a function of S,
+    H, K, dv and dq alone."""
+    groups = head_groups(H // K, max(dv, dq or dv))
+    return B * K * -(-S // _ROWS) * (H // K) * (dv + 2), B * K * groups
 
 
 def _launch(name, q, k, v, pos, start, pages, *, ring, softcap, scale, dv):
@@ -63,7 +83,7 @@ def _launch(name, q, k, v, pos, start, pages, *, ring, softcap, scale, dv):
     if k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"{name}: caches {tuple(k.shape)}, {tuple(v.shape)}")
     K = k.shape[2]
-    if k.shape[3] != dq or H % K or dv > v.shape[3] or max(dq, dv) > 256:
+    if k.shape[3] != dq or H % K or dv > v.shape[3] or max(dq, dv) > MAX_D:
         raise ValueError(f"{name}: q {tuple(q.shape)} vs caches "
                          f"{tuple(k.shape)}, {tuple(v.shape)}, dv={dv}")
     if pages is None:
@@ -81,12 +101,14 @@ def _launch(name, q, k, v, pos, start, pages, *, ring, softcap, scale, dv):
     if B == 0 or S == 0 or H == 0:
         return out.zero_()
     stream = _build.stream_ptr(dev)
-    part, tickets = _build.scratch(dev, stream, *decode_scratch(B, H, K, S, dv))
+    part, tickets = _build.scratch(dev, stream, *decode_scratch(B, H, K, S, dv, dq))
     scale = scale if scale is not None else dq ** -0.5
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    pages.data_ptr() if pages is not None else None,
                    pos.data_ptr(), start.data_ptr(), part.data_ptr(), tickets.data_ptr(),
-                   out.data_ptr(), B, H, K, S, dq, dv, v.shape[3], int(ring), ps, npp,
+                   out.data_ptr(), B, H, K, head_groups(H // K, max(dq, dv)), S, dq, dv,
+                   v.shape[3],
+                   int(ring), ps, npp,
                    float(scale), float(softcap or 0.0), int(q.dtype == torch.bfloat16),
                    stream)
     _build.check(err, name)

@@ -4,8 +4,10 @@ Every weight-activation matmul funnels through :func:`dense_proj` (the block
 GEMM, or the packed int8 GEMM for ``QTensor`` weights under w8a8),
 whole-prompt attention through the dense flash-attention kernel,
 chunked-prefill attention through the paged one, and decode attention
-through flash-decode on page pools or on linear / ring slot caches.  A
-tensor's device chooses between each kernel and its plain version.
+through flash-decode on page pools or on linear / ring slot caches (MLA's
+latent decode too; MLA's whole-prompt attention stays plain PyTorch, as
+the reference's jnp ``attend``).  A tensor's device chooses between each
+kernel and its plain version.
 
 Caches are updated **in place** (the JAX engine donates them instead).  A
 pool made by ``model.init_paged_cache`` has one spare *drop row* in its
@@ -25,6 +27,7 @@ from repro_torch.core.cache import CacheLayout
 from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8, quantize_act
 from repro_torch.core.quant import QTensor
 from repro_torch.kernels.ops import attend_decode, attention
+from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models.params import ParamSpec
 
 F32 = torch.float32
@@ -354,6 +357,122 @@ def attn_decode(cfg: ArchConfig, p: dict, cache: dict, x, rows: StepRows, *,
                           softcap=cfg.logit_softcap)
     out = dense_proj(cfg, o.reshape(B, 1, -1), p["wo"])
     return out, {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V2 / MiniCPM3 style)
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg: ArchConfig) -> dict:
+    D, H = cfg.d_model, cfg.padded_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": ParamSpec((D, qr), ("embed", "lora")),
+        "q_norm": ParamSpec((qr,), (None,), "ones"),
+        "wq_b": ParamSpec((qr, H, dn + dr), ("lora", "heads", "qk")),
+        "wkv_a": ParamSpec((D, kvr + dr), ("embed", "lora")),
+        "kv_norm": ParamSpec((kvr,), (None,), "ones"),
+        "wkv_b": ParamSpec((kvr, H, dn + dv), ("lora", "heads", "qk")),
+        "wo": ParamSpec((H, dv, D), ("heads", "qk", "embed")),
+    }
+
+
+def mla_cache_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
+    """One fused ``[latent | k_rope]`` cache a layer, [batch, seq, kvr + dr]:
+    decode reads it as both keys (full width) and values (the first
+    ``kv_lora_rank`` columns)."""
+    return {"kv": ParamSpec((batch, seq, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                            ("batch", "kv_seq", None), "zeros")}
+
+
+def _mla_q(cfg, p, xs, rows: StepRows):
+    """Low-rank queries, RoPE on their ``qk_rope_dim`` half: (q_nope
+    [B,S,H,dn], q_rope [B,S,H,dr]).  ``xs`` is ``shared_input`` of x."""
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    cq = rms_only(dense_proj(cfg, xs, p["wq_a"]), p["q_norm"])
+    q = dense_proj(cfg, cq, p["wq_b"], (cfg.padded_heads, dn + dr))
+    return q[..., :dn], apply_rope(q[..., dn:], rows.rope(dr, cfg.rope_theta))
+
+
+def _mla_latent(cfg, p, xs, rows: StepRows):
+    """The normed latent [B,S,kvr] and the shared rotated key [B,S,dr]."""
+    kvr, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    ckv = dense_proj(cfg, xs, p["wkv_a"])
+    latent = rms_only(ckv[..., :kvr], p["kv_norm"])
+    k_rope = apply_rope(ckv[..., None, kvr:], rows.rope(dr, cfg.rope_theta))[:, :, 0]
+    return latent, k_rope
+
+
+def _mla_attend(cfg, p, x, rows: StepRows):
+    """Whole-prompt MLA: the latent expanded to per-head keys and values,
+    then causal attention in plain PyTorch (q/k width dn + dr differs from
+    v's dv, as in the reference's ``attend``; no kernel lies behind it).
+    Returns (out [B,S,D], latent, k_rope)."""
+    dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
+    H = cfg.padded_heads
+    xs = shared_input(x, p["wq_a"])
+    q_nope, q_rope = _mla_q(cfg, p, xs, rows)
+    latent, k_rope = _mla_latent(cfg, p, xs, rows)
+    kv = dense_proj(cfg, latent, p["wkv_b"], (H, dn + dv))
+    k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], H, k_rope.shape[-1])
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([kv[..., :dn], k_rope_h], -1)
+    o = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            kv[..., dn:].transpose(1, 2), causal=True)
+    o = o.transpose(1, 2)  # [B, S, H, dv]
+    return dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"]), latent, k_rope
+
+
+def mla_forward(cfg: ArchConfig, p: dict, x, rows: StepRows):
+    """Training forward and prefill attention of an MLA layer: x [B,S,D] at
+    ``rows.positions`` [S] -> [B,S,D]."""
+    return _mla_attend(cfg, p, x, rows)[0]
+
+
+def mla_prefill(cfg: ArchConfig, p: dict, x, rows: StepRows):
+    """:func:`mla_forward` plus the prompt's cache ``{"kv": [B,S,kvr+dr]}``
+    (the normed latent and the rotated shared key)."""
+    out, latent, k_rope = _mla_attend(cfg, p, x, rows)
+    return out, {"kv": torch.cat([latent, k_rope.to(latent.dtype)], -1)}
+
+
+def mla_decode(cfg: ArchConfig, p: dict, cache: dict, x, rows: StepRows):
+    """Weight-absorbed MLA decode: attention runs in the latent space over
+    the fused ``[latent | k_rope]`` cache, which is never re-expanded.
+
+    The new row is written in place: through the page table into the pool
+    [P,ps,kvr+dr] (``rows.pages``), or at ``pos`` of the linear slot cache
+    [B,S,kvr+dr] (dropped when ``pos >= S``).  The absorbed query
+    ``[q_nope @ wk | q_rope]`` meets the cache in flash-decode as MQA (H
+    query heads over one kv-head): the cache is both k (width kvr + dr)
+    and v (its first kvr columns), at ``scale = (dn + dr)^-0.5``; the latent
+    output expands through ``wv`` to the value heads."""
+    dn, dr, kvr = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    B = x.shape[0]
+    xs = shared_input(x, p["wq_a"])
+    q_nope, q_rope = _mla_q(cfg, p, xs, rows)  # [B,1,H,dn], [B,1,H,dr]
+    latent, k_rope = _mla_latent(cfg, p, xs, rows)
+    row = torch.cat([latent, k_rope.to(latent.dtype)], -1)[:, 0]  # [B, kvr+dr]
+    pos = rows.pos0()
+    kv = cache["kv"]
+    if rows.pages is not None:
+        _write_rows(kv, row, rows.rows(kv))
+        layout = CacheLayout.PAGED
+    else:
+        _slot_write(kv, row, pos)
+        layout = CacheLayout.LINEAR
+    kv4 = kv[:, :, None]  # one kv-head: the same tensor as k and as v
+    wkv_b = p["wkv_b"]  # [kvr, H, dn + dv], float under w8a8 too
+    # the absorption einsums are batched matmuls: bf16 products sum in f32
+    # and round once, as the reference's preferred_element_type=F32 einsums
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wkv_b[..., :dn])
+    q_cat = torch.cat([q_lat, q_rope[:, 0].to(q_lat.dtype)], -1).contiguous()
+    o_lat = attend_decode(q_cat, kv4, kv4, pos, rows.start(0), layout=layout,
+                          pages=rows.pages, scale=(dn + dr) ** -0.5, dv=kvr)
+    o = torch.einsum("bhr,rhd->bhd", o_lat, wkv_b[..., dn:])  # [B, H, dv]
+    out = dense_proj(cfg, o.reshape(B, 1, -1), p["wo"])
+    return out, {"kv": kv}
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,10 @@ steps.
 
 Weights keep the JAX package's stacked layout — one leading layer axis per
 stage — so the weight bridge is a plain reshape; the ``lax.scan`` over that
-axis becomes a Python loop.  Only attention mixers with a dense FFN are
-ported; every other mixer or FFN raises ``NotImplementedError``.  Caches
-are updated in place by the decode and chunk steps.
+axis becomes a Python loop.  Only attention mixers (GQA, or MLA when
+``cfg.use_mla``) with a dense FFN are ported; every other mixer or FFN
+raises ``NotImplementedError``.  Caches are updated in place by the decode
+and chunk steps.
 """
 from __future__ import annotations
 
@@ -38,9 +39,8 @@ def _check_layer(spec: LayerSpec):
 
 def _layer_param_specs(cfg: ArchConfig, spec: LayerSpec) -> dict:
     _check_layer(spec)
-    if cfg.use_mla:
-        raise NotImplementedError("MLA is not ported yet")
-    return {"norm1": L.norm_specs(cfg), "mixer": L.attn_specs(cfg),
+    mixer = L.mla_specs(cfg) if cfg.use_mla else L.attn_specs(cfg)
+    return {"norm1": L.norm_specs(cfg), "mixer": mixer,
             "norm2": L.norm_specs(cfg), "ffn": L.ffn_specs(cfg)}
 
 
@@ -128,16 +128,23 @@ def quantize_params(cfg: ArchConfig, params: dict) -> dict:
 # Slot caches (the direct prefill -> decode_step loop)
 # ---------------------------------------------------------------------------
 
+def _layer_cache_specs(cfg: ArchConfig, spec: LayerSpec, batch: int,
+                       seq: int, local: bool) -> dict:
+    _check_layer(spec)
+    if cfg.use_mla:
+        return L.mla_cache_specs(cfg, batch, seq)
+    return L.attn_cache_specs(cfg, batch, seq, local=local)
+
+
 def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> list:
     """Per-stage slot-cache specs: global layers k/v [R, batch, seq, K, dh]
-    (linear), sliding-window layers a ring of ``min(seq, window)`` rows."""
+    (linear), sliding-window layers a ring of ``min(seq, window)`` rows, MLA
+    layers one fused kv [R, batch, seq, kvr + dr]."""
     out = []
     for stage in cfg.stages():
-        group = {}
-        for i, sp in enumerate(stage.group):
-            _check_layer(sp)
-            group[str(i)] = L.attn_cache_specs(cfg, batch, seq,
-                                               local=sp.mixer == "attn_local")
+        group = {str(i): _layer_cache_specs(cfg, sp, batch, seq,
+                                            local=sp.mixer == "attn_local")
+                 for i, sp in enumerate(stage.group)}
         out.append(stack_tree(group, stage.repeats))
     return out
 
@@ -177,15 +184,14 @@ def pad_cache_len(cfg: ArchConfig, caches: list, new_len: int) -> list:
 def paged_cache_specs(cfg: ArchConfig, max_batch: int, n_pages: int,
                       page_size: int) -> list:
     """Per-stage pool specs: every attention layer owns k/v pools
-    ``[R, n_pages, page_size, K, dh]`` (R = the stage's stacked layers);
-    page 0 is the engine's trash page."""
+    ``[R, n_pages, page_size, K, dh]`` (R = the stage's stacked layers), an
+    MLA layer one kv pool ``[R, n_pages, page_size, kvr + dr]``; page 0 is
+    the engine's trash page."""
     del max_batch  # pools are shared across sequences
     out = []
     for stage in cfg.stages():
-        group = {}
-        for i, sp in enumerate(stage.group):
-            _check_layer(sp)
-            group[str(i)] = L.attn_cache_specs(cfg, n_pages, page_size)
+        group = {str(i): _layer_cache_specs(cfg, sp, n_pages, page_size, local=False)
+                 for i, sp in enumerate(stage.group)}
         out.append(stack_tree(group, stage.repeats))
     return out
 
@@ -222,7 +228,7 @@ def _index(tree, r: int):
 
 
 def _stack_layers(per_layer: list) -> dict:
-    """[{gi: {"k", "v"}} per repeat] -> {gi: {"k": [R, ...], "v": ...}}."""
+    """[{gi: {name: leaf}} per repeat] -> {gi: {name: [R, ...]}}."""
     return {gi: {n: torch.stack([c[gi][n] for c in per_layer])
                  for n in per_layer[0][gi]} for gi in per_layer[0]}
 
@@ -233,11 +239,15 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
     cache or page pools, updated in place.  prefill: ``cache`` is the
     layer's past KV or None, and the returned cache holds the new rows.
     train: no cache.  ``rows`` holds the step's shared positions, tables
-    and bounds."""
+    and bounds.  MLA layers have no chunk step (the fused latent cache is
+    not prefix-decomposable: the engine prefills them whole) and no
+    cached-prefix prefill."""
     _check_layer(spec)
     local = spec.mixer == "attn_local"
     h = L.apply_norm(cfg, p["norm1"], x)
-    if mode == "decode":
+    if cfg.use_mla:
+        m, cache = _apply_mla(cfg, p["mixer"], h, mode=mode, cache=cache, rows=rows)
+    elif mode == "decode":
         m, cache = L.attn_decode(cfg, p["mixer"], cache, h, rows, local=local)
     elif mode == "chunk":
         m, cache = L.attn_chunk_prefill(cfg, p["mixer"], cache, h, rows,
@@ -252,6 +262,22 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
     x = x + m
     h = L.apply_norm(cfg, p["norm2"], x)
     return x + L.ffn_forward(cfg, p["ffn"], h), cache
+
+
+def _apply_mla(cfg: ArchConfig, p: dict, h, *, mode: str, cache, rows: L.StepRows):
+    """The MLA mixer of :func:`_apply_layer`: returns (out, cache)."""
+    if mode == "decode":
+        return L.mla_decode(cfg, p, cache, h, rows)
+    if mode == "prefill":
+        if cache is not None:
+            raise NotImplementedError("MLA prefill does not continue a cached prefix")
+        return L.mla_prefill(cfg, p, h, rows)
+    if mode == "train":
+        return L.mla_forward(cfg, p, h, rows), None
+    if mode == "chunk":
+        raise NotImplementedError("chunked prefill over the paged past "
+                                  "does not support MLA's fused cache")
+    raise ValueError(f"unknown mode {mode!r}")
 
 
 # ---------------------------------------------------------------------------

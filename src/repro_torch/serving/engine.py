@@ -13,6 +13,12 @@ and the copy-on-write page copy) and :class:`Engine`, the facade whose
   slot, or
 - a *decode* tick of ``decode_chunk`` decode steps otherwise.
 
+A model whose prefill is not prefix-decomposable (MLA) has no chunk step:
+admission prefills each prompt whole, at its exact length, inline
+(:meth:`ModelRunner.whole_prefill`, the JAX runner's ``_whole_prefill``),
+so every tick of such an engine is a decode tick, and it keeps no radix
+tree.
+
 Both tick shapes run their decode steps through one function,
 :meth:`ModelRunner._decode_steps`, so a token's math does not depend on
 which tick produced it.  Its decode step is a :class:`~repro_torch.models.
@@ -153,7 +159,7 @@ class RequestResult:
 
 @dataclass
 class ServeStats:
-    prefill_s: float = 0.0   # wall time of mixed ticks
+    prefill_s: float = 0.0   # wall time of mixed ticks and whole prefills
     decode_s: float = 0.0    # wall time of decode-only ticks
     tokens_out: int = 0
     prefills: int = 0
@@ -206,6 +212,7 @@ class ModelRunner:
         self.params = params
         self.vocab = cfg.vocab_size
         self.eos_id = config.eos_id
+        self.page_size = config.page_size
         self.caches = M.init_paged_cache(cfg, config.max_batch, config.n_pages,
                                          config.page_size, device=device)
         self.graph = DecodeGraph(cfg, params, self.caches, config.max_batch,
@@ -286,6 +293,35 @@ class ModelRunner:
         out = out.cpu().numpy()
         return int(out[0]), bool(out[1]), out[2:].reshape(len(cur), 5)
 
+    def whole_prefill(self, tokens: list[int], table, temp: float, gen):
+        """Exact-length whole-prompt prefill (the JAX runner's
+        ``_whole_prefill``): ``model.prefill`` over ``tokens`` alone, its
+        ``kv_seq`` rows scattered to logical rows ``[0, n)`` through the
+        page ``table`` [npp], and the first token sampled.  Returns
+        ``(first, ok)``; ``ok`` is False when the sampled logits row is not
+        finite (a poisoned prefill).  One device->host copy."""
+        dev = self.device
+        toks = torch.tensor([tokens], dtype=torch.int32, device=dev)
+        logits, small = M.prefill(self.cfg, self.params, toks)
+        self._scatter_new(small, torch.from_numpy(table).to(dev), len(tokens))
+        lf = logits[:, -1, : self.vocab]
+        tok = self._sample(lf, [temp], [gen])
+        out = torch.stack([tok[0], torch.isfinite(lf).all().to(torch.int32)]).cpu()
+        return int(out[0]), bool(out[1])
+
+    def _scatter_new(self, small, table, n: int):
+        """Write a whole prefill's cache rows ``small`` ([R, 1, n, ...] a
+        leaf) to logical rows ``[0, n)`` of the pools through ``table``
+        (the JAX runner's ``_scatter_new``; every leaf the port serves has
+        a ``kv_seq`` axis)."""
+        j = torch.arange(n, device=table.device)
+        ps = self.page_size
+        page, row = table[j // ps].long(), j % ps
+        for stage, new in zip(self.caches, small):
+            for gi, group in stage.items():
+                for name, pool in group.items():
+                    pool[:, page, row] = new[gi][name][:, 0].to(pool.dtype)
+
     def copy_page(self, src: int, dst: int):
         """Copy page ``src`` -> ``dst`` in every pool (the copy half of a
         partial-page prefix share)."""
@@ -305,7 +341,8 @@ class Scheduler:
     and the slot state machine, with the degraded exits (DEADLINE /
     CANCELLED / PREEMPTED / FAULT) layered on."""
 
-    def __init__(self, config: EngineConfig, device, clock=time.time):
+    def __init__(self, config: EngineConfig, device, decomposable: bool,
+                 clock=time.time):
         B = config.max_batch
         self.config = config
         self.device = device
@@ -317,9 +354,12 @@ class Scheduler:
         # preemption implies lazy page reservation: admission takes only the
         # prompt's pages and decode rows grow tick by tick
         self.lazy = config.preemption != "off"
+        # chunked prefill and prefix reuse need a prefill that decomposes
+        # over the prompt; MLA's is not, and prefills whole prompts inline
+        self.chunked = decomposable
         self.radix: RadixCache | None = (
-            RadixCache(config.page_size, self.pool) if config.prefix_cache
-            else None)
+            RadixCache(config.page_size, self.pool)
+            if (config.prefix_cache and decomposable) else None)
         self.pages = np.zeros((B, self.npp), np.int32)  # 0 == trash page
         self.owned: list[list[int]] = [[] for _ in range(B)]
         self.cur = np.zeros(B, np.int32)        # next input token per slot
@@ -499,17 +539,20 @@ class Scheduler:
 
     # -- admission --------------------------------------------------------
 
-    def admit(self, runner: ModelRunner):
+    def admit(self, runner: ModelRunner, stats: ServeStats):
         """Move queued requests into free rows, FIFO with head-of-line
-        blocking on pages.  A new slot enters PREFILLING at its radix
-        offset and admission holds until its prefill completes (lookups
-        never match unpublished pages).  Matched pages (and the COW donor)
-        are pinned before eviction can run.  With preemption on, only the
-        prompt's pages are reserved.  A preempted request re-enters here:
-        prompt plus generated tokens prefill as one sequence."""
+        blocking on pages.  On a chunked model a new slot enters PREFILLING
+        at its radix offset and admission holds until its prefill completes
+        (lookups never match unpublished pages); a non-decomposable model
+        prefills each admitted prompt whole, inline, and may admit several a
+        tick (a poisoned prefill retires its request FAULT).  Matched pages
+        (and the COW donor) are pinned before eviction can run.  With
+        preemption on, only the prompt's pages are reserved.  A preempted
+        request re-enters here: prompt plus generated tokens prefill as one
+        sequence."""
         free_rows = [i for i in range(self.max_batch) if self.slots[i] is None]
         while self.queue and free_rows:
-            if self.prefilling_slot() is not None:
+            if self.chunked and self.prefilling_slot() is not None:
                 break
             req = self.queue[0]
             full = req.full_prompt()
@@ -567,14 +610,48 @@ class Scheduler:
             self.pages[i] = table
             self.owned[i] = shared + fresh
             self.limit[i] = plen + new_budget
-            self.slots[i] = _Slot(req, emitted=list(req.resume_tokens),
-                                  first_token_s=req.first_token_s or 0.0,
-                                  phase=PREFILLING, offset=m.tokens,
-                                  seq=self._seq, gen=gen,
-                                  token_times=list(req.token_times))
-            self._seq += 1
-            self.cur[i] = self.pos[i] = self.remaining[i] = 0
-            break  # hold admission until this prefill completes
+            if self.chunked:
+                self.slots[i] = _Slot(req, emitted=list(req.resume_tokens),
+                                      first_token_s=req.first_token_s or 0.0,
+                                      phase=PREFILLING, offset=m.tokens,
+                                      seq=self._seq, gen=gen,
+                                      token_times=list(req.token_times))
+                self._seq += 1
+                self.cur[i] = self.pos[i] = self.remaining[i] = 0
+                break  # hold admission until this prefill completes
+            if self._whole_prefill(i, req, table, gen, runner, stats):
+                free_rows.append(i)  # retired at once: the row is free again
+
+    def _whole_prefill(self, i: int, req: Request, table, gen,
+                       runner: ModelRunner, stats: ServeStats) -> bool:
+        """Prefill slot ``i``'s whole prompt inline and enter DECODING with
+        its first token, or retire it (a poisoned prefill FAULT; max_new
+        reached or eos).  Returns True if the slot retired."""
+        full = req.full_prompt()
+        t0 = time.time()
+        first, ok = runner.whole_prefill(full, table, req.temperature, gen)
+        stats.prefill_s += time.time() - t0
+        stats.prefills += 1
+        now = self.clock()
+        slot = _Slot(req, emitted=list(req.resume_tokens),
+                     first_token_s=req.first_token_s or now, phase=DECODING,
+                     seq=self._seq, gen=gen, token_times=list(req.token_times))
+        self._seq += 1
+        self.slots[i] = slot
+        if not ok:  # poisoned prefill: isolate this request
+            stats.faults_isolated += 1
+            self.retire(i, now, FinishReason.FAULT)
+            return True
+        slot.emitted.append(first)
+        slot.token_times.append(now)
+        self.cur[i], self.pos[i] = first, len(full)
+        self.remaining[i] = req.max_new - len(slot.emitted)
+        stats.tokens_out += 1
+        if self.remaining[i] == 0 or first == self.config.eos_id:
+            self.remaining[i] = 0
+            self.retire(i, now)
+            return True
+        return False
 
     def commit_prefill(self, i: int, first: int, now: float,
                        stats: ServeStats) -> bool:
@@ -674,7 +751,9 @@ class Engine:
         self.chaos = chaos
         self._closed = False
         self.runner = ModelRunner(cfg, params, self.config, self.device)
-        self.sched = Scheduler(self.config, self.device, clock=self._now)
+        # prefix-decomposable prefill: every mixer the port serves but MLA
+        self.sched = Scheduler(self.config, self.device,
+                               decomposable=not cfg.use_mla, clock=self._now)
         if chaos is not None:
             self.sched.pool.fault = lambda: chaos.fire("pool.alloc")
         self._next_rid = 0
@@ -937,7 +1016,7 @@ class Engine:
         if self.chaos is not None:
             self.chaos.fire("clock.skew")  # may advance the injected clock
         sched.expire(self._now(), self.stats)
-        sched.admit(self.runner)
+        sched.admit(self.runner, self.stats)
         self.stats.peak_active = max(self.stats.peak_active, self.num_active)
         try:
             nc = sched.next_chunk()
