@@ -28,7 +28,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    batched) timed beside SDPA on gathered K/V, the bf16 GEMM at its eight
    (K, N) pairs for M in {1, 8, 64, 500} (rows bit-identical across M) and
    the int8 GEMM exactly at its six w8a8 pairs on every route the MLA path
-   takes;
+   takes; and at qwen3-moe-30b-a3b's shapes: the bf16 GEMM at its four
+   (K, N) pairs for M in {1, 8, 64, 600} (rows bit-identical across M),
+   the int8 GEMM exactly at the same pairs for M in {1, 4, 8, 64, 67}
+   (rows bit-identical across M), paged flash-decode and chunk attention,
+   slot decode and dense attention at its heads (32 over 4, d = 128), the
+   bf16 GEMM and paged attention timed beside the plain version, the
+   library call and the bound;
 3. edge: the paper's int8 path on full-width gemma3-4b (34 layers, seeded
    random weights, ``quantize_params``): ``prefill`` of 2 x 1536 tokens
    into linear and ring caches, then 32 greedy decode steps replayed as a
@@ -74,15 +80,37 @@ Phases (any failure exits non-zero, and no result line is printed):
    served alone give the same tokens, and a traced decode tick is held as
    in phase 4.  A short w8a8 pass and the direct ``prefill(cache_len=...)``
    -> 8 ``decode_step``s on linear slot caches follow;
-6. a JSON ``added_kernels`` line (the quantize kernel), a JSON
+6. MoE: first ``moe_reference_check`` -- reduced qwen3-moe on the card
+   against the CPU (``chunk_step`` + 12 paged ``decode_step``s, then a
+   small chunked engine with radix hits; logits within 1e-4, every layer's
+   top-k experts and kept masks equal, equal greedy tokens; w8a8 under the
+   flip rule) -- and ``moe_layer_check`` -- one full-width MoE layer (d 2048,
+   128 experts top-8 of width 768) in f32 on the card against the CPU at
+   T = 8, 64 and 600: routing equal but at near-ties (each printed), outputs
+   within 1e-5 x their max, the dropped share printed.  Then, with every
+   earlier model freed, full-width, full-depth qwen3-moe-30b-a3b (61 GB of
+   bf16 weights drawn on the card) serves 8 greedy requests through the
+   chunked engine (four share a 288-token prefix: radix hits and a
+   copy-on-write page); only the bf16 GEMM and the two paged attention
+   kernels launch, paged decode once a layer a replay; the pool
+   reconciles, the graph passes ``graph_check``, and a traced decode tick
+   is held as in phase 4.  There is no solo == batched gate: capacity is
+   shared by every row of a call, so by the reference's own semantics a
+   request's tokens depend on its neighbours whenever an expert
+   overflows; the card-vs-CPU checks stand in for it.  A short w8a8 pass
+   (the experts and routers stay the float tensors) and the direct
+   ``prefill(cache_len=512)`` -> 8 ``decode_step``s (B = 2 x 300) follow;
+7. a JSON ``added_kernels`` line (the quantize kernel), a JSON
    ``mla_kernels`` line (both decode kernels at the latent shape), a JSON
-   ``kernels`` line (the six ported TPU kernels), then the JSON result as
-   the last line.
+   ``moe`` line (the MoE phase's summary and its rows), a JSON ``kernels``
+   line (the six ported TPU kernels), then the JSON result as the last
+   line.
 
 It needs CUDA: without a card it exits 2 before printing anything else.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -315,6 +343,36 @@ def gemm_row_invariance(gen, cases=None):
 OLMO_INT8_KN = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 50432))
 
 
+def _int8_operands(gen, M, K, N, lim):
+    a = torch.randint(-lim, lim + 1, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+    b = torch.randint(-lim, lim + 1, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+    return a, b
+
+
+def _int8_scales(gen, M, N):
+    return (torch.rand(M, 1, generator=gen, device="cuda") * 0.01 + 1e-4,
+            torch.rand(1, N, generator=gen, device="cuda") * 0.01 + 1e-4)
+
+
+def int8_exact(gen, M, K, N):
+    """``int8_phase``'s two checks of one shape, tolerance 0: the integer
+    case (operands in [-7, 7], unit scales) and the scaled case (full-range
+    operands, f32 and bf16 out)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_gemm import block_gemm_int8
+    a, b = _int8_operands(gen, M, K, N, 7)
+    ones_m = torch.ones(M, 1, device="cuda")
+    ones_n = torch.ones(1, N, device="cuda")
+    check_close(f"block_gemm_int8 exact {M}x{K}x{N}", block_gemm_int8(a, b, ones_m, ones_n),
+                ref.block_gemm_int8_ref(a, b, ones_m, ones_n), 0.0, 0.0)
+    a, b = _int8_operands(gen, M, K, N, 127)
+    sa, sb = _int8_scales(gen, M, N)
+    for dt in (torch.float32, torch.bfloat16):
+        check_close(f"block_gemm_int8 scaled {dt} {M}x{K}x{N}",
+                    block_gemm_int8(a, b, sa, sb, dt),
+                    ref.block_gemm_int8_ref(a, b, sa, sb, dt), 0.0, 0.0)
+
+
 def int8_phase(flush, gen):
     from repro_torch.kernels import ref
     from repro_torch.kernels.block_gemm import block_gemm_int8, int8_route, int8_splits
@@ -343,42 +401,20 @@ def int8_phase(flush, gen):
     shapes += [(M, K, N) for M in (1, 4, 8, 64, 67)
                for (K, N) in OLMO_INT8_KN if (M, K, N) not in shapes]
 
-    def operands(M, K, N, lim):
-        a = torch.randint(-lim, lim + 1, (M, K), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        b = torch.randint(-lim, lim + 1, (N, K), generator=gen, device="cuda",
-                          dtype=torch.int8)
-        return a, b
-
-    def scales(M, N):
-        return (torch.rand(M, 1, generator=gen, device="cuda") * 0.01 + 1e-4,
-                torch.rand(1, N, generator=gen, device="cuda") * 0.01 + 1e-4)
-
     routes = set()
     for (M, K, N) in shapes:
         routes.add(int8_route(M, N, tma_ok=K % 16 == 0))
-        a, b = operands(M, K, N, 7)
-        ones_m = torch.ones(M, 1, device="cuda")
-        ones_n = torch.ones(1, N, device="cuda")
-        exact = ref.block_gemm_int8_ref(a, b, ones_m, ones_n)
-        check_close(f"block_gemm_int8 exact {M}x{K}x{N}",
-                    block_gemm_int8(a, b, ones_m, ones_n), exact, 0.0, 0.0)
-        a, b = operands(M, K, N, 127)
-        sa, sb = scales(M, N)
-        for dt in (torch.float32, torch.bfloat16):
-            check_close(f"block_gemm_int8 scaled {dt} {M}x{K}x{N}",
-                        block_gemm_int8(a, b, sa, sb, dt),
-                        ref.block_gemm_int8_ref(a, b, sa, sb, dt), 0.0, 0.0)
+        int8_exact(gen, M, K, N)
     torch.cuda.synchronize()
     if routes != {0, 1, 2, 3}:
         fail(f"block_gemm_int8: the checked shapes took routes {sorted(routes)}, not all four")
     log(f"block_gemm_int8: {len(shapes)} shapes agree exactly (integer case and "
         f"scaled f32/bf16 out) over all four routes")
-    int8_row_invariance(gen, operands, scales)
+    int8_row_invariance(gen)
     rows = []
     for (M, K, N) in timed:
-        a, b = operands(M, K, N, 127)
-        sa, sb = scales(M, N)
+        a, b = _int8_operands(gen, M, K, N, 127)
+        sa, sb = _int8_scales(gen, M, N)
         out_dtype = torch.float32 if N == 262144 else torch.bfloat16
         ms = time_ms(lambda: block_gemm_int8(a, b, sa, sb, out_dtype), flush)
         plain = time_ms(lambda: ref.block_gemm_int8_ref(a, b, sa, sb, out_dtype), flush,
@@ -407,21 +443,22 @@ def int8_phase(flush, gen):
     return 0.0, rows
 
 
-def int8_row_invariance(gen, operands, scales):
+def int8_row_invariance(gen, cases=None, Ms=(1, 4, 8, 16, 17, 33, 64, 67, 72)):
     """Every output row of the int8 GEMM is the same whatever M is and
     whichever route takes it: ``block_gemm_int8(A[:M], B)`` equals the first
     M rows of the 3072-row product (the wgmma route) bit for bit for M in
     {1, ..., 72} (the two mma.sync routes), f32 and bf16 out, at gemma3-4b's
     and olmo-1b's widths; and each head's rows at M <= 72 against its 72-row
-    product (the wgmma route from M = 67 on)."""
+    product (the wgmma route from M = 67 on).  ``cases``: other (K, N,
+    full M) triples instead."""
     from repro_torch.kernels.block_gemm import block_gemm_int8, int8_route
-    Ms = (1, 4, 8, 16, 17, 33, 64, 67, 72)
-    cases = [(2560, 2048, 3072), (2560, 10240, 3072), (10240, 2560, 3072),
-             (2560, 262144, 72)]
-    cases += [(K, N, 72 if N > 10240 else 3072) for K, N in OLMO_INT8_KN]
+    if cases is None:
+        cases = [(2560, 2048, 3072), (2560, 10240, 3072), (10240, 2560, 3072),
+                 (2560, 262144, 72)]
+        cases += [(K, N, 72 if N > 10240 else 3072) for K, N in OLMO_INT8_KN]
     for K, N, full_m in cases:
-        a, b = operands(full_m, K, N, 127)
-        sa, sb = scales(full_m, N)
+        a, b = _int8_operands(gen, full_m, K, N, 127)
+        sa, sb = _int8_scales(gen, full_m, N)
         for out_dtype in (torch.float32, torch.bfloat16):
             full = block_gemm_int8(a, b, sa, sb, out_dtype)
             for M in Ms:
@@ -433,8 +470,8 @@ def int8_row_invariance(gen, operands, scales):
                          f"{int8_route(M, N)}) and M={full_m} (route "
                          f"{int8_route(full_m, N)}) at K={K} N={N} {out_dtype}: {n} entries")
     torch.cuda.synchronize()
-    log(f"block_gemm_int8: rows bit-identical across M in {Ms} and 3072 (72 for the "
-        f"heads) at (K, N) {[(K, N) for K, N, _ in cases]}, f32 and bf16 out")
+    log(f"block_gemm_int8: rows bit-identical across M in {Ms} and the full M at (K, N, "
+        f"full M) {cases}, f32 and bf16 out")
 
 
 def quantize_phase(flush, gen):
@@ -729,18 +766,29 @@ def decode_phase(flush, gen):
     torch.cuda.synchronize()
     log(f"flash_decode_paged: {len(cases)} cases x (f32, bf16) agree, empty slots exactly 0, "
         f"every slot alone == batched bit for bit; " + _errs(err))
-    B, H, K, d, ps, max_len = 8, 16, 16, 128, 64, 1024
-    npp, P = max_len // ps, B * (max_len // ps) + 1
-    pos = torch.tensor(pos8, dtype=torch.int32, device="cuda")
-    start = torch.tensor(start8, dtype=torch.int32, device="cuda")
-    pages = _tables(B, npp, P, 1)
+    return _bf16_max(err), _paged_decode_row(flush, gen, 16, 16, pos8, start8, 1)
+
+
+def _paged_decode_row(flush, gen, H, K, pos, start, seed):
+    """One bf16 paged flash-decode call (``len(pos)`` slots, H query heads
+    over K kv-heads of 128, 1024-row tables of page size 64) timed beside
+    its plain version, SDPA on K/V gathered from the pages beforehand (live
+    rows as a boolean mask; the gather not timed) and the bound.  Returns
+    the row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import flash_decode_paged
+    d, ps = 128, 64
+    B, npp = len(pos), 1024 // ps
+    P = B * npp + 1
+    pos_l, start_l = pos, start
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    start = torch.tensor(start_l, dtype=torch.int32, device="cuda")
+    pages = _tables(B, npp, P, seed)
     k, v = _paged_pools(gen, P, ps, K, d, torch.bfloat16)
     q = torch.randn(B, H, d, generator=gen, device="cuda").bfloat16()
     ms = time_ms(lambda: flash_decode_paged(q, k, v, pos, start, pages), flush)
     plain = time_ms(lambda: ref.flash_decode_ref(q, k, v, pos, start, pages=pages),
                     flush)
-    # yardstick: SDPA on K/V gathered from the pages beforehand (gather not
-    # timed), live rows as a boolean mask
     kg, vg = _gathered(k, pages), _gathered(v, pages)
     mask = _live_mask(pos, start, npp * ps, False)[:, None, None, :]
     q4 = q[:, :, None]
@@ -748,20 +796,19 @@ def decode_phase(flush, gen):
         q4, kg, vg, attn_mask=mask, enable_gqa=True)
     lib = time_ms(lib_fn, flush)
     want = ref.flash_decode_ref(q, k, v, pos, start, pages=pages)
-    live_slots = [i for i in range(B) if start8[i] <= pos8[i]]
+    live_slots = [i for i in range(B) if start_l[i] <= pos_l[i]]
     lib_rel = check_rows("SDPA yardstick paged decode", lib_fn()[live_slots, :, 0],
                          want[live_slots], rtol=math.inf)[1]
-    live = sum(max(0, min(int(p), npp * ps - 1) - int(s) + 1)
-               for p, s in zip(pos.tolist(), start.tolist()))
+    live = sum(max(0, min(p, npp * ps - 1) - s + 1) for p, s in zip(pos_l, start_l))
     n_bytes = 2 * (2 * live * K * d + 2 * B * H * d) + 4 * (B * npp + 2 * B)
-    bms, by = bound_ms(n_bytes, 4 * live * (H // K) * K * d, torch.bfloat16)
-    log(f"  flash_decode_paged bf16 B={B} H={H} d={d} ps={ps} live rows={live}: "
+    bms, by = bound_ms(n_bytes, 4 * live * H * d, torch.bfloat16)
+    log(f"  flash_decode_paged bf16 B={B} H={H} K={K} d={d} ps={ps} live rows={live}: "
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA on pre-gathered K/V + mask "
         f"{lib:.4f} ms (gather not timed; row relative error vs plain {lib_rel:.3e}), bound "
         f"{bms:.4f} ms ({by})")
-    return _bf16_max(err), \
-        dict(shape=f"B{B} H{H} d{d} ps{ps} live{live}", ms=ms, plain_ms=plain,
-             library_ms=lib, bound_ms=bms, bound_by=by)
+    kv = f" K{K}" if K != H else ""  # earlier rows (K = H) keep their names
+    return dict(shape=f"B{B} H{H}{kv} d{d} ps{ps} live{live}", ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=bms, bound_by=by)
 
 
 def chunk_phase(flush, gen):
@@ -827,18 +874,28 @@ def chunk_phase(flush, gen):
     torch.cuda.synchronize()
     log(f"flash_attention_paged: {len(cases)} cases x (f32, bf16) agree, empty slots exactly 0, "
         f"q views == contiguous q, every slot alone == batched bit for bit; " + _errs(err))
-    H, d, ps, max_len, C, qs, n = 16, 128, 64, 1024, 64, 448, 64
-    npp, P = max_len // ps, 8 * (max_len // ps) + 1
-    k, v = _paged_pools(gen, P, ps, H, d, torch.bfloat16)
+    return _bf16_max(err), _paged_chunk_row(flush, gen, 16, 16, 3)
+
+
+def _paged_chunk_row(flush, gen, H, K, seed):
+    """One bf16 paged chunk-attention call (one slot, a 64-row chunk at
+    q_start 448 with every row valid, H query heads over K kv-heads of 128,
+    a 1024-row table of page size 64) timed beside its plain version, SDPA
+    on K/V gathered from the pages beforehand (causal-at-offset and live
+    rows as a boolean mask; the gather not timed) and the bound.  Returns
+    the row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_paged
+    d, ps, C, qs, n = 128, 64, 64, 448, 64
+    npp, P = 1024 // ps, 8 * (1024 // ps) + 1
+    k, v = _paged_pools(gen, P, ps, K, d, torch.bfloat16)
     q = torch.randn(1, H, C, d, generator=gen, device="cuda").bfloat16()
-    pages = _tables(1, npp, P, 3)
+    pages = _tables(1, npp, P, seed)
     q_start = torch.tensor([qs], dtype=torch.int32, device="cuda")
     k_len = q_start + n
     ms = time_ms(lambda: flash_attention_paged(q, k, v, pages, q_start, k_len), flush)
     plain = time_ms(lambda: ref.flash_attention_paged_ref(q, k, v, pages, q_start,
                                                           k_len), flush)
-    # yardstick: SDPA on K/V gathered from the pages beforehand (gather not
-    # timed), causal-at-offset and live rows as a boolean mask
     kg, vg = _gathered(k, pages), _gathered(v, pages)
     kpos = torch.arange(npp * ps, device="cuda")[None, :]
     qpos = qs + torch.arange(C, device="cuda")[:, None]
@@ -849,15 +906,15 @@ def chunk_phase(flush, gen):
     lib_rel = check_rows("SDPA yardstick paged chunk", lib_fn(), ref.flash_attention_paged_ref(
         q, k, v, pages, q_start, k_len), rtol=math.inf)[1]
     keys = sum(min(qs + n, qs + i + 1) for i in range(C))  # causal pairs
-    n_bytes = 2 * (2 * (qs + n) * H * d + 2 * H * C * d) + 4 * (npp + 2)
+    n_bytes = 2 * (2 * (qs + n) * K * d + 2 * H * C * d) + 4 * (npp + 2)
     bms, by = bound_ms(n_bytes, 4 * H * keys * d, torch.bfloat16)
-    log(f"  flash_attention_paged bf16 C={C} H={H} d={d} q_start={qs} k_len={qs + n}: "
+    log(f"  flash_attention_paged bf16 C={C} H={H} K={K} d={d} q_start={qs} k_len={qs + n}: "
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms, SDPA on pre-gathered K/V + mask "
         f"{lib:.4f} ms (gather not timed; row relative error vs plain {lib_rel:.3e}), bound "
         f"{bms:.4f} ms ({by})")
-    return _bf16_max(err), \
-        dict(shape=f"C{C} H{H} d{d} q_start{qs} k_len{qs + n}", ms=ms, plain_ms=plain,
-             library_ms=lib, bound_ms=bms, bound_by=by)
+    kv = f" K{K}" if K != H else ""  # earlier rows (K = H) keep their names
+    return dict(shape=f"C{C} H{H}{kv} d{d} q_start{qs} k_len{qs + n}", ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=bms, bound_by=by)
 
 
 # ---------------------------------------------------------------------------
@@ -1017,20 +1074,7 @@ def mla_gemm_phase(flush, gen):
     for K, N in MINICPM_INT8_KN:
         for M in MINICPM_INT8_M:
             routes.add(int8_route(M, N, tma_ok=K % 16 == 0))
-            a = torch.randint(-7, 8, (M, K), generator=gen, device="cuda", dtype=torch.int8)
-            b = torch.randint(-7, 8, (N, K), generator=gen, device="cuda", dtype=torch.int8)
-            ones_m, ones_n = torch.ones(M, 1, device="cuda"), torch.ones(1, N, device="cuda")
-            check_close(f"block_gemm_int8 exact {M}x{K}x{N}",
-                        block_gemm_int8(a, b, ones_m, ones_n),
-                        ref.block_gemm_int8_ref(a, b, ones_m, ones_n), 0.0, 0.0)
-            a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda", dtype=torch.int8)
-            b = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
-            sa = torch.rand(M, 1, generator=gen, device="cuda") * 0.01 + 1e-4
-            sb = torch.rand(1, N, generator=gen, device="cuda") * 0.01 + 1e-4
-            for dt in (torch.float32, torch.bfloat16):
-                check_close(f"block_gemm_int8 scaled {dt} {M}x{K}x{N}",
-                            block_gemm_int8(a, b, sa, sb, dt),
-                            ref.block_gemm_int8_ref(a, b, sa, sb, dt), 0.0, 0.0)
+            int8_exact(gen, M, K, N)
             n += 1
     torch.cuda.synchronize()
     log(f"block_gemm_int8 at minicpm3-4b's w8a8 (K, N): {n} shapes exact (integer and scaled, "
@@ -1075,6 +1119,157 @@ def mla_gemm_phase(flush, gen):
             log(f"  block_gemm_int8 M={M} K={K} N={N} (route {route}): kernel {ms:.4f} ms, "
                 f"plain {plain:.4f} ms, torch._int_mm+epilogue{' (A padded to 32 rows)' if M <= 16 else ''} "
                 f"{lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2, MoE (qwen3-moe-30b-a3b): the GEMM and attention shapes of its path
+# ---------------------------------------------------------------------------
+
+# every bf16 GEMM of qwen3-moe-30b-a3b (K, N): wq, wk / wv, wo and the untied
+# head (f32 out); the routers and the experts are the reference's einsums
+# (an f32 matmul, batched matmuls), no kernel
+QWEN_BF16_KN = ((2048, 4096), (2048, 512), (4096, 2048), (2048, 152064))
+# the M they meet: one slot, the decode batch, a chunk buffer, the direct
+# prefill (2 x 300 rows)
+QWEN_M = (1, 8, 64, 600)
+# the M the w8a8 engine's int8 GEMMs meet: decode ticks (1-8) and chunks
+# (64-67, where the 152064-column head turns to the wgmma route)
+QWEN_INT8_M = (1, 4, 8, 64, 67)
+# qwen3's attention: 32 query heads over 4 kv-heads of 128; an engine decode
+# state of the full-width phase (prompts 100-500, 16 tokens in)
+QWEN_H, QWEN_K, QWEN_D = 32, 4, 128
+QWEN_POS = [516, 136, 324, 349, 401, 496, 454, 221]
+
+
+def moe_kernel_phase(flush, gen):
+    """The kernels of the MoE path at qwen3-moe-30b-a3b's shapes.  bf16
+    GEMM at its four (K, N) for M in ``QWEN_M`` against the plain version
+    (``gemm_phase``'s tolerances: bf16 out 1e-4 + 2^-7 relative, f32 out
+    1e-4 + 1e-5), rows bit-identical across M.  int8 GEMM at the same four
+    (K, N) for M in ``QWEN_INT8_M`` exactly (``int8_exact``: the integer
+    and the scaled case, tolerance 0) over every route ``int8_route`` picks
+    for them, rows bit-identical across those M and M = 600.  Paged
+    flash-decode (B = 8, 32 heads over 4, d = 128, page size 64, an empty
+    slot and a frozen full one) and paged chunk attention (C = 64, three
+    slots: a first chunk, one at q_start 448, a partial one); slot
+    flash-decode on the direct loop's linear caches (B = 2, S = 512, both
+    slots live, then one empty; a repeated call bit-equal); dense causal
+    flash attention at the direct prefill (B = 2, S = 300): each in f32 and
+    bf16 against its plain version (``check_attn``), empty slots exactly 0,
+    every paged or slot call's slot alone == batched bit for bit.  Every
+    bf16 GEMM row and both paged attention calls in bf16 timed beside the
+    plain version, the library call (``torch.matmul``; SDPA on K/V
+    gathered from the pages beforehand, the gather not timed) and the
+    bound.  Returns the rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_gemm import block_gemm, gemm_splits, int8_route
+    from repro_torch.kernels.decode_attention import flash_decode, flash_decode_paged
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_paged
+    rows = {"gemm": []}
+    Mx = max(QWEN_M)
+    for K, N in QWEN_BF16_KN:
+        out_dtype = torch.float32 if N == 152064 else torch.bfloat16
+        a = torch.randn(Mx, K, generator=gen, device="cuda").bfloat16()
+        b = (torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)).bfloat16()
+        full = block_gemm(a, b, out_dtype=out_dtype)
+        check_close(f"block_gemm bf16 {Mx}x{K}x{N}", full, ref.block_gemm_ref(a, b, out_dtype),
+                    1e-4, 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5)
+        for M in QWEN_M:
+            am = a[:M].contiguous()
+            if not torch.equal(block_gemm(am, b, out_dtype=out_dtype), full[:M]):
+                fail(f"block_gemm bf16 rows differ between M={M} and M={Mx} at K={K} N={N}")
+            ms = time_ms(lambda: block_gemm(am, b, out_dtype=out_dtype), flush)
+            plain = time_ms(lambda: ref.block_gemm_ref(am, b, out_dtype), flush)
+            lib = time_ms(lambda: torch.matmul(am, b), flush)
+            out_bytes = M * N * (4 if out_dtype == torch.float32 else 2)
+            bms, by = bound_ms(2 * (M * K + K * N) + out_bytes, 2 * M * N * K, torch.bfloat16)
+            rows["gemm"].append(dict(shape=f"{M}x{K}x{N}", ms=ms, plain_ms=plain,
+                                     library_ms=lib, bound_ms=bms, bound_by=by))
+            log(f"  block_gemm bf16 {M}x{K}x{N} (K split {gemm_splits(K, N)}): kernel "
+                f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul {lib:.4f} ms, bound "
+                f"{bms:.4f} ms ({by})")
+    torch.cuda.synchronize()
+    log(f"block_gemm at qwen3-moe's (K, N) {list(QWEN_BF16_KN)}: agree at M = {Mx}, rows "
+        f"bit-identical for M in {QWEN_M}")
+    routes = set()
+    for K, N in QWEN_BF16_KN:
+        for M in QWEN_INT8_M + (Mx,):
+            routes.add(int8_route(M, N, tma_ok=K % 16 == 0))
+            if M != Mx:
+                int8_exact(gen, M, K, N)
+    torch.cuda.synchronize()
+    log(f"block_gemm_int8 at qwen3-moe's w8a8 (K, N): {len(QWEN_BF16_KN) * len(QWEN_INT8_M)} "
+        f"shapes exact (integer and scaled, f32 and bf16 out) for M in {QWEN_INT8_M}; routes "
+        f"{sorted(routes)} with M = {Mx}")
+    int8_row_invariance(gen, [(K, N, Mx) for K, N in QWEN_BF16_KN], QWEN_INT8_M)
+
+    H, K, d, ps, max_len = QWEN_H, QWEN_K, QWEN_D, 64, 1024
+    B, npp = len(QWEN_POS), max_len // ps
+    P = B * npp + 1
+    pages = _tables(B, npp, P, 60)
+    err = {}
+    # decode: the engine state, with an empty slot (start > pos) and a frozen
+    # full one (pos = npp * ps) in place of two of its slots
+    pos = torch.tensor(QWEN_POS[:6] + [1024, 9], dtype=torch.int32, device="cuda")
+    start = torch.tensor([0] * 7 + [10], dtype=torch.int32, device="cuda")
+    # chunk: a first chunk, a chunk at q_start 448, a partial one
+    qs, n = [0, 448, 200], [64, 64, 40]
+    q_start = torch.tensor(qs, dtype=torch.int32, device="cuda")
+    k_len = q_start + torch.tensor(n, dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        k, v = _paged_pools(gen, P, ps, K, d, dtype)
+        q = torch.randn(B, H, d, generator=gen, device="cuda").to(dtype)
+        got = flash_decode_paged(q, k, v, pos, start, pages)
+        err[(dtype, "decode")] = check_attn(f"flash_decode_paged qwen3 {dtype}", got,
+                                            ref.flash_decode_ref(q, k, v, pos, start,
+                                                                 pages=pages), dtype)
+        if float(got[7].abs().max()) != 0.0:
+            fail(f"flash_decode_paged qwen3 {dtype}: the empty slot is not exactly 0")
+        _slot_invariance(f"flash_decode_paged qwen3 {dtype}", lambda sl: flash_decode_paged(
+            q[sl], k, v, pos[sl], start[sl], pages[sl]), B)
+        qc = torch.randn(3, 64, H, d, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+        got = flash_attention_paged(qc, k, v, pages[:3], q_start, k_len)
+        want = ref.flash_attention_paged_ref(qc, k, v, pages[:3], q_start, k_len)
+        e = [check_attn(f"flash_attention_paged qwen3 {dtype} slot {i}", got[i, :, : n[i]],
+                        want[i, :, : n[i]], dtype) for i in range(3)]
+        err[(dtype, "chunk")] = (max(a for a, _ in e), max(r for _, r in e))
+        _slot_invariance(f"flash_attention_paged qwen3 {dtype}", lambda sl: flash_attention_paged(
+            qc[sl], k, v, pages[sl], q_start[sl], k_len[sl]), 3)
+    # the direct loop: slot caches of 512 rows, prompts of 300 plus decode
+    # steps; then one slot empty (start > pos)
+    S = 512
+    slot_cases = (([307, 511], [0, 0]), ([300, 4], [0, 5]))
+    for dtype in (torch.float32, torch.bfloat16):
+        for ci, (pl, sl) in enumerate(slot_cases):
+            q = torch.randn(2, H, d, generator=gen, device="cuda").to(dtype)
+            ks = torch.randn(2, S, K, d, generator=gen, device="cuda").to(dtype)
+            vs = torch.randn(2, S, K, d, generator=gen, device="cuda").to(dtype)
+            p = torch.tensor(pl, dtype=torch.int32, device="cuda")
+            st = torch.tensor(sl, dtype=torch.int32, device="cuda")
+            got = flash_decode(q, ks, vs, p, st)
+            err[(dtype, f"slot{ci}")] = check_attn(f"flash_decode qwen3 {dtype} case {ci}", got,
+                                                   ref.flash_decode_ref(q, ks, vs, p, st), dtype)
+            if not torch.equal(got, flash_decode(q, ks, vs, p, st)):
+                fail(f"flash_decode qwen3 {dtype} case {ci}: a repeated call differs")
+            for i in range(2):
+                if sl[i] > pl[i] and float(got[i].abs().max()) != 0.0:
+                    fail(f"flash_decode qwen3 {dtype}: the empty slot is not exactly 0")
+            _slot_invariance(f"flash_decode qwen3 {dtype} case {ci}", lambda b: flash_decode(
+                q[b], ks[b], vs[b], p[b], st[b]), 2)
+        # the direct prefill: [B, S, heads, d] transposed, as the layers pass it
+        qd, kd, vd = (torch.randn(2, 300, h, d, generator=gen, device="cuda").to(dtype)
+                      .transpose(1, 2) for h in (H, K, K))
+        err[(dtype, "dense")] = check_attn(f"flash_attention qwen3 {dtype}",
+                                           flash_attention(qd, kd, vd),
+                                           ref.flash_attention_ref(qd, kd, vd), dtype)
+    torch.cuda.synchronize()
+    log(f"paged decode and chunk attention, slot decode and dense attention at qwen3's heads "
+        f"(H {H} over K {K}, d {d}, ps {ps}) x (f32, bf16) agree, empty slots exactly 0, every "
+        f"slot alone == batched, repeated slot calls bit-equal; " + _errs(err))
+    rows["attn_max_abs_err_bf16"] = _bf16_max(err)
+    rows["decode"] = _paged_decode_row(flush, gen, H, K, QWEN_POS, [0] * B, 61)
+    rows["chunk"] = _paged_chunk_row(flush, gen, H, K, 62)
     return rows
 
 
@@ -2056,6 +2251,417 @@ def mla_engine_phase(counters, gen):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 6: capacity-routed MoE (qwen3-moe-30b-a3b) through the chunked engine
+# ---------------------------------------------------------------------------
+
+class _MoeRecorder:
+    """Records every eager MoE routing (``layers.moe_route``) by device, in
+    call order: the top-k experts, the kept masks, the capacity and each
+    token's gap between its k-th and (k+1)-th probability.  Eager calls
+    only: a graph replay runs no Python (and a capture must not sync)."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.layers, self.calls = layers, {"cpu": [], "cuda": []}
+
+    def __enter__(self):
+        route = self._route = self.layers.moe_route
+
+        def moe_route(cfg, p, xt):
+            r = route(cfg, p, xt)
+            k = cfg.experts_per_token
+            top = torch.topk(r.probs, k + 1, -1).values
+            self.calls[xt.device.type].append(dict(
+                topi=r.topi.cpu(), kept=r.kept.cpu(), C=r.C,
+                gap=(top[..., k - 1] - top[..., k]).cpu()))
+            return r
+        self.layers.moe_route = moe_route
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe_route = self._route
+
+
+MOE_TIE = 1e-6  # a k-th / (k+1)-th probability gap under which f32 rounding may flip
+
+
+def routing_check(name, rec, strict=True):
+    """The card's MoE routing against the CPU's, call by call.  Top-k
+    experts must be equal, except at a token whose k-th and (k+1)-th
+    probabilities (on the CPU) lie within ``MOE_TIE``: each such token is
+    printed as a witness.  Kept masks must be equal on every choice of an
+    expert no witness touches (a flipped choice moves the slots of both its
+    experts).  ``strict=False`` (w8a8 after an int8 flip upstream) prints
+    the agreement instead of failing.  Returns the witnesses, the calls,
+    the agreement and, per call, the share of dropped choices."""
+    cpu, gpu = rec.calls["cpu"], rec.calls["cuda"]
+    if len(cpu) != len(gpu):
+        fail(f"{name}: {len(cpu)} MoE calls on the CPU, {len(gpu)} on the card")
+    witnesses, same, total, dropped, bad = [], 0, 0, [], None
+    for i, (c, g) in enumerate(zip(cpu, gpu)):
+        flip = (c["topi"] != g["topi"]).any(-1)  # [G, T]
+        touched = torch.zeros(c["topi"].shape[0], int(max(c["topi"].max(), g["topi"].max())) + 1,
+                              dtype=torch.bool)
+        for gi, t in flip.nonzero().tolist():
+            w = dict(call=i, group=gi, token=t, gap=float(c["gap"][gi, t]),
+                     cpu=c["topi"][gi, t].tolist(), card=g["topi"][gi, t].tolist())
+            if w["gap"] > MOE_TIE and bad is None:
+                bad = w
+            witnesses.append(w)
+            touched[gi, c["topi"][gi, t]] = True
+            touched[gi, g["topi"][gi, t]] = True
+        ok = ~torch.gather(touched, 1, c["topi"].flatten(1)).reshape(c["topi"].shape)
+        ok &= c["topi"] == g["topi"]
+        kept_same = bool((c["kept"][ok] == g["kept"][ok]).all())
+        if not kept_same and bad is None:
+            bad = dict(call=i, kept="differs on an untouched expert")
+        same += int((c["topi"] == g["topi"]).all(-1).sum())
+        total += flip.numel()
+        dropped.append(float((~c["kept"]).float().mean()))
+    agree = same / max(total, 1)
+    for w in witnesses[:8]:
+        log(f"{name} routing witness: {json.dumps(w)}")
+    if bad is not None and strict:
+        fail(f"{name}: card and CPU routing differ away from a near-tie: {bad}")
+    return dict(calls=len(cpu), witnesses=len(witnesses), token_agreement=agree,
+                dropped_share=dropped, worst=bad)
+
+
+def moe_reference_check():
+    """Reduced qwen3-moe (f32 compute; 4 experts top-2 of width 32, d_model
+    64; seed-0 weights) on the card's kernels against the CPU's plain
+    versions, in float and w8a8 weights.
+
+    Part 1, the model steps: ``chunk_step`` over a 40-token prompt in 16-row
+    chunks (two slots; the last chunk's zero tail takes capacity), then 12
+    paged ``decode_step``s (gate: ``_card_vs_cpu``: logits within 1e-4, or
+    the flip rule in w8a8; every layer's routing equal by
+    ``routing_check``, in w8a8 once no int8 flip was shown).  Part 2, a small
+    engine, ``EngineConfig(max_batch=4, max_len=128, page_size=16,
+    chunk_tokens=16, decode_chunk=4)``: four prompts of which two share a
+    24-token prefix, 16 greedy tokens each, on the card (decode steps
+    replayed as a CUDA graph) and on the CPU.  Gate: equal greedy tokens
+    (w8a8: the flip rule)."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, EngineConfig, check_invariants
+    cfg = reduce_config(get_config("qwen3-moe-30b-a3b"))
+    V = cfg.vocab_size
+    rng = np.random.RandomState(7)
+    B, ps, npp, S, C, steps = 2, 16, 4, 40, 16, 12
+    toks = torch.from_numpy(rng.randint(0, V, (B, S + steps)).astype(np.int32))
+    pages = torch.from_numpy(rng.permutation(np.arange(1, B * npp + 1))
+                             .reshape(B, npp).astype(np.int32))
+    prefix = rng.randint(0, V, 24).tolist()
+    prompts = [prefix + rng.randint(0, V, 10).tolist(), rng.randint(0, V, 30).tolist(),
+               prefix + rng.randint(0, V, 5).tolist(), rng.randint(0, V, 45).tolist()]
+    out = {}
+    for quant in ("none", "w8a8"):
+        p_cpu = M.init(cfg, seed=0, device="cpu")
+        if quant == "w8a8":
+            p_cpu = M.quantize_params(cfg, p_cpu)
+        params = {"cpu": p_cpu, "cuda": _to_cuda(p_cpu)}
+        caches = {d: M.init_paged_cache(cfg, B, B * npp + 1, ps, device=d) for d in params}
+        pairs = []
+        with _Int8Recorder() as rec, _MoeRecorder() as mrec:
+            for past in range(0, S, C):
+                n = min(C, S - past)
+                buf = torch.zeros(B, C, dtype=torch.int32)
+                buf[:, :n] = toks[:, past: past + n]
+                lg = {d: M.chunk_step(cfg, params[d], caches[d], buf.to(d), pages.to(d),
+                                      past, n)[0].cpu() for d in params}
+                pairs.append((lg["cpu"], lg["cuda"]))
+            for i in range(steps):
+                pos = torch.full((B,), S + i, dtype=torch.int32)
+                lg = {d: M.decode_step(cfg, params[d], caches[d], toks[:, S + i: S + i + 1].to(d),
+                                       pos.to(d), pages=pages.to(d))[0].cpu() for d in params}
+                pairs.append((lg["cpu"], lg["cuda"]))
+        res = _card_vs_cpu("reduced qwen3-moe paged", quant, pairs, rec)
+        flipped = res["witness"] is not None and res["witness"]["first_flip"] is not None
+        res["routing"] = routing_check(f"reduced qwen3-moe {quant}", mrec, strict=not flipped)
+        econf = EngineConfig(max_batch=4, max_len=128, page_size=ps, chunk_tokens=C,
+                             decode_chunk=4, quant=None if quant == "none" else quant)
+        gens = {}
+        for d in params:
+            eng = Engine(cfg, params[d], econf, device=d)
+            rids = [eng.submit(p, max_new=16) for p in prompts]
+            by = {r.rid: r for r in eng.run()}
+            gens[d] = [by[r].generated for r in rids]
+            if eng.stats.prefix_hit_tokens < 16 or check_invariants(
+                    eng.pool, eng.radix, tables=eng.sched.owned):
+                fail(f"reduced qwen3-moe engine {quant} on {d}: no prefix hit or bad paging "
+                     f"state")
+            if d == "cuda" and eng.runner.graph.replays == 0:
+                fail("reduced qwen3-moe engine: the decode graph was never replayed")
+        agree = statistics.mean(float(np.mean(np.array(a) == np.array(b)))
+                                for a, b in zip(gens["cpu"], gens["cuda"]))
+        if (agree < 1.0 and not flipped) or agree < 0.9:
+            fail(f"reduced qwen3-moe engine {quant}: card and CPU greedy tokens agree at "
+                 f"{agree:.4f} (flip shown: {flipped})")
+        res["engine_token_agreement"] = agree
+        out[quant] = res
+        log(f"reduced qwen3-moe paged {quant}, card kernels vs CPU plain versions: 3 chunks + "
+            f"{steps} paged decode steps, max logits gap {res['gap']:.3e} (bound "
+            f"{res['bound']:g}), argmax agreement {res['argmax_agreement']:.4f}, routing of "
+            f"{res['routing']['calls']} MoE calls equal at {res['routing']['token_agreement']:.4f} "
+            f"of tokens ({res['routing']['witnesses']} near-tie witnesses); engine (4 requests "
+            f"x 16 tokens, radix hits, decode graph on the card) greedy tokens card == CPU at "
+            f"{agree:.4f} of positions")
+    return out
+
+
+def moe_layer_check(gen):
+    """One full-width MoE layer (qwen3-moe-30b-a3b's: d_model 2048, 128
+    experts top-8 of width 768; weights from seed 11 by the model's init
+    rules) in f32 on the card and on the CPU, at T = 8 (a decode batch), 64
+    (a chunk buffer) and 600 (the direct prefill, 2 x 300), inputs of unit
+    RMS like the normed hidden state.  Gates: routing by ``routing_check``
+    (top-k experts and kept masks equal but at near-ties, each printed);
+    outputs within 1e-5 x the output's max abs (f32 sums in other orders),
+    over the tokens no near-tie witness touches.  Prints the share of
+    dropped (token, choice) pairs at each T."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.params import init_params
+    cfg = get_config("qwen3-moe-30b-a3b").with_(compute_dtype=torch.float32)
+    p = {"cuda": init_params(L.moe_specs(cfg), torch.Generator(device="cuda").manual_seed(11),
+                             torch.float32)}
+    p["cpu"] = {k: v.cpu() for k, v in p["cuda"].items()}
+    out = {}
+    for name, (B, S) in (("decode", (8, 1)), ("chunk", (1, 64)), ("prefill", (2, 300))):
+        x = torch.randn(B, S, cfg.d_model, generator=gen, device="cuda")
+        with _MoeRecorder() as rec:
+            y = {d: L.moe_forward(cfg, p[d], x.to(d))[0].cpu() for d in ("cpu", "cuda")}
+        route = routing_check(f"qwen3-moe layer T={B * S}", rec)
+        c = rec.calls["cpu"][0]
+        ok = torch.ones(B * S, dtype=torch.bool)
+        if route["witnesses"]:  # leave out every token routed to a flipped expert
+            g = rec.calls["cuda"][0]
+            hit = set()
+            for t in ((c["topi"] != g["topi"]).any(-1))[0].nonzero().flatten().tolist():
+                hit |= set(c["topi"][0, t].tolist()) | set(g["topi"][0, t].tolist())
+            ok = ~torch.isin(c["topi"][0], torch.tensor(sorted(hit))).any(-1)
+        ref_, got = y["cpu"].reshape(B * S, -1)[ok], y["cuda"].reshape(B * S, -1)[ok]
+        scale = float(y["cpu"].abs().max())
+        gap = float((got - ref_).abs().max())
+        if not bool(torch.isfinite(y["cuda"]).all()) or gap > 1e-5 * scale:
+            fail(f"qwen3-moe layer T={B * S}: card vs CPU output gap {gap:.3e} over "
+                 f"1e-5 x max abs {scale:.3e}")
+        out[name] = dict(T=B * S, C=c["C"], dropped_share=route["dropped_share"][0],
+                         gap=gap, max_abs=scale, witnesses=route["witnesses"],
+                         min_tie_gap=float(c["gap"].min()))
+        log(f"qwen3-moe layer, card vs CPU (f32) at T = {B * S} (C = {c['C']}): routing equal"
+            f" ({route['witnesses']} near-tie witnesses; smallest k-th / (k+1)-th gap "
+            f"{out[name]['min_tie_gap']:.3e}), output gap {gap:.3e} (bound 1e-5 x {scale:.3e}); "
+            f"dropped (token, choice) pairs {out[name]['dropped_share']:.4f}")
+    return out
+
+
+# the kernels of the MoE engine path: the bf16 GEMM (attention projections
+# and the head) and both paged attention kernels; the routers and the
+# experts are matmuls (the reference's einsums)
+MOE_PATH = ("block_gemm", "flash_attention_paged", "flash_decode_paged")
+
+
+def moe_engine_phase(counters, gen):
+    """Full-width, full-depth qwen3-moe-30b-a3b (48 layers, 128 experts
+    top-8, seeded random bf16 weights drawn on the card) through
+    ``repro_torch.serving.Engine``, after ``moe_reference_check`` and
+    ``moe_layer_check``: 8 greedy requests (prompts 308-500 tokens, four
+    sharing a 288-token prefix: radix hits and a copy-on-write page), 32
+    new, ``EngineConfig(max_batch=8, max_len=1024, page_size=64,
+    chunk_tokens=64, decode_chunk=8)``.  Gates: every request LENGTH with 32
+    in-vocabulary tokens; a prefix hit and a page copy; the bf16 GEMM and
+    both paged attention kernels launched and no other kernel, paged decode
+    once a layer a replay; one replay a mixed tick and ``decode_chunk`` a
+    decode tick; the pool reconciles; ``graph_check``; a traced decode tick
+    as ``trace_ticks``.
+
+    No solo == batched gate: MoE capacity is shared by every row of a call
+    (the reference's semantics), so a request's tokens depend on its
+    neighbours whenever an expert overflows.  The card-vs-CPU checks above
+    stand in for it.
+
+    Then a short w8a8 pass (4 requests x 16 tokens: the int8 GEMM carries
+    wq, wk, wv, wo and the head, 2 quantize launches for every 4 int8 GEMMs
+    a layer; the router (f32) and the experts (bf16) stay the tensors they were;
+    its graph checked) and the direct ``prefill(cache_len=512)`` -> 8
+    greedy ``decode_step``s (B = 2 x 300 tokens: dense flash attention and
+    slot decode once a layer)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, EngineConfig, FinishReason, check_invariants
+    names = {c.__name__: c for c in counters}
+    summary = dict(reference=moe_reference_check(), layer=moe_layer_check(gen))
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("qwen3-moe-30b-a3b")
+    t0 = time.time()
+    params = M.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    summary["memory"] = dict(free_before_init_gib=free / 2 ** 30, total_gib=total / 2 ** 30,
+                             weights_gib=w_bytes / 2 ** 30, init_s=init_s)
+    log(f"qwen3-moe-30b-a3b: {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+        f"heads over {cfg.num_kv_heads}, {cfg.num_experts} experts top-{cfg.experts_per_token} "
+        f"of width {cfg.moe_d_ff}, vocab {cfg.vocab_size} -> {cfg.padded_vocab}; "
+        f"{n_params / 1e9:.3f} B parameters, {w_bytes / 1e9:.2f} GB (bf16, routers f32), "
+        f"init {init_s:.1f} s; device memory free before init {free / 2 ** 30:.2f} of "
+        f"{total / 2 ** 30:.2f} GiB")
+    econf = EngineConfig(max_batch=8, max_len=1024, page_size=64, chunk_tokens=64,
+                         decode_chunk=8)
+    rng = np.random.RandomState(8)
+    V, L = cfg.vocab_size, cfg.num_layers
+    prefix = rng.randint(0, V, 288).tolist()  # 4 pages + half a page (copy-on-write)
+    shared = [prefix + rng.randint(0, V, n).tolist() for n in (212, 20, 97, 150)]
+    other = [rng.randint(0, V, n).tolist() for n in (120, 333, 480, 205)]
+    prompts = [x for pair in zip(shared, other) for x in pair]
+    max_new = 32
+    for c in counters:
+        c.launches = 0
+    eng = Engine(cfg, params, econf)
+    copies = []
+    copy_page = eng.runner.copy_page
+    eng.runner.copy_page = lambda src, dst: (copies.append((src, dst)), copy_page(src, dst))
+    t0 = time.time()
+    rids = [eng.submit(p, max_new=max_new) for p in prompts]
+    results = {r.rid: r for r in eng.run()}
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {c.__name__: c.launches for c in counters}
+    for rid in rids:
+        r = results[rid]
+        if r.finish_reason != FinishReason.LENGTH or len(r.generated) != max_new \
+                or not all(0 <= t < V for t in r.generated):
+            fail(f"qwen3-moe rid {rid}: {r.finish_reason} with {len(r.generated)} tokens")
+    st, graph = eng.stats, eng.runner.graph
+    if st.prefix_hit_tokens <= 0 or not copies:
+        fail(f"qwen3-moe engine: {st.prefix_hit_tokens} prefix-hit tokens, {len(copies)} page "
+             f"copies")
+    for n, c in launches.items():
+        if (n in MOE_PATH) != (c > 0):
+            fail(f"qwen3-moe engine: {n} launched {c} times (the path: {MOE_PATH})")
+    per_replay = {c.__name__: n for c, n in graph.per_replay.items()}
+    if graph.replays != st.chunks * econf.decode_chunk + st.mixed_steps \
+            or per_replay.get("flash_decode_paged") != L:
+        fail(f"qwen3-moe engine: {graph.replays} replays for {st.chunks} decode ticks and "
+             f"{st.mixed_steps} mixed ticks, {per_replay} launches a replay")
+    bad = check_invariants(eng.pool, eng.radix, tables=eng.sched.owned)
+    if bad:
+        fail("qwen3-moe paging state: " + "; ".join(bad))
+    ttft = sorted(r.ttft_s for r in results.values())
+    # the first tick (a mixed one) captured the graph: its capture is
+    # reported apart, not spread over the mixed ticks
+    summary.update(
+        tokens_per_s=st.tokens_out / wall, wall_s=wall,
+        ttft_p50_ms=statistics.median(ttft) * 1e3,
+        mixed_tick_ms=(st.prefill_s - graph.capture_s) / max(st.mixed_steps, 1) * 1e3,
+        decode_tick_ms=st.decode_s / max(st.chunks, 1) * 1e3, mixed_ticks=st.mixed_steps,
+        decode_ticks=st.chunks, capture_ms=graph.capture_s * 1e3,
+        prefix_hit_tokens=st.prefix_hit_tokens, page_copies=len(copies),
+        launches=launches, per_replay=per_replay, peak_gib=peak / 2 ** 30)
+    log(f"qwen3-moe engine: {len(prompts)} requests, {st.tokens_out} tokens in {wall:.3f} s "
+        f"({summary['tokens_per_s']:.2f} tokens/s end to end), TTFT p50 "
+        f"{summary['ttft_p50_ms']:.1f} ms, {st.mixed_steps} mixed ticks at "
+        f"{summary['mixed_tick_ms']:.2f} ms without the capture, {st.chunks} decode ticks "
+        f"x{econf.decode_chunk} at {summary['decode_tick_ms']:.2f} ms; capture "
+        f"{summary['capture_ms']:.1f} ms; prefix hit {st.prefix_hit_tokens} tokens, "
+        f"{len(copies)} copy-on-write page copies; launches {json.dumps(launches)}; "
+        f"{json.dumps(per_replay)} a replay")
+    log(f"qwen3-moe: peak device memory {peak / 2 ** 30:.2f} GiB after the engine run "
+        f"(weights {w_bytes / 2 ** 30:.2f} GiB)")
+    B, npp = econf.max_batch, econf.cache_spec().pages_per_seq
+    table = torch.from_numpy(rng.permutation(np.arange(1, econf.n_pages))[: B * npp]
+                             .reshape(B, npp).astype(np.int32))
+    poison = torch.zeros(B, dtype=torch.bool)
+    poison[5] = True
+    cur = torch.from_numpy(rng.randint(0, V, B).astype(np.int32))
+    graphs = {"bf16": graph_check("engine qwen3-moe bf16 pools", graph, lambda: graph.load(
+        cur, torch.tensor([0, 63, 64, 300, 511, 700, 1000, 1023], dtype=torch.int32),
+        table, poison), gen)}
+    del eng, graph, copy_page
+    summary["trace"] = trace_ticks(Engine(cfg, params, econf), prompts, max_new, summary,
+                                   counters)
+    qconf = EngineConfig(max_batch=4, max_len=1024, page_size=64, chunk_tokens=64,
+                         decode_chunk=8, quant="w8a8")
+    qeng = Engine(cfg, params, qconf)
+    for si, stage in enumerate(qeng.params["stages"]):
+        for gi, layer in stage.items():
+            if any(w is not params["stages"][si][gi]["ffn"][n] for n, w in layer["ffn"].items()):
+                fail("qwen3-moe w8a8: the MoE weights are not the float tensors they were")
+    for c in counters:
+        c.launches = 0
+    t0 = time.time()
+    qrids = [qeng.submit(p, max_new=16) for p in prompts[:4]]
+    qres = {r.rid: r for r in qeng.run()}
+    torch.cuda.synchronize()
+    qwall = time.time() - t0
+    qlaunch = {c.__name__: c.launches for c in counters}
+    for rid in qrids:
+        if len(qres[rid].generated) != 16 or not all(0 <= t < V for t in qres[rid].generated):
+            fail(f"qwen3-moe w8a8 engine rid {rid}: bad output {qres[rid].generated}")
+    # a forward pass (a chunk or a decode step): 4 int8 GEMMs a layer and the
+    # head's, after 2 quantize launches a layer (q/k/v share one) and the
+    # head's; no bf16 GEMM is left
+    n_gemm, n_quant = 4 * L + 1, 2 * L + 1
+    if qlaunch["block_gemm_int8"] <= 0 or qlaunch["block_gemm"] != 0 \
+            or qlaunch["quantize_rows"] * n_gemm != qlaunch["block_gemm_int8"] * n_quant:
+        fail(f"qwen3-moe w8a8 engine launches {qlaunch}: the int8 GEMM must carry every GEMM, "
+             f"{n_quant} quantize launches for every {n_gemm}")
+    log(f"qwen3-moe engine w8a8: 4 requests x 16 tokens in {qwall:.3f} s; launches "
+        f"{json.dumps(qlaunch)}; the router and the experts stay the bf16 / f32 tensors")
+    qg, qB = qeng.runner.graph, qconf.max_batch
+    qtable = torch.from_numpy(rng.permutation(np.arange(1, qconf.n_pages))[: qB * npp]
+                              .reshape(qB, npp).astype(np.int32))
+    graphs["w8a8"] = graph_check("engine qwen3-moe w8a8 pools", qg, lambda: qg.load(
+        cur[:qB], torch.tensor([5, 64, 400, 1023], dtype=torch.int32), qtable,
+        poison[:qB]), gen)
+    del qeng, qg
+    summary["w8a8"] = dict(wall_s=qwall, launches=qlaunch)
+    summary["graph_per_replay"] = graphs
+    # the direct loop on linear slot caches: prefill(cache_len) -> 8 steps
+    Bd, Sd, steps, cache_len = 2, 300, 8, 512
+    toks = torch.from_numpy(rng.randint(0, V, (Bd, Sd)).astype(np.int32)).cuda()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits, caches = M.prefill(cfg, params, toks, cache_len=cache_len)
+    torch.cuda.synchronize()
+    t_pre = time.time() - t0
+    pre = {n: c.launches for n, c in names.items()}
+    t0 = time.time()
+    for i in range(steps):
+        tok = torch.argmax(logits[:, -1, :V], -1).to(torch.int32)[:, None]
+        logits, caches = M.decode_step(cfg, params, caches, tok, Sd + i)
+        if logits.shape != (Bd, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+            fail(f"qwen3-moe direct decode step {i}: shape {tuple(logits.shape)} or "
+                 f"non-finite logits")
+    torch.cuda.synchronize()
+    t_step = (time.time() - t0) / steps
+    direct = {n: c.launches for n, c in names.items()}
+    kc = caches[0]["0"]["k"]
+    if tuple(kc.shape) != (L, Bd, cache_len, cfg.num_kv_heads, cfg.head_dim) \
+            or pre["flash_attention"] != L or direct["flash_attention"] != L \
+            or pre["flash_decode"] != 0 or direct["flash_decode"] != steps * L \
+            or direct["flash_decode_paged"] or direct["flash_attention_paged"]:
+        fail(f"qwen3-moe direct loop: cache {tuple(kc.shape)}, launches after the prefill "
+             f"{pre}, after {steps} steps {direct}")
+    summary["direct"] = dict(prefill_ms=t_pre * 1e3, eager_step_ms=t_step * 1e3,
+                             launches=direct)
+    log(f"qwen3-moe direct loop: prefill {Bd}x{Sd} (cache_len {cache_len}) in "
+        f"{t_pre * 1e3:.1f} ms, {steps} eager decode steps on the slot caches at "
+        f"{t_step * 1e3:.2f} ms; launches {json.dumps(direct)}")
+    return launches, summary
+
+
 def _device_us(event) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
@@ -2183,6 +2789,7 @@ def main() -> int:
     errs["flash_attention_paged"], rows["flash_attention_paged"] = chunk_phase(flush, gen)
     mla_err, mla_rows = mla_decode_phase(flush, gen)
     mla_gemm_rows = mla_gemm_phase(flush, gen)
+    moe_rows = moe_kernel_phase(flush, gen)
     del flush
     edge_launch, report["edge"] = edge_phase(counters, gen)
     for n in ("block_gemm_int8", "quantize_rows", "flash_attention", "flash_decode"):
@@ -2193,6 +2800,10 @@ def main() -> int:
         launches[n] = eng_launch[n]
     _, report["mla"] = mla_engine_phase(counters, gen)
     report["mla"].update(decode_max_abs_err_bf16=mla_err, decode=mla_rows, gemm=mla_gemm_rows)
+    gc.collect()  # every earlier phase's model, pools and graphs go before the 61 GB MoE
+    torch.cuda.empty_cache()
+    _, moe = moe_engine_phase(counters, gen)
+    moe["rows"] = moe_rows
 
     def pick(name, shape):  # the row's contract keys
         row = next(r for r in rows[name] if r["shape"] == shape)
@@ -2244,6 +2855,7 @@ def main() -> int:
              max_abs_err=mla_err, **mla_rows["paged"]),
         dict(name="flash_decode", launches=mla["direct"]["launches"]["flash_decode"],
              max_abs_err=mla_err, **mla_rows["slot"])]}))
+    log(json.dumps({"moe": moe}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

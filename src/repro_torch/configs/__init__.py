@@ -6,12 +6,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import (cgra_edge, deepseek_67b, gemma3_4b, minicpm3_4b,
-                                 olmo_1b)
+                                 olmo_1b, qwen3_moe_30b_a3b)
 from repro_torch.configs.base import ArchConfig, LayerSpec, Stage, build_stages
 
 REGISTRY: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (olmo_1b, deepseek_67b, cgra_edge, gemma3_4b, minicpm3_4b)
+    for m in (olmo_1b, deepseek_67b, cgra_edge, gemma3_4b, minicpm3_4b,
+              qwen3_moe_30b_a3b)
 }
 
 
@@ -49,6 +50,8 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
     if cfg.use_mla:
         kw.update(q_lora_rank=32, kv_lora_rank=16, qk_nope_dim=8, qk_rope_dim=8,
                   v_head_dim=16, head_dim=16)
+    if cfg.num_experts:
+        kw.update(num_experts=4, experts_per_token=2, moe_d_ff=32)
     if cfg.window_size:
         kw.update(window_size=32)
     return cfg.with_(**kw).with_(name=cfg.name + "-smoke")

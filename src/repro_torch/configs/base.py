@@ -87,11 +87,19 @@ class ArchConfig:
     qk_rope_dim: int = 0
     v_head_dim: int = 0
 
+    # MoE FFN: capacity-routed top-k over ``num_experts`` SwiGLU experts of
+    # width ``moe_d_ff`` on every ``moe_every``-th layer, tokens routed in
+    # ``num_moe_groups`` dispatch groups
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    moe_every: int = 1
+    capacity_factor: float = 1.0
+    num_moe_groups: int = 1
+
     # structural families the port does not serve yet: kept so that
     # layer_specs / reduce_config match the JAX config, and so that a config
     # using them is refused
-    num_experts: int = 0
-    moe_every: int = 1
     ssm_every: int = 0
     cross_every: int = 0
     vision_tokens: int = 0

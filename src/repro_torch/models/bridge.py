@@ -4,7 +4,8 @@ port's parameters.
 The flat form is the one ``repro.checkpoint`` writes to ``arrays.npz``:
 ``"/"``-joined tree paths (``"embed"``, ``"stages/0/0/mixer/wq"``,
 ``"lm_head"``) mapping to numpy arrays.  Both packages keep the same
-stacked layout, so each leaf crosses as it is, cast to the compute dtype.
+stacked layout, so each leaf crosses as it is, cast to its spec's dtype
+(the compute dtype unless the spec names one: a MoE router stays f32).
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ def params_from_numpy(cfg: ArchConfig, flat: dict, device=None) -> dict:
                 raise ValueError(f"weight {key!r}: shape {tuple(t.shape)} != "
                                  f"{tuple(tree.shape)}")
             used.add(key)
-            return t.to(device=dev, dtype=cfg.compute_dtype).contiguous()
+            return t.to(device=dev, dtype=tree.dtype or cfg.compute_dtype).contiguous()
         if isinstance(tree, dict):
             return {k: walk(v, path + [k]) for k, v in tree.items()}
         return [walk(v, path + [str(i)]) for i, v in enumerate(tree)]

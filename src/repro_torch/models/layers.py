@@ -19,10 +19,13 @@ writing that row's old value back (:func:`_slot_write`).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import round_up
 from repro_torch.core.cache import CacheLayout
 from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8, quantize_act
 from repro_torch.core.quant import QTensor
@@ -503,3 +506,135 @@ def ffn_forward(cfg: ArchConfig, p: dict, x):
     act = (F.gelu(g, approximate="tanh") if ffn_kind(cfg) == "geglu"
            else F.silu(g))
     return dense_proj(cfg, act * u, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN — capacity-factor top-k dispatch (Switch-style)
+# ---------------------------------------------------------------------------
+
+def moe_specs(cfg: ArchConfig) -> dict:
+    """The router (f32, its own dtype in the reference too) and ``E``
+    stacked SwiGLU experts."""
+    D, Fdim, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    return {
+        "router": ParamSpec((D, E), ("embed", "experts"), "normal", F32),
+        "w_gate": ParamSpec((E, D, Fdim), ("experts", "embed", "ffn")),
+        "w_up": ParamSpec((E, D, Fdim), ("experts", "embed", "ffn")),
+        "w_down": ParamSpec((E, Fdim, D), ("experts", "ffn", "embed")),
+    }
+
+
+def moe_capacity(cfg: ArchConfig, tokens_per_group: int) -> int:
+    """Slots per expert and group: ``T * k * capacity_factor / E``, at
+    least 4 and a multiple of 4 (the reference's arithmetic)."""
+    c = int(tokens_per_group * cfg.experts_per_token * cfg.capacity_factor
+            / cfg.num_experts)
+    return max(4, round_up(max(c, 1), 4))
+
+
+class MoeRoute(NamedTuple):
+    """Routing of one MoE call over xt [G, T, D]: ``probs`` [G, T, E] f32,
+    the top-k experts ``topi`` [G, T, k] (descending probability) with
+    their renormalised weights ``topw``, each choice's slot ``pos`` within
+    its expert (a choice at ``pos >= C`` is dropped) and the capacity
+    ``C``."""
+    probs: torch.Tensor
+    topi: torch.Tensor
+    topw: torch.Tensor
+    pos: torch.Tensor
+    C: int
+
+    @property
+    def kept(self):
+        return self.pos < self.C
+
+
+def moe_route(cfg: ArchConfig, p: dict, xt) -> MoeRoute:
+    """The router of :func:`moe_forward`.  Logits ``xt @ router`` in f32,
+    as the reference's einsum (with TF32 off, as everywhere in the port: a
+    TF32 router flips top-k choices).  Then softmax, top-k, weights
+    renormalised.  Slots go by first-choice priority: a
+    choice's slot is the count of earlier choices of its expert in (k, t)
+    order, so every token's first choice is placed before any second
+    choice.
+
+    ``torch.topk`` does not promise the lower index on a tie, as
+    ``lax.top_k`` does: the two frameworks agree wherever the k-th and
+    (k+1)-th probabilities differ.  The one-hot is a comparison with
+    ``arange(E)`` (no ``F.one_hot``: it checks its input on the device and
+    syncs, which a CUDA graph cannot capture)."""
+    G, T, D = xt.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    probs = torch.softmax(xt.float() @ p["router"].float(), -1)
+    topw, topi = torch.topk(probs, k, -1)  # [G, T, k]
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+    sel = topi.transpose(1, 2).reshape(G, k * T)  # priority-major (k, t)
+    onehot = sel[..., None] == torch.arange(E, device=xt.device)  # [G, kT, E]
+    count = torch.cumsum(onehot, 1)  # choices of each expert so far, this one included
+    pos = torch.gather(count, 2, sel[..., None]).reshape(G, k, T).transpose(1, 2) - 1
+    return MoeRoute(probs, topi, topw, pos, moe_capacity(cfg, T))
+
+
+def moe_forward(cfg: ArchConfig, p: dict, x):
+    """x: [B, S, D] -> (out [B, S, D], route).  The reference's capacity-routed
+    MoE (``repro.models.layers.moe_forward``, its unsharded expert block):
+    tokens in ``G = max(1, min(num_moe_groups, B*S))`` groups of T, routed
+    by :func:`moe_route`, ``C = moe_capacity(T)`` slots per expert and
+    group.  Every row of x takes capacity, padding and idle rows included
+    (a chunk buffer's zero tail, a decode batch's frozen and empty slots),
+    as the reference's callers feed it.
+
+    Dispatch gathers each slot's token row ([E, G*C, D]; an empty slot is a
+    zero row); every expert runs SwiGLU on all its slots (batched matmuls
+    summing in f32, rounded to the compute dtype, as the reference's
+    ``preferred_element_type=F32`` einsums).  The combine is a gather: each
+    token adds ``out_slot * weight`` (each product rounded to the compute
+    dtype) over its kept choices in ascending expert order, rounding after
+    each add -- the order of the reference's scatter-add over slots, with
+    no float atomics (``index_add_`` on the card is not deterministic).
+    The token -> slot inversion is an integer ``scatter_`` with dropped
+    choices sent to a trash slot; nothing here syncs with the host, so the
+    decode step captures.  The reference's second result, the aux loss,
+    is :func:`moe_aux` of the returned route (serving does not need it)."""
+    B, S, D = x.shape
+    E, k, dt = cfg.num_experts, cfg.experts_per_token, cfg.compute_dtype
+    G = max(1, min(cfg.num_moe_groups, B * S))
+    T = (B * S) // G
+    dev = x.device
+    xt = x.reshape(G, T, D)
+    r = moe_route(cfg, p, xt)
+    C, GC = r.C, G * r.C
+    # slot of each choice as a row of the [E, G, C] expert batch; E*G*C is
+    # the trash row / the zero row of the combine
+    grp = torch.arange(G, device=dev)[:, None, None]
+    row = torch.where(r.kept, r.topi * GC + grp * C + r.pos, E * GC)  # [G, T, k]
+    tok = (torch.arange(G * (T + 1), device=dev).reshape(G, T + 1)[:, 1:, None]
+           .expand(G, T, k))  # the token's row in x_pad
+    slot_tok = torch.zeros(E * GC + 1, dtype=torch.int64, device=dev)
+    slot_tok.scatter_(0, row.reshape(-1), tok.reshape(-1))
+    # x_pad: every group's row 0 is zero (an empty slot points there, to the
+    # first group's: also zero)
+    xd = xt.to(dt)
+    x_pad = torch.cat([xd.new_zeros(G, 1, D), xd], 1).reshape(-1, D)
+    ein = x_pad.index_select(0, slot_tok[:-1]).view(E, GC, D)
+    g = torch.bmm(ein, p["w_gate"])
+    u = torch.bmm(ein, p["w_up"])
+    eout = torch.bmm(F.silu(g) * u, p["w_down"]).view(E * GC, D)
+    eout = torch.cat([eout, eout.new_zeros(1, D)])
+    order = torch.argsort(r.topi, -1)  # each token's choices by expert id
+    rows = torch.gather(row, -1, order)
+    w = torch.gather(r.topw, -1, order).to(dt)
+    terms = eout.index_select(0, rows.reshape(-1)).view(G, T, k, D) * w[..., None]
+    out = terms[:, :, 0]
+    for j in range(1, k):
+        out = out + terms[:, :, j]
+    return out.reshape(B, S, D), r
+
+
+def moe_aux(cfg: ArchConfig, r: MoeRoute):
+    """The Switch load-balancing loss of one :func:`moe_forward` call,
+    ``E * sum_e f_e * p_e``: f_e the share of all (token, choice) pairs
+    that chose e, dropped ones included; p_e the mean router probability."""
+    E = cfg.num_experts
+    load = (r.topi[..., None] == torch.arange(E, device=r.topi.device)).sum((0, 1, 2))
+    return E * torch.sum(r.probs.mean((0, 1)) * (load.to(F32) / r.topi.numel()))

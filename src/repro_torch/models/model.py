@@ -6,8 +6,8 @@ steps.
 Weights keep the JAX package's stacked layout — one leading layer axis per
 stage — so the weight bridge is a plain reshape; the ``lax.scan`` over that
 axis becomes a Python loop.  Only attention mixers (GQA, or MLA when
-``cfg.use_mla``) with a dense FFN are ported; every other mixer or FFN
-raises ``NotImplementedError``.  Caches are updated in place by the decode
+``cfg.use_mla``) with a dense or a capacity-routed MoE FFN are ported;
+every other mixer or FFN raises ``NotImplementedError``.  Caches are updated in place by the decode
 and chunk steps.
 """
 from __future__ import annotations
@@ -32,16 +32,17 @@ F32 = torch.float32
 # ---------------------------------------------------------------------------
 
 def _check_layer(spec: LayerSpec):
-    if spec.mixer not in ("attn_global", "attn_local") or spec.ffn != "dense":
+    if spec.mixer not in ("attn_global", "attn_local") or spec.ffn not in ("dense", "moe"):
         raise NotImplementedError(
-            f"layer {spec} is not ported yet (attention + dense FFN only)")
+            f"layer {spec} is not ported yet (attention + dense or MoE FFN only)")
 
 
 def _layer_param_specs(cfg: ArchConfig, spec: LayerSpec) -> dict:
     _check_layer(spec)
     mixer = L.mla_specs(cfg) if cfg.use_mla else L.attn_specs(cfg)
+    ffn = L.moe_specs(cfg) if spec.ffn == "moe" else L.ffn_specs(cfg)
     return {"norm1": L.norm_specs(cfg), "mixer": mixer,
-            "norm2": L.norm_specs(cfg), "ffn": L.ffn_specs(cfg)}
+            "norm2": L.norm_specs(cfg), "ffn": ffn}
 
 
 def param_specs(cfg: ArchConfig) -> dict:
@@ -73,8 +74,9 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
 # w8a8 weight quantization (one-time, at load)
 # ---------------------------------------------------------------------------
 
-# every weight consumed by ``layers.dense_proj``; norm scales and the
-# embedding table stay float
+# every weight consumed by ``layers.dense_proj``; norm scales, the
+# embedding table and a MoE FFN's router and experts (batched matmuls, not
+# ``dense_proj``) stay float
 _QUANT_NAMES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                           "w1", "w2", "wq_a", "wkv_a", "lm_head"})
 
@@ -99,8 +101,12 @@ def quantize_params(cfg: ArchConfig, params: dict) -> dict:
     int8 kernel: q [R, N, K] (stacked layers; the transpose of the JAX
     [K, N] operand) and scale [R, 1, N].  A tied head gets its own int8
     copy ``lm_head_q`` (q [Vp, D] — the embedding table's own layout); the
-    embedding stays float for the gather.  Idempotent.  Inference only."""
+    embedding stays float for the gather.  A MoE FFN (a dict holding
+    ``"router"``) passes through as the same tensors, not copies.
+    Idempotent.  Inference only."""
     def walk(tree):
+        if "router" in tree:
+            return tree
         out = {}
         for name, v in tree.items():
             if isinstance(v, dict):
@@ -261,7 +267,11 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
         raise ValueError(f"unknown mode {mode!r}")
     x = x + m
     h = L.apply_norm(cfg, p["norm2"], x)
-    return x + L.ffn_forward(cfg, p["ffn"], h), cache
+    if spec.ffn == "moe":
+        f, _ = L.moe_forward(cfg, p["ffn"], h)  # route: moe_aux, for training
+    else:
+        f = L.ffn_forward(cfg, p["ffn"], h)
+    return x + f, cache
 
 
 def _apply_mla(cfg: ArchConfig, p: dict, h, *, mode: str, cache, rows: L.StepRows):

@@ -57,6 +57,13 @@ def count_params(spec_tree) -> int:
     return total
 
 
+#: leaves with more elements than this are drawn in slices along their
+#: leading axis straight into the finished tensor: one f32 draw of full
+#: qwen3-moe-30b-a3b's expert stack [48, 128, 2048, 768] and its scaled
+#: copy would take 2 x 38.7 GB before the cast
+MAX_DRAW = 2 ** 30
+
+
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, default_dtype, device):
     dtype = spec.dtype or default_dtype
     shape = tuple(int(s) for s in spec.shape)
@@ -64,19 +71,31 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, default_dtype, device):
         return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     if spec.init == "normal":
-        return (0.02 * x).to(dtype)
-    if spec.init != "scaled":
+        std = 0.02
+    elif spec.init == "scaled":
+        # std 1/sqrt(fan_in), fan_in = product of all dims but the last
+        # (stacked axes included, as the reference)
+        std = 1.0 / math.sqrt(max(1, math.prod(shape[:-1])))
+    else:
         raise NotImplementedError(f"init {spec.init!r} is not ported")
-    # "scaled": std 1/sqrt(fan_in), fan_in = product of all dims but the last
-    fan_in = max(1, math.prod(shape[:-1]))
-    return (x * (1.0 / math.sqrt(fan_in))).to(dtype)
+    if math.prod(shape) <= MAX_DRAW or len(shape) < 2:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+        return (x * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    step = max(1, MAX_DRAW // math.prod(shape[1:]))
+    for i in range(0, shape[0], step):
+        n = min(step, shape[0] - i)
+        out[i: i + n] = torch.randn((n, *shape[1:]), generator=gen, dtype=torch.float32,
+                                    device=device).mul_(std)
+    return out
 
 
 def init_params(spec_tree, generator: torch.Generator, default_dtype=torch.float32):
     """Materialize a spec tree on the generator's device.  Leaves are drawn
-    in sorted-key order, so a seed fixes every tensor."""
+    in sorted-key order, so a seed fixes every tensor; a leaf of more than
+    ``MAX_DRAW`` elements is drawn slice by slice along its leading axis,
+    with the whole leaf's std."""
     device = generator.device
 
     def walk(t):
