@@ -100,11 +100,34 @@ Phases (any failure exits non-zero, and no result line is printed):
    overflows; the card-vs-CPU checks stand in for it.  A short w8a8 pass
    (the experts and routers stay the float tensors) and the direct
    ``prefill(cache_len=512)`` -> 8 ``decode_step``s (B = 2 x 300) follow;
-7. a JSON ``added_kernels`` line (the quantize kernel), a JSON
+7. SSD (after the MoE model is freed): first the kernels of the SSM paths
+   (in phase 2: the bf16 GEMM at mamba2-130m's head, 768 x 50432 f32 out,
+   and at jamba's five (K, N), rows bit-identical across M; the int8 head
+   exactly; paged flash-decode and dense attention at jamba's 32 heads over
+   8), then ``ssm_reference_check`` -- reduced mamba2-130m and reduced
+   jamba on the card against the CPU (a whole prefill of a prime length,
+   12 paged ``decode_step``s, then a small engine; logits within 1e-4,
+   jamba's routing equal, equal greedy tokens; w8a8 under the flip rule).
+   Then full-width, full-depth mamba2-130m (bf16, seeded random weights)
+   serves 8 greedy requests (prompts 100-500 tokens, one of prime length
+   499, one of 256) through the whole-prefill engine with the prefix
+   cache asked for: no radix tree, every tick a decode tick replaying the
+   decode graph, only the head's bf16 GEMM launched (once a prefill, once a
+   replay), ``graph_check`` holding the SSD state too, the pool reconciled,
+   two prompts alone == batched, a traced decode tick; a short w8a8 pass
+   (the int8 head, no bf16 GEMM) and the direct ``prefill(cache_len=512)``
+   -> 8 ``decode_step``s.  Last, full-width jamba over one layer period (8
+   layers, 26.5 GB of bf16 weights; the whole 32 layers, ~103 GB, exceed the
+   card, and the cut is printed with that reason) serves the same 8
+   requests: dense flash attention once a whole prefill, paged
+   flash-decode once a replay, ``graph_check``, the pool reconciled, a
+   traced decode tick;
+8. a JSON ``added_kernels`` line (the quantize kernel), a JSON
    ``mla_kernels`` line (both decode kernels at the latent shape), a JSON
-   ``moe`` line (the MoE phase's summary and its rows), a JSON ``kernels``
-   line (the six ported TPU kernels), then the JSON result as the last
-   line.
+   ``moe`` line (the MoE phase's summary and its rows), a JSON ``ssm`` line
+   (the SSD phases' summaries and the rows at their shapes), the script's
+   wall time, a JSON ``kernels`` line (the six ported TPU kernels), then
+   the JSON result as the last line.
 
 It needs CUDA: without a card it exits 2 before printing anything else.
 """
@@ -1500,10 +1523,13 @@ def graph_check(name, g, load, gen):
     between two replays leaves the replay bit-equal; and a replay adds
     ``per_replay`` to every counter and nothing else.  Under w8a8 every int8
     GEMM of the step must take an ``mma.sync`` route (no TMA descriptor in
-    the graph).  Returns {counter: launches a replay}."""
+    the graph).  A step advances SSD state (``g.state``) in place: each run
+    starts from the same saved state, and the state a replay leaves must
+    equal the eager run's bit for bit too; the saved state is put back at
+    the end.  Returns {counter: launches a replay}."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.block_gemm import int8_route
-    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.kernels.decode_attention import decode_scratch, flash_decode
     from repro_torch.kernels.ops import LAUNCH_COUNTERS
     B = g.cur.numel()
     widths = sorted({t.q.shape[-2] for t in _qtensors(g.params)})
@@ -1513,21 +1539,35 @@ def graph_check(name, g, load, gen):
     def same(a, b):
         return all(torch.allclose(x, y, rtol=0, atol=0, equal_nan=True) for x, y in zip(a, b))
 
+    saved = [t.clone() for t in g.state]
+
+    def reset():
+        for t, old in zip(g.state, saved):
+            t.copy_(old)
+
     load()
     first = tuple(t.clone() for t in g.run())
+    first_state = [t.clone() for t in g.state]
+    reset()
     before = {c: c.launches for c in LAUNCH_COUNTERS}
     eager = g.eager()
     eager_n = {c.__name__: c.launches - before[c] for c in LAUNCH_COUNTERS
                if c.launches != before[c]}
     per_replay = {c.__name__: n for c, n in g.per_replay.items()}
-    if not same(eager, first):
-        fail(f"{name}: graph replay differs from the eager step")
+    if not same(eager, first) or not same(g.state, first_state):
+        fail(f"{name}: graph replay differs from the eager step (outputs or state)")
     if eager_n != per_replay:
         fail(f"{name}: eager step launches {eager_n}, a replay counts {per_replay}")
     held = [p.data_ptr() for p, _ in _build.stream_scratch(g.stream.cuda_stream)]
+    # streams come from PyTorch's pool: an earlier graph's check may have
+    # grown this stream's entry already, so the call outgrows what it holds
+    have = max((p.numel() for p, _ in _build.stream_scratch(g.stream.cuda_stream)), default=0)
+    S = 4096
+    while decode_scratch(16, 16, 16, S, 128)[0] <= have:
+        S *= 2
     q = torch.randn(16, 16, 128, generator=gen, device="cuda").bfloat16()
-    k = torch.randn(16, 4096, 16, 128, generator=gen, device="cuda").bfloat16()
-    pos = torch.full((16,), 4095, dtype=torch.int32, device="cuda")
+    k = torch.randn(16, S, 16, 128, generator=gen, device="cuda").bfloat16()
+    pos = torch.full((16,), S - 1, dtype=torch.int32, device="cuda")
     g.stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(g.stream):
         flash_decode(q, k, k, pos, None)
@@ -1537,17 +1577,20 @@ def graph_check(name, g, load, gen):
     del q, k
     if grown == held:
         fail(f"{name}: the larger call did not grow the graph stream's scratch")
+    reset()
     before = {c: c.launches for c in LAUNCH_COUNTERS}
     load()
     again = g.run()
     delta = {c.__name__: c.launches - before[c] for c in LAUNCH_COUNTERS
              if c.launches != before[c]}
-    if not same(again, first):
-        fail(f"{name}: a replay after a larger eager call differs")
+    if not same(again, first) or not same(g.state, first_state):
+        fail(f"{name}: a replay after a larger eager call differs (outputs or state)")
+    reset()
     if delta != per_replay:
         fail(f"{name}: a replay counted {delta}, not {per_replay}")
     torch.cuda.synchronize()
-    log(f"{name} decode graph: replay == eager bit for bit (poisoned slot NaN), again "
+    log(f"{name} decode graph: replay == eager bit for bit (poisoned slot NaN"
+        f"{', SSD state' if g.state else ''}), again "
         f"after a larger eager call that grew its stream's scratch; per replay "
         f"{json.dumps(per_replay)} launches; capture {g.capture_s * 1e3:.1f} ms")
     return per_replay
@@ -1978,16 +2021,19 @@ def chaos_run(cfg):
 # phase 5: MLA (minicpm3-4b) through the engine's whole-prompt prefill
 # ---------------------------------------------------------------------------
 
-def _scatter_prefill(pools, small, pages, n: int, ps: int):
-    """Write a prefill's cache rows (``small``: [R, B, n, ...] a leaf) to
-    logical rows [0, n) of each slot's pages, as the engine's whole prefill
-    does for one slot."""
+def _scatter_prefill(cfg, pools, small, pages, n: int, ps: int):
+    """Write a prefill's cache (``small``: [R, B, n, ...] a ``kv_seq`` leaf,
+    [R, B, ...] a state leaf) for each slot b, as the engine's whole prefill
+    does for one slot: rows to logical rows [0, n) of the slot's pages,
+    state to row b of the slot-indexed leaf."""
+    from repro_torch.models import model as M
     j = torch.arange(n, device=pages.device)
-    for stage, new in zip(pools, small):
-        for gi, group in stage.items():
-            for name, pool in group.items():
-                for b in range(pages.shape[0]):
-                    pool[:, pages[b, j // ps].long(), j % ps] = new[gi][name][:, b].to(pool.dtype)
+    for spec, pool, new in M.cache_leaves(M.cache_specs(cfg, 1, 1), pools, small):
+        for b in range(pages.shape[0]):
+            if "kv_seq" in spec.axes:
+                pool[:, pages[b, j // ps].long(), j % ps] = new[:, b].to(pool.dtype)
+            else:
+                pool[:, b] = new[:, b].to(pool.dtype)
 
 
 def mla_reference_check():
@@ -2027,7 +2073,7 @@ def mla_reference_check():
             lg = {}
             for d in params:
                 lg[d], small = M.prefill(cfg, params[d], toks[:, :S].to(d))
-                _scatter_prefill(caches[d], small, pages.to(d), S, ps)
+                _scatter_prefill(cfg, caches[d], small, pages.to(d), S, ps)
             pairs.append((lg["cpu"], lg["cuda"].cpu()))
             for i in range(steps):
                 pos = torch.full((B,), S + i, dtype=torch.int32)
@@ -2662,6 +2708,504 @@ def moe_engine_phase(counters, gen):
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 7: Mamba-2 SSD (mamba2-130m) and the jamba hybrid through the
+# whole-prefill engine
+# ---------------------------------------------------------------------------
+
+# mamba2-130m's one GEMM on a kernel, the untied head (K, N), f32 out: the
+# SSD projections are the reference's einsums (torch.matmul); the M it
+# meets: a whole prefill's last row, the decode batch, the direct prefill
+MAMBA_HEAD = (768, 50432)
+MAMBA_M = (1, 8, 2)
+# jamba's bf16 GEMMs (K, N): wq / wo, wk / wv, a dense FFN's w_gate / w_up,
+# w_down, the head (f32 out); its attention: 32 query heads over 8 of 128
+JAMBA_BF16_KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                 (4096, 65536))
+JAMBA_H, JAMBA_K = 32, 8
+# the engine's prompts: a prime length (499: chunks of one row), a multiple
+# of 256 (one full chunk) and 500 (two chunks of 250)
+SSM_PROMPTS = (120, 333, 499, 256, 100, 260, 415, 500)
+SSM_POS = [153, 366, 532, 289, 133, 293, 448, 533]  # the engine's decode state, 33 tokens in
+
+
+def ssm_kernel_phase(flush, gen):
+    """The kernels of the SSM paths at their shapes.  bf16 GEMM at
+    mamba2-130m's head (768 x 50432, f32 out) for M in ``MAMBA_M`` and at
+    jamba's five (K, N) for M = 8 and 500 against the plain version
+    (``gemm_phase``'s tolerances), rows bit-identical across M; the int8
+    GEMM at the head for M = 1 and 8 exactly (``int8_exact``); paged
+    flash-decode (B = 8, 32 heads over 8, d = 128, page size 64, an empty
+    slot and a frozen full one) and dense causal flash attention (one
+    prompt of 499 rows) at jamba's heads in f32 and bf16 (``check_attn``,
+    every paged slot alone == batched).  Timed beside the plain version, the
+    library call and the bound: the bf16 head at M = 1 and 8, the int8 head
+    at M = 8 (``torch._int_mm`` + epilogue, A padded to 32 rows), paged
+    decode at jamba's heads (SDPA on K/V gathered beforehand).  Returns the
+    rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_gemm import (block_gemm, block_gemm_int8, gemm_splits,
+                                                int8_route)
+    from repro_torch.kernels.decode_attention import flash_decode_paged
+    from repro_torch.kernels.flash_attention import flash_attention
+    rows = {"gemm": [], "int8": []}
+    K, N = MAMBA_HEAD
+    for (k, n), Ms in [(MAMBA_HEAD, MAMBA_M)] + [(kn, (8, 500)) for kn in JAMBA_BF16_KN]:
+        f32_out = n in (50432, 65536)
+        out_dtype = torch.float32 if f32_out else torch.bfloat16
+        for M in Ms:
+            a = torch.randn(M, k, generator=gen, device="cuda").bfloat16()
+            b = (torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)).bfloat16()
+            check_close(f"block_gemm bf16 {M}x{k}x{n}", block_gemm(a, b, out_dtype=out_dtype),
+                        ref.block_gemm_ref(a, b, out_dtype), 1e-4,
+                        1e-5 if f32_out else 2.0 ** -7)
+    gemm_row_invariance(gen, [MAMBA_HEAD + (False,)] + [kn + (False,) for kn in JAMBA_BF16_KN])
+    for M in (1, 8):
+        a = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        b = (torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)).bfloat16()
+        ms = time_ms(lambda: block_gemm(a, b, out_dtype=torch.float32), flush)
+        plain = time_ms(lambda: ref.block_gemm_ref(a, b, torch.float32), flush)
+        lib = time_ms(lambda: torch.matmul(a, b), flush)  # bf16 out, as the earlier head rows
+        bms, by = bound_ms(2 * (M * K + K * N) + 4 * M * N, 2 * M * N * K, torch.bfloat16)
+        rows["gemm"].append(dict(shape=f"{M}x{K}x{N}", ms=ms, plain_ms=plain, library_ms=lib,
+                                 bound_ms=bms, bound_by=by))
+        log(f"  block_gemm bf16 {M}x{K}x{N} f32 out (K split {gemm_splits(K, N)}): kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul (bf16 out) {lib:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+    routes = set()
+    for M in (1, 8, 2):
+        routes.add(int8_route(M, N, tma_ok=K % 16 == 0))
+        int8_exact(gen, M, K, N)
+    int8_row_invariance(gen, [(K, N, 72)], (1, 2, 4, 8))
+    M = 8
+    a, b = _int8_operands(gen, M, K, N, 127)
+    sa, sb = _int8_scales(gen, M, N)
+    ms = time_ms(lambda: block_gemm_int8(a, b, sa, sb, torch.float32), flush)
+    plain = time_ms(lambda: ref.block_gemm_int8_ref(a, b, sa, sb, torch.float32), flush, reps=5)
+    a32 = torch.cat([a, a.new_zeros(32 - M, K)])
+    bt = b.T
+    lib = time_ms(lambda: (torch._int_mm(a32, bt)[:M].float() * sa * sb), flush)
+    bms, by = bound_ms(M * K + N * K + 4 * (M + N) + 4 * M * N, 2 * M * N * K, torch.int8)
+    rows["int8"].append(dict(shape=f"{M}x{K}x{N}", ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=bms, bound_by=by, route=int8_route(M, N)))
+    log(f"  block_gemm_int8 {M}x{K}x{N} f32 out (route {int8_route(M, N)}): kernel {ms:.4f} "
+        f"ms, plain {plain:.4f} ms, torch._int_mm+epilogue (A padded to 32 rows) {lib:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}); exact at M in (1, 8, 2) over routes {sorted(routes)}")
+
+    H, Kh, d, ps, max_len = JAMBA_H, JAMBA_K, 128, 64, 1024
+    B, npp = len(SSM_POS), max_len // ps
+    P = B * npp + 1
+    pages = _tables(B, npp, P, 90)
+    pos = torch.tensor(SSM_POS[:6] + [1024, 9], dtype=torch.int32, device="cuda")
+    start = torch.tensor([0] * 7 + [10], dtype=torch.int32, device="cuda")
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        k, v = _paged_pools(gen, P, ps, Kh, d, dtype)
+        q = torch.randn(B, H, d, generator=gen, device="cuda").to(dtype)
+        got = flash_decode_paged(q, k, v, pos, start, pages)
+        err[(dtype, "decode")] = check_attn(f"flash_decode_paged jamba {dtype}", got,
+                                            ref.flash_decode_ref(q, k, v, pos, start,
+                                                                 pages=pages), dtype)
+        if float(got[7].abs().max()) != 0.0:
+            fail(f"flash_decode_paged jamba {dtype}: the empty slot is not exactly 0")
+        _slot_invariance(f"flash_decode_paged jamba {dtype}", lambda sl: flash_decode_paged(
+            q[sl], k, v, pos[sl], start[sl], pages[sl]), B)
+        qd, kd, vd = (torch.randn(1, 499, h, d, generator=gen, device="cuda").to(dtype)
+                      .transpose(1, 2) for h in (H, Kh, Kh))
+        err[(dtype, "dense")] = check_attn(f"flash_attention jamba {dtype}",
+                                           flash_attention(qd, kd, vd),
+                                           ref.flash_attention_ref(qd, kd, vd), dtype)
+    torch.cuda.synchronize()
+    log(f"SSM paths' kernels: bf16 GEMM at mamba2's head and jamba's (K, N) agree, rows "
+        f"bit-identical across M; int8 head exact; paged decode and dense attention at "
+        f"jamba's heads (H {H} over K {Kh}, d {d}) x (f32, bf16) agree, the empty slot "
+        f"exactly 0, every slot alone == batched; " + _errs(err))
+    rows["attn_max_abs_err_bf16"] = _bf16_max(err)
+    rows["decode"] = _paged_decode_row(flush, gen, H, Kh, SSM_POS, [0] * B, 91)
+    return rows
+
+
+def ssm_reference_check():
+    """Reduced mamba2-130m and reduced jamba (f32 compute; SSD heads of 16,
+    state 16, chunk 32; jamba one period of 8 layers, 4 experts top-2; seed-0
+    weights) on the card's kernels against the CPU's plain versions, in
+    float and w8a8 weights.
+
+    Part 1, the model steps: a whole prefill of two 37-token prompts (a
+    prime length: 37 chunks of one row), its KV rows written into pools of
+    page size 16 through permuted tables and its SSD state into the slots'
+    rows, then 12 paged ``decode_step``s on the same tokens (gate:
+    ``_card_vs_cpu``: logits within 1e-4, or the flip rule in w8a8; jamba's
+    MoE routing equal by ``routing_check``).  Part 2, a small engine,
+    ``EngineConfig(max_batch=4, max_len=128, page_size=16, decode_chunk=4,
+    prefix_cache=True)``: five prompts on four slots (one refilled), 16
+    greedy tokens each, prefilled whole at admission, decode steps replayed
+    as a CUDA graph on the card; the same on the CPU.  Gate: no radix tree,
+    no mixed tick, equal greedy tokens (w8a8: unless Part 1 showed a
+    boundary flip, then >= 0.9)."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, EngineConfig, check_invariants
+    out = {}
+    for name in ("mamba2-130m", "jamba-v0.1-52b"):
+        cfg = reduce_config(get_config(name))
+        V = cfg.vocab_size
+        rng = np.random.RandomState(11)
+        B, ps, npp, S, steps = 2, 16, 4, 37, 12
+        toks = torch.from_numpy(rng.randint(0, V, (B, S + steps)).astype(np.int32))
+        pages = torch.from_numpy(rng.permutation(np.arange(1, B * npp + 1))
+                                 .reshape(B, npp).astype(np.int32))
+        prompts = [rng.randint(0, V, n).tolist() for n in (34, 37, 29, 45, 32)]
+        for quant in ("none", "w8a8"):
+            p_cpu = M.init(cfg, seed=0, device="cpu")
+            if quant == "w8a8":
+                p_cpu = M.quantize_params(cfg, p_cpu)
+            params = {"cpu": p_cpu, "cuda": _to_cuda(p_cpu)}
+            caches = {d: M.init_paged_cache(cfg, B, B * npp + 1, ps, device=d)
+                      for d in params}
+            pairs = []
+            with _Int8Recorder() as rec, _MoeRecorder() as mrec:
+                lg = {}
+                for d in params:
+                    lg[d], small = M.prefill(cfg, params[d], toks[:, :S].to(d))
+                    _scatter_prefill(cfg, caches[d], small, pages.to(d), S, ps)
+                pairs.append((lg["cpu"], lg["cuda"].cpu()))
+                for i in range(steps):
+                    pos = torch.full((B,), S + i, dtype=torch.int32)
+                    lg = {d: M.decode_step(cfg, params[d], caches[d],
+                                           toks[:, S + i: S + i + 1].to(d), pos.to(d),
+                                           pages=pages.to(d))[0].cpu() for d in params}
+                    pairs.append((lg["cpu"], lg["cuda"]))
+            res = _card_vs_cpu(f"reduced {name} paged", quant, pairs, rec)
+            flipped = res["witness"] is not None and res["witness"]["first_flip"] is not None
+            if cfg.num_experts:
+                res["routing"] = routing_check(f"reduced {name} {quant}", mrec,
+                                               strict=not flipped)
+            econf = EngineConfig(max_batch=4, max_len=128, page_size=ps, decode_chunk=4,
+                                 prefix_cache=True, quant=None if quant == "none" else quant)
+            gens = {}
+            for d in params:
+                eng = Engine(cfg, params[d], econf, device=d)
+                rids = [eng.submit(p, max_new=16) for p in prompts]
+                by = {r.rid: r for r in eng.run()}
+                gens[d] = [by[r].generated for r in rids]
+                if eng.radix is not None or eng.stats.mixed_steps \
+                        or eng.stats.prefills != len(prompts) \
+                        or check_invariants(eng.pool, eng.radix, tables=eng.sched.owned):
+                    fail(f"reduced {name} engine {quant} on {d}: a radix tree, a mixed tick, "
+                         f"{eng.stats.prefills} prefills or a bad paging state")
+                if d == "cuda" and eng.runner.graph.replays == 0:
+                    fail(f"reduced {name} engine: the decode graph was never replayed")
+            agree = statistics.mean(float(np.mean(np.array(a) == np.array(b)))
+                                    for a, b in zip(gens["cpu"], gens["cuda"]))
+            if (agree < 1.0 and not flipped) or agree < 0.9:
+                fail(f"reduced {name} engine {quant}: card and CPU greedy tokens agree at "
+                     f"{agree:.4f} (flip shown: {flipped})")
+            res["engine_token_agreement"] = agree
+            out[f"{name} {quant}"] = res
+            routing = res.get("routing")
+            log(f"reduced {name} {quant}, card vs CPU plain versions: whole prefill (S {S}) + "
+                f"{steps} paged decode steps, max logits gap {res['gap']:.3e} (bound "
+                f"{res['bound']:g}), argmax agreement {res['argmax_agreement']:.4f}"
+                + (f", routing of {routing['calls']} MoE calls equal at "
+                   f"{routing['token_agreement']:.4f} ({routing['witnesses']} near-tie "
+                   f"witnesses)" if routing else "")
+                + f"; engine (5 requests x 16 tokens on 4 slots, whole prefills, decode graph "
+                f"on the card) greedy tokens card == CPU at {agree:.4f} of positions")
+    return out
+
+
+def _timed_prefills(eng):
+    """Record (prompt length, wall ms) of every whole prefill ``eng`` runs
+    (``whole_prefill`` ends in a device-to-host read: the time is the
+    prefill's)."""
+    runner, out = eng.runner, []
+    inner = runner.whole_prefill
+
+    def timed(tokens, *args):
+        t0 = time.time()
+        r = inner(tokens, *args)
+        out.append((len(tokens), (time.time() - t0) * 1e3))
+        return r
+    runner.whole_prefill = timed
+    return out
+
+
+def _serve(cfg, params, econf, prompts, max_new, counters):
+    """Serve ``prompts`` greedily through a fresh engine with every counter
+    at 0.  Returns (engine, results by rid in prompt order, wall s, launches,
+    [(prompt length, whole-prefill ms)])."""
+    from repro_torch.serving import Engine
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    eng = Engine(cfg, params, econf)
+    prefills = _timed_prefills(eng)
+    t0 = time.time()
+    rids = [eng.submit(p, max_new=max_new) for p in prompts]
+    by = {r.rid: r for r in eng.run()}
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    return eng, [by[r] for r in rids], wall, {c.__name__: c.launches for c in counters}, prefills
+
+
+def _check_served(name, eng, results, max_new, V, econf):
+    """Every request LENGTH with ``max_new`` in-vocabulary tokens; no radix
+    tree and no mixed tick (SSD is not prefix-decomposable, though the
+    config asks for the prefix cache); one whole prefill a request; one
+    replay a decode step; the pool reconciles."""
+    from repro_torch.serving import FinishReason, check_invariants
+    for r in results:
+        if r.finish_reason != FinishReason.LENGTH or len(r.generated) != max_new \
+                or not all(0 <= t < V for t in r.generated):
+            fail(f"{name} rid {r.rid}: {r.finish_reason} with {len(r.generated)} tokens")
+    st, graph = eng.stats, eng.runner.graph
+    if eng.radix is not None or st.mixed_steps or st.prefills != len(results) \
+            or graph.replays != st.chunks * econf.decode_chunk:
+        fail(f"{name} engine: radix {eng.radix}, {st.mixed_steps} mixed ticks, "
+             f"{st.prefills} prefills, {graph.replays} replays for {st.chunks} decode ticks")
+    bad = check_invariants(eng.pool, eng.radix, tables=eng.sched.owned)
+    if bad or eng.pool.num_free != eng.pool.n_pages - 1:
+        fail(f"{name} paging state: " + "; ".join(bad) + f"; {eng.pool.num_free} free")
+
+
+def _engine_summary(name, eng, results, wall, launches, prefills, econf):
+    st, graph = eng.stats, eng.runner.graph
+    ttft = sorted(r.ttft_s for r in results)
+    by_len = {}
+    for n, ms in prefills:
+        by_len.setdefault(n, []).append(ms)
+    summary = dict(tokens_per_s=st.tokens_out / wall, wall_s=wall,
+                   ttft_p50_ms=statistics.median(ttft) * 1e3,
+                   prefill_ms=st.prefill_s / st.prefills * 1e3,
+                   prefill_ms_by_len={n: v for n, v in sorted(by_len.items())},
+                   decode_tick_ms=(st.decode_s - graph.capture_s) / max(st.chunks, 1) * 1e3,
+                   decode_ticks=st.chunks, capture_ms=graph.capture_s * 1e3,
+                   launches=launches,
+                   per_replay={c.__name__: n for c, n in graph.per_replay.items()})
+    log(f"{name} engine: {len(results)} requests, {st.tokens_out} tokens in {wall:.3f} s "
+        f"({summary['tokens_per_s']:.2f} tokens/s end to end), TTFT p50 "
+        f"{summary['ttft_p50_ms']:.1f} ms, {st.prefills} whole prefills (ms by prompt length: "
+        + ", ".join(f"{n}: " + "/".join(f"{m:.2f}" for m in v) for n, v in sorted(by_len.items()))
+        + f"), {st.chunks} decode ticks x{econf.decode_chunk} at {summary['decode_tick_ms']:.2f} "
+        f"ms wall without the graph's capture ({summary['capture_ms']:.1f} ms); launches "
+        f"{json.dumps(launches)}; {json.dumps(summary['per_replay'])} a replay")
+    return summary
+
+
+def ssm_engine_phase(counters, gen):
+    """Full-width, full-depth mamba2-130m (24 SSD layers, seeded random bf16
+    weights) through ``repro_torch.serving.Engine`` after
+    ``ssm_reference_check``: 8 greedy requests (``SSM_PROMPTS``, 32 new),
+    ``EngineConfig(max_batch=8, max_len=1024, page_size=64, decode_chunk=8,
+    prefix_cache=True)``.  Gates (``_check_served``): no radix tree, every
+    tick a decode tick replaying the decode graph, the pool reconciles;
+    only the bf16 GEMM launches (the head: once a whole prefill, once a
+    replay, and once for the warm-up before capture); ``graph_check`` (SSD
+    state included); two prompts served alone (the prime and the 256-row
+    one) give the batched tokens; a traced decode tick as ``trace_ticks``.
+    Then a short w8a8 pass (4 requests x 16 tokens: the head on the int8
+    GEMM after one quantize, no bf16 GEMM; its graph checked) and the direct
+    ``prefill(cache_len=512)`` -> 8 greedy ``decode_step``s (B = 2 x 300
+    tokens; only the head's bf16 GEMM, once a call)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, EngineConfig
+    names = {c.__name__: c for c in counters}
+    summary = dict(reference=ssm_reference_check())
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("mamba2-130m")
+    t0 = time.time()
+    params = M.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"mamba2-130m: {cfg.num_layers} SSD layers, d_model {cfg.d_model}, d_inner "
+        f"{cfg.d_inner} = {cfg.ssm_heads} heads of {cfg.ssm_headdim}, state {cfg.ssm_state}, "
+        f"conv {cfg.ssm_conv_width}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab_size} -> "
+        f"{cfg.padded_vocab}; {n_params / 1e9:.4f} B parameters, {w_bytes / 1e9:.3f} GB, init "
+        f"{time.time() - t0:.2f} s")
+    econf = EngineConfig(max_batch=8, max_len=1024, page_size=64, decode_chunk=8,
+                         prefix_cache=True)
+    rng = np.random.RandomState(9)
+    V = cfg.vocab_size
+    prompts = [rng.randint(0, V, n).tolist() for n in SSM_PROMPTS]
+    max_new = 32
+    eng, results, wall, launches, prefills = _serve(cfg, params, econf, prompts, max_new,
+                                                     counters)
+    _check_served("mamba2-130m", eng, results, max_new, V, econf)
+    graph = eng.runner.graph
+    state_mb = sum(t.numel() * t.element_size() for t in graph.state) / 1e6
+    for n, c in launches.items():
+        if (n == "block_gemm") != (c > 0):
+            fail(f"mamba2-130m engine: {n} launched {c} times (only the head's bf16 GEMM)")
+    if graph.per_replay != {names["block_gemm"]: 1} \
+            or launches["block_gemm"] != len(prompts) + graph.replays + 1:
+        fail(f"mamba2-130m engine: {graph.per_replay} a replay, {launches['block_gemm']} bf16 "
+             f"GEMMs for {len(prompts)} prefills and {graph.replays} replays")
+    summary.update(_engine_summary("mamba2-130m", eng, results, wall, launches, prefills,
+                                   econf))
+    summary.update(weights_gb=w_bytes / 1e9, params_b=n_params / 1e9, state_mb=state_mb)
+    log(f"mamba2-130m: decode state {state_mb:.1f} MB (8 slots x 24 layers: h f32 and the "
+        f"conv tails); peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB")
+    batched = {tuple(p): r.generated for p, r in zip(prompts, results)}
+    B, npp = econf.max_batch, econf.cache_spec().pages_per_seq
+    table = torch.from_numpy(rng.permutation(np.arange(1, econf.n_pages))[: B * npp]
+                             .reshape(B, npp).astype(np.int32))
+    poison = torch.zeros(B, dtype=torch.bool)
+    poison[3] = True
+    cur = torch.from_numpy(rng.randint(0, V, B).astype(np.int32))
+    graphs = {"bf16": graph_check("engine mamba2-130m bf16", graph, lambda: graph.load(
+        cur, torch.tensor(SSM_POS, dtype=torch.int32), table, poison), gen)}
+    del eng, graph
+    for p in (prompts[2], prompts[3]):
+        solo = Engine(cfg, params, econf)
+        solo.submit(p, max_new=max_new)
+        if solo.run()[0].generated != batched[tuple(p)]:
+            fail(f"mamba2-130m: solo greedy tokens differ from batched for a {len(p)}-token "
+                 f"prompt")
+        del solo
+    log("mamba2-130m: solo == batched greedy tokens for the 499- and 256-token prompts")
+    summary["trace"] = trace_ticks(Engine(cfg, params, econf), prompts, max_new, summary,
+                                   counters, kinds=("decode",))
+    qconf = EngineConfig(max_batch=4, max_len=1024, page_size=64, decode_chunk=8,
+                         prefix_cache=True, quant="w8a8")
+    qeng, qres, qwall, qlaunch, _ = _serve(cfg, params, qconf, prompts[:4], 16, counters)
+    _check_served("mamba2-130m w8a8", qeng, qres, 16, V, qconf)
+    if qlaunch["block_gemm"] != 0 or qlaunch["block_gemm_int8"] <= 0 \
+            or qlaunch["quantize_rows"] != qlaunch["block_gemm_int8"]:
+        fail(f"mamba2-130m w8a8 engine launches {qlaunch}: the head on the int8 GEMM after "
+             f"one quantize, no bf16 GEMM")
+    agree = statistics.mean(sum(a == b for a, b in zip(r.generated, batched[tuple(p)])) / 16
+                            for r, p in zip(qres, prompts[:4]))
+    log(f"mamba2-130m engine w8a8: 4 requests x 16 tokens in {qwall:.3f} s; launches "
+        f"{json.dumps(qlaunch)}; greedy tokens equal to bf16's at {agree:.4f} of positions")
+    qg, qB = qeng.runner.graph, qconf.max_batch
+    qtable = torch.from_numpy(rng.permutation(np.arange(1, qconf.n_pages))[: qB * npp]
+                              .reshape(qB, npp).astype(np.int32))
+    graphs["w8a8"] = graph_check("engine mamba2-130m w8a8", qg, lambda: qg.load(
+        cur[:qB], torch.tensor(SSM_POS[:qB], dtype=torch.int32), qtable, poison[:qB]), gen)
+    del qeng, qg
+    summary["w8a8"] = dict(wall_s=qwall, launches=qlaunch, token_agreement=agree)
+    summary["graph_per_replay"] = graphs
+    # the direct loop on slot caches: prefill(cache_len) -> 8 steps
+    Bd, Sd, steps, cache_len = 2, 300, 8, 512
+    toks = torch.from_numpy(rng.randint(0, V, (Bd, Sd)).astype(np.int32)).cuda()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits, caches = M.prefill(cfg, params, toks, cache_len=cache_len)
+    torch.cuda.synchronize()
+    t_pre = time.time() - t0
+    pre = {n: c.launches for n, c in names.items()}
+    t0 = time.time()
+    for i in range(steps):
+        tok = torch.argmax(logits[:, -1, :V], -1).to(torch.int32)[:, None]
+        logits, caches = M.decode_step(cfg, params, caches, tok, Sd + i)
+        if logits.shape != (Bd, 1, cfg.padded_vocab) or not bool(torch.isfinite(logits).all()):
+            fail(f"mamba2-130m direct decode step {i}: shape {tuple(logits.shape)} or "
+                 f"non-finite logits")
+    torch.cuda.synchronize()
+    t_step = (time.time() - t0) / steps
+    direct = {n: c.launches for n, c in names.items()}
+    h = caches[0]["0"]["h"]
+    if tuple(h.shape) != (cfg.num_layers, Bd, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state) \
+            or pre["block_gemm"] != 1 or direct["block_gemm"] != 1 + steps \
+            or sum(direct.values()) != direct["block_gemm"]:
+        fail(f"mamba2-130m direct loop: state {tuple(h.shape)}, launches after the prefill "
+             f"{pre}, after {steps} steps {direct}")
+    summary["direct"] = dict(prefill_ms=t_pre * 1e3, eager_step_ms=t_step * 1e3,
+                             launches=direct)
+    log(f"mamba2-130m direct loop: prefill {Bd}x{Sd} (cache_len {cache_len}: the state is "
+        f"not padded) in {t_pre * 1e3:.1f} ms, {steps} eager decode steps on the slot caches at "
+        f"{t_step * 1e3:.2f} ms; launches {json.dumps(direct)}")
+    return summary
+
+
+JAMBA_PATH = ("block_gemm", "flash_attention", "flash_decode_paged")
+
+
+def jamba_engine_phase(counters, gen):
+    """Full-width jamba-v0.1-52b over one layer period (8 layers: SSD, with
+    attention at index 4 and MoE on odd layers), seeded random bf16 weights
+    drawn on the card after every earlier model is freed, through the
+    whole-prefill engine: 8 greedy requests as ``ssm_engine_phase``'s.  The
+    depth is cut because the whole model (~104 GB of bf16 weights) does not
+    fit one 80 GB card.  Gates (``_check_served``); only the bf16 GEMM,
+    dense flash attention (once a whole prefill: one attention layer) and
+    paged flash-decode (once a replay, and once for the warm-up) launch;
+    ``graph_check``; a traced decode tick as ``trace_ticks``.  No solo ==
+    batched gate: MoE capacity is shared by a call's rows (as for
+    qwen3-moe)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+    from repro_torch.serving import Engine, EngineConfig
+    full = get_config("jamba-v0.1-52b")
+    cfg = full.with_(num_layers=full.ssm_every)
+    full_bytes = count_params(M.param_specs(full)) * 2
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = M.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"jamba-v0.1-52b depth cut: {full.num_layers} -> {cfg.num_layers} layers (one period: "
+        f"{[s.mixer[:4] + '/' + s.ffn for s in cfg.layer_specs()]}), because the whole model's "
+        f"{full_bytes / 1e9:.1f} GB of bf16 weights exceed the card's {total / 1e9:.1f} GB")
+    log(f"jamba-v0.1-52b (one period): d_model {cfg.d_model}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads}, SSD {cfg.ssm_heads} heads of {cfg.ssm_headdim} state "
+        f"{cfg.ssm_state}, {cfg.num_experts} experts top-{cfg.experts_per_token} of width "
+        f"{cfg.moe_d_ff}; {n_params / 1e9:.3f} B parameters, {w_bytes / 1e9:.2f} GB (routers "
+        f"f32), init {init_s:.2f} s; {free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free "
+        f"before init")
+    econf = EngineConfig(max_batch=8, max_len=1024, page_size=64, decode_chunk=8,
+                         prefix_cache=True)
+    rng = np.random.RandomState(10)
+    V = cfg.vocab_size
+    prompts = [rng.randint(0, V, n).tolist() for n in SSM_PROMPTS]
+    max_new = 32
+    eng, results, wall, launches, prefills = _serve(cfg, params, econf, prompts, max_new,
+                                                     counters)
+    peak = torch.cuda.max_memory_allocated()
+    _check_served("jamba", eng, results, max_new, V, econf)
+    graph = eng.runner.graph
+    per_replay = {c.__name__: n for c, n in graph.per_replay.items()}
+    for n, c in launches.items():
+        if (n in JAMBA_PATH) != (c > 0):
+            fail(f"jamba engine: {n} launched {c} times (the path: {JAMBA_PATH})")
+    if launches["flash_attention"] != len(prompts) or per_replay.get("flash_decode_paged") != 1 \
+            or launches["flash_decode_paged"] != graph.replays + 1:
+        fail(f"jamba engine: {launches['flash_attention']} dense attention launches for "
+             f"{len(prompts)} prefills, {per_replay} a replay, {launches['flash_decode_paged']} "
+             f"paged decodes for {graph.replays} replays")
+    summary = _engine_summary("jamba", eng, results, wall, launches, prefills, econf)
+    summary.update(weights_gb=w_bytes / 1e9, params_b=n_params / 1e9, peak_gib=peak / 2 ** 30,
+                   init_s=init_s, layers=cfg.num_layers, full_weights_gb=full_bytes / 1e9)
+    log(f"jamba: peak device memory {peak / 2 ** 30:.2f} GiB after the engine run (weights "
+        f"{w_bytes / 2 ** 30:.2f} GiB)")
+    B, npp = econf.max_batch, econf.cache_spec().pages_per_seq
+    table = torch.from_numpy(rng.permutation(np.arange(1, econf.n_pages))[: B * npp]
+                             .reshape(B, npp).astype(np.int32))
+    poison = torch.zeros(B, dtype=torch.bool)
+    poison[6] = True
+    cur = torch.from_numpy(rng.randint(0, V, B).astype(np.int32))
+    summary["graph_per_replay"] = graph_check("engine jamba bf16", graph, lambda: graph.load(
+        cur, torch.tensor(SSM_POS, dtype=torch.int32), table, poison), gen)
+    del eng, graph
+    summary["trace"] = trace_ticks(Engine(cfg, params, econf), prompts, max_new, summary,
+                                   counters, kinds=("decode",))
+    return summary
+
+
 def _device_us(event) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
@@ -2750,6 +3294,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the card",
               file=sys.stderr)
         return 2
+    t_start = time.time()
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels.ops import LAUNCH_COUNTERS
@@ -2790,6 +3335,7 @@ def main() -> int:
     mla_err, mla_rows = mla_decode_phase(flush, gen)
     mla_gemm_rows = mla_gemm_phase(flush, gen)
     moe_rows = moe_kernel_phase(flush, gen)
+    ssm_rows = ssm_kernel_phase(flush, gen)
     del flush
     edge_launch, report["edge"] = edge_phase(counters, gen)
     for n in ("block_gemm_int8", "quantize_rows", "flash_attention", "flash_decode"):
@@ -2804,6 +3350,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     _, moe = moe_engine_phase(counters, gen)
     moe["rows"] = moe_rows
+    gc.collect()  # the MoE model goes before the SSM phases
+    torch.cuda.empty_cache()
+    t_ssm = time.time()
+    ssm = {"mamba2": ssm_engine_phase(counters, gen)}
+    ssm["jamba"] = jamba_engine_phase(counters, gen)
+    ssm.update(rows=ssm_rows, wall_s=time.time() - t_ssm)
 
     def pick(name, shape):  # the row's contract keys
         row = next(r for r in rows[name] if r["shape"] == shape)
@@ -2856,6 +3408,9 @@ def main() -> int:
         dict(name="flash_decode", launches=mla["direct"]["launches"]["flash_decode"],
              max_abs_err=mla_err, **mla_rows["slot"])]}))
     log(json.dumps({"moe": moe}))
+    log(json.dumps({"ssm": ssm}))
+    log(f"chip_smoke wall time {time.time() - t_start:.1f} s (the SSM engine phases "
+        f"{ssm['wall_s']:.1f} s)")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

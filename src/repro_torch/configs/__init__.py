@@ -5,14 +5,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs import (cgra_edge, deepseek_67b, gemma3_4b, minicpm3_4b,
-                                 olmo_1b, qwen3_moe_30b_a3b)
+from repro_torch.configs import (cgra_edge, deepseek_67b, gemma3_4b, jamba_v01_52b,
+                                 mamba2_130m, minicpm3_4b, olmo_1b, qwen3_moe_30b_a3b)
 from repro_torch.configs.base import ArchConfig, LayerSpec, Stage, build_stages
 
 REGISTRY: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (olmo_1b, deepseek_67b, cgra_edge, gemma3_4b, minicpm3_4b,
-              qwen3_moe_30b_a3b)
+              qwen3_moe_30b_a3b, mamba2_130m, jamba_v01_52b)
 }
 
 
@@ -52,6 +52,8 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
                   v_head_dim=16, head_dim=16)
     if cfg.num_experts:
         kw.update(num_experts=4, experts_per_token=2, moe_d_ff=32)
+    if cfg.ssm_state:
+        kw.update(ssm_state=16, ssm_headdim=16, ssm_chunk=32)
     if cfg.window_size:
         kw.update(window_size=32)
     return cfg.with_(**kw).with_(name=cfg.name + "-smoke")

@@ -97,10 +97,20 @@ class ArchConfig:
     capacity_factor: float = 1.0
     num_moe_groups: int = 1
 
+    # Mamba-2 SSD: d_inner = ssm_expand * d_model in heads of ssm_headdim,
+    # shared B/C of ssm_state, a depthwise causal conv of ssm_conv_width,
+    # prefill in chunks of ssm_chunk; a hybrid has one attention layer every
+    # ssm_every layers (0: pure SSM or no SSM)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 256
+    ssm_conv_width: int = 4
+    ssm_every: int = 0
+
     # structural families the port does not serve yet: kept so that
     # layer_specs / reduce_config match the JAX config, and so that a config
     # using them is refused
-    ssm_every: int = 0
     cross_every: int = 0
     vision_tokens: int = 0
     audio_frontend: bool = False
@@ -122,6 +132,14 @@ class ArchConfig:
     def padded_heads(self) -> int:
         ph = self.pad_heads_to
         return ((self.num_heads + ph - 1) // ph) * ph
+
+    @property
+    def d_inner(self) -> int:  # SSD inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim
 
     def layer_specs(self) -> list[LayerSpec]:
         specs = []

@@ -34,6 +34,10 @@ What capture needs of the kernels' wrappers:
   larger call that grows them cannot hand their memory to someone else;
   the ticket counters reset themselves at the end of every launch;
 - ``cudaFuncSetAttribute`` and the bindings run in the warm-up too;
+- a decode step writes its KV row (the same row again on a rerun) but
+  advances SSD state (not idempotent): the warm-up's step must not count,
+  so the state leaves (:attr:`state`) are saved before it and restored
+  after, and the first replay is the step's first run;
 - the launch counters are Python increments, which only the capture would
   see: the graph records each wrapper's launches during capture, takes
   them back (capture launches nothing) and adds them on every replay.
@@ -66,6 +70,10 @@ class DecodeGraph:
         self.pages = (None if pages_per_seq is None else
                       torch.zeros(batch, pages_per_seq, dtype=torch.int32, device=dev))
         self.nanmask = torch.zeros(batch, dtype=torch.bool, device=dev)
+        #: the slot-indexed state leaves a step advances in place (SSD's h
+        #: and conv tails; none for attention-only models)
+        self.state = [leaf for spec, leaf in M.cache_leaves(M.cache_specs(cfg, 1, 1), caches)
+                      if "kv_seq" not in spec.axes]
         self.graph: torch.cuda.CUDAGraph | None = None
         self.stream = None
         #: launches one replay makes, by wrapper (recorded at capture)
@@ -118,10 +126,13 @@ class DecodeGraph:
         t0 = time.time()
         dev = self.device
         stream = torch.cuda.Stream(dev)
+        saved = [t.clone() for t in self.state]
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             self.eager()  # warm-up: bindings, attributes, scratch at these shapes
         torch.cuda.current_stream(dev).wait_stream(stream)
+        for t, old in zip(self.state, saved):  # undo the warm-up's state step
+            t.copy_(old)
         before = {fn: fn.launches for fn in LAUNCH_COUNTERS}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream):

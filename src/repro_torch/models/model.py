@@ -5,10 +5,12 @@ steps.
 
 Weights keep the JAX package's stacked layout — one leading layer axis per
 stage — so the weight bridge is a plain reshape; the ``lax.scan`` over that
-axis becomes a Python loop.  Only attention mixers (GQA, or MLA when
-``cfg.use_mla``) with a dense or a capacity-routed MoE FFN are ported;
-every other mixer or FFN raises ``NotImplementedError``.  Caches are updated in place by the decode
-and chunk steps.
+axis becomes a Python loop.  The ported mixers are attention (GQA, or MLA
+when ``cfg.use_mla``) and Mamba-2 SSD (``models.ssd``), each with a dense,
+a capacity-routed MoE or no FFN; cross-attention raises
+``NotImplementedError``.  Caches are updated in place by the decode and
+chunk steps.  A cache leaf with a ``kv_seq`` axis holds rows (paged as a
+pool by the engine); one without (SSD state) is indexed by slot.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.core import resolve_device
 from repro_torch.core.gemm import cgra_gemm
 from repro_torch.core.quant import QTensor, quantize_over
 from repro_torch.models import layers as L
+from repro_torch.models import ssd as S
 from repro_torch.models.params import (ParamSpec, init_params, stack_tree,
                                        tree_map_specs)
 
@@ -32,17 +35,24 @@ F32 = torch.float32
 # ---------------------------------------------------------------------------
 
 def _check_layer(spec: LayerSpec):
-    if spec.mixer not in ("attn_global", "attn_local") or spec.ffn not in ("dense", "moe"):
+    if (spec.mixer not in ("attn_global", "attn_local", "ssm")
+            or spec.ffn not in ("dense", "moe", "none")):
         raise NotImplementedError(
-            f"layer {spec} is not ported yet (attention + dense or MoE FFN only)")
+            f"layer {spec} is not ported yet (attention or SSD mixers; dense, "
+            f"MoE or no FFN)")
 
 
 def _layer_param_specs(cfg: ArchConfig, spec: LayerSpec) -> dict:
     _check_layer(spec)
-    mixer = L.mla_specs(cfg) if cfg.use_mla else L.attn_specs(cfg)
-    ffn = L.moe_specs(cfg) if spec.ffn == "moe" else L.ffn_specs(cfg)
-    return {"norm1": L.norm_specs(cfg), "mixer": mixer,
-            "norm2": L.norm_specs(cfg), "ffn": ffn}
+    if spec.mixer == "ssm":
+        mixer = S.ssd_specs(cfg)
+    else:
+        mixer = L.mla_specs(cfg) if cfg.use_mla else L.attn_specs(cfg)
+    d = {"norm1": L.norm_specs(cfg), "mixer": mixer}
+    if spec.ffn != "none":
+        d["norm2"] = L.norm_specs(cfg)
+        d["ffn"] = L.moe_specs(cfg) if spec.ffn == "moe" else L.ffn_specs(cfg)
+    return d
 
 
 def param_specs(cfg: ArchConfig) -> dict:
@@ -137,6 +147,8 @@ def quantize_params(cfg: ArchConfig, params: dict) -> dict:
 def _layer_cache_specs(cfg: ArchConfig, spec: LayerSpec, batch: int,
                        seq: int, local: bool) -> dict:
     _check_layer(spec)
+    if spec.mixer == "ssm":
+        return S.ssd_cache_specs(cfg, batch)
     if cfg.use_mla:
         return L.mla_cache_specs(cfg, batch, seq)
     return L.attn_cache_specs(cfg, batch, seq, local=local)
@@ -145,7 +157,8 @@ def _layer_cache_specs(cfg: ArchConfig, spec: LayerSpec, batch: int,
 def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> list:
     """Per-stage slot-cache specs: global layers k/v [R, batch, seq, K, dh]
     (linear), sliding-window layers a ring of ``min(seq, window)`` rows, MLA
-    layers one fused kv [R, batch, seq, kvr + dr]."""
+    layers one fused kv [R, batch, seq, kvr + dr], SSD layers their state
+    (``ssd.ssd_cache_specs``, no ``kv_seq`` axis)."""
     out = []
     for stage in cfg.stages():
         group = {str(i): _layer_cache_specs(cfg, sp, batch, seq,
@@ -163,24 +176,36 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None) -> list:
         cache_specs(cfg, batch, seq))
 
 
+def cache_leaves(specs: list, *trees):
+    """Yield ``(spec, leaf, ...)`` for every leaf of ``specs`` (a stacked
+    cache spec tree) and the same leaf of each of ``trees``: slot caches,
+    page pools and a prefill's new rows share one structure.  ``"kv_seq" in
+    spec.axes`` tells a row leaf from a slot-indexed state leaf."""
+    for si, stage in enumerate(specs):
+        for gi, group in stage.items():
+            for name, spec in group.items():
+                yield (spec, *(t[si][gi][name] for t in trees))
+
+
 def pad_cache_len(cfg: ArchConfig, caches: list, new_len: int) -> list:
-    """Zero-pad every cache's row axis up to its ``new_len`` capacity (a
-    ring up to ``min(new_len, window)``), so that a prefill's caches can be
-    decoded into directly."""
-    out = []
-    for stage, group in zip(cache_specs(cfg, 1, new_len), caches):
-        g_out = {}
-        for gi, spec in stage.items():
-            g_out[gi] = {}
-            for name, leaf in group[gi].items():
-                S = spec[name].shape[2]  # [R, batch, S, K, dh]
-                pad = S - leaf.shape[2]
-                if pad > 0:
-                    leaf = torch.cat([leaf, leaf.new_zeros(
-                        (*leaf.shape[:2], pad, *leaf.shape[3:]))], 2)
-                g_out[gi][name] = leaf
-        out.append(g_out)
-    return out
+    """Zero-pad every ``kv_seq`` axis up to its ``new_len`` capacity (a ring
+    up to ``min(new_len, window)``), so that a prefill's caches can be
+    decoded into directly; state leaves are returned as they are."""
+    specs = cache_specs(cfg, 1, new_len)
+
+    def grow(spec, leaf):
+        if "kv_seq" not in spec.axes:
+            return leaf
+        ax = spec.axes.index("kv_seq")
+        pad = spec.shape[ax] - leaf.shape[ax]
+        if pad <= 0:
+            return leaf
+        shape = list(leaf.shape)
+        shape[ax] = pad
+        return torch.cat([leaf, leaf.new_zeros(shape)], ax)
+
+    return [{gi: {name: grow(spec, caches[si][gi][name]) for name, spec in group.items()}
+             for gi, group in stage.items()} for si, stage in enumerate(specs)]
 
 
 # ---------------------------------------------------------------------------
@@ -189,17 +214,26 @@ def pad_cache_len(cfg: ArchConfig, caches: list, new_len: int) -> list:
 
 def paged_cache_specs(cfg: ArchConfig, max_batch: int, n_pages: int,
                       page_size: int) -> list:
-    """Per-stage pool specs: every attention layer owns k/v pools
-    ``[R, n_pages, page_size, K, dh]`` (R = the stage's stacked layers), an
-    MLA layer one kv pool ``[R, n_pages, page_size, kvr + dr]``; page 0 is
-    the engine's trash page."""
-    del max_batch  # pools are shared across sequences
+    """Per-stage paged cache specs: every ``kv_seq`` leaf becomes a pool
+    shared across sequences — an attention layer's k/v ``[R, n_pages,
+    page_size, K, dh]`` (R = the stage's stacked layers; sliding-window
+    layers keep every row), an MLA layer's kv ``[R, n_pages, page_size,
+    kvr + dr]``; page 0 is the engine's trash page.  Leaves without a
+    ``kv_seq`` axis (SSD state) stay slot-indexed ``[R, max_batch, ...]``."""
+    def to_pool(spec):
+        if "kv_seq" not in spec.axes:
+            return spec
+        b = spec.axes.index("batch")
+        shape, axes = list(spec.shape), list(spec.axes)
+        shape[b], axes[b] = n_pages, None  # the pool's page axis is no batch axis
+        return ParamSpec(tuple(shape), tuple(axes), "zeros", spec.dtype)
+
     out = []
     for stage in cfg.stages():
-        group = {str(i): _layer_cache_specs(cfg, sp, n_pages, page_size, local=False)
+        group = {str(i): _layer_cache_specs(cfg, sp, max_batch, page_size, local=False)
                  for i, sp in enumerate(stage.group)}
         out.append(stack_tree(group, stage.repeats))
-    return out
+    return tree_map_specs(to_pool, out)
 
 
 def _pool(spec: ParamSpec, dtype, device):
@@ -216,8 +250,13 @@ def _pool(spec: ParamSpec, dtype, device):
 def init_paged_cache(cfg: ArchConfig, max_batch: int, n_pages: int,
                      page_size: int, device=None) -> list:
     dev = resolve_device(device)
-    return tree_map_specs(lambda s: _pool(s, cfg.compute_dtype, dev),
-                          paged_cache_specs(cfg, max_batch, n_pages, page_size))
+
+    def make(s):
+        if "kv_seq" in s.axes:
+            return _pool(s, cfg.compute_dtype, dev)
+        return torch.zeros(s.shape, dtype=s.dtype or cfg.compute_dtype, device=dev)
+
+    return tree_map_specs(make, paged_cache_specs(cfg, max_batch, n_pages, page_size))
 
 
 # ---------------------------------------------------------------------------
@@ -245,13 +284,16 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
     cache or page pools, updated in place.  prefill: ``cache`` is the
     layer's past KV or None, and the returned cache holds the new rows.
     train: no cache.  ``rows`` holds the step's shared positions, tables
-    and bounds.  MLA layers have no chunk step (the fused latent cache is
-    not prefix-decomposable: the engine prefills them whole) and no
-    cached-prefix prefill."""
+    and bounds.  MLA and SSD layers have no chunk step (the fused latent
+    cache and the SSD state are not prefix-decomposable: the engine
+    prefills them whole) and no cached-prefix prefill.  A layer with
+    ``ffn="none"`` (mamba2) is its mixer and residual alone."""
     _check_layer(spec)
     local = spec.mixer == "attn_local"
     h = L.apply_norm(cfg, p["norm1"], x)
-    if cfg.use_mla:
+    if spec.mixer == "ssm":
+        m, cache = _apply_ssd(cfg, p["mixer"], h, mode=mode, cache=cache)
+    elif cfg.use_mla:
         m, cache = _apply_mla(cfg, p["mixer"], h, mode=mode, cache=cache, rows=rows)
     elif mode == "decode":
         m, cache = L.attn_decode(cfg, p["mixer"], cache, h, rows, local=local)
@@ -266,12 +308,30 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
     else:
         raise ValueError(f"unknown mode {mode!r}")
     x = x + m
+    if spec.ffn == "none":
+        return x, cache
     h = L.apply_norm(cfg, p["norm2"], x)
     if spec.ffn == "moe":
         f, _ = L.moe_forward(cfg, p["ffn"], h)  # route: moe_aux, for training
     else:
         f = L.ffn_forward(cfg, p["ffn"], h)
     return x + f, cache
+
+
+def _apply_ssd(cfg: ArchConfig, p: dict, h, *, mode: str, cache):
+    """The SSD mixer of :func:`_apply_layer`: returns (out, cache)."""
+    if mode == "decode":
+        return S.ssd_decode(cfg, p, cache, h)
+    if mode == "prefill":
+        if cache is not None:
+            raise NotImplementedError("SSD prefill does not continue a cached prefix")
+        return S.ssd_forward(cfg, p, h, return_cache=True)
+    if mode == "train":
+        return S.ssd_forward(cfg, p, h), None
+    if mode == "chunk":
+        raise NotImplementedError("chunked prefill requires a prefix-decomposable "
+                                  "mixer; SSM state is not")
+    raise ValueError(f"unknown mode {mode!r}")
 
 
 def _apply_mla(cfg: ArchConfig, p: dict, h, *, mode: str, cache, rows: L.StepRows):
@@ -376,8 +436,9 @@ def prefill(cfg: ArchConfig, params, tokens, *, past=None, past_len: int = 0,
     """Whole-prompt prefill of tokens [B, S].  Returns (last-row logits
     [B, 1, Vp] f32, caches).  ``past``/``past_len``: a cached prefix's KV
     tree and its length (the prompt continues it; the returned caches hold
-    only the new rows).  ``cache_len``: zero-pad every cache to that
-    capacity so that ``decode_step`` can decode into it directly."""
+    only the new rows).  ``cache_len``: zero-pad every ``kv_seq`` leaf to
+    that capacity so that ``decode_step`` can decode into it directly (SSD
+    state leaves are already whole)."""
     hidden, caches = forward_hidden(cfg, params, tokens, mode="prefill",
                                     caches=past, past_len=past_len)
     logits = lm_logits(cfg, params, hidden[:, -1:].contiguous())

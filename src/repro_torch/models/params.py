@@ -18,7 +18,7 @@ import torch
 class ParamSpec(NamedTuple):
     shape: tuple
     axes: tuple  # logical axis name (or None) per dim
-    init: str = "scaled"  # scaled | normal | zeros | ones
+    init: str = "scaled"  # scaled | normal | zeros | ones | ssm_a | dt_bias
     dtype: Any = None  # None -> the default dtype init_params is given
 
     def stacked(self, n: int, axis_name: str = "layers") -> "ParamSpec":
@@ -71,6 +71,12 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, default_dtype, device):
         return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
+    if spec.init in ("ssm_a", "dt_bias"):
+        lo, hi = (1.0, 16.0) if spec.init == "ssm_a" else (1e-3, 1e-1)
+        u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+        u = u * (hi - lo) + lo
+        # A_log ~ log U[1, 16]; dt_bias = inverse softplus of U[1e-3, 1e-1]
+        return (torch.log(u) if spec.init == "ssm_a" else torch.log(torch.expm1(u))).to(dtype)
     if spec.init == "normal":
         std = 0.02
     elif spec.init == "scaled":

@@ -13,11 +13,15 @@ and the copy-on-write page copy) and :class:`Engine`, the facade whose
   slot, or
 - a *decode* tick of ``decode_chunk`` decode steps otherwise.
 
-A model whose prefill is not prefix-decomposable (MLA) has no chunk step:
-admission prefills each prompt whole, at its exact length, inline
-(:meth:`ModelRunner.whole_prefill`, the JAX runner's ``_whole_prefill``),
-so every tick of such an engine is a decode tick, and it keeps no radix
-tree.
+A model whose prefill is not prefix-decomposable (MLA, or any SSD layer:
+mamba2, the jamba hybrid) has no chunk step: admission prefills each prompt
+whole, at its exact length, inline (:meth:`ModelRunner.whole_prefill`, the
+JAX runner's ``_whole_prefill``), so every tick of such an engine is a
+decode tick, and it keeps no radix tree.  Its ``kv_seq`` rows go to the
+page pools through the slot's table; its SSD state overwrites the slot's
+row of the slot-indexed state leaves.  A decode step advances the state of
+every slot, the empty and finished ones too (as the JAX engine's); the next
+whole prefill into a slot overwrites its row.
 
 Both tick shapes run their decode steps through one function,
 :meth:`ModelRunner._decode_steps`, so a token's math does not depend on
@@ -213,6 +217,8 @@ class ModelRunner:
         self.vocab = cfg.vocab_size
         self.eos_id = config.eos_id
         self.page_size = config.page_size
+        self.specs = M.paged_cache_specs(cfg, config.max_batch, config.n_pages,
+                                         config.page_size)
         self.caches = M.init_paged_cache(cfg, config.max_batch, config.n_pages,
                                          config.page_size, device=device)
         self.graph = DecodeGraph(cfg, params, self.caches, config.max_batch,
@@ -293,42 +299,44 @@ class ModelRunner:
         out = out.cpu().numpy()
         return int(out[0]), bool(out[1]), out[2:].reshape(len(cur), 5)
 
-    def whole_prefill(self, tokens: list[int], table, temp: float, gen):
+    def whole_prefill(self, tokens: list[int], table, slot: int, temp: float, gen):
         """Exact-length whole-prompt prefill (the JAX runner's
         ``_whole_prefill``): ``model.prefill`` over ``tokens`` alone, its
-        ``kv_seq`` rows scattered to logical rows ``[0, n)`` through the
-        page ``table`` [npp], and the first token sampled.  Returns
-        ``(first, ok)``; ``ok`` is False when the sampled logits row is not
-        finite (a poisoned prefill).  One device->host copy."""
+        cache written for ``slot`` (:meth:`_scatter_new`) and the first
+        token sampled.  Returns ``(first, ok)``; ``ok`` is False when the
+        sampled logits row is not finite (a poisoned prefill).  One
+        device->host copy."""
         dev = self.device
         toks = torch.tensor([tokens], dtype=torch.int32, device=dev)
         logits, small = M.prefill(self.cfg, self.params, toks)
-        self._scatter_new(small, torch.from_numpy(table).to(dev), len(tokens))
+        self._scatter_new(small, torch.from_numpy(table).to(dev), slot, len(tokens))
         lf = logits[:, -1, : self.vocab]
         tok = self._sample(lf, [temp], [gen])
         out = torch.stack([tok[0], torch.isfinite(lf).all().to(torch.int32)]).cpu()
         return int(out[0]), bool(out[1])
 
-    def _scatter_new(self, small, table, n: int):
-        """Write a whole prefill's cache rows ``small`` ([R, 1, n, ...] a
-        leaf) to logical rows ``[0, n)`` of the pools through ``table``
-        (the JAX runner's ``_scatter_new``; every leaf the port serves has
-        a ``kv_seq`` axis)."""
+    def _scatter_new(self, small, table, slot: int, n: int):
+        """Write a whole prefill's cache ``small`` (batch 1 a leaf) for
+        ``slot`` (the JAX runner's ``_scatter_new``): a ``kv_seq`` leaf's
+        rows [R, 1, n, ...] go to logical rows ``[0, n)`` of its pool
+        through ``table``; a state leaf [R, 1, ...] overwrites batch row
+        ``slot`` and no other."""
         j = torch.arange(n, device=table.device)
         ps = self.page_size
         page, row = table[j // ps].long(), j % ps
-        for stage, new in zip(self.caches, small):
-            for gi, group in stage.items():
-                for name, pool in group.items():
-                    pool[:, page, row] = new[gi][name][:, 0].to(pool.dtype)
+        for spec, pool, new in M.cache_leaves(self.specs, self.caches, small):
+            if "kv_seq" in spec.axes:
+                pool[:, page, row] = new[:, 0].to(pool.dtype)
+            else:
+                pool[:, slot] = new[:, 0].to(pool.dtype)
 
     def copy_page(self, src: int, dst: int):
         """Copy page ``src`` -> ``dst`` in every pool (the copy half of a
-        partial-page prefix share)."""
-        for stage in self.caches:
-            for group in stage.values():
-                for pool in group.values():
-                    pool[:, dst].copy_(pool[:, src])
+        partial-page prefix share); slot-indexed state leaves have no
+        pages and are left as they are."""
+        for spec, pool in M.cache_leaves(self.specs, self.caches):
+            if "kv_seq" in spec.axes:
+                pool[:, dst].copy_(pool[:, src])
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +363,8 @@ class Scheduler:
         # prompt's pages and decode rows grow tick by tick
         self.lazy = config.preemption != "off"
         # chunked prefill and prefix reuse need a prefill that decomposes
-        # over the prompt; MLA's is not, and prefills whole prompts inline
+        # over the prompt; MLA's and SSD's do not, and prefill whole prompts
+        # inline
         self.chunked = decomposable
         self.radix: RadixCache | None = (
             RadixCache(config.page_size, self.pool)
@@ -629,7 +638,7 @@ class Scheduler:
         reached or eos).  Returns True if the slot retired."""
         full = req.full_prompt()
         t0 = time.time()
-        first, ok = runner.whole_prefill(full, table, req.temperature, gen)
+        first, ok = runner.whole_prefill(full, table, i, req.temperature, gen)
         stats.prefill_s += time.time() - t0
         stats.prefills += 1
         now = self.clock()
@@ -751,9 +760,12 @@ class Engine:
         self.chaos = chaos
         self._closed = False
         self.runner = ModelRunner(cfg, params, self.config, self.device)
-        # prefix-decomposable prefill: every mixer the port serves but MLA
-        self.sched = Scheduler(self.config, self.device,
-                               decomposable=not cfg.use_mla, clock=self._now)
+        # prefix-decomposable prefill: attention other than MLA; SSD state
+        # and cross-attention image KV are not (the JAX engine's rule)
+        decomposable = (not cfg.use_mla and
+                        all(sp.mixer not in ("ssm", "cross") for sp in cfg.layer_specs()))
+        self.sched = Scheduler(self.config, self.device, decomposable=decomposable,
+                               clock=self._now)
         if chaos is not None:
             self.sched.pool.fault = lambda: chaos.fire("pool.alloc")
         self._next_rid = 0

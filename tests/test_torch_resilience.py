@@ -9,11 +9,11 @@ injector's ``events`` — equals the JAX engine's.  Deadlines fire from the
 injected clock (``clock.skew``), with budgets far from the wall time a run
 takes, so no scenario depends on how fast the machine is.
 
-Two scenarios wait for their modules, and are not ported here:
-``test_whole_prefill_models_cancel_and_deadline`` needs mamba's
-whole-prompt prefill (SSM, ROADMAP Queue 1 item 10), and
+``test_whole_prefill_models_cancel_and_deadline`` runs on reduced
+mamba2-130m (the ``mamba_sides`` fixture): SSM prefills whole prompts at
+admission.  One scenario waits for its module, and is not ported here:
 ``test_failure_injector_is_a_chaos_specialization`` needs the training
-slice's ``FailureInjector`` (item 12).
+slice's ``FailureInjector`` (ROADMAP Queue 1 item 12).
 """
 import jax
 import numpy as np
@@ -62,6 +62,16 @@ class Side:
 def sides():
     jcfg = JC.reduce_config(JC.get_config("olmo-1b"))
     tcfg = TC.reduce_config(TC.get_config("olmo-1b"))
+    params = JM.init(jcfg, jax.random.PRNGKey(0))
+    tparams = bridge.params_from_numpy(tcfg, _flatten(params), device="cpu")
+    return (Side("jax", jcfg, params, JS, j_check_invariants, {}),
+            Side("torch", tcfg, tparams, TS, TS.check_invariants, {"device": "cpu"}))
+
+
+@pytest.fixture(scope="module")
+def mamba_sides():
+    jcfg = JC.reduce_config(JC.get_config("mamba2-130m"))
+    tcfg = TC.reduce_config(TC.get_config("mamba2-130m"))
     params = JM.init(jcfg, jax.random.PRNGKey(0))
     tparams = bridge.params_from_numpy(tcfg, _flatten(params), device="cpu")
     return (Side("jax", jcfg, params, JS, j_check_invariants, {}),
@@ -186,6 +196,31 @@ def _cancel(side):
 
 def test_cancel_queued_and_inflight(sides):
     _both(sides, _cancel)
+
+
+def _whole_prefill_cancel_deadline(side):
+    """SSM prefill is not chunkable; deadlines and cancellation must still
+    work through the inline whole-prompt admission path."""
+    FR = side.FR
+    pa, pb = _prompts(side, ["state space aa", "state space bb"])
+    chaos = side.chaos(schedule={"clock.skew": {4}}, skew_s=1000.0)
+    eng = side.engine(max_batch=1, chaos=chaos)
+    assert eng.radix is None
+    ra = eng.submit(pa, max_new=30)
+    rb = eng.submit(pb, max_new=30, deadline_s=5.0)
+    eng.step()
+    assert eng.cancel(ra)          # in flight (decoding after whole prefill)
+    res = _drain(eng)
+    assert res[ra].finish_reason == FR.CANCELLED
+    assert len(res[ra].generated) > 0
+    assert res[rb].finish_reason == FR.DEADLINE
+    assert eng.stats.cancelled == 1 and eng.stats.deadline_expired == 1
+    assert eng.pool.num_free == eng.pool.n_pages - 1
+    return _outcome(res, [ra, rb]), _counters(eng), list(chaos.events)
+
+
+def test_whole_prefill_models_cancel_and_deadline(mamba_sides):
+    _both(mamba_sides, _whole_prefill_cancel_deadline)
 
 
 # ---------------------------------------------------------------------------
