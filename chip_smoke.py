@@ -122,12 +122,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    requests: dense flash attention once a whole prefill, paged
    flash-decode once a replay, ``graph_check``, the pool reconciled, a
    traced decode tick;
-8. a JSON ``added_kernels`` line (the quantize kernel), a JSON
+8. VLM and encoder (after jamba is freed): first the kernels at their
+   shapes (in phase 2: dense attention bidirectional at hubert's head dim
+   80 and llama-3.2-vision's cross-attention at Sq = 1 and 500 over 1601
+   image keys, also among the dense gates; slot decode at G = 4, d = 128;
+   the bf16 GEMM at llama's decode widths, the image K/V (3202 rows) and
+   hubert's MLP (4000 rows); the int8 GEMM exactly and the row quantize bit
+   for bit at the w8a8 passes' shapes), then reduced llama-3.2-vision and
+   reduced hubert on the card against the CPU (``vlm_reference_check``,
+   ``encoder_reference_check``; w8a8 under the flip rule).  Full-width,
+   full-depth llama-3.2-vision-11b (10.1 B parameters, gates 0.5): B = 2
+   prompts of 500 tokens with 1601 patch embeddings each, ``prefill(images,
+   cache_len=1024)`` and 32 greedy steps replayed as a CUDA graph, in bf16
+   and w8a8, the launches per prefill and per replay checked exactly,
+   ``graph_check`` with the image K/V among the graph's state, a traced
+   step.  Full-width, full-depth hubert-xlarge: the bidirectional forward
+   over 4 x 1000 frames and every frame's logits, bf16 and w8a8, launches
+   per forward checked, a traced forward;
+9. a JSON ``added_kernels`` line (the quantize kernel), a JSON
    ``mla_kernels`` line (both decode kernels at the latent shape), a JSON
    ``moe`` line (the MoE phase's summary and its rows), a JSON ``ssm`` line
-   (the SSD phases' summaries and the rows at their shapes), the script's
-   wall time, a JSON ``kernels`` line (the six ported TPU kernels), then
-   the JSON result as the last line.
+   (the SSD phases' summaries and the rows at their shapes), a JSON
+   ``vlm_encoder`` line (phase 8's summaries) and a ``vlm_encoder_kernels``
+   line (its kernel rows), the script's wall time, a JSON ``kernels`` line
+   (the six ported TPU kernels), then the JSON result as the last line.
 
 It needs CUDA: without a card it exits 2 before printing anything else.
 """
@@ -576,6 +594,14 @@ def dense_attention_phase(flush, gen):
         ("all-masked Sq200>Sk129 window40 d64", 1, 200, 129, True, 40, 0.0, 2, 1, 64),
         ("bidirectional Sq65<Sk129 d256 G8", 1, 65, 129, False, 0, 0.0, 8, 1, 256),
         ("softcap d20 elementwise", 1, 70, 70, True, 0, 20.0, 4, 2, 20),
+        # hubert-xlarge: bidirectional at head dim 80 (padded to 128 on the
+        # tensor cores: columns 80-127 of every tile must be zero), G = 1;
+        # llama-3.2-vision-11b's cross-attention: one query row (decode) and
+        # a prompt over the image's 1601 keys, G = 4
+        ("bidirectional d80 G1 S65", 2, 65, 65, False, 0, 0.0, 16, 16, 80),
+        ("bidirectional d80 G1 S1000", 1, 1000, 1000, False, 0, 0.0, 16, 16, 80),
+        ("cross Sq1 Sk1601 d128 G4", 2, 1, 1601, False, 0, 0.0, 32, 8, 128),
+        ("cross Sq500 Sk1601 d128 G4", 1, 500, 1601, False, 0, 0.0, 32, 8, 128),
     ]
     err = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1590,7 +1616,7 @@ def graph_check(name, g, load, gen):
         fail(f"{name}: a replay counted {delta}, not {per_replay}")
     torch.cuda.synchronize()
     log(f"{name} decode graph: replay == eager bit for bit (poisoned slot NaN"
-        f"{', SSD state' if g.state else ''}), again "
+        f"{', state leaves' if g.state else ''}), again "
         f"after a larger eager call that grew its stream's scratch; per replay "
         f"{json.dumps(per_replay)} launches; capture {g.capture_s * 1e3:.1f} ms")
     return per_replay
@@ -1611,7 +1637,6 @@ def _qtensors(tree):
 def edge_phase(counters, gen):
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
-    from repro_torch.models.graph import DecodeGraph
     names = {c.__name__: c for c in counters}
     small_gap = small_reference_check()
     cfg = get_config("gemma3-4b")
@@ -1634,29 +1659,7 @@ def edge_phase(counters, gen):
         0, V, (B, S)).astype(np.int32)).cuda()
 
     def run(c, p, forced=None, n=steps):
-        """prefill -> ``n`` greedy decode steps (or the ``forced`` tokens)
-        through a ``DecodeGraph`` on the slot caches the prefill returns:
-        step 0 captures it (timed apart), steps 1.. replay it.  Returns
-        (per-step logits, tokens, prefill s, s a replayed step, the graph)."""
-        torch.cuda.synchronize()
-        t0 = time.time()
-        logits, caches = M.prefill(c, p, prompts, cache_len=cache_len)
-        torch.cuda.synchronize()
-        t_pre = time.time() - t0
-        g = DecodeGraph(c, p, caches, B)
-        outs, toks = [logits[:, -1, :V]], []
-        for i in range(n):
-            if i == 1:
-                torch.cuda.synchronize()
-                t0 = time.time()
-            tok = (forced[i] if forced is not None
-                   else torch.argmax(outs[-1], -1).to(torch.int32))
-            toks.append(tok)
-            g.cur.copy_(tok)
-            g.pos.fill_(S + i)
-            outs.append(g.run()[0].clone())
-        torch.cuda.synchronize()
-        return outs, toks, t_pre, (time.time() - t0) / max(n - 1, 1), g
+        return _greedy_run(c, p, prompts, cache_len, n, forced)
 
     run(cfg, params_q, n=2)  # warm-up: first launches, allocator
     for c in counters:
@@ -1723,6 +1726,37 @@ def edge_phase(counters, gen):
                           argmax_agreement=agree, small_gap=small_gap,
                           bf16_prefill_ms=t_pre_bf * 1e3,
                           bf16_decode_step_ms=t_step_bf * 1e3, trace=trace)
+
+
+def _greedy_run(cfg, params, prompts, cache_len, n, forced=None, images=None):
+    """``prefill(cache_len=...)`` of ``prompts`` [B, S] (with ``images`` for a
+    cross model) -> ``n`` greedy decode steps (or the ``forced`` tokens)
+    through a ``DecodeGraph`` on the slot caches the prefill returns: step 0
+    captures it (timed apart), steps 1.. replay it.  Returns (per-step
+    logits, tokens, prefill s, s a replayed step, the graph)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.graph import DecodeGraph
+    B, S = prompts.shape
+    V = cfg.vocab_size
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits, caches = M.prefill(cfg, params, prompts, images=images, cache_len=cache_len)
+    torch.cuda.synchronize()
+    t_pre = time.time() - t0
+    g = DecodeGraph(cfg, params, caches, B)
+    outs, toks = [logits[:, -1, :V]], []
+    for i in range(n):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.time()
+        tok = (forced[i] if forced is not None
+               else torch.argmax(outs[-1], -1).to(torch.int32))
+        toks.append(tok)
+        g.cur.copy_(tok)
+        g.pos.fill_(S + i)
+        outs.append(g.run()[0].clone())
+    torch.cuda.synchronize()
+    return outs, toks, t_pre, (time.time() - t0) / max(n - 1, 1), g
 
 
 def _traced(fn):
@@ -3206,6 +3240,423 @@ def jamba_engine_phase(counters, gen):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the cross-attention VLM and the bidirectional audio encoder
+# ---------------------------------------------------------------------------
+
+VLM, ENC = "llama-3.2-vision-11b", "hubert-xlarge"
+VLM_B, VLM_S, VLM_CACHE, VLM_STEPS = 2, 500, 1024, 32
+ENC_B, ENC_T = 4, 1000  # 20 s of audio at HuBERT's 50 frames a second
+# the bf16 GEMM's rows at both models' shapes (M, K, N): llama's decode
+# projections (wq / wo, w_gate / w_up, w_down, the head with f32 out), the
+# image's K/V at prefill (M = B * 1601, N = 8 kv-heads x 128), hubert's
+# w1 over 4 x 1000 frames
+VLM_GEMMS = ((8, 4096, 4096), (8, 4096, 14336), (8, 14336, 4096), (8, 4096, 128256),
+             (3202, 4096, 1024), (4000, 1280, 5120))
+# the int8 GEMM, exact, at the w8a8 passes' shapes: decode and prefill
+# (M = B * S = 1000) projections, the head, the image's K/V, hubert's MLP
+VLM_INT8 = ((2, 4096, 4096), (2, 4096, 14336), (2, 14336, 4096), (2, 4096, 128256),
+            (1000, 4096, 4096), (1000, 4096, 1024), (1000, 4096, 14336), (1000, 14336, 4096),
+            (3202, 4096, 1024), (4000, 1280, 5120), (4000, 5120, 1280))
+
+
+def _open_zero_leaves(tree, gen):
+    """In place: every cross-attention gate to 0.5 (``tanh(0) = 0`` would
+    hide the cross sub-blocks) and every zero-initialised bias (the GELU
+    MLP's b1 / b2, LayerNorm's bias) to 0.1 x N(0, 1) from ``gen``, which
+    lives on the tree's device."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            _open_zero_leaves(v, gen)
+        elif k == "gate":
+            v.fill_(0.5)
+        elif k in ("b1", "b2", "bias"):
+            v.copy_(0.1 * torch.randn(v.shape, generator=gen, device=v.device))
+
+
+def _attn_row(flush, name, q, k, v, causal):
+    """Time dense flash attention on q [B,H,Sq,d], k/v [B,K,Sk,d] beside the
+    plain version, SDPA (GQA, the same mask) and the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, H, Sq, d = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=causal), flush, reps=10)
+    plain = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal), flush, reps=5)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True), flush)
+    pairs = Sq * Sk if not causal else sum(min(i + 1 + Sk - Sq, Sk) for i in range(Sq))
+    bms, by = bound_ms(2 * (2 * B * H * Sq * d + 2 * B * K * Sk * d),
+                       4 * B * H * pairs * d, torch.bfloat16)
+    shape = f"{name} B{B} H{H} K{K} Sq{Sq} Sk{Sk} d{d}"
+    log(f"  flash_attention bf16 {shape}{'' if causal else ' bidirectional'}: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    return dict(shape=shape, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                bound_by=by)
+
+
+def vlm_kernel_phase(flush, gen):
+    """The kernels of the VLM and encoder paths at their shapes, beside their
+    plain versions, the library call and the bound.  Dense attention
+    (bidirectional): hubert's forward (B 4, 16 heads of 80 over 16, S 1000),
+    the cross prefill (B 2, 32 heads over 8 of 128, Sq 500 over Sk 1601) and
+    the cross decode (Sq 1 over 1601), against SDPA; its gates at these
+    shapes are ``dense_attention_phase``'s cases.  Slot flash-decode at
+    llama's heads (G 4, d 128; B 2 on a linear cache of 1024 rows, 532 live,
+    the last decode step's) against SDPA with a live-row mask, gated in f32
+    and bf16.  The bf16 GEMM at ``VLM_GEMMS`` against ``torch.matmul``
+    (gated as ``gemm_phase``, rows bit-identical across M); the int8 GEMM
+    exactly at ``VLM_INT8``; the row quantize bit for bit at the w8a8
+    passes' activations.  Returns the rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_gemm import block_gemm, gemm_splits
+    from repro_torch.kernels.decode_attention import flash_decode
+    from repro_torch.kernels.quantize import quantize_rows
+    rows = {"attention": [], "gemm": []}
+    bf = torch.bfloat16
+
+    def qkv(B, H, K, Sq, Sk, d):  # the layers' layout, transposed without a copy
+        return tuple(torch.randn(B, S, h, d, generator=gen, device="cuda").to(bf)
+                     .transpose(1, 2) for S, h in ((Sq, H), (Sk, K), (Sk, K)))
+
+    for name, shape in (("hubert", (ENC_B, 16, 16, ENC_T, ENC_T, 80)),
+                        ("cross prefill", (VLM_B, 32, 8, VLM_S, 1601, 128)),
+                        ("cross decode", (VLM_B, 32, 8, 1, 1601, 128))):
+        rows["attention"].append(_attn_row(flush, name, *qkv(*shape), causal=False))
+
+    B, H, Kh, d, S = VLM_B, 32, 8, 128, VLM_CACHE
+    pos = torch.full((B,), VLM_S + VLM_STEPS - 1, dtype=torch.int32, device="cuda")
+    start = torch.zeros(B, dtype=torch.int32, device="cuda")
+    err = {}
+    for dtype in (torch.float32, bf):
+        q = torch.randn(B, H, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B, S, Kh, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(B, S, Kh, d, generator=gen, device="cuda").to(dtype)
+        err[dtype] = check_attn(f"flash_decode llama {dtype}", flash_decode(q, k, v, pos, start),
+                                ref.flash_decode_ref(q, k, v, pos, start), dtype)
+    ms = time_ms(lambda: flash_decode(q, k, v, pos, start), flush)
+    plain = time_ms(lambda: ref.flash_decode_ref(q, k, v, pos, start), flush)
+    mask = _live_mask(pos, start, S, False)[:, None, None, :]
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        enable_gqa=True), flush)
+    live = int(mask.sum())
+    bms, by = bound_ms(2 * (2 * live * Kh * d + 2 * B * H * d) + 8 * B, 4 * live * H * d, bf)
+    rows["decode"] = dict(shape=f"linear B{B} H{H} K{Kh} S{S} d{d} live{live}", ms=ms,
+                          plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                          max_abs_err=err[bf][0])
+    log(f"  flash_decode bf16 llama linear B={B} H={H} K={Kh} S={S} ({live} live rows): kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA+mask {lib:.4f} ms, bound {bms:.4f} ms "
+        f"({by}); f32 / bf16 max_abs_err {err[torch.float32][0]:.3e} / {err[bf][0]:.3e}")
+
+    gemm_err = 0.0
+    for (M, K, N) in VLM_GEMMS:
+        f32_out = N == 128256
+        out_dtype = torch.float32 if f32_out else bf
+        a = torch.randn(M, K, generator=gen, device="cuda").to(bf)
+        b = (torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)).to(bf)
+        gemm_err = max(gemm_err, check_close(
+            f"block_gemm bf16 {M}x{K}x{N}", block_gemm(a, b, out_dtype=out_dtype),
+            ref.block_gemm_ref(a, b, out_dtype), 1e-4, 1e-5 if f32_out else 2.0 ** -7))
+        ms = time_ms(lambda: block_gemm(a, b, out_dtype=out_dtype), flush)
+        plain = time_ms(lambda: ref.block_gemm_ref(a, b, out_dtype), flush)
+        lib = time_ms(lambda: torch.matmul(a, b), flush)  # bf16 out, as the earlier rows
+        bms, by = bound_ms(2 * (M * K + K * N) + M * N * (4 if f32_out else 2), 2 * M * N * K,
+                           bf)
+        rows["gemm"].append(dict(shape=f"{M}x{K}x{N}", ms=ms, plain_ms=plain, library_ms=lib,
+                                 bound_ms=bms, bound_by=by))
+        log(f"  block_gemm bf16 {M}x{K}x{N}{' f32 out' if f32_out else ''} (K split "
+            f"{gemm_splits(K, N)}): kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
+            f"{lib:.4f} ms, bound {bms:.4f} ms ({by})")
+    gemm_row_invariance(gen, [(K, N, False) for (_, K, N) in VLM_GEMMS[:4]])
+    rows["gemm_max_abs_err"] = gemm_err
+    for (M, K, N) in VLM_INT8:
+        int8_exact(gen, M, K, N)
+    for M, K in ((VLM_B, 4096), (VLM_B, 14336), (VLM_B * VLM_S, 4096), (VLM_B * 1601, 4096),
+                 (ENC_B * ENC_T, 1280), (ENC_B * ENC_T, 5120)):
+        x = torch.randn(M, K, generator=gen, device="cuda").to(bf)
+        q, scale = quantize_rows(x)
+        qr, sr = ref.quantize_rows_ref(x)
+        if not (torch.equal(q, qr) and torch.equal(scale, sr)):
+            fail(f"quantize_rows bf16 {M}x{K}: differs from the plain version")
+    torch.cuda.synchronize()
+    log(f"VLM / encoder kernels: bf16 GEMM at {len(VLM_GEMMS)} shapes agrees (max_abs_err "
+        f"{gemm_err:.3e}), rows bit-identical across M; int8 GEMM exact at {len(VLM_INT8)} "
+        f"shapes; quantize_rows bit-identical at 6 shapes; slot decode at G 4 agrees")
+    return rows
+
+
+def vlm_reference_check():
+    """Reduced llama-3.2-vision-11b (f32 compute; 5 layers, the cross layer
+    at index 4, 16 image tokens of width 32; seed-0 weights, gates 0.5) on
+    the card's kernels against the CPU's plain versions, float and w8a8:
+    ``prefill(tokens, images, cache_len=64)`` of two 40-token prompts, then
+    12 ``decode_step``s on slot caches (cross-attention over the cached
+    image K/V at Sq = 1).  Gate: ``_card_vs_cpu``."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import model as M
+    cfg = reduce_config(get_config(VLM))
+    rng = np.random.RandomState(13)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 52)).astype(np.int32))
+    img = torch.from_numpy(rng.randn(2, cfg.vision_tokens, cfg.vision_dim).astype(np.float32))
+    out = {}
+    for quant in ("none", "w8a8"):
+        p_cpu = M.init(cfg, seed=0, device="cpu")
+        _open_zero_leaves(p_cpu, torch.Generator().manual_seed(5))
+        if quant == "w8a8":
+            p_cpu = M.quantize_params(cfg, p_cpu)
+        p_gpu = _to_cuda(p_cpu)
+        with _Int8Recorder() as rec:
+            lc, cc = M.prefill(cfg, p_cpu, toks[:, :40], images=img, cache_len=64)
+            lg, cg = M.prefill(cfg, p_gpu, toks[:, :40].cuda(), images=img.cuda(), cache_len=64)
+            pairs = [(lc, lg.cpu())]
+            for i in range(12):
+                tok = toks[:, 40 + i: 41 + i]
+                lc, cc = M.decode_step(cfg, p_cpu, cc, tok, 40 + i)
+                lg, cg = M.decode_step(cfg, p_gpu, cg, tok.cuda(), 40 + i)
+                pairs.append((lc, lg.cpu()))
+        out[quant] = _card_vs_cpu(f"reduced {VLM}", quant, pairs, rec)
+        log(f"reduced {VLM} {quant}, card kernels vs CPU plain versions: prefill (40 tokens, "
+            f"16 image tokens) + 12 decode steps, max logits gap {out[quant]['gap']:.3e} "
+            f"(bound {out[quant]['bound']:g}), argmax agreement "
+            f"{out[quant]['argmax_agreement']:.4f}")
+    return out
+
+
+def encoder_reference_check():
+    """Reduced hubert-xlarge (f32 compute; 2 layers, 4 heads of 16, frames
+    of width 64; seed-0 weights, biases 0.1 x N(0, 1)) on the card's kernels
+    against the CPU's plain versions, float and w8a8: the bidirectional
+    forward over 2 x 100 frames and the logits of every frame.  Gate:
+    ``_card_vs_cpu``."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import model as M
+    cfg = reduce_config(get_config(ENC))
+    frames = torch.from_numpy(np.random.RandomState(14).randn(2, 100, cfg.frontend_dim)
+                              .astype(np.float32))
+    out = {}
+    for quant in ("none", "w8a8"):
+        p_cpu = M.init(cfg, seed=0, device="cpu")
+        _open_zero_leaves(p_cpu, torch.Generator().manual_seed(6))
+        if quant == "w8a8":
+            p_cpu = M.quantize_params(cfg, p_cpu)
+        p_gpu = _to_cuda(p_cpu)
+        with _Int8Recorder() as rec:
+            lc = M.lm_logits(cfg, p_cpu, M.forward_hidden(cfg, p_cpu, frames=frames)[0])
+            lg = M.lm_logits(cfg, p_gpu, M.forward_hidden(cfg, p_gpu, frames=frames.cuda())[0])
+        out[quant] = _card_vs_cpu(f"reduced {ENC}", quant, [(lc, lg.cpu())], rec)
+        log(f"reduced {ENC} {quant}, card kernels vs CPU plain versions: forward over 2 x 100 "
+            f"frames, max logits gap {out[quant]['gap']:.3e} (bound {out[quant]['bound']:g}), "
+            f"argmax agreement {out[quant]['argmax_agreement']:.4f}")
+    return out
+
+
+def _launched(counters, names, want, what):
+    """Fail unless the wrappers' counts ``{name: n}`` of ``counters`` are
+    ``want`` for every name listed there and 0 for the others."""
+    got = {c.__name__: c.launches for c in counters}
+    for n in names:
+        if got[n] != want.get(n, 0):
+            fail(f"{what}: {n} launched {got[n]} times, not {want.get(n, 0)}")
+    return got
+
+
+def vlm_phase(counters, gen):
+    """Full-width, full-depth llama-3.2-vision-11b (bf16, seed-0 weights drawn
+    on the card after every earlier model is freed, gates 0.5): B = 2
+    prompts of 500 tokens, each with 1601 random patch embeddings;
+    ``prefill(images=..., cache_len=1024)``, then 32 greedy steps replayed as
+    a CUDA graph (``_greedy_run``); then the same with ``quantize_params``
+    (w8a8) on the bf16 run's tokens.  Launches, counted with every counter
+    at 0 just before each run: a prefill runs 7 GEMMs a layer, 4 more a
+    cross layer (the image's K/V and the cross q and o) and the head, and
+    one dense attention a layer (causal) and a cross layer (bidirectional,
+    Sq 500 over 1601 keys); a step 7 a layer, 2 more a cross layer and the
+    head, one slot decode a layer and one dense attention a cross layer (Sq
+    1 over 1601).  Under w8a8 each GEMM is an int8 GEMM, one quantize per
+    distinct activation, no bf16 GEMM.  ``graph_check`` (the image K/V
+    among the state leaves) and a traced step follow."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    small = vlm_reference_check()
+    cfg = get_config(VLM)
+    names = [c.__name__ for c in counters]
+    L_, X = cfg.num_layers, cfg.num_layers // cfg.cross_every
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = M.init(cfg, seed=0, device="cuda")
+    _open_zero_leaves(params, gen)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"{VLM}: {L_} layers ({X} cross), d_model {cfg.d_model}, {cfg.num_heads} heads over "
+        f"{cfg.num_kv_heads} of {cfg.head_dim}, vocab {cfg.vocab_size}, {cfg.vision_tokens} "
+        f"image tokens of width {cfg.vision_dim}; {n_params / 1e9:.3f} B parameters, "
+        f"{w_bytes / 1e9:.2f} GB bf16, init {init_s:.2f} s; {free / 2 ** 30:.2f} of "
+        f"{total / 2 ** 30:.2f} GiB free before init")
+    B, S, V = VLM_B, VLM_S, cfg.vocab_size
+    prompts = torch.from_numpy(np.random.RandomState(12).randint(0, V, (B, S))
+                               .astype(np.int32)).cuda()
+    images = torch.randn(B, cfg.vision_tokens, cfg.vision_dim, generator=gen,
+                         device="cuda").bfloat16()
+    per_prefill = {"block_gemm": 7 * L_ + 4 * X + 1, "flash_attention": L_ + X}
+    per_step = {"block_gemm": 7 * L_ + 2 * X + 1, "flash_decode": L_, "flash_attention": X}
+    quant_prefill = {"block_gemm_int8": per_prefill["block_gemm"],
+                     "quantize_rows": 4 * L_ + 3 * X + 1, "flash_attention": L_ + X}
+    quant_step = {"block_gemm_int8": per_step["block_gemm"], "quantize_rows": 4 * L_ + 2 * X + 1,
+                  "flash_decode": L_, "flash_attention": X}
+    out = {"params_b": n_params / 1e9, "weights_gb": w_bytes / 1e9, "init_s": init_s,
+           "small": small}
+    toks = None
+    for quant, p in (("bf16", params), ("w8a8", None)):
+        if quant == "w8a8":
+            t0 = time.time()
+            p = M.quantize_params(cfg, params)
+            torch.cuda.synchronize()
+            out["quantize_params_s"] = time.time() - t0
+            want_pre, want_step = quant_prefill, quant_step
+        else:
+            want_pre, want_step = per_prefill, per_step
+        _greedy_run(cfg, p, prompts, VLM_CACHE, 2, images=images)  # warm-up
+        for c in counters:
+            c.launches = 0
+        outs, got_toks, t_pre, t_step, graph = _greedy_run(
+            cfg, p, prompts, VLM_CACHE, VLM_STEPS, forced=toks, images=images)
+        run = _launched(counters, names, {n: want_pre.get(n, 0) + (VLM_STEPS + 1)
+                                          * want_step.get(n, 0) for n in names},
+                        f"{VLM} {quant} run")
+        step = {c.__name__: n for c, n in graph.per_replay.items()}
+        if step != want_step or graph.replays != VLM_STEPS:
+            fail(f"{VLM} {quant}: a replay launches {step}, not {want_step}; "
+                 f"{graph.replays} replays")
+        for c in counters:
+            c.launches = 0
+        M.prefill(cfg, p, prompts, images=images, cache_len=VLM_CACHE)
+        _launched(counters, names, want_pre, f"{VLM} {quant} prefill")
+        for i, lg in enumerate(outs):
+            if lg.shape != (B, V) or not bool(torch.isfinite(lg).all()):
+                fail(f"{VLM} {quant} logits {i}: shape {tuple(lg.shape)} or non-finite")
+        res = dict(prefill_ms=t_pre * 1e3, step_ms=t_step * 1e3, run_launches=run,
+                   per_prefill=want_pre, per_replay=step, capture_ms=graph.capture_s * 1e3)
+        log(f"{VLM} {quant}: prefill {B}x{S} tokens + {B}x{cfg.vision_tokens} image tokens in "
+            f"{t_pre * 1e3:.1f} ms; {VLM_STEPS - 1} replayed decode steps at {t_step * 1e3:.3f} "
+            f"ms (captured in {graph.capture_s * 1e3:.1f} ms); launches per prefill "
+            f"{json.dumps(want_pre)}, per replay {json.dumps(step)}, in the run "
+            f"{json.dumps({n: c for n, c in run.items() if c})}")
+        if quant == "bf16":
+            toks = got_toks
+            state = {tuple(t.shape) for t in graph.state}
+            if len(graph.state) != 2 or state != {(X, B, cfg.vision_tokens, cfg.num_kv_heads,
+                                                   cfg.head_dim)}:
+                fail(f"{VLM}: the decode graph's state leaves are {state}, not the image K/V")
+            res["graph_per_replay"] = graph_check(f"{VLM} bf16 slot caches", graph, lambda: (
+                graph.load(toks[-1], torch.full((B,), S + VLM_STEPS, dtype=torch.int32),
+                           nanmask=torch.tensor([False, True]))), gen)
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+            def one():
+                lf, _ = graph.run()
+                graph.cur.copy_(torch.argmax(lf, -1).to(torch.int32))
+            dev, top, _, (n_graph, n_kernel) = _traced(one)
+            if n_graph != 1:
+                fail(f"traced {VLM} step: {n_graph} CUDA graph launches, not 1")
+            res["trace"] = dict(device_ms=dev, untraced_ms=t_step * 1e3, top=top,
+                                idle_share=1 - dev / (t_step * 1e3) if dev else None,
+                                graph_launches=n_graph, kernel_launches=n_kernel)
+            log(f"traced {VLM} decode step: device {dev:.3f} ms of an untraced "
+                f"{t_step * 1e3:.3f} ms, {n_graph} cudaGraphLaunch + {n_kernel} kernels; top "
+                f"kernels (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in top.items())
+                if dev else f"traced {VLM} step: the profiler saw no device time "
+                "(not measured)")
+            bf_outs = outs
+        else:
+            res["argmax_agreement_vs_bf16"] = float(torch.mean(torch.stack([
+                (torch.argmax(a, -1) == torch.argmax(b, -1)).float()
+                for a, b in zip(outs, bf_outs)])))
+            res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"{VLM} w8a8 vs bf16 argmax agreement on the same tokens "
+                f"{res['argmax_agreement_vs_bf16']:.4f} over {len(outs) * B} positions "
+                f"(information); peak device memory {res['peak_gib']:.2f} GiB")
+        out[quant] = res
+        del graph, outs
+    return out
+
+
+def encoder_phase(counters, gen):
+    """Full-width, full-depth hubert-xlarge (bf16, seed-0 weights, biases 0.1
+    x N(0, 1)): ``forward_hidden(frames=...)`` over B = 4 utterances of 1000
+    frames (20 s at 50 frames a second), then ``lm_logits`` on every frame,
+    in bf16 and w8a8.  Launches per forward, counted with every counter at
+    0 just before it: 6 GEMMs a layer (q, k, v, o, w1, w2) and the head, one
+    bidirectional dense attention a layer (16 heads of 80); under w8a8 int8
+    GEMMs and 4 quantizes a layer and the head's.  The forward's wall time
+    (median of 3 after a warm-up) and a traced forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    small = encoder_reference_check()
+    cfg = get_config(ENC)
+    names = [c.__name__ for c in counters]
+    L_ = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init(cfg, seed=0, device="cuda")
+    _open_zero_leaves(params, gen)
+    n_params = sum(t.numel() for t in _leaves(params))
+    frames = torch.randn(ENC_B, ENC_T, cfg.frontend_dim, generator=gen, device="cuda").bfloat16()
+    out = {"params_b": n_params / 1e9, "small": small}
+
+    for quant in ("bf16", "w8a8"):
+        p = params if quant == "bf16" else M.quantize_params(cfg, params)
+        want = ({"block_gemm": 6 * L_ + 1, "flash_attention": L_} if quant == "bf16" else
+                {"block_gemm_int8": 6 * L_ + 1, "quantize_rows": 4 * L_ + 1,
+                 "flash_attention": L_})
+
+        def forward():
+            return M.lm_logits(cfg, p, M.forward_hidden(cfg, p, frames=frames)[0])
+        forward()  # warm-up
+        times = []
+        for _ in range(3):
+            for c in counters:
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            logits = forward()
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            got = _launched(counters, names, want, f"{ENC} {quant} forward")
+        if logits.shape != (ENC_B, ENC_T, cfg.padded_vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            fail(f"{ENC} {quant}: logits {tuple(logits.shape)} or non-finite")
+        fwd_ms = statistics.median(times) * 1e3
+        dev, top, _, _ = _traced(forward)
+        res = dict(forward_ms=fwd_ms, launches=got, trace=dict(
+            device_ms=dev, untraced_ms=fwd_ms, top=top,
+            idle_share=1 - dev / fwd_ms if dev else None))
+        log(f"{ENC} {quant}: forward over {ENC_B} x {ENC_T} frames + logits of every frame in "
+            f"{fwd_ms:.2f} ms (median of 3); launches per forward "
+            f"{json.dumps({n: c for n, c in got.items() if c})}; traced: device {dev:.3f} ms; "
+            f"top kernels (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in top.items()))
+        top1 = logits[..., : cfg.vocab_size].argmax(-1)
+        if quant == "bf16":
+            bf16_top1 = top1
+        else:
+            res["argmax_agreement_vs_bf16"] = float((top1 == bf16_top1).float().mean())
+        out[quant] = res
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"{ENC}: {L_} layers, d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, "
+        f"{n_params / 1e9:.3f} B parameters; w8a8 vs bf16 frame argmax agreement "
+        f"{out['w8a8']['argmax_agreement_vs_bf16']:.4f} (information); peak device memory "
+        f"{out['peak_gib']:.2f} GiB")
+    return out
+
+
 def _device_us(event) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
@@ -3336,6 +3787,7 @@ def main() -> int:
     mla_gemm_rows = mla_gemm_phase(flush, gen)
     moe_rows = moe_kernel_phase(flush, gen)
     ssm_rows = ssm_kernel_phase(flush, gen)
+    vlm_rows = vlm_kernel_phase(flush, gen)
     del flush
     edge_launch, report["edge"] = edge_phase(counters, gen)
     for n in ("block_gemm_int8", "quantize_rows", "flash_attention", "flash_decode"):
@@ -3356,6 +3808,14 @@ def main() -> int:
     ssm = {"mamba2": ssm_engine_phase(counters, gen)}
     ssm["jamba"] = jamba_engine_phase(counters, gen)
     ssm.update(rows=ssm_rows, wall_s=time.time() - t_ssm)
+    gc.collect()  # jamba goes before the VLM (20.2 GB of bf16 weights)
+    torch.cuda.empty_cache()
+    t_vlm = time.time()
+    vlm = {"vlm": vlm_phase(counters, gen)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    vlm["encoder"] = encoder_phase(counters, gen)
+    vlm["wall_s"] = time.time() - t_vlm
 
     def pick(name, shape):  # the row's contract keys
         row = next(r for r in rows[name] if r["shape"] == shape)
@@ -3409,8 +3869,32 @@ def main() -> int:
              max_abs_err=mla_err, **mla_rows["slot"])]}))
     log(json.dumps({"moe": moe}))
     log(json.dumps({"ssm": ssm}))
+    # the VLM's and the encoder's kernels at their shapes; launches: the
+    # wrapper's count in the bf16 run of the path with that shape (the VLM's
+    # prefill + warm-up + 32 replays, or one encoder forward)
+    vrun, erun = vlm["vlm"]["bf16"]["run_launches"], vlm["encoder"]["bf16"]["launches"]
+    n_cross = vlm["vlm"]["bf16"]["per_replay"]["flash_attention"]
+    attn_launches = (erun["flash_attention"], n_cross, (VLM_STEPS + 1) * n_cross)
+    fa = sources["flash_attention"]
+    vlm_kernels = [dict(name="flash_attention", route="cuda",
+                        source=f"src/repro_torch/kernels/csrc/{fa[0]}", replaces=fa[1],
+                        launches=n, max_abs_err=errs["flash_attention"], **row)
+                   for row, n in zip(vlm_rows["attention"], attn_launches)]
+    fd = sources["flash_decode"]
+    vlm_kernels.append(dict(name="flash_decode", route="cuda",
+                            source=f"src/repro_torch/kernels/csrc/{fd[0]}", replaces=fd[1],
+                            launches=vrun["flash_decode"], **vlm_rows["decode"]))
+    bg = sources["block_gemm"]
+    vlm_kernels += [dict(name="block_gemm", route="cuda",
+                         source=f"src/repro_torch/kernels/csrc/{bg[0]}", replaces=bg[1],
+                         launches=erun["block_gemm"] if row["shape"].startswith(
+                             f"{ENC_B * ENC_T}x") else vrun["block_gemm"],
+                         max_abs_err=vlm_rows["gemm_max_abs_err"], **row)
+                    for row in vlm_rows["gemm"]]
+    log(json.dumps({"vlm_encoder": vlm}))
+    log(json.dumps({"vlm_encoder_kernels": vlm_kernels}))
     log(f"chip_smoke wall time {time.time() - t_start:.1f} s (the SSM engine phases "
-        f"{ssm['wall_s']:.1f} s)")
+        f"{ssm['wall_s']:.1f} s, the VLM and encoder phases {vlm['wall_s']:.1f} s)")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,21 @@
 """Config registry: ``get_config(name)`` + ``reduce_config`` for smoke tests.
 
-Only the configurations the port serves so far are registered."""
+Every configuration of the JAX package but kimi-k2 (1 T parameters: its
+expert-parallel layer is not ported) is registered."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs import (cgra_edge, deepseek_67b, gemma3_4b, jamba_v01_52b,
-                                 mamba2_130m, minicpm3_4b, olmo_1b, qwen3_moe_30b_a3b)
+from repro_torch.configs import (cgra_edge, deepseek_67b, gemma3_4b, hubert_xlarge,
+                                 jamba_v01_52b, llama32_vision_11b, mamba2_130m,
+                                 minicpm3_4b, olmo_1b, qwen3_moe_30b_a3b)
 from repro_torch.configs.base import ArchConfig, LayerSpec, Stage, build_stages
 
 REGISTRY: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (olmo_1b, deepseek_67b, cgra_edge, gemma3_4b, minicpm3_4b,
-              qwen3_moe_30b_a3b, mamba2_130m, jamba_v01_52b)
+              qwen3_moe_30b_a3b, mamba2_130m, jamba_v01_52b, llama32_vision_11b,
+              hubert_xlarge)
 }
 
 
@@ -56,6 +59,10 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
         kw.update(ssm_state=16, ssm_headdim=16, ssm_chunk=32)
     if cfg.window_size:
         kw.update(window_size=32)
+    if cfg.vision_tokens:
+        kw.update(vision_tokens=16, vision_dim=32)
+    if cfg.frontend_dim:
+        kw.update(frontend_dim=64)
     return cfg.with_(**kw).with_(name=cfg.name + "-smoke")
 
 

@@ -11,7 +11,8 @@ Differences from the JAX config: dtypes are ``torch`` dtypes, one
 ``compute_dtype`` also stores the float weights, and there is no ``kernel_mode``
 — a tensor's device chooses the kernel or its plain version.  Mesh, remat,
 training knobs and the widths of unported mixers are left out with the
-paths that use them.
+paths that use them.  ``kind="encoder"`` (hubert) makes self-attention
+bidirectional, as the reference's ``causal = cfg.kind == "decoder"``.
 """
 from __future__ import annotations
 
@@ -63,6 +64,7 @@ def build_stages(specs: Sequence[LayerSpec]) -> list[Stage]:
 class ArchConfig:
     name: str
     family: str  # dense | moe | ssm | hybrid | vlm | audio
+    kind: str = "decoder"  # decoder | encoder (bidirectional, no decode)
 
     num_layers: int = 0
     d_model: int = 0
@@ -108,12 +110,17 @@ class ArchConfig:
     ssm_conv_width: int = 4
     ssm_every: int = 0
 
-    # structural families the port does not serve yet: kept so that
-    # layer_specs / reduce_config match the JAX config, and so that a config
-    # using them is refused
+    # VLM cross-attention: every cross_every-th layer adds a tanh-gated
+    # cross-attention sub-block over vision_tokens patch embeddings of
+    # width vision_dim, projected to d_model (the vision tower is a stub)
     cross_every: int = 0
     vision_tokens: int = 0
+    vision_dim: int = 0
+
+    # audio frontend stub: frame embeddings of width frontend_dim, projected
+    # to d_model, take the place of the token embedding
     audio_frontend: bool = False
+    frontend_dim: int = 0
 
     norm_type: str = "rmsnorm"  # rmsnorm | layernorm | layernorm_nonparam
     tie_embeddings: bool = False

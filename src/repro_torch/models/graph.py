@@ -70,8 +70,9 @@ class DecodeGraph:
         self.pages = (None if pages_per_seq is None else
                       torch.zeros(batch, pages_per_seq, dtype=torch.int32, device=dev))
         self.nanmask = torch.zeros(batch, dtype=torch.bool, device=dev)
-        #: the slot-indexed state leaves a step advances in place (SSD's h
-        #: and conv tails; none for attention-only models)
+        #: the slot-indexed state leaves: SSD's h and conv tails, which a
+        #: step advances in place, and a cross layer's image K/V, which it
+        #: only reads (none for other attention models)
         self.state = [leaf for spec, leaf in M.cache_leaves(M.cache_specs(cfg, 1, 1), caches)
                       if "kv_seq" not in spec.axes]
         self.graph: torch.cuda.CUDAGraph | None = None

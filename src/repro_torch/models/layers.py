@@ -2,7 +2,8 @@
 
 Every weight-activation matmul funnels through :func:`dense_proj` (the block
 GEMM, or the packed int8 GEMM for ``QTensor`` weights under w8a8),
-whole-prompt attention through the dense flash-attention kernel,
+whole-prompt attention and cross-attention over an image (at decode too)
+through the dense flash-attention kernel,
 chunked-prefill attention through the paged one, and decode attention
 through flash-decode on page pools or on linear / ring slot caches (MLA's
 latent decode too; MLA's whole-prompt attention stays plain PyTorch, as
@@ -264,19 +265,23 @@ def _attn_inputs(cfg, p, cache, x, rows: StepRows, local: bool):
 
 
 def attn_forward(cfg: ArchConfig, p: dict, x, rows: StepRows, *, local: bool,
-                 past_kv=None):
+                 past_kv=None, causal: bool | None = None):
     """Whole-prompt self-attention (training forward and prefill).  x:
     [B,S,D] at ``rows.positions`` [S]; ``past_kv`` ({"k","v"} [B,s,K,dh],
     post-RoPE) is a cached prefix the prompt continues: attention runs over
     concat(past, new) with the last query aligned with the last key.
-    Returns (out, k, v) with the new rows' post-RoPE k/v [B,S,K,dh]."""
+    ``causal`` None: causal for a decoder, bidirectional for an encoder
+    (``cfg.kind``), as the reference's training forward.  Returns (out, k,
+    v) with the new rows' post-RoPE k/v [B,S,K,dh]."""
+    if causal is None:
+        causal = cfg.kind == "decoder"
     q, k, v = _qkv_rope(cfg, p, x, rows, local)
     k_all, v_all = k, v
     if past_kv is not None:
         k_all = torch.cat([past_kv["k"].to(k.dtype), k], 1)
         v_all = torch.cat([past_kv["v"].to(v.dtype), v], 1)
     o = attention(q.transpose(1, 2), k_all.transpose(1, 2), v_all.transpose(1, 2),
-                  causal=True, window=cfg.window_size if local else 0,
+                  causal=causal, window=cfg.window_size if local else 0,
                   softcap=cfg.logit_softcap)
     o = o.transpose(1, 2)  # [B, S, H, dh]; free on the card (see flash_attention)
     out = dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"])
@@ -285,11 +290,11 @@ def attn_forward(cfg: ArchConfig, p: dict, x, rows: StepRows, *, local: bool,
 
 def attn_prefill(cfg: ArchConfig, p: dict, x, rows: StepRows, *, local: bool,
                  past_kv=None):
-    """:func:`attn_forward` that also returns the prompt's cache (post-RoPE
-    k/v of the new rows).  A sliding-window layer keeps only the last
-    ``window`` rows, rolled so that entry ``pos % window`` holds row ``pos``:
-    decode continues the ring.  Returns (out, {"k", "v"})."""
-    out, k, v = attn_forward(cfg, p, x, rows, local=local, past_kv=past_kv)
+    """Causal :func:`attn_forward` that also returns the prompt's cache
+    (post-RoPE k/v of the new rows).  A sliding-window layer keeps only the
+    last ``window`` rows, rolled so that entry ``pos % window`` holds row
+    ``pos``: decode continues the ring.  Returns (out, {"k", "v"})."""
+    out, k, v = attn_forward(cfg, p, x, rows, local=local, past_kv=past_kv, causal=True)
     window = cfg.window_size if local else 0
     S = k.shape[1]
     if window and past_kv is None and S > window:
@@ -479,7 +484,44 @@ def mla_decode(cfg: ArchConfig, p: dict, cache: dict, x, rows: StepRows):
 
 
 # ---------------------------------------------------------------------------
-# Dense FFN (SwiGLU, GeGLU)
+# Cross-attention sub-block (Llama-3.2-Vision style)
+# ---------------------------------------------------------------------------
+
+def cross_attn_specs(cfg: ArchConfig) -> dict:
+    """The projections of :func:`attn_specs` and a scalar ``gate`` (zeros:
+    ``tanh(0) = 0`` closes the sub-block until the gate is trained)."""
+    p = attn_specs(cfg)
+    p["gate"] = ParamSpec((), (), "zeros")
+    return p
+
+
+def cross_attn(cfg: ArchConfig, p: dict, x, img=None, img_kv=None):
+    """Text rows x [B,S,D] attend over the image: keys and values from the
+    projected image embeddings ``img`` [B,T,D] (prefill, training), or the
+    cached ``img_kv`` = (k, v) [B,T,K,dh] (decode).  No RoPE; bidirectional,
+    through the dense flash-attention kernel at Sq = S (1 at decode) over
+    Sk = T.  The output is gated by ``tanh(gate)``.  Under w8a8 the image's
+    k and v projections share one quantize.  Returns (out, (k, v))."""
+    H, K, dh = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
+    if img_kv is None:
+        xs = shared_input(img, p["wk"])
+        k = dense_proj(cfg, xs, p["wk"], (K, dh))
+        v = dense_proj(cfg, xs, p["wv"], (K, dh))
+        if "q_norm" in p:
+            k = rms_only(k, p["k_norm"])
+    else:
+        k, v = img_kv
+    q = dense_proj(cfg, x, p["wq"], (H, dh))
+    if "q_norm" in p:
+        q = rms_only(q, p["q_norm"])
+    o = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False)
+    o = o.transpose(1, 2)  # [B, S, H, dh]; free on the card
+    o = dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"])
+    return torch.tanh(p["gate"].to(F32)).to(o.dtype) * o, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Dense FFN (SwiGLU, GeGLU, GELU MLP)
 # ---------------------------------------------------------------------------
 
 def ffn_kind(cfg: ArchConfig) -> str:
@@ -491,15 +533,25 @@ def ffn_kind(cfg: ArchConfig) -> str:
 
 
 def ffn_specs(cfg: ArchConfig) -> dict:
-    if ffn_kind(cfg) == "gelu_mlp":
-        raise NotImplementedError("the GELU MLP FFN is not ported yet")
     D, Fdim = cfg.d_model, cfg.d_ff
+    if ffn_kind(cfg) == "gelu_mlp":
+        return {"w1": ParamSpec((D, Fdim), ("embed", "ffn")),
+                "b1": ParamSpec((Fdim,), ("ffn",), "zeros"),
+                "w2": ParamSpec((Fdim, D), ("ffn", "embed")),
+                "b2": ParamSpec((D,), ("embed",), "zeros")}
     return {"w_gate": ParamSpec((D, Fdim), ("embed", "ffn")),
             "w_up": ParamSpec((D, Fdim), ("embed", "ffn")),
             "w_down": ParamSpec((Fdim, D), ("ffn", "embed"))}
 
 
 def ffn_forward(cfg: ArchConfig, p: dict, x):
+    """SwiGLU / GeGLU, or the audio encoder's GELU MLP ``gelu(x w1 + b1) w2
+    + b2``: each bias added in the compute dtype after the GEMM's store, and
+    the tanh form of GELU (``jax.nn.gelu``'s default), as the reference."""
+    if ffn_kind(cfg) == "gelu_mlp":
+        dt = cfg.compute_dtype
+        h = dense_proj(cfg, x, p["w1"]) + p["b1"].to(dt)
+        return dense_proj(cfg, F.gelu(h, approximate="tanh"), p["w2"]) + p["b2"].to(dt)
     xs = shared_input(x, p["w_gate"])
     g = dense_proj(cfg, xs, p["w_gate"])
     u = dense_proj(cfg, xs, p["w_up"])

@@ -6,11 +6,14 @@ steps.
 Weights keep the JAX package's stacked layout — one leading layer axis per
 stage — so the weight bridge is a plain reshape; the ``lax.scan`` over that
 axis becomes a Python loop.  The ported mixers are attention (GQA, or MLA
-when ``cfg.use_mla``) and Mamba-2 SSD (``models.ssd``), each with a dense,
-a capacity-routed MoE or no FFN; cross-attention raises
-``NotImplementedError``.  Caches are updated in place by the decode and
+when ``cfg.use_mla``), Mamba-2 SSD (``models.ssd``) and the VLM's cross
+layer (self-attention, then a gated cross-attention over the image), each
+with a dense, a capacity-routed MoE or no FFN.  An encoder (``kind=
+"encoder"``, hubert) runs only the cache-free forward, bidirectionally: it
+has no prefill or decode.  Caches are updated in place by the decode and
 chunk steps.  A cache leaf with a ``kv_seq`` axis holds rows (paged as a
-pool by the engine); one without (SSD state) is indexed by slot.
+pool by the engine); one without (SSD state, a cross layer's image K/V) is
+indexed by slot.
 """
 from __future__ import annotations
 
@@ -35,19 +38,24 @@ F32 = torch.float32
 # ---------------------------------------------------------------------------
 
 def _check_layer(spec: LayerSpec):
-    if (spec.mixer not in ("attn_global", "attn_local", "ssm")
+    if (spec.mixer not in ("attn_global", "attn_local", "ssm", "cross")
             or spec.ffn not in ("dense", "moe", "none")):
         raise NotImplementedError(
-            f"layer {spec} is not ported yet (attention or SSD mixers; dense, "
-            f"MoE or no FFN)")
+            f"layer {spec} is not ported yet (attention, SSD or cross mixers; "
+            f"dense, MoE or no FFN)")
 
 
 def _layer_param_specs(cfg: ArchConfig, spec: LayerSpec) -> dict:
     _check_layer(spec)
     if spec.mixer == "ssm":
         mixer = S.ssd_specs(cfg)
+    elif cfg.use_mla:
+        mixer = L.mla_specs(cfg)
+    elif spec.mixer == "cross":
+        mixer = {"self": L.attn_specs(cfg), "cross": L.cross_attn_specs(cfg),
+                 "norm_cross": L.norm_specs(cfg)}
     else:
-        mixer = L.mla_specs(cfg) if cfg.use_mla else L.attn_specs(cfg)
+        mixer = L.attn_specs(cfg)
     d = {"norm1": L.norm_specs(cfg), "mixer": mixer}
     if spec.ffn != "none":
         d["norm2"] = L.norm_specs(cfg)
@@ -57,9 +65,11 @@ def _layer_param_specs(cfg: ArchConfig, spec: LayerSpec) -> dict:
 
 def param_specs(cfg: ArchConfig) -> dict:
     D, Vp = cfg.d_model, cfg.padded_vocab
-    if cfg.audio_frontend or cfg.vision_tokens:
-        raise NotImplementedError("frontends are not ported yet")
     tree: dict = {"embed": ParamSpec((Vp, D), ("vocab", "embed"), "normal")}
+    if cfg.audio_frontend:
+        tree["frontend_proj"] = ParamSpec((cfg.frontend_dim, D), ("frontend", "embed"))
+    if cfg.vision_tokens:
+        tree["vision_proj"] = ParamSpec((cfg.vision_dim, D), ("frontend", "embed"))
     tree["stages"] = [
         stack_tree({str(i): _layer_param_specs(cfg, sp)
                     for i, sp in enumerate(stage.group)}, stage.repeats)
@@ -84,9 +94,10 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
 # w8a8 weight quantization (one-time, at load)
 # ---------------------------------------------------------------------------
 
-# every weight consumed by ``layers.dense_proj``; norm scales, the
-# embedding table and a MoE FFN's router and experts (batched matmuls, not
-# ``dense_proj``) stay float
+# every weight consumed by ``layers.dense_proj``; norm scales, biases, the
+# cross-attention gate, the embedding table, the frontend and vision
+# projections (plain matmuls in the reference too) and a MoE FFN's router
+# and experts (batched matmuls, not ``dense_proj``) stay float
 _QUANT_NAMES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                           "w1", "w2", "wq_a", "wkv_a", "lm_head"})
 
@@ -151,14 +162,20 @@ def _layer_cache_specs(cfg: ArchConfig, spec: LayerSpec, batch: int,
         return S.ssd_cache_specs(cfg, batch)
     if cfg.use_mla:
         return L.mla_cache_specs(cfg, batch, seq)
-    return L.attn_cache_specs(cfg, batch, seq, local=local)
+    c = L.attn_cache_specs(cfg, batch, seq, local=local)
+    if spec.mixer == "cross":  # the image's K/V: slot state, no kv_seq axis
+        img = ParamSpec((batch, cfg.vision_tokens, cfg.num_kv_heads, cfg.head_dim),
+                        ("batch", None, "kv_heads", "qk"), "zeros")
+        c.update(ck=img, cv=img)
+    return c
 
 
 def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> list:
     """Per-stage slot-cache specs: global layers k/v [R, batch, seq, K, dh]
     (linear), sliding-window layers a ring of ``min(seq, window)`` rows, MLA
     layers one fused kv [R, batch, seq, kvr + dr], SSD layers their state
-    (``ssd.ssd_cache_specs``, no ``kv_seq`` axis)."""
+    (``ssd.ssd_cache_specs``, no ``kv_seq`` axis), cross layers k/v and the
+    image's ck/cv [R, batch, vision_tokens, K, dh] (no ``kv_seq`` axis)."""
     out = []
     for stage in cfg.stages():
         group = {str(i): _layer_cache_specs(cfg, sp, batch, seq,
@@ -279,20 +296,25 @@ def _stack_layers(per_layer: list) -> dict:
 
 
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
-                 cache, rows: L.StepRows):
+                 cache, rows: L.StepRows, img=None):
     """Returns (x, cache).  decode / chunk: ``cache`` is the layer's slot
     cache or page pools, updated in place.  prefill: ``cache`` is the
     layer's past KV or None, and the returned cache holds the new rows.
     train: no cache.  ``rows`` holds the step's shared positions, tables
-    and bounds.  MLA and SSD layers have no chunk step (the fused latent
-    cache and the SSD state are not prefix-decomposable: the engine
-    prefills them whole) and no cached-prefix prefill.  A layer with
-    ``ffn="none"`` (mamba2) is its mixer and residual alone."""
+    and bounds; ``img`` the projected image [B,T,D] (prefill and train of a
+    cross model).  MLA, SSD and cross layers have no chunk step (the fused
+    latent cache, the SSD state and the image K/V are not
+    prefix-decomposable: the engine prefills MLA and SSD whole) and no
+    cached-prefix prefill.  A layer with ``ffn="none"`` (mamba2) is its
+    mixer and residual alone."""
     _check_layer(spec)
     local = spec.mixer == "attn_local"
     h = L.apply_norm(cfg, p["norm1"], x)
     if spec.mixer == "ssm":
         m, cache = _apply_ssd(cfg, p["mixer"], h, mode=mode, cache=cache)
+    elif spec.mixer == "cross":
+        x, m, cache = _apply_cross(cfg, p["mixer"], x, h, mode=mode, cache=cache,
+                                   rows=rows, img=img)
     elif cfg.use_mla:
         m, cache = _apply_mla(cfg, p["mixer"], h, mode=mode, cache=cache, rows=rows)
     elif mode == "decode":
@@ -334,6 +356,38 @@ def _apply_ssd(cfg: ArchConfig, p: dict, h, *, mode: str, cache):
     raise ValueError(f"unknown mode {mode!r}")
 
 
+def _apply_cross(cfg: ArchConfig, p: dict, x, h, *, mode: str, cache,
+                 rows: L.StepRows, img):
+    """The cross layer of :func:`_apply_layer` (the reference's ``mixer ==
+    "cross"`` branch): causal self-attention and its residual, then
+    ``norm_cross`` and the gated cross-attention over the image, whose
+    output the caller adds.  Prefill returns the image's K/V as ``ck`` /
+    ``cv`` beside the self k/v; decode reads them and returns the same
+    tensors.  Returns (x, cross out, cache)."""
+    if mode == "decode":
+        m, sc = L.attn_decode(cfg, p["self"], {"k": cache["k"], "v": cache["v"]}, h, rows,
+                              local=False)
+        img_kv = (cache["ck"], cache["cv"])
+    elif mode == "prefill":
+        if cache is not None:
+            raise NotImplementedError("cross-attention prefill does not continue a "
+                                      "cached prefix")
+        m, sc = L.attn_prefill(cfg, p["self"], h, rows, local=False)
+        img_kv = None
+    elif mode == "train":
+        m = L.attn_forward(cfg, p["self"], h, rows, local=False)[0]
+        sc = img_kv = None
+    elif mode == "chunk":
+        raise NotImplementedError("chunked prefill does not support cross-attention "
+                                  "image KV")
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    x = x + m
+    hc = L.apply_norm(cfg, p["norm_cross"], x)
+    mc, (ck, cv) = L.cross_attn(cfg, p["cross"], hc, img, img_kv)
+    return x, mc, (None if sc is None else dict(sc, ck=ck, cv=cv))
+
+
 def _apply_mla(cfg: ArchConfig, p: dict, h, *, mode: str, cache, rows: L.StepRows):
     """The MLA mixer of :func:`_apply_layer`: returns (out, cache)."""
     if mode == "decode":
@@ -361,6 +415,35 @@ def embed_tokens(cfg: ArchConfig, params, tokens):
     return x
 
 
+def _project(cfg: ArchConfig, x, w):
+    """x [B, T, F] @ w [F, D] summed in f32 and cast once to the compute
+    dtype: the reference's ``preferred_element_type=F32`` einsum, a plain
+    matmul there as here (no ``dense_proj``, no kernel)."""
+    return torch.matmul(x.to(cfg.compute_dtype).float(),
+                        w.to(cfg.compute_dtype).float()).to(cfg.compute_dtype)
+
+
+def embed_inputs(cfg: ArchConfig, params, tokens=None, frames=None):
+    """The stack's input rows: the audio encoder's frame embeddings [B, T,
+    frontend_dim] through ``frontend_proj``, or the token embeddings."""
+    if cfg.audio_frontend:
+        if frames is None:
+            raise ValueError(f"{cfg.name} reads frame embeddings: pass frames=[B, T, "
+                             f"{cfg.frontend_dim}]")
+        return _project(cfg, frames, params["frontend_proj"])
+    if tokens is None:
+        raise ValueError(f"{cfg.name} reads tokens")
+    return embed_tokens(cfg, params, tokens)
+
+
+def project_images(cfg: ArchConfig, params, images):
+    """Patch embeddings [B, vision_tokens, vision_dim] through
+    ``vision_proj`` to [B, T, D]; None without images or a vision stub."""
+    if not cfg.vision_tokens or images is None:
+        return None
+    return _project(cfg, images, params["vision_proj"])
+
+
 def lm_logits(cfg: ArchConfig, params, hidden):
     """f32 logits straight from the GEMM's f32 accumulator.  A tied head
     reads the [Vp, D] embedding table in place as the GEMM's [N, K] operand
@@ -383,22 +466,33 @@ def _rows(x, B: int, device) -> torch.Tensor:
     return torch.full((B,), int(x), dtype=torch.int32, device=device)
 
 
-def forward_hidden(cfg: ArchConfig, params, tokens, *, mode: str = "train",
+def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
                    caches=None, pos=None, pages=None, past_len=0,
-                   chunk_len=None):
+                   chunk_len=None, images=None, frames=None):
     """Run the stack; returns (hidden, caches).
 
-    train: tokens [B, S], no caches (None is returned).  prefill: tokens
-    [B, S] at positions ``past_len + arange(S)``; ``caches``, if given, is
-    the past KV tree of a cached prefix of ``past_len`` rows, and the
-    returned tree holds only the new rows (sliding-window layers as rolled
-    rings).  decode: tokens [B, 1], pos [B]; ``caches`` are slot caches, or
-    page pools with ``pages``, updated in place.  chunk: tokens [B, C],
-    ``past_len`` rows already in the pages and ``chunk_len`` valid rows in
-    the buffer (ints or [B] tensors), pools updated in place."""
-    x = embed_tokens(cfg, params, tokens)
-    B, C = tokens.shape
-    dev = tokens.device
+    train: tokens [B, S] (an audio encoder: ``frames`` [B, S,
+    frontend_dim]), no caches (None is returned); an encoder attends
+    bidirectionally.  prefill: tokens [B, S] at positions ``past_len +
+    arange(S)``; ``caches``, if given, is the past KV tree of a cached
+    prefix of ``past_len`` rows, and the returned tree holds only the new
+    rows (sliding-window layers as rolled rings).  decode: tokens [B, 1],
+    pos [B]; ``caches`` are slot caches, or page pools with ``pages``,
+    updated in place.  chunk: tokens [B, C], ``past_len`` rows already in
+    the pages and ``chunk_len`` valid rows in the buffer (ints or [B]
+    tensors), pools updated in place.  A cross model's train and prefill
+    read ``images`` [B, vision_tokens, vision_dim]; its decode reads the
+    image K/V its prefill cached.  An encoder has only the train mode."""
+    if cfg.kind == "encoder" and mode != "train":
+        raise ValueError(f"{cfg.name} is an encoder: it has no causal {mode} step; run "
+                         f"forward_hidden(mode='train') and lm_logits on every frame")
+    x = embed_inputs(cfg, params, tokens, frames)
+    img = project_images(cfg, params, images)
+    if cfg.vision_tokens and mode in ("train", "prefill") and img is None:
+        raise ValueError(f"{cfg.name} cross-attends over an image: pass images=[B, "
+                         f"{cfg.vision_tokens}, {cfg.vision_dim}]")
+    B, C = x.shape[0], x.shape[1]
+    dev = x.device
     if mode == "chunk":
         past = _rows(past_len, B, dev)
         positions = past[:, None] + torch.arange(C, dtype=torch.int32,
@@ -421,7 +515,7 @@ def forward_hidden(cfg: ArchConfig, params, tokens, *, mode: str = "train",
             for gi, spec in enumerate(stage.group):
                 c_in = None if lc is None else lc[str(gi)]
                 x, out[str(gi)] = _apply_layer(cfg, spec, lp[str(gi)], x,
-                                               mode=mode, cache=c_in, rows=rows)
+                                               mode=mode, cache=c_in, rows=rows, img=img)
             per_layer.append(out)
         if mode == "prefill":
             new_caches.append(_stack_layers(per_layer))
@@ -431,16 +525,18 @@ def forward_hidden(cfg: ArchConfig, params, tokens, *, mode: str = "train",
     return hidden, (caches if mode in ("decode", "chunk") else None)
 
 
-def prefill(cfg: ArchConfig, params, tokens, *, past=None, past_len: int = 0,
-            cache_len: int | None = None):
+def prefill(cfg: ArchConfig, params, tokens, *, images=None, past=None,
+            past_len: int = 0, cache_len: int | None = None):
     """Whole-prompt prefill of tokens [B, S].  Returns (last-row logits
-    [B, 1, Vp] f32, caches).  ``past``/``past_len``: a cached prefix's KV
-    tree and its length (the prompt continues it; the returned caches hold
-    only the new rows).  ``cache_len``: zero-pad every ``kv_seq`` leaf to
-    that capacity so that ``decode_step`` can decode into it directly (SSD
-    state leaves are already whole)."""
+    [B, 1, Vp] f32, caches).  ``images`` [B, vision_tokens, vision_dim]: a
+    cross model's patch embeddings (required there; their K/V are cached).
+    ``past``/``past_len``: a cached prefix's KV tree and its length (the
+    prompt continues it; the returned caches hold only the new rows).
+    ``cache_len``: zero-pad every ``kv_seq`` leaf to that capacity so that
+    ``decode_step`` can decode into it directly (SSD state and image K/V
+    leaves are already whole).  An encoder has no prefill."""
     hidden, caches = forward_hidden(cfg, params, tokens, mode="prefill",
-                                    caches=past, past_len=past_len)
+                                    caches=past, past_len=past_len, images=images)
     logits = lm_logits(cfg, params, hidden[:, -1:].contiguous())
     if cache_len is not None:
         caches = pad_cache_len(cfg, caches, cache_len)
@@ -452,7 +548,8 @@ def decode_step(cfg: ArchConfig, params, caches, token, pos, *, pages=None):
     same row) or [B] int32 (each slot at its own row).  ``pages`` [B, npp]
     int32 switches ``caches`` from slot caches (linear for global layers, a
     ring for sliding-window ones) to page pools.  The new row is written in
-    place.  Returns (logits [B, 1, Vp] f32, caches)."""
+    place; a cross model reads its prefill's image K/V.  Returns (logits
+    [B, 1, Vp] f32, caches)."""
     B = token.shape[0]
     pos = _rows(pos, B, token.device)
     hidden, caches = forward_hidden(cfg, params, token, mode="decode",

@@ -746,6 +746,12 @@ class Engine:
     def __init__(self, cfg: ArchConfig, params,
                  config: EngineConfig | None = None, device=None,
                  chaos: ChaosInjector | None = None):
+        if cfg.vision_tokens or cfg.kind == "encoder":
+            # the JAX engine's prefill passes tokens only: it serves neither
+            # images nor an encoder (which has no decode)
+            raise ValueError(f"{cfg.name}: the engine serves decoders on tokens only; run "
+                             f"a cross-attention model through model.prefill(images=...) "
+                             f"-> decode_step, an encoder through forward_hidden")
         self.device = resolve_device(device)
         emb = params["embed"]
         if emb.device.type != self.device.type:
@@ -761,9 +767,9 @@ class Engine:
         self._closed = False
         self.runner = ModelRunner(cfg, params, self.config, self.device)
         # prefix-decomposable prefill: attention other than MLA; SSD state
-        # and cross-attention image KV are not (the JAX engine's rule)
+        # is not (the JAX engine's rule)
         decomposable = (not cfg.use_mla and
-                        all(sp.mixer not in ("ssm", "cross") for sp in cfg.layer_specs()))
+                        all(sp.mixer != "ssm" for sp in cfg.layer_specs()))
         self.sched = Scheduler(self.config, self.device, decomposable=decomposable,
                                clock=self._now)
         if chaos is not None:

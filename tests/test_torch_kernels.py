@@ -331,6 +331,11 @@ DENSE_CASES = [  # B, H, K, Sq, Sk, d, causal, window, softcap
     (1, 8, 1, 130, 130, 32, True, 70, 0.0),   # G=8, window 70 across tiles
     (1, 2, 1, 129, 65, 64, True, 0, 0.0),     # Sq > Sk: 64 all-masked rows
     (1, 4, 2, 100, 129, 128, False, 33, 0.0), # bidirectional window across tiles
+    # the audio encoder and the VLM's cross-attention: bidirectional at
+    # hubert's head dim 80 (no power of two) over a ragged length, and one
+    # query row over the image's keys (cross-attention at decode), G = 4
+    (2, 4, 4, 37, 37, 80, False, 0, 0.0),     # bidirectional, d=80, G=1
+    (2, 8, 2, 1, 24, 16, False, 0, 0.0),      # Sq = 1 vs Sk = 24, G=4
 ]
 
 
