@@ -139,12 +139,31 @@ Phases (any failure exits non-zero, and no result line is printed):
    step.  Full-width, full-depth hubert-xlarge: the bidirectional forward
    over 4 x 1000 frames and every frame's logits, bf16 and w8a8, launches
    per forward checked, a traced forward;
-9. a JSON ``added_kernels`` line (the quantize kernel), a JSON
+9. training (after hubert is freed): first the bf16 GEMM at full olmo-1b's
+   training shapes (in phase 2: T = 8 x 512 = 4096 rows; each forward
+   product, its data gradient ``g @ W^T`` (``trans_b``) and its weight
+   gradient ``A^T @ g`` (``trans_a``, A read in place as [T, K]) against the
+   plain version, timed beside ``torch.matmul`` and the bound; ``trans_a``
+   also in f32 and ragged; rows bit-identical across M), then
+   ``train_reference_check`` -- reduced olmo-1b and reduced qwen3-moe take
+   one f32 train step on the card and on the CPU (loss within 1e-5, every
+   gradient leaf within 1e-4 of its max, the block GEMM launched exactly 3
+   times per forward GEMM and no attention kernel: training attention is
+   the plain version by rule), and a ``TrainRunner`` run on the card with an
+   injected failure resumes the exact loss stream.  Full-width olmo-1b
+   (16 layers, bf16, seeded weights) takes 10 steps of ``make_train_step``
+   on ``SyntheticLM`` batches of 8 x 512 tokens (f32 moments): every loss
+   finite, the last below the first, exact GEMM launches, step ms,
+   tokens/s, peak memory, a traced step; then a step each with bf16 and
+   int8 moments;
+10. a JSON ``added_kernels`` line (the quantize kernel), a JSON
    ``mla_kernels`` line (both decode kernels at the latent shape), a JSON
    ``moe`` line (the MoE phase's summary and its rows), a JSON ``ssm`` line
    (the SSD phases' summaries and the rows at their shapes), a JSON
    ``vlm_encoder`` line (phase 8's summaries) and a ``vlm_encoder_kernels``
-   line (its kernel rows), the script's wall time, a JSON ``kernels`` line
+   line (its kernel rows), a JSON ``train`` line (phase 9's summary) and a
+   ``train_kernels`` line (the GEMM's rows at the training shapes), the
+   script's wall time, a JSON ``kernels`` line
    (the six ported TPU kernels), then the JSON result as the last line.
 
 It needs CUDA: without a card it exits 2 before printing anything else.
@@ -3740,6 +3759,535 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training (the block GEMM's VJP, AdamW, the train step, the runner)
+# ---------------------------------------------------------------------------
+
+TRAIN = "olmo-1b"
+TRAIN_B, TRAIN_S = 8, 512          # 4096 tokens a step
+TRAIN_T = TRAIN_B * TRAIN_S
+TRAIN_STEPS = 10
+# olmo-1b's GEMMs at T = 4096 rows: (K, N) of q/k/v/o, w_gate/w_up, w_down
+# and the untied head (N = the padded vocab, 50432)
+TRAIN_KN = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 50432))
+
+
+def _train_gemm_cases():
+    """The three products of every forward GEMM A [T, K] @ W [K, N] of the
+    train step: forward (f32 out at the head), ``g @ W^T`` (``trans_b``,
+    the data gradient) and ``A^T @ g`` (``trans_a``, the weight gradient:
+    M = K rows over the T = 4096 tokens)."""
+    out = []
+    for K, N in TRAIN_KN:
+        head = N == 50432
+        out.append(dict(kind="forward", M=TRAIN_T, K=K, N=N, ta=False, tb=False,
+                        out=torch.float32 if head else torch.bfloat16))
+        out.append(dict(kind="backward g @ W^T", M=TRAIN_T, K=N, N=K, ta=False, tb=True,
+                        out=torch.bfloat16))
+        out.append(dict(kind="backward A^T @ g", M=K, K=TRAIN_T, N=N, ta=True, tb=False,
+                        out=torch.bfloat16))
+    return out
+
+
+def _gemm_operands(gen, M, K, N, ta, tb, dtype=torch.bfloat16):
+    """A ([M, K], or [K, M] with ``ta``) of unit normal entries and B ([K,
+    N], or [N, K] with ``tb``) scaled by 1/sqrt(K): O(1) outputs."""
+    a = torch.randn(*((K, M) if ta else (M, K)), generator=gen, device="cuda")
+    b = torch.randn(*((N, K) if tb else (K, N)), generator=gen, device="cuda") / math.sqrt(K)
+    return a.to(dtype), b.to(dtype)
+
+
+def train_gemm_phase(flush, gen):
+    """The bf16 GEMM at olmo-1b's training shapes (T = 8 x 512 = 4096
+    tokens): each of the twelve products of ``_train_gemm_cases`` against
+    its plain version (``gemm_phase``'s tolerances: 1e-4 + 2^-7 relative
+    for bf16 out, 1e-4 + 1e-5 for f32 out), timed beside the plain
+    version, ``torch.matmul`` and the bound (operations at the bf16 peak, or
+    bytes); ``trans_a`` also in f32 (the CUDA-core kernel) and at a ragged
+    shape; rows bit-identical across M, ``trans_a`` included.  Returns
+    (max abs error, rows)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_gemm import block_gemm, gemm_splits
+    err = 0.0
+    for (M, K, N, ta, tb) in ((37, 1000, 777, True, False), (16, 4096, 2048, True, False),
+                              (2048, 4096, 2048, True, False), (4096, 2048, 2048, False, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = _gemm_operands(gen, M, K, N, ta, tb, dtype)
+            rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            err = max(err, check_close(
+                f"block_gemm {str(dtype)[6:]} {M}x{K}x{N} trans_a={ta} trans_b={tb}",
+                block_gemm(a, b, trans_a=ta, trans_b=tb),
+                ref.block_gemm_ref(a, b, trans_a=ta, trans_b=tb), 1e-4, rtol))
+    train_row_invariance(gen)
+    rows = []
+    for c in _train_gemm_cases():
+        M, K, N, ta, tb, out = c["M"], c["K"], c["N"], c["ta"], c["tb"], c["out"]
+        a, b = _gemm_operands(gen, M, K, N, ta, tb)
+        got = block_gemm(a, b, out_dtype=out, trans_a=ta, trans_b=tb)
+        want = ref.block_gemm_ref(a, b, out, trans_a=ta, trans_b=tb)
+        rtol = 1e-5 if out == torch.float32 else 2.0 ** -7
+        shape = f"{M}x{K}x{N}" + (" trans_a" if ta else "") + (" trans_b" if tb else "")
+        err = max(err, check_close(f"block_gemm bf16 {shape}", got, want, 1e-4, rtol))
+        del got, want
+        reps = 10
+        ms = time_ms(lambda: block_gemm(a, b, out_dtype=out, trans_a=ta, trans_b=tb), flush,
+                     reps=reps)
+        plain = time_ms(lambda: ref.block_gemm_ref(a, b, out, trans_a=ta, trans_b=tb), flush,
+                        reps=reps)
+        lib = time_ms(lambda: torch.matmul(a.T if ta else a, b.T if tb else b), flush,
+                      reps=reps)
+        bms, by = bound_ms(2 * (M * K + K * N) + M * N * (4 if out == torch.float32 else 2),
+                           2 * M * N * K, torch.bfloat16)
+        rows.append(dict(shape=shape, kind=c["kind"], ms=ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=bms, bound_by=by))
+        log(f"  block_gemm bf16 {shape} ({c['kind']}, K split {gemm_splits(K, N)}): kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul {lib:.4f} ms, bound {bms:.4f} ms "
+            f"({by}); {2 * M * N * K / ms / 1e9:.1f} TFLOP/s")
+        del a, b
+    torch.cuda.empty_cache()
+    log(f"block_gemm at olmo-1b's training shapes (T = {TRAIN_T}): {len(rows)} products agree "
+        f"(forward, g @ W^T, A^T @ g), trans_a also in f32 and ragged; max_abs_err {err:.3e}")
+    return err, rows
+
+
+def train_row_invariance(gen):
+    """Every output row of the bf16 GEMM is the same f32 sum whatever M is,
+    at the training shapes: the first M rows of the T = 4096 forward (K, N)
+    products and of the weight-gradient product ``A^T @ g`` (A stored [T,
+    M'], its first M columns) equal the product at that M alone, bit for
+    bit, f32 and bf16 out."""
+    from repro_torch.kernels.block_gemm import block_gemm
+    Ms = (1, 16, 17, 64, 100, 2048)
+    for K, N, ta in ((2048, 2048, False), (2048, 8192, False), (8192, 2048, False),
+                     (TRAIN_T, 2048, True), (TRAIN_T, 8192, True)):
+        full_m = TRAIN_T if not ta else 2048
+        a, b = _gemm_operands(gen, full_m, K, N, ta, False)
+        for out in (torch.float32, torch.bfloat16):
+            full = block_gemm(a, b, out_dtype=out, trans_a=ta)
+            for M in Ms:
+                part_a = a[:, :M].contiguous() if ta else a[:M].contiguous()
+                part = block_gemm(part_a, b, out_dtype=out, trans_a=ta)
+                if not torch.equal(part, full[:M]):
+                    fail(f"block_gemm rows differ between M={M} and M={full_m} at K={K} "
+                         f"N={N} trans_a={ta} {out}: {int((part != full[:M]).sum())} entries")
+        del a, b, full
+    torch.cuda.synchronize()
+    log(f"block_gemm: rows bit-identical across M in {Ms} and the full M at the training "
+        f"(K, N), trans_a included, f32 and bf16 out")
+
+
+def _state_to(state, device):
+    from repro_torch.core.quant import QTensor
+    from repro_torch.core.tree import tree_map
+    from repro_torch.training import TrainState
+
+    def mv(t):
+        if isinstance(t, QTensor):
+            return QTensor(t.q.to(device), t.scale.to(device))
+        return t.to(device)
+    return TrainState(state.step.to(device), tree_map(mv, state.params),
+                      tree_map(mv, state.mu), tree_map(mv, state.nu))
+
+
+def _forward_gemms(cfg, params, batch):
+    """The bf16 / f32 GEMM launches of one training forward (no autograd:
+    the same GEMMs, each once)."""
+    from repro_torch.kernels.block_gemm import block_gemm
+    from repro_torch.models import model as M
+    n0 = block_gemm.launches
+    with torch.no_grad():
+        M.loss_fn(cfg, params, batch)
+    torch.cuda.synchronize()
+    return block_gemm.launches - n0
+
+
+def train_reference_check(counters):
+    """Reduced olmo-1b and reduced qwen3-moe-30b-a3b (f32, seeded weights
+    drawn on the CPU and copied): one train step on the card against the
+    same step on the CPU's plain versions.  The loss within 1e-5; every
+    gradient leaf finite and within 1e-4 of the CPU's, relative to the
+    leaf's max |g|; the new parameters and moments finite.  On the card the
+    gradient launches the block GEMM exactly 3 times per GEMM of the
+    forward (forward, ``g @ W^T``, ``A^T @ g``) and no attention kernel (the
+    plain attention under autograd, by rule).  Then a ``TrainRunner`` run
+    on the card with a failure injected at step 3 (checkpoints every 2)
+    gives the same loss stream and final state as a straight run."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import flatten
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.runtime import FailureInjector, TrainRunner
+    from repro_torch.training import AdamWConfig, init_state, make_train_step
+    from repro_torch.training.step import value_and_grad
+    out = {}
+    for name in (TRAIN, "qwen3-moe-30b-a3b"):
+        cfg = reduce_config(get_config(name))
+        opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+        cpu = init_state(cfg, opt, seed=5, device="cpu")
+        gpu = _state_to(cpu, "cuda")
+        batch = SyntheticLM(cfg, batch=4, seq=64, seed=2).batch_at(0)
+        n_fwd = _forward_gemms(cfg, gpu.params, to_device(batch, "cuda"))
+        before = {c.__name__: c.launches for c in counters}
+        l_gpu, e_gpu, g_gpu = value_and_grad(cfg, gpu.params, to_device(batch, "cuda"))
+        torch.cuda.synchronize()
+        moved = {c.__name__: c.launches - before[c.__name__] for c in counters}
+        want = {"block_gemm": 3 * n_fwd}
+        if moved != {n: want.get(n, 0) for n in moved}:
+            fail(f"{name} train step on the card: launches {moved}, want {want} and no "
+                 f"other kernel (3 GEMMs per forward GEMM; attention plain)")
+        l_cpu, e_cpu, g_cpu = value_and_grad(cfg, cpu.params, to_device(batch, "cpu"))
+        gap = abs(float(l_gpu) - float(l_cpu))
+        if gap > 1e-5 or abs(float(e_gpu["aux"]) - float(e_cpu["aux"])) > 1e-5:
+            fail(f"{name}: card loss {float(l_gpu)} vs CPU {float(l_cpu)}")
+        worst = 0.0
+        fg, fc = flatten(g_gpu), flatten(g_cpu)
+        for k in fc:
+            if not np.isfinite(fg[k]).all():
+                fail(f"{name}: gradient {k} not finite on the card")
+            scale = max(float(np.abs(fc[k]).max()), 1e-30)
+            rel = float(np.abs(fg[k] - fc[k]).max()) / scale
+            worst = max(worst, rel)
+            if rel > 1e-4:
+                fail(f"{name}: gradient {k} {rel:.3e} of its max from the CPU's (bound 1e-4)")
+        new, m = make_train_step(cfg, opt)(gpu, batch)
+        if not all(bool(torch.isfinite(t).all()) for t in tree_leaves(new.params)):
+            fail(f"{name}: non-finite parameters after a step on the card")
+        out[name] = dict(loss_gap=gap, worst_grad_rel=worst, gemms_per_forward=n_fwd,
+                         launches=moved)
+        log(f"{name} (reduced) train step card vs CPU: loss {float(l_gpu):.6f} (gap "
+            f"{gap:.2e}), aux {float(e_gpu['aux']):.6f}, worst gradient leaf {worst:.2e} of "
+            f"its max; block_gemm {moved['block_gemm']} launches = 3 x {n_fwd} forward GEMMs, "
+            f"no attention kernel")
+
+    cfg = reduce_config(get_config(TRAIN))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=50)
+    step = make_train_step(cfg, opt)
+    data = SyntheticLM(cfg, batch=4, seq=64)
+    state = init_state(cfg, opt, seed=0, device="cuda")
+    root = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        s1, r1 = TrainRunner(step, data.batch_at, CheckpointManager(
+            os.path.join(root, "a"), async_save=False), ckpt_every=2).run(state, 6)
+        inj = FailureInjector(fail_at={3})
+        s2, r2 = TrainRunner(step, data.batch_at, CheckpointManager(
+            os.path.join(root, "b")), ckpt_every=2, injector=inj).run(state, 6)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if r2.restarts != 1 or r2.losses[:3] + r2.losses[4:] != r1.losses:
+        fail(f"TrainRunner on the card: restarts {r2.restarts}, losses {r2.losses} vs "
+             f"{r1.losses}")
+    f1, f2 = flatten(s1), flatten(s2)
+    if any(not np.array_equal(f1[k], f2[k]) for k in f1):
+        fail("TrainRunner on the card: the restarted run ends at another state")
+    out["runner"] = dict(losses=r1.losses, restarted_losses=r2.losses)
+    log(f"TrainRunner on the card (reduced {TRAIN}, a failure at step 3, checkpoints every "
+        f"2, async): the same {len(r1.losses)} losses and final state as a straight run")
+    return out
+
+
+def _attention_ms(cfg, gen):
+    """Plain attention's forward + backward at one layer of the train step
+    (q, k, v [B, H, S, d] bf16, causal), by CUDA events: the layer's
+    attention time, measured alone (times the layers: its share of a
+    step)."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    shape = (TRAIN_B, cfg.num_heads, TRAIN_S, cfg.head_dim)
+    q, k, v = (torch.randn(*shape, generator=gen, device="cuda").bfloat16().requires_grad_()
+               for _ in range(3))
+    g = torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    def run():
+        o = flash_attention_ref(q, k, v, causal=True)
+        torch.autograd.grad(o, (q, k, v), g)
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(5):
+        run()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / 5
+
+
+SPANS = ("plain_attention", "adamw_update")  # the port's profiler ranges
+
+
+def _device_events(events):
+    """The device's own activity in a trace (kernels, copies, fills): events
+    on the CUDA device, without the CPU ops whose device time repeats that
+    of the kernels they launched (the GEMM's ``autograd.Function`` and its
+    backward are such ops), without the device-side spans of the port's
+    profiler ranges (``SPANS``: first to last kernel inside, gaps included)
+    and without CUPTI's "Command Buffer Full" records (the host waiting on
+    a full launch queue: no device work)."""
+    from torch.autograd import DeviceType
+    return [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA
+            and _device_us(e) > 0 and not e.key.startswith("Command Buffer")
+            and e.key not in SPANS]
+
+
+def _gemm_kind(key: str):
+    """'forward' / 'backward' for a bf16 GEMM kernel's name (its template
+    flags AT, BT: forward products take neither -- olmo-1b's head is untied
+    --, ``g @ W^T`` takes BT, ``A^T @ g`` AT), else None."""
+    import re
+    m = re.search(r"gemm_bf16_kernel<\s*\d+,\s*\d+,\s*\d+,\s*\d+,\s*\d+,\s*(\w+),\s*(\w+)", key)
+    if not m:
+        return None
+    return "forward" if m.group(1) == m.group(2) == "false" else "backward"
+
+
+def _span_labels(events):
+    """``label(op)``: the profiler range of ``SPANS`` a CPU op of a traced
+    step belongs to.  An op inside a range belongs to it; an op of the
+    backward pass (under an ``autograd::engine::evaluate_function`` node)
+    belongs to ``"<range> backward"`` of the forward op that carries the
+    node's autograd sequence number; any other op to None."""
+    def walk(e):  # (the range e lies in, the backward node e runs under)
+        while e is not None:
+            if e.name in SPANS:
+                return e.name, None
+            if e.name.startswith("autograd::engine::evaluate_function"):
+                return None, e
+            e = e.cpu_parent
+        return None, None
+
+    made = {}  # (thread, sequence nr) -> (start, range) of the op that made the node
+    for e in events:
+        if e.sequence_nr < 0 or e.name.startswith("autograd::engine"):
+            continue
+        span, node = walk(e)
+        key = (e.thread, e.sequence_nr)
+        if node is None and (key not in made or e.time_range.start >= made[key][0]):
+            made[key] = (e.time_range.start, span)
+
+    def label(e):
+        span, node = walk(e)
+        if node is None:
+            return span
+        fwd = made.get((node.fwd_thread, node.sequence_nr), (0, None))[1]
+        return None if fwd is None else fwd + " backward"
+    return label
+
+
+def _span_split(events):
+    """{label: device us of the kernels the ops launched (:func:`_kernel_us`)}
+    over a traced step's ops, by :func:`_span_labels`."""
+    label = _span_labels(events)
+    out: dict = {}
+    for e in events:
+        d = _kernel_us(e)
+        if d:
+            out[label(e)] = out.get(label(e), 0.0) + d
+    return out
+
+
+#: CUPTI and runtime records among a trace's CPU events: their correlation
+#: ids collide with the ops', so their kernel lists repeat the ops' kernels
+RECORDS = ("Command Buffer", "Activity Buffer", "cuda")
+
+
+def _kernel_us(event) -> float:
+    """Device us of the kernels a CPU op launched, the block GEMM's left
+    out (the trace's GEMM split reads those by name), and so is a profiler
+    range's own device-side span (``SPANS``); 0 for ``RECORDS``."""
+    if event.name.startswith(RECORDS):
+        return 0.0
+    return sum(k.duration for k in getattr(event, "kernels", ())
+               if not _gemm_kind(k.name) and k.name not in SPANS)
+
+
+def _moments_vs_f32(st, ref, kind: str) -> dict:
+    """Hold a step's ``kind`` (bf16 or int8) moments against the f32-moment
+    step from the same state and batch (``ref``: its mu / nu leaves on the
+    host): every new parameter and decoded moment finite, and each decoded
+    moment within its encoding's precision of the f32 one -- bf16: 2^-7 of
+    |f32| (twice its rounding's worst case), int8: one quantization step
+    (``scale``, twice its rounding's); both plus 1e-6 of the leaf's max |f32| for the
+    last-bit differences of two backward passes.  Returns the worst
+    |err| / bound of mu and of nu."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.training.optimizer import _decode_moment
+    for p in tree_leaves(st.params):
+        if not torch.isfinite(p).all():
+            fail(f"{TRAIN} {kind} moments: a non-finite parameter after one step")
+    worst = {}
+    for name in ("mu", "nu"):
+        moms = tree_leaves(tree_map(lambda p, x: x, st.params, getattr(st, name)))
+        w = 0.0
+        for i, (x, r) in enumerate(zip(moms, ref[name])):
+            d = _decode_moment(x, kind)
+            r = r.to(d.device)
+            if not torch.isfinite(d).all():
+                fail(f"{TRAIN} {kind} moments: non-finite {name} leaf {i}")
+            step_ = 2.0 ** -7 * r.abs() if kind == "bf16" else x.scale.expand_as(d)
+            bound = step_ + 1e-6 * r.abs().max()
+            ratio = float(((d - r).abs() / bound.clamp_min(1e-30)).max())
+            if not ratio <= 1.0:
+                fail(f"{TRAIN} {kind} moments: {name} leaf {i} {tuple(d.shape)} off the "
+                     f"f32-moment step by {ratio:.3f} of its bound")
+            w = max(w, ratio)
+            del r, d, bound
+        worst[name] = w
+    return worst
+
+
+def train_phase(counters, gen):
+    """Full-width, full-depth olmo-1b (16 layers, d_model 2048, bf16,
+    seed-0 weights from ``model.init`` on the card): 10 steps of
+    ``make_train_step`` on ``SyntheticLM`` batches of 8 x 512 tokens, f32
+    moments, lr 1e-3 with 2 warm-up steps.  Every loss finite and the last
+    below the first; the block GEMM launched 3 times per forward GEMM a
+    step and no attention kernel.  Step ms (median of steps 3-10),
+    tokens/s, peak device memory; one traced step (device ms of the GEMM's
+    forward and backward products by kernel name, of plain attention's
+    forward and backward and the AdamW update by the port's profiler
+    ranges (:func:`_span_split`), the rest, the idle share), with the
+    optimizer update and one layer's plain attention (forward + backward)
+    timed alone by CUDA events as a cross-check.  Then one step each with bf16 and
+    int8 moments (loss, peak memory), their moments held against the
+    f32-moment step's (:func:`_moments_vs_f32`).  No checkpoint at full width: a
+    14 GB npz is disk time, not the card's."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.training import AdamWConfig, init_state, make_train_step
+    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.step import value_and_grad
+    ref = train_reference_check(counters)
+    cfg = get_config(TRAIN)
+    names = [c.__name__ for c in counters]
+    data = SyntheticLM(cfg, batch=TRAIN_B, seq=TRAIN_S, seed=0)
+    batches = [data.batch_at(i) for i in range(TRAIN_STEPS)]
+    out = {"reference": ref}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS, moments_dtype="f32")
+    state = init_state(cfg, opt, seed=0, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    n_fwd = _forward_gemms(cfg, state.params, to_device(batches[0], "cuda"))
+    step = make_train_step(cfg, opt)
+    losses, times = [], []
+    for c in counters:
+        c.launches = 0
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))  # waits for the step
+        times.append(time.time() - t0)
+        if i == 0:  # step 1's f32 moments, on the host: what bf16 and int8 are held to
+            ref_mom = {k: [t.cpu() for t in tree_leaves(getattr(state, k))]
+                       for k in ("mu", "nu")}
+    launches = _launched(counters, names, {"block_gemm": 3 * n_fwd * TRAIN_STEPS},
+                         f"{TRAIN} train run")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"{TRAIN} training: losses {losses} (finite, the last below the first)")
+    step_ms = statistics.median(times[2:]) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{TRAIN} training: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B parameters (bf16), f32 moments; {TRAIN_STEPS} steps of "
+        f"{TRAIN_B} x {TRAIN_S} tokens: losses " + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"{TRAIN} training: step {step_ms:.1f} ms (median of steps 3-{TRAIN_STEPS}; all: "
+        + ", ".join(f"{t * 1e3:.1f}" for t in times) + f"), {TRAIN_T / step_ms * 1e3:.0f} "
+        f"tokens/s, peak device memory {peak / 2 ** 30:.2f} GiB; block_gemm "
+        f"{launches['block_gemm'] // TRAIN_STEPS} launches a step (3 x {n_fwd} forward "
+        f"GEMMs), no attention kernel")
+
+    # one traced step, split by kernel name (the GEMM) and by the port's
+    # profiler ranges (attention, the optimizer); the optimizer and one
+    # layer's attention timed alone as a cross-check
+    b = batches[-1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+    kernels = _device_events(prof.key_averages())
+    dev_ms = sum(_device_us(e) for e in kernels) / 1e3
+    by = {"forward": 0.0, "backward": 0.0}
+    for e in kernels:
+        kind = _gemm_kind(e.key)
+        if kind:
+            by[kind] += _device_us(e) / 1e3
+    spans = {k: v / 1e3 for k, v in _span_split(prof.events()).items()}
+    not_gemm = dev_ms - by["forward"] - by["backward"]
+    read = sum(spans.values())  # each kernel once: all the device time that is not GEMM
+    if dev_ms and abs(read - not_gemm) <= 0.02 * not_gemm:
+        attn_f, attn_b = spans.get("plain_attention", 0.0), spans.get("plain_attention backward", 0.0)
+        opt_tr = spans.get("adamw_update", 0.0)
+    else:
+        attn_f = attn_b = opt_tr = None
+        log(f"traced step: the ops' launches read {read:.2f} ms of the {not_gemm:.2f} ms that "
+            f"is not GEMM: attention and optimizer device ms not measured")
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    loss, extras, grads = value_and_grad(cfg, state.params, to_device(b, "cuda"))
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    upd = adamw_update(opt, state.params, grads, state.mu, state.nu, state.step)
+    e.record()
+    e.synchronize()
+    opt_ms = s.elapsed_time(e)
+    del upd, grads, loss
+    attn_ms = _attention_ms(cfg, gen)
+    trace = dict(device_ms=dev_ms, untraced_step_ms=step_ms,
+                 idle_share=(1 - dev_ms / step_ms) if dev_ms else None,
+                 gemm_forward_ms=by["forward"], gemm_backward_ms=by["backward"],
+                 attention_forward_ms=attn_f, attention_backward_ms=attn_b,
+                 optimizer_ms=opt_tr, ranges_read_ms=read,
+                 other_ms=None if opt_tr is None else not_gemm - attn_f - attn_b - opt_tr,
+                 optimizer_ms_alone=opt_ms, attention_layer_ms_alone=attn_ms,
+                 attention_step_ms_alone=attn_ms * cfg.num_layers,
+                 top={f"{k.key[:60]} x{k.count}": _device_us(k) / 1e3 for k in top})
+    idle = "not measured" if not dev_ms else f"{trace['idle_share']:.3f}"
+    ms = {k: "not measured" if trace[k] is None else f"{trace[k]:.2f} ms" for k in
+          ("attention_forward_ms", "attention_backward_ms", "optimizer_ms", "other_ms")}
+    log(f"traced {TRAIN} train step: device {dev_ms:.2f} ms of an untraced {step_ms:.1f} ms "
+        f"step (idle share {idle}); GEMM forward {by['forward']:.2f} ms, GEMM backward "
+        f"{by['backward']:.2f} ms, plain attention forward {ms['attention_forward_ms']}, "
+        f"backward {ms['attention_backward_ms']}, AdamW update {ms['optimizer_ms']}, the rest "
+        f"{ms['other_ms']} (the ops' launches read {read:.2f} ms of the {not_gemm:.2f} ms "
+        f"that is not GEMM); cross-check, alone: AdamW update {opt_ms:.2f} ms, plain "
+        f"attention fwd + bwd {attn_ms:.3f} ms a layer ({attn_ms * cfg.num_layers:.2f} ms a "
+        "step); top kernels (ms): " + ", ".join(f"{k} {v:.3f}" for k, v in trace["top"].items()))
+    out["f32"] = dict(losses=losses, step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
+                      tokens_per_s=TRAIN_T / step_ms * 1e3, peak_gib=peak / 2 ** 30,
+                      gemm_launches_per_step=launches["block_gemm"] // TRAIN_STEPS,
+                      gemms_per_forward=n_fwd, launches=launches, trace=trace,
+                      params_b=n_params / 1e9)
+    del state, m
+    for moments in ("bf16", "int8"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        opt_m = opt._replace(moments_dtype=moments)
+        st = init_state(cfg, opt_m, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        st, m = make_train_step(cfg, opt_m)(st, batches[0])
+        loss = float(m["loss"])
+        dt = time.time() - t0
+        pk = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not math.isfinite(loss) or abs(loss - losses[0]) > 1e-3 * abs(losses[0]):
+            fail(f"{TRAIN} {moments} moments: step-1 loss {loss} vs {losses[0]} (f32 moments)")
+        worst = _moments_vs_f32(st, ref_mom, moments)
+        out[moments] = dict(loss=loss, peak_gib=pk, step_ms=dt * 1e3,
+                            moment_err_of_bound=worst)
+        log(f"{TRAIN} training, {moments} moments: step-1 loss {loss:.4f}, step {dt * 1e3:.1f} ms "
+            f"(the first: allocator warm-up), peak device memory {pk:.2f} GiB; every new leaf "
+            f"finite, decoded mu / nu within {worst['mu']:.3f} / {worst['nu']:.3f} of their "
+            f"bound from the f32-moment step")
+        del st, m
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card",
@@ -3788,6 +4336,7 @@ def main() -> int:
     moe_rows = moe_kernel_phase(flush, gen)
     ssm_rows = ssm_kernel_phase(flush, gen)
     vlm_rows = vlm_kernel_phase(flush, gen)
+    train_err, train_rows = train_gemm_phase(flush, gen)
     del flush
     edge_launch, report["edge"] = edge_phase(counters, gen)
     for n in ("block_gemm_int8", "quantize_rows", "flash_attention", "flash_decode"):
@@ -3816,6 +4365,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     vlm["encoder"] = encoder_phase(counters, gen)
     vlm["wall_s"] = time.time() - t_vlm
+    gc.collect()  # hubert goes before the training phases
+    torch.cuda.empty_cache()
+    t_train = time.time()
+    train, train_launch = train_phase(counters, gen)
+    train["wall_s"] = time.time() - t_train
 
     def pick(name, shape):  # the row's contract keys
         row = next(r for r in rows[name] if r["shape"] == shape)
@@ -3893,8 +4447,17 @@ def main() -> int:
                     for row in vlm_rows["gemm"]]
     log(json.dumps({"vlm_encoder": vlm}))
     log(json.dumps({"vlm_encoder_kernels": vlm_kernels}))
+    # the block GEMM at olmo-1b's training shapes: forward and both backward
+    # products; launches from the 10-step full-width train run
+    train_kernels = [dict(name="block_gemm", route="cuda",
+                          source=f"src/repro_torch/kernels/csrc/{bg[0]}", replaces=bg[1],
+                          launches=train_launch["block_gemm"], max_abs_err=train_err, **row)
+                     for row in train_rows]
+    log(json.dumps({"train": train}))
+    log(json.dumps({"train_kernels": train_kernels}))
     log(f"chip_smoke wall time {time.time() - t_start:.1f} s (the SSM engine phases "
-        f"{ssm['wall_s']:.1f} s, the VLM and encoder phases {vlm['wall_s']:.1f} s)")
+        f"{ssm['wall_s']:.1f} s, the VLM and encoder phases {vlm['wall_s']:.1f} s, the "
+        f"training phases {train['wall_s']:.1f} s)")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

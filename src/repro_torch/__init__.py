@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the ``repro`` serving stack.
+"""PyTorch/CUDA port of the ``repro`` serving and training stack.
 
 The package mirrors ``repro``'s module names so each counterpart is easy to
 find.  It imports ``torch`` and never ``jax``; a tensor's device chooses the

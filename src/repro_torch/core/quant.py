@@ -1,6 +1,5 @@
-"""int8 quantization — the paper's packed-data path (port of
-``repro.core.quant``; the gradient compressor waits for the training
-slice).
+"""int8 quantization — the paper's packed-data path and the error-feedback
+gradient compressor (port of ``repro.core.quant``).
 
 Symmetric int8 with f32 scales, bit for bit the JAX package's rule:
 ``scale = max(amax, 1e-8) / 127``, ``q = clip(round(x / scale), -127,
@@ -35,7 +34,12 @@ def quantize_over(x, red_axes: tuple | None) -> QTensor:
     the rule: activations per row, weights per output channel, and the
     quantize kernel's plain version all call it."""
     xf = x.to(F32)
-    amax = xf.abs().amax() if red_axes is None else xf.abs().amax(dim=red_axes, keepdim=True)
+    if red_axes is None:
+        amax = xf.abs().amax()
+    elif not red_axes:  # one scale an element (``amax(dim=())`` would reduce all)
+        amax = xf.abs()
+    else:
+        amax = xf.abs().amax(dim=red_axes, keepdim=True)
     scale = torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return QTensor(q, scale)
@@ -51,3 +55,20 @@ def quantized_matmul_ref(x_q: QTensor, w_q: QTensor, out_dtype=F32):
     run in f64, exact for |acc| < 2^53 (CUDA has no integer matmul)."""
     acc = torch.matmul(x_q.q.to(torch.float64), w_q.q.to(torch.float64))
     return (acc.to(torch.int32).to(F32) * x_q.scale * w_q.scale).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Error-feedback int8 gradient compression
+# ---------------------------------------------------------------------------
+
+def compress_grad(g, err):
+    """Returns (q: QTensor with a scalar scale, new_err).  ``err`` carries
+    the quantization residual into the next step (error feedback), which
+    keeps SGD / Adam unbiased to first order."""
+    gf = g.to(F32) + err
+    qt = quantize(gf, axis=None)
+    return qt, gf - dequantize(qt)
+
+
+def decompress_grad(qt: QTensor, dtype=F32):
+    return dequantize(qt, dtype)

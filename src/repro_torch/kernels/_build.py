@@ -142,6 +142,29 @@ def check(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def records(*tensors) -> bool:
+    """Whether autograd records an op on ``tensors``: grad mode is on and
+    one of them requires grad.  The one test behind the rule "the GEMM
+    differentiates (``ops.cgra_matmul``), attention runs its plain version
+    (``models.layers.dense_attention``), every other kernel refuses"."""
+    import torch
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors):
+    """Raise when autograd would record a kernel call (:func:`records`).
+    The same check on the card and on the CPU (the plain version there
+    would be differentiable, the kernel is not), so a missing gradient
+    shows as an error on either device instead of a weight that silently
+    gets none on the card."""
+    if records(*tensors):
+        raise RuntimeError(
+            f"{what} has no backward: call it under torch.no_grad(), or use its "
+            f"differentiable entry (ops.cgra_matmul for the GEMM; the plain "
+            f"attention for training)")
+
+
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream

@@ -89,7 +89,7 @@ def _entry():
     if _fn is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         _fn = _build.bind("block_gemm", "repro_block_gemm",
-                          [P, P, P, I, I, I, I, I, I, I, P])
+                          [P, P, P, I, I, I, I, I, I, I, I, P])
     return _fn
 
 
@@ -103,27 +103,33 @@ def _entry_int8():
 
 
 def block_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
-               trans_b: bool = False) -> torch.Tensor:
-    """C = A[M,K] @ B with an f32 accumulator and one cast to ``out_dtype``
-    (default ``a.dtype``; f32 is the LM head's store).  B is row-major
-    [K, N], or [N, K] with ``trans_b`` (the tied LM head reads the [V, D]
-    embedding table in place)."""
+               trans_b: bool = False, trans_a: bool = False) -> torch.Tensor:
+    """C = A @ B with an f32 accumulator and one cast to ``out_dtype``
+    (default ``a.dtype``; f32 is the LM head's store).  A is row-major
+    [M, K], or [K, M] with ``trans_a`` (the weight gradient ``x^T @ g`` of
+    ``ops.cgra_matmul``'s backward); B is row-major [K, N], or [N, K] with
+    ``trans_b`` (the tied LM head reads the [V, D] embedding table in
+    place).  Not both.  No backward: ``ops.cgra_matmul`` is the
+    differentiable entry."""
+    _build.refuse_grad("block_gemm", a, b)
     out_dtype = out_dtype or a.dtype
+    if trans_a and trans_b:
+        raise ValueError("block_gemm: trans_a and trans_b together are not supported")
     if a.device.type == "cpu":
-        return block_gemm_ref(a, b, out_dtype, trans_b)
+        return block_gemm_ref(a, b, out_dtype, trans_b, trans_a)
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"block_gemm: a on {a.device}, b on {b.device}")
-    kb = 1 if trans_b else 0
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[kb]:
-        raise ValueError(f"block_gemm: shapes {tuple(a.shape)} @ {tuple(b.shape)}"
-                         f"{'^T' if trans_b else ''}")
+    ka, kb = (0 if trans_a else 1), (1 if trans_b else 0)
+    if a.dim() != 2 or b.dim() != 2 or a.shape[ka] != b.shape[kb]:
+        raise ValueError(f"block_gemm: shapes {tuple(a.shape)}{'^T' if trans_a else ''} "
+                         f"@ {tuple(b.shape)}{'^T' if trans_b else ''}")
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise TypeError(f"block_gemm: dtypes {a.dtype}, {b.dtype}")
     if out_dtype not in (a.dtype, torch.float32):
         raise TypeError(f"block_gemm: out_dtype {out_dtype} for {a.dtype} inputs")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("block_gemm: a and b must be contiguous")
-    M, K = a.shape
+    M, K = a.shape[1 - ka], a.shape[ka]
     N = b.shape[1 - kb]
     c = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if M == 0 or N == 0:
@@ -132,7 +138,7 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
         return c.zero_()
     err = _entry()(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
                    int(a.dtype == torch.bfloat16),
-                   int(out_dtype == torch.bfloat16), int(trans_b),
+                   int(out_dtype == torch.bfloat16), int(trans_a), int(trans_b),
                    gemm_splits(K, N), _build.stream_ptr(a.device))
     _build.check(err, "block_gemm")
     block_gemm.launches += 1
@@ -148,7 +154,9 @@ def block_gemm_int8(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
     the packed weight layout) with exact int32 sums and the fused epilogue
     ``(acc * a_scale[m]) * b_scale[n]`` in f32, cast once to ``out_dtype``
     (f32 or bf16).  a_scale: [M, 1] f32; b_scale: [1, N] f32.  On the card
-    ``int8_route`` picks the design and ``int8_splits`` the split of K."""
+    ``int8_route`` picks the design and ``int8_splits`` the split of K.
+    Inference only: no backward."""
+    _build.refuse_grad("block_gemm_int8", a_q, b_q, a_scale, b_scale)
     if a_q.device.type == "cpu":
         return block_gemm_int8_ref(a_q, b_q, a_scale, b_scale, out_dtype)
     dev = a_q.device

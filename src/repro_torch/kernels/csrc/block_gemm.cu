@@ -1,8 +1,10 @@
-// Block GEMM C[M,N] = A[M,K] @ B[K,N] (or B stored [N,K]) for Hopper (sm_90a).
+// Block GEMM C[M,N] = A[M,K] @ B[K,N] (B may be stored [N,K], A [K,M]) for
+// Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/block_gemm.py, _gemm_kernel (wrapper
 // block_gemm) -- the output-stationary block accumulation every projection
-// and the LM head run through.
+// and the LM head run through, and the two products of its VJP
+// (src/repro/kernels/ops.py, _mm_bwd: g @ B^T and A^T @ g).
 //
 // What bounds it on an H100: reading B.  At the serving shapes (M = 1-8
 // decode rows, M <= 72 rows of a mixed tick) the weight matrix B is read once
@@ -31,8 +33,19 @@
 // 73,728 bytes a block.
 // S is chosen by the wrapper (block_gemm.gemm_splits) from (K, N) alone.
 // The tensor cores run mma.sync m16n8k16 (bf16 in, f32 accumulate) with
-// ldmatrix fragments (.trans for B stored [K, N]).  f32 inputs take a
-// CUDA-core FMA kernel (full f32, never TF32); they are off the serving path.
+// ldmatrix fragments (.trans for B stored [K, N], and for A stored [K, M]).
+// f32 inputs take a CUDA-core FMA kernel (full f32, never TF32); they are off
+// the serving path.
+//
+// Training (the VJP, ops.cgra_matmul): the weight gradient A^T @ g reads the
+// activation stored [T, K] as a transposed A (trans_a), so no transposed copy
+// is made; its k-tile is kept m-contiguous, [BK][BM + 8], and the A fragment
+// comes from ldmatrix .trans, as B's [K, N] tile does.  The fragments, and so
+// the k16 steps and every result, are those of the same product with A stored
+// [M, K].  At the training shapes (M = 2048-8192 rows of a weight over K =
+// 4096 tokens) the product is bound by operations, and the 64 x 64 mma.sync
+// tiles run far below the wgmma rate: 75-150 TFLOP/s of the H100's 989 in
+// chip_smoke.py's training rows (ROADMAP Queue 2 items 9 and 14).
 //
 // Reduction order, bf16: split s covers k in [s*kc, min(K, (s+1)*kc)) with
 // kc = ceil(K / S) rounded up to the 64-deep k-tile; inside a split each
@@ -63,8 +76,9 @@ constexpr int GEMM_BK = 64;  // k-tile depth; kc is a multiple of it
 // aligned base), so tiles move as 16-byte cp.async chunks; otherwise element
 // by element with the same zero fill.  BT: B is stored [N, K] (the tied LM
 // head reads the [V, D] embedding table in place); its tile is kept
-// k-contiguous.  The k16 steps, and so every result, are the same.
-template <int BM, int BN, int WM, int WN, int STAGES, bool BT, typename TO>
+// k-contiguous.  AT: A is stored [K, M]; its tile is kept m-contiguous.  The
+// k16 steps, and so every result, are the same.
+template <int BM, int BN, int WM, int WN, int STAGES, bool AT, bool BT, typename TO>
 __global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __restrict__ C,
                  int M, int N, int K, int vecA, int vecB, int splits, int kc) {
@@ -73,9 +87,9 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
   constexpr int NT = (BM / WM) * WARPS_N * 32;
   constexpr int MT = WM / 16, NTL = WN / 8;
   // padded rows: 16-byte aligned, the 8 rows of an ldmatrix in distinct banks;
-  // B is [BK][BS] or, BT, [BN][BS]
-  constexpr int AS = BK + 8, BS = BT ? BK + 8 : BN + 8;
-  constexpr int A_ELEMS = BM * AS, B_ELEMS = (BT ? BN : BK) * BS;
+  // A is [BM][AS] or, AT, [BK][AS]; B is [BK][BS] or, BT, [BN][BS]
+  constexpr int AS = AT ? BM + 8 : BK + 8, BS = BT ? BK + 8 : BN + 8;
+  constexpr int A_ELEMS = (AT ? BK : BM) * AS, B_ELEMS = (BT ? BN : BK) * BS;
   extern __shared__ __align__(16) unsigned char gemm_smem[];
   bf16* As = reinterpret_cast<bf16*>(gemm_smem);  // [STAGES][A_ELEMS]
   bf16* Bs = As + STAGES * A_ELEMS;                // [STAGES][B_ELEMS]
@@ -101,7 +115,20 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
     const int k0 = kbeg + kt * BK;
     bf16* as = As + s * A_ELEMS;
     bf16* bs = Bs + s * B_ELEMS;
-    if (vecA) {
+    if (AT && vecA) {
+      for (int e = tid; e < BK * BM / 8; e += NT) {
+        const int r = e / (BM / 8), c = (e % (BM / 8)) * 8;
+        const int gk = k0 + r, gm = m0 + c;
+        const bool ok = gk < kend && gm < M;
+        cp_async16(as + r * AS + c, ok ? A + (size_t)gk * M + gm : A, ok);
+      }
+    } else if (AT) {
+      for (int e = tid; e < BK * BM; e += NT) {
+        const int r = e / BM, c = e % BM;
+        const int gk = k0 + r, gm = m0 + c;
+        as[r * AS + c] = (gk < kend && gm < M) ? A[(size_t)gk * M + gm] : zero;
+      }
+    } else if (vecA) {
       for (int e = tid; e < BM * BK / 8; e += NT) {
         const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
         const int gm = m0 + r, gk = k0 + c;
@@ -162,8 +189,13 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t af[MT][4], bfr[NTL][2];
 #pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-        ldmatrix_x4(af[mi], as + (wm * WM + mi * 16 + (lane & 15)) * AS + kk + (lane >> 4) * 8);
+      for (int mi = 0; mi < MT; ++mi) {
+        if (AT)  // matrices (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7, k 8-15), (m 8-15, k 8-15)
+          ldmatrix_x4_trans(af[mi], as + (kk + (lane & 7) + (lane >> 4) * 8) * AS + wm * WM +
+                                        mi * 16 + ((lane >> 3) & 1) * 8);
+        else
+          ldmatrix_x4(af[mi], as + (wm * WM + mi * 16 + (lane & 15)) * AS + kk + (lane >> 4) * 8);
+      }
 #pragma unroll
       for (int np = 0; np < NTL / 2; ++np) {  // two n8 tiles per ldmatrix
         uint32_t r4[4];
@@ -243,8 +275,9 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
 
 // f32 CUDA-core kernel (f32 inputs; off the serving path).  Each thread
 // owns TM x TN outputs, each a sequential fmaf chain over k.  BT: B is
-// stored [N, K].
-template <int BM, int BN, int BK, int TM, int TN, bool BT>
+// stored [N, K]; AT: A is stored [K, M] (read along m by neighbouring
+// threads).
+template <int BM, int BN, int BK, int TM, int TN, bool AT, bool BT>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                 float* __restrict__ C, int M, int N, int K) {
@@ -261,8 +294,9 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int e = tid; e < BM * BK; e += NT) {
-      const int r = e / BK, c = e % BK, gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
+      const int r = AT ? e % BM : e / BK, c = AT ? e / BM : e % BK;
+      const int gm = m0 + r, gk = k0 + c;
+      As[c][r] = (gm < M && gk < K) ? A[AT ? (size_t)gk * M + gm : (size_t)gm * K + gk] : 0.f;
     }
     for (int e = tid; e < BK * BN; e += NT) {
       const int r = e / BN, c = e % BN, gk = k0 + r, gn = n0 + c;
@@ -297,13 +331,14 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
 }
 
 
-template <int BM, int BN, int WM, int WN, int STAGES, bool BT, typename TO>
+template <int BM, int BN, int WM, int WN, int STAGES, bool AT, bool BT, typename TO>
 int launch_tile(const bf16* A, const bf16* B, TO* C, int M, int N, int K, int vecA, int vecB,
                 int splits, cudaStream_t stream) {
   constexpr int BK = GEMM_BK;
   const size_t smem = sizeof(bf16) * STAGES *
-                      ((size_t)BM * (BK + 8) + (size_t)(BT ? BN : BK) * ((BT ? BK : BN) + 8));
-  auto kern = gemm_bf16_kernel<BM, BN, WM, WN, STAGES, BT, TO>;
+                      ((size_t)(AT ? BK : BM) * ((AT ? BM : BK) + 8) +
+                       (size_t)(BT ? BN : BK) * ((BT ? BK : BN) + 8));
+  auto kern = gemm_bf16_kernel<BM, BN, WM, WN, STAGES, AT, BT, TO>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -326,60 +361,66 @@ int launch_tile(const bf16* A, const bf16* B, TO* C, int M, int N, int K, int ve
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool BT, typename TO>
+template <bool AT, bool BT, typename TO>
 int launch_bf16(const bf16* A, const bf16* B, TO* C, int M, int N, int K, int splits,
                 cudaStream_t stream) {
   if (splits < 1 || splits > 8) return static_cast<int>(cudaErrorInvalidValue);
-  const int vecA = (K % 8 == 0) && (reinterpret_cast<uintptr_t>(A) % 16 == 0);
+  const int vecA = ((AT ? M : K) % 8 == 0) && (reinterpret_cast<uintptr_t>(A) % 16 == 0);
   const int vecB = ((BT ? K : N) % 8 == 0) && (reinterpret_cast<uintptr_t>(B) % 16 == 0);
   // decode rows: one m16 tile; 128 columns (4 stages) where K is split, so
   // that a block keeps 16 KB of B per stage in flight, else 64 (5 stages),
   // which fills the SMs better at the LM head's 50k-262k columns
   if (M <= 16 && splits > 1)
-    return launch_tile<16, 128, 16, 32, 4, BT, TO>(A, B, C, M, N, K, vecA, vecB, splits,
+    return launch_tile<16, 128, 16, 32, 4, AT, BT, TO>(A, B, C, M, N, K, vecA, vecB, splits,
                                                    stream);
   if (M <= 16)
-    return launch_tile<16, 64, 16, 16, 5, BT, TO>(A, B, C, M, N, K, vecA, vecB, splits,
+    return launch_tile<16, 64, 16, 16, 5, AT, BT, TO>(A, B, C, M, N, K, vecA, vecB, splits,
                                                   stream);
   // mixed-tick and prefill rows: 64 x 64 tiles, four 32 x 32 warp tiles, 4 stages
-  return launch_tile<64, 64, 32, 32, 4, BT, TO>(A, B, C, M, N, K, vecA, vecB, splits, stream);
+  return launch_tile<64, 64, 32, 32, 4, AT, BT, TO>(A, B, C, M, N, K, vecA, vecB, splits, stream);
 }
 
 }  // namespace repro
 
 // in_bf16: A and B are bf16 (else f32).  out_bf16: C is bf16 (else f32).
-// trans_b: B is [N, K].  splits: the bf16 kernel's split of K (1..8, from
-// block_gemm.gemm_splits); the f32 kernel does not split.  Returns the
-// launch's error, else cudaGetLastError() after it.
+// trans_a: A is [K, M]; trans_b: B is [N, K] (not both).  splits: the bf16
+// kernel's split of K (1..8, from block_gemm.gemm_splits); the f32 kernel
+// does not split.  Returns the launch's error, else cudaGetLastError() after
+// it.
 extern "C" int repro_block_gemm(const void* a, const void* b, void* c, int M, int N,
-                                int K, int in_bf16, int out_bf16, int trans_b, int splits,
-                                void* stream) {
+                                int K, int in_bf16, int out_bf16, int trans_a, int trans_b,
+                                int splits, void* stream) {
   using repro::bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (trans_a && trans_b) return static_cast<int>(cudaErrorInvalidValue);
   const bf16* A16 = static_cast<const bf16*>(a);
   const bf16* B16 = static_cast<const bf16*>(b);
-  if (in_bf16 && out_bf16 && trans_b)
-    return repro::launch_bf16<true, bf16>(A16, B16, static_cast<bf16*>(c), M, N, K, splits, s);
-  if (in_bf16 && trans_b)
-    return repro::launch_bf16<true, float>(A16, B16, static_cast<float*>(c), M, N, K, splits,
-                                           s);
-  if (in_bf16 && out_bf16)
-    return repro::launch_bf16<false, bf16>(A16, B16, static_cast<bf16*>(c), M, N, K, splits,
-                                           s);
-  if (in_bf16)
-    return repro::launch_bf16<false, float>(A16, B16, static_cast<float*>(c), M, N, K, splits,
-                                            s);
+  if (in_bf16) {
+    if (out_bf16) {
+      bf16* C = static_cast<bf16*>(c);
+      if (trans_a) return repro::launch_bf16<true, false>(A16, B16, C, M, N, K, splits, s);
+      if (trans_b) return repro::launch_bf16<false, true>(A16, B16, C, M, N, K, splits, s);
+      return repro::launch_bf16<false, false>(A16, B16, C, M, N, K, splits, s);
+    }
+    float* C = static_cast<float*>(c);
+    if (trans_a) return repro::launch_bf16<true, false>(A16, B16, C, M, N, K, splits, s);
+    if (trans_b) return repro::launch_bf16<false, true>(A16, B16, C, M, N, K, splits, s);
+    return repro::launch_bf16<false, false>(A16, B16, C, M, N, K, splits, s);
+  }
   if (out_bf16) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const float* A32 = static_cast<const float*>(a);
   const float* B32 = static_cast<const float*>(b);
   float* C32 = static_cast<float*>(c);
-  if (trans_b)
-    repro::gemm_f32_kernel<BM, BN, BK, TM, TN, true>
+  if (trans_a)
+    repro::gemm_f32_kernel<BM, BN, BK, TM, TN, true, false>
+        <<<grid, (BM / TM) * (BN / TN), 0, s>>>(A32, B32, C32, M, N, K);
+  else if (trans_b)
+    repro::gemm_f32_kernel<BM, BN, BK, TM, TN, false, true>
         <<<grid, (BM / TM) * (BN / TN), 0, s>>>(A32, B32, C32, M, N, K);
   else
-    repro::gemm_f32_kernel<BM, BN, BK, TM, TN, false>
+    repro::gemm_f32_kernel<BM, BN, BK, TM, TN, false, false>
         <<<grid, (BM / TM) * (BN / TN), 0, s>>>(A32, B32, C32, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -122,7 +122,8 @@ def flash_decode(q, k, v, pos, start, *, layout: str = "linear",
     "linear": rows ``[start, pos]`` are live (``pos >= S`` reads up to row
     S-1); "ring": entry j holds absolute row ``pos - ((pos - j) mod S)``,
     live iff that row is ``>= max(start, 0)``.  A slot with no live row
-    gives exact zeros.  One launch on the card."""
+    gives exact zeros.  One launch on the card.  Inference only."""
+    _build.refuse_grad("flash_decode", q, k, v)
     dv = dv or v.shape[-1]
     layout = str(layout)
     if q.device.type == "cpu":
@@ -145,7 +146,9 @@ def flash_decode_paged(q, k, v, pos, start, pages, *, softcap: float = 0.0,
     int32; pos/start: [B] int32 -> [B,H,dv].  Logical row ``r`` of slot
     ``b`` lives at pool row ``(pages[b, r // ps], r % ps)``; rows
     ``[start, pos]`` are live and a slot with none gives exact zeros.  One
-    launch on the card, the slot kernel's body over the page table."""
+    launch on the card, the slot kernel's body over the page table.
+    Inference only."""
+    _build.refuse_grad("flash_decode_paged", q, k, v)
     dv = dv or v.shape[-1]
     if q.device.type == "cpu":
         return flash_decode_ref(q, k, v, pos, start, pages=pages,

@@ -52,7 +52,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     On the card any strides with a unit stride along d are read as they are
     (the layers pass transposed views of [B,S,H,d] tensors), and the result
     is a [B,H,Sq,d] view of a [B,Sq,H,d] buffer, so the caller's transpose
-    back is free."""
+    back is free.  No backward (the reference's kernel has none either):
+    training attention is the plain version, by rule (``models.layers``)."""
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale, softcap=softcap)
@@ -135,7 +137,8 @@ def flash_attention_paged(q, k, v, pages, q_start, k_len, *, window: int = 0,
     pass a transposed view of their [B,C,H,d] tensor) and the result is a
     [B,H,C,d] view of a [B,C,H,d] buffer.  bf16 splits each slot's keys
     into :func:`key_pieces` pieces, one CUDA block each, merged in piece
-    order by the last block to finish, in the same launch."""
+    order by the last block to finish, in the same launch.  Inference only."""
+    _build.refuse_grad("flash_attention_paged", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_paged_ref(q, k, v, pages, q_start, k_len,
                                          window=window, scale=scale,

@@ -2,13 +2,15 @@
 
 A CUDA tensor launches the hand-written kernel; a CPU tensor takes the
 kernel's plain version.  There is no other branch and no fallback.  The
-block GEMM's custom VJP waits for the training slice.
+block GEMM is trainable (:class:`_CgraMatmul`, the reference's custom VJP);
+every other kernel wrapper raises under autograd (``_build.refuse_grad``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.cache import CacheLayout
+from repro_torch.kernels import _build
 from repro_torch.kernels.block_gemm import block_gemm, block_gemm_int8
 from repro_torch.kernels.decode_attention import flash_decode, flash_decode_paged
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_paged
@@ -19,10 +21,51 @@ LAUNCH_COUNTERS = (block_gemm, block_gemm_int8, quantize_rows, flash_attention,
                    flash_attention_paged, flash_decode, flash_decode_paged)
 
 
+class _CgraMatmul(torch.autograd.Function):
+    """The block GEMM with its backward on the same kernel: the port of
+    ``repro.kernels.ops.cgra_matmul``'s ``jax.custom_vjp`` (``_mm_fwd`` /
+    ``_mm_bwd``).  With ``C = A @ B`` and the incoming ``g``:
+
+    - ``ga = g.to(b.dtype) @ B^T``, cast to ``a.dtype``: B read in place as
+      the transposed operand (``trans_b``), or, for a B stored [N, K], as
+      it is;
+    - ``gb = A^T @ g.to(a.dtype)``, cast to ``b.dtype``: A read in place as
+      the transposed operand (``trans_a``); for a B stored [N, K] the
+      gradient comes out in that layout as ``g^T @ A``.
+
+    So a GEMM of the forward launches the kernel three times in a train
+    step and no operand is copied transposed.  The f32 head's ``g`` is cast
+    to the weight dtype first, as ``_mm_bwd`` does."""
+
+    @staticmethod
+    def forward(ctx, a, b, out_dtype, trans_b):
+        ctx.save_for_backward(a, b)
+        ctx.trans_b = trans_b
+        return block_gemm(a, b, out_dtype=out_dtype, trans_b=trans_b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = block_gemm(g.to(b.dtype).contiguous(), b,
+                            trans_b=not ctx.trans_b).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gt = g.to(a.dtype).contiguous()
+            gb = (block_gemm(gt, a, trans_a=True) if ctx.trans_b
+                  else block_gemm(a, gt, trans_a=True)).to(b.dtype)
+        return ga, gb, None, None
+
+
 def cgra_matmul(a, b, out_dtype=None, trans_b: bool = False):
     """C = A @ B through the block-GEMM kernel; ``out_dtype`` is the
     epilogue's store dtype (the f32 accumulator is cast exactly once);
-    ``trans_b``: b is stored [N, K]."""
+    ``trans_b``: b is stored [N, K].  Differentiable: when autograd records
+    (grad mode on and an input requiring grad) the call goes through
+    :class:`_CgraMatmul`, whose backward runs the same kernel (or, on the
+    CPU, the same plain version); otherwise straight to the kernel."""
+    if _build.records(a, b):
+        return _CgraMatmul.apply(a, b, out_dtype, trans_b)
     return block_gemm(a, b, out_dtype=out_dtype, trans_b=trans_b)
 
 

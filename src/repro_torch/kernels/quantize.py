@@ -31,7 +31,8 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x [M, K] (f32 or bf16, contiguous) -> (q [M, K] int8, scale [M, 1]
     f32): ``scale = max(max_k |x|, 1e-8) / 127`` and ``q = clip(round(x /
     scale), -127, 127)``, rounding half to even, in f32 -- bit for bit
-    ``core.quant.quantize(x, axis=0)`` for finite x."""
+    ``core.quant.quantize(x, axis=0)`` for finite x.  Inference only."""
+    _build.refuse_grad("quantize_rows", x)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"quantize_rows: x on {x.device}")
     if x.dtype not in _DTYPES:

@@ -15,13 +15,15 @@ F32 = torch.float32
 NEG = -1e30
 
 
-def block_gemm_ref(a, b, out_dtype=None, trans_b: bool = False):
+def block_gemm_ref(a, b, out_dtype=None, trans_b: bool = False,
+                   trans_a: bool = False):
     """C = A @ B with f32 accumulation and one cast to ``out_dtype``.
     ``trans_b``: b is given as [N, K] (the tied LM head reads the
-    embedding table so)."""
+    embedding table so); ``trans_a``: a is given as [K, M] (the weight
+    gradient of the GEMM's backward reads the activations so)."""
     out_dtype = out_dtype or a.dtype
-    b = b.to(F32)
-    return torch.matmul(a.to(F32), b.T if trans_b else b).to(out_dtype)
+    a, b = a.to(F32), b.to(F32)
+    return torch.matmul(a.T if trans_a else a, b.T if trans_b else b).to(out_dtype)
 
 
 def block_gemm_int8_ref(a_q, b_q, a_scale, b_scale, out_dtype=F32):

@@ -44,6 +44,7 @@ What capture needs of the kernels' wrappers:
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
@@ -136,8 +137,17 @@ class DecodeGraph:
             t.copy_(old)
         before = {fn: fn.launches for fn in LAUNCH_COUNTERS}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            out = self.eager()
+        # No cycle collection during the capture: a dead engine's graph freed
+        # there calls cudaGraphExecDestroy on a capturing stream, which
+        # invalidates the capture (the step's next cuBLAS call then fails).
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                out = self.eager()
+        finally:
+            if collecting:
+                gc.enable()
         self.per_replay = {fn: fn.launches - before[fn] for fn in LAUNCH_COUNTERS
                            if fn.launches != before[fn]}
         for fn in LAUNCH_COUNTERS:

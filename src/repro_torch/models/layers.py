@@ -8,7 +8,9 @@ chunked-prefill attention through the paged one, and decode attention
 through flash-decode on page pools or on linear / ring slot caches (MLA's
 latent decode too; MLA's whole-prompt attention stays plain PyTorch, as
 the reference's jnp ``attend``).  A tensor's device chooses between each
-kernel and its plain version.
+kernel and its plain version.  Training (autograd recording) differentiates
+the GEMMs through ``ops.cgra_matmul``'s backward kernels and runs attention
+in its plain version, by rule (:func:`dense_attention`).
 
 Caches are updated **in place** (the JAX engine donates them instead).  A
 pool made by ``model.init_paged_cache`` has one spare *drop row* in its
@@ -30,6 +32,7 @@ from repro_torch.core import round_up
 from repro_torch.core.cache import CacheLayout
 from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8, quantize_act
 from repro_torch.core.quant import QTensor
+from repro_torch.kernels._build import records
 from repro_torch.kernels.ops import attend_decode, attention
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models.params import ParamSpec
@@ -264,6 +267,24 @@ def _attn_inputs(cfg, p, cache, x, rows: StepRows, local: bool):
     return q, k, v
 
 
+def dense_attention(q, k, v, *, causal: bool, window: int = 0, softcap: float = 0.0):
+    """Whole-prompt attention, q [B,H,Sq,d] over k/v [B,K,Sk,d]: the dense
+    flash kernel, or its plain version when autograd records.  That is a
+    rule, not a fallback: the reference's flash kernel has no VJP, and the
+    JAX package trains attention through its plain ``attend``
+    (``repro/models/layers.py:155-158``: "train/finetune with
+    ``kernel_mode="reference"``"), so the port does the same on both
+    devices; the kernel wrapper itself refuses to be recorded.  The plain
+    call runs in a ``plain_attention`` profiler range, by which a trace
+    finds attention's forward ops and, through their autograd sequence
+    numbers, its backward ones."""
+    if records(q, k, v):
+        with torch.profiler.record_function("plain_attention"):
+            return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    return attention(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
 def attn_forward(cfg: ArchConfig, p: dict, x, rows: StepRows, *, local: bool,
                  past_kv=None, causal: bool | None = None):
     """Whole-prompt self-attention (training forward and prefill).  x:
@@ -280,24 +301,27 @@ def attn_forward(cfg: ArchConfig, p: dict, x, rows: StepRows, *, local: bool,
     if past_kv is not None:
         k_all = torch.cat([past_kv["k"].to(k.dtype), k], 1)
         v_all = torch.cat([past_kv["v"].to(v.dtype), v], 1)
-    o = attention(q.transpose(1, 2), k_all.transpose(1, 2), v_all.transpose(1, 2),
-                  causal=causal, window=cfg.window_size if local else 0,
-                  softcap=cfg.logit_softcap)
+    o = dense_attention(q.transpose(1, 2), k_all.transpose(1, 2), v_all.transpose(1, 2),
+                        causal=causal, window=cfg.window_size if local else 0,
+                        softcap=cfg.logit_softcap)
     o = o.transpose(1, 2)  # [B, S, H, dh]; free on the card (see flash_attention)
     out = dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"])
     return out, k, v
 
 
 def attn_prefill(cfg: ArchConfig, p: dict, x, rows: StepRows, *, local: bool,
-                 past_kv=None):
+                 past_kv=None, full_kv: bool = False):
     """Causal :func:`attn_forward` that also returns the prompt's cache
     (post-RoPE k/v of the new rows).  A sliding-window layer keeps only the
     last ``window`` rows, rolled so that entry ``pos % window`` holds row
-    ``pos``: decode continues the ring.  Returns (out, {"k", "v"})."""
+    ``pos``: decode continues the ring; with ``full_kv`` it keeps every row
+    linearly instead (the paged engine stores every row and windows at
+    decode time, as the reference's ``full_cache``).  Returns (out, {"k",
+    "v"})."""
     out, k, v = attn_forward(cfg, p, x, rows, local=local, past_kv=past_kv, causal=True)
     window = cfg.window_size if local else 0
     S = k.shape[1]
-    if window and past_kv is None and S > window:
+    if window and not full_kv and past_kv is None and S > window:
         k = torch.roll(k[:, -window:], (S - window) % window, 1)
         v = torch.roll(v[:, -window:], (S - window) % window, 1)
     return out, {"k": k, "v": v}
@@ -500,7 +524,8 @@ def cross_attn(cfg: ArchConfig, p: dict, x, img=None, img_kv=None):
     projected image embeddings ``img`` [B,T,D] (prefill, training), or the
     cached ``img_kv`` = (k, v) [B,T,K,dh] (decode).  No RoPE; bidirectional,
     through the dense flash-attention kernel at Sq = S (1 at decode) over
-    Sk = T.  The output is gated by ``tanh(gate)``.  Under w8a8 the image's
+    Sk = T (its plain version when autograd records: :func:`dense_attention`).
+    The output is gated by ``tanh(gate)``.  Under w8a8 the image's
     k and v projections share one quantize.  Returns (out, (k, v))."""
     H, K, dh = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
     if img_kv is None:
@@ -514,7 +539,8 @@ def cross_attn(cfg: ArchConfig, p: dict, x, img=None, img_kv=None):
     q = dense_proj(cfg, x, p["wq"], (H, dh))
     if "q_norm" in p:
         q = rms_only(q, p["q_norm"])
-    o = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False)
+    o = dense_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                        causal=False)
     o = o.transpose(1, 2)  # [B, S, H, dh]; free on the card
     o = dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"])
     return torch.tanh(p["gate"].to(F32)).to(o.dtype) * o, (k, v)

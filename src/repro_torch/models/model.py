@@ -1,5 +1,6 @@
 """Config-driven model assembly (port of ``repro.models.model``): param
-specs, w8a8 quantization, slot and paged caches, the training forward,
+specs, w8a8 quantization, slot and paged caches, the training forward and
+its loss (``loss_fn``: cross-entropy plus the MoE load-balancing aux),
 ``prefill`` -> ``decode_step``, and the engine's chunk / decode / mixed
 steps.
 
@@ -280,13 +281,18 @@ def init_paged_cache(cfg: ArchConfig, max_batch: int, n_pages: int,
 # Layer application
 # ---------------------------------------------------------------------------
 
-def _index(tree, r: int):
-    """Layer ``r`` of a stacked tree (views, no copies)."""
+def _unstack(tree, R: int) -> list:
+    """The first R layers of a stacked tree (parameters or caches), each
+    leaf unbound once along its layer axis (views, no copies, so a cache's
+    in-place writes reach the stack).  Under autograd one ``unbind`` a leaf
+    stacks the layers' gradients once, where indexing each layer would
+    scatter every layer's gradient into a zero tensor of the whole stack."""
     if isinstance(tree, dict):
-        return {k: _index(v, r) for k, v in tree.items()}
+        parts = {k: _unstack(v, R) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(R)]
     if isinstance(tree, QTensor):
-        return QTensor(tree.q[r], tree.scale[r])
-    return tree[r]
+        return [QTensor(q, s) for q, s in zip(tree.q.unbind(0)[:R], tree.scale.unbind(0))]
+    return list(tree.unbind(0)[:R])
 
 
 def _stack_layers(per_layer: list) -> dict:
@@ -296,13 +302,16 @@ def _stack_layers(per_layer: list) -> dict:
 
 
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
-                 cache, rows: L.StepRows, img=None):
-    """Returns (x, cache).  decode / chunk: ``cache`` is the layer's slot
-    cache or page pools, updated in place.  prefill: ``cache`` is the
-    layer's past KV or None, and the returned cache holds the new rows.
-    train: no cache.  ``rows`` holds the step's shared positions, tables
-    and bounds; ``img`` the projected image [B,T,D] (prefill and train of a
-    cross model).  MLA, SSD and cross layers have no chunk step (the fused
+                 cache, rows: L.StepRows, img=None, full_kv: bool = False):
+    """Returns (x, cache, aux).  decode / chunk: ``cache`` is the layer's
+    slot cache or page pools, updated in place.  prefill: ``cache`` is the
+    layer's past KV or None, and the returned cache holds the new rows
+    (``full_kv``: a sliding-window layer's every row, linear).  train: no
+    cache; ``aux`` is a MoE layer's load-balancing loss (``layers.moe_aux``),
+    None for other layers and in the other modes (serving does not compute
+    it).  ``rows`` holds the step's shared positions, tables and bounds;
+    ``img`` the projected image [B,T,D] (prefill and train of a cross
+    model).  MLA, SSD and cross layers have no chunk step (the fused
     latent cache, the SSD state and the image K/V are not
     prefix-decomposable: the engine prefills MLA and SSD whole) and no
     cached-prefix prefill.  A layer with ``ffn="none"`` (mamba2) is its
@@ -324,20 +333,23 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
                                         local=local)
     elif mode == "prefill":
         m, cache = L.attn_prefill(cfg, p["mixer"], h, rows, local=local,
-                                  past_kv=cache)
+                                  past_kv=cache, full_kv=full_kv)
     elif mode == "train":
         m = L.attn_forward(cfg, p["mixer"], h, rows, local=local)[0]
     else:
         raise ValueError(f"unknown mode {mode!r}")
     x = x + m
     if spec.ffn == "none":
-        return x, cache
+        return x, cache, None
     h = L.apply_norm(cfg, p["norm2"], x)
+    aux = None
     if spec.ffn == "moe":
-        f, _ = L.moe_forward(cfg, p["ffn"], h)  # route: moe_aux, for training
+        f, route = L.moe_forward(cfg, p["ffn"], h)
+        if mode == "train":
+            aux = L.moe_aux(cfg, route)
     else:
         f = L.ffn_forward(cfg, p["ffn"], h)
-    return x + f, cache
+    return x + f, cache, aux
 
 
 def _apply_ssd(cfg: ArchConfig, p: dict, h, *, mode: str, cache):
@@ -468,16 +480,21 @@ def _rows(x, B: int, device) -> torch.Tensor:
 
 def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
                    caches=None, pos=None, pages=None, past_len=0,
-                   chunk_len=None, images=None, frames=None):
-    """Run the stack; returns (hidden, caches).
+                   chunk_len=None, images=None, frames=None, full_kv: bool = False,
+                   return_aux: bool = False):
+    """Run the stack; returns (hidden, caches), or with ``return_aux``
+    (hidden, aux, caches) as the reference does: ``aux`` the f32 sum of the
+    MoE layers' load-balancing losses in train mode (0 without MoE layers
+    and in the other modes).
 
     train: tokens [B, S] (an audio encoder: ``frames`` [B, S,
     frontend_dim]), no caches (None is returned); an encoder attends
     bidirectionally.  prefill: tokens [B, S] at positions ``past_len +
     arange(S)``; ``caches``, if given, is the past KV tree of a cached
     prefix of ``past_len`` rows, and the returned tree holds only the new
-    rows (sliding-window layers as rolled rings).  decode: tokens [B, 1],
-    pos [B]; ``caches`` are slot caches, or page pools with ``pages``,
+    rows (sliding-window layers as rolled rings, or every row linear with
+    ``full_kv``, which the paged engine's whole prefill asks for).  decode:
+    tokens [B, 1], pos [B]; ``caches`` are slot caches, or page pools with ``pages``,
     updated in place.  chunk: tokens [B, C], ``past_len`` rows already in
     the pages and ``chunk_len`` valid rows in the buffer (ints or [B]
     tensors), pools updated in place.  A cross model's train and prefill
@@ -504,39 +521,77 @@ def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
         rows = L.StepRows(torch.arange(C, dtype=torch.int32, device=dev)
                           + int(past_len), None)
     new_caches = []
+    aux = torch.zeros((), dtype=F32, device=dev) if return_aux else None
     for si, stage in enumerate(cfg.stages()):
-        sp = params["stages"][si]
         sc = None if caches is None else caches[si]
         per_layer = []
-        for r in range(stage.repeats):
-            lp = _index(sp, r)
-            lc = None if sc is None else _index(sc, r)
+        layer_caches = [None] * stage.repeats if sc is None else _unstack(sc, stage.repeats)
+        for lp, lc in zip(_unstack(params["stages"][si], stage.repeats), layer_caches):
             out = {}
             for gi, spec in enumerate(stage.group):
                 c_in = None if lc is None else lc[str(gi)]
-                x, out[str(gi)] = _apply_layer(cfg, spec, lp[str(gi)], x,
-                                               mode=mode, cache=c_in, rows=rows, img=img)
+                x, out[str(gi)], a = _apply_layer(cfg, spec, lp[str(gi)], x, mode=mode,
+                                                  cache=c_in, rows=rows, img=img,
+                                                  full_kv=full_kv)
+                if a is not None and return_aux:
+                    aux = aux + a
             per_layer.append(out)
         if mode == "prefill":
             new_caches.append(_stack_layers(per_layer))
     hidden = L.apply_norm(cfg, params["final_norm"], x)
     if mode == "prefill":
-        return hidden, new_caches
-    return hidden, (caches if mode in ("decode", "chunk") else None)
+        out_caches = new_caches
+    else:
+        out_caches = caches if mode in ("decode", "chunk") else None
+    return (hidden, aux, out_caches) if return_aux else (hidden, out_caches)
+
+
+NEG_INF = -1e9  # the reference's masked logit (``repro.models.layers.NEG_INF``)
+
+
+def cross_entropy(cfg: ArchConfig, logits, labels):
+    """Mean cross-entropy over every position, in f32; the padded vocab's
+    columns are masked out (the reference's ``cross_entropy``).  logits
+    [B, S, Vp] (any float dtype), labels [B, S]."""
+    lf = logits.to(F32)
+    if cfg.padded_vocab != cfg.vocab_size:
+        col = torch.arange(cfg.padded_vocab, device=lf.device)
+        lf = torch.where(col < cfg.vocab_size, lf, torch.full_like(lf, NEG_INF))
+    lse = torch.logsumexp(lf, -1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - ll)
+
+
+def loss_fn(cfg: ArchConfig, params, batch: dict):
+    """The training loss of the reference's ``loss_fn``: ``ce + 0.01 *
+    aux`` and ``{"ce", "aux"}``.  ``batch`` holds tensors: ``labels`` [B, S]
+    and ``tokens`` [B, S], or an audio encoder's ``frames`` [B, S,
+    frontend_dim] (one label a frame); a cross model also reads
+    ``images``."""
+    hidden, aux, _ = forward_hidden(cfg, params, batch.get("tokens"), mode="train",
+                                    images=batch.get("images"),
+                                    frames=batch.get("frames"), return_aux=True)
+    logits = lm_logits(cfg, params, hidden)
+    ce = cross_entropy(cfg, logits, batch["labels"])
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(cfg: ArchConfig, params, tokens, *, images=None, past=None,
-            past_len: int = 0, cache_len: int | None = None):
+            past_len: int = 0, full_kv: bool = False, cache_len: int | None = None):
     """Whole-prompt prefill of tokens [B, S].  Returns (last-row logits
     [B, 1, Vp] f32, caches).  ``images`` [B, vision_tokens, vision_dim]: a
     cross model's patch embeddings (required there; their K/V are cached).
     ``past``/``past_len``: a cached prefix's KV tree and its length (the
     prompt continues it; the returned caches hold only the new rows).
+    ``full_kv``: keep a sliding-window layer's every row linear instead of
+    the rolled ring (the paged engine's whole prefill: the pool holds every
+    row and decode windows through ``start``).
     ``cache_len``: zero-pad every ``kv_seq`` leaf to that capacity so that
     ``decode_step`` can decode into it directly (SSD state and image K/V
     leaves are already whole).  An encoder has no prefill."""
     hidden, caches = forward_hidden(cfg, params, tokens, mode="prefill",
-                                    caches=past, past_len=past_len, images=images)
+                                    caches=past, past_len=past_len, images=images,
+                                    full_kv=full_kv)
     logits = lm_logits(cfg, params, hidden[:, -1:].contiguous())
     if cache_len is not None:
         caches = pad_cache_len(cfg, caches, cache_len)

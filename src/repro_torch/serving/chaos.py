@@ -29,7 +29,7 @@ bit-identical: the per-point ``numpy.random.RandomState`` streams are
 seeded as in ``repro.serving.chaos``, so a seed fires the same consults in
 both packages.  The injector never imports the engine — it is a leaf
 dependency consulted through small callables/flags.  The training
-specialisation (``FailureInjector``) waits for the training slice.
+specialisation is ``runtime.ft.FailureInjector``.
 """
 from __future__ import annotations
 
@@ -62,32 +62,38 @@ class ChaosInjector:
         given seeded probability.
     skew_s:
         Seconds added to the injected clock each time ``clock.skew`` fires.
+    points:
+        The legal fault-point names (a typo guard).  Defaults to
+        :data:`FAULT_POINTS`; the training ``runtime.ft.FailureInjector``
+        passes its own.
     """
 
     def __init__(self, seed: int = 0,
                  schedule: Mapping[str, Iterable[int]] | None = None,
                  rates: Mapping[str, float] | None = None,
-                 skew_s: float = 60.0):
+                 skew_s: float = 60.0,
+                 points: tuple[str, ...] = FAULT_POINTS):
+        self.points = tuple(points)
         self.schedule = {p: frozenset(int(i) for i in ix)
                          for p, ix in (schedule or {}).items()}
         self.rates = {p: float(r) for p, r in (rates or {}).items()}
-        unknown = (set(self.schedule) | set(self.rates)) - set(FAULT_POINTS)
+        unknown = (set(self.schedule) | set(self.rates)) - set(self.points)
         if unknown:
             raise ValueError(f"unknown fault points {sorted(unknown)}; "
-                             f"known: {list(FAULT_POINTS)}")
+                             f"known: {list(self.points)}")
         self.skew_s = float(skew_s)
         self.skew = 0.0
         self._counts: dict[str, int] = defaultdict(int)
         self._rngs = {p: np.random.RandomState((seed * 1000003 + k + 1)
                                                & 0x7FFFFFFF)
-                      for k, p in enumerate(FAULT_POINTS)}
+                      for k, p in enumerate(self.points)}
         #: chronological (point, consult_index) log of every firing
         self.events: list[tuple[str, int]] = []
 
     def fire(self, point: str) -> bool:
         """Consult fault point ``point``; True when the fault fires.  Each
         call advances the point's consult counter."""
-        if point not in FAULT_POINTS:
+        if point not in self.points:
             raise ValueError(f"unknown fault point {point!r}")
         idx = self._counts[point]
         self._counts[point] += 1

@@ -301,14 +301,15 @@ class ModelRunner:
 
     def whole_prefill(self, tokens: list[int], table, slot: int, temp: float, gen):
         """Exact-length whole-prompt prefill (the JAX runner's
-        ``_whole_prefill``): ``model.prefill`` over ``tokens`` alone, its
+        ``_whole_prefill``): ``model.prefill(full_kv=True)`` over ``tokens``
+        alone (a sliding-window layer keeps every row for the pages), its
         cache written for ``slot`` (:meth:`_scatter_new`) and the first
         token sampled.  Returns ``(first, ok)``; ``ok`` is False when the
         sampled logits row is not finite (a poisoned prefill).  One
         device->host copy."""
         dev = self.device
         toks = torch.tensor([tokens], dtype=torch.int32, device=dev)
-        logits, small = M.prefill(self.cfg, self.params, toks)
+        logits, small = M.prefill(self.cfg, self.params, toks, full_kv=True)
         self._scatter_new(small, torch.from_numpy(table).to(dev), slot, len(tokens))
         lf = logits[:, -1, : self.vocab]
         tok = self._sample(lf, [temp], [gen])

@@ -269,3 +269,41 @@ def test_tied_head_reads_the_embedding_in_place():
     want = torch.matmul(h.float(), params["embed"].float().T)
     assert got.dtype == torch.float32 and got.shape == (2, 3, tcfg.padded_vocab)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_whole_prefill_keeps_a_window_layers_every_row():
+    """A sliding-window layer's whole prefill for the pages: reduced
+    gemma3-4b (window 32) over a 40-token prompt.  ``prefill(full_kv=True)``
+    keeps every row of every layer linear, as JAX's (caches within 1e-4);
+    without it the local layers keep the 32-row ring.  The engine's
+    whole-prefill runner asks for it, so the rows it scatters through the
+    page table are the prompt's rows 0-39 in every layer (what the
+    reference's ``_whole_prefill`` writes with ``full_kv=True``)."""
+    from repro_torch.serving import ModelRunner
+    jcfg, tcfg, jp, tp = _load("gemma3-4b")
+    S = 40
+    assert S > tcfg.window_size == 32
+    toks = np.random.RandomState(9).randint(0, jcfg.vocab_size, (1, S)).astype(np.int32)
+    jl, jc = JM.prefill(jcfg, jp, {"tokens": jnp.asarray(toks)}, full_kv=True)
+    tl, tc = TM.prefill(tcfg, tp, torch.from_numpy(toks), full_kv=True)
+    _gap("full_kv prefill logits", tl, jl, ATOL["none"])
+    _caches_close("full_kv prefill", tc, jc, ATOL["none"])
+    assert all(tc[si][g][kv].shape[2] == S for si in range(len(tc)) for g in tc[si]
+               for kv in ("k", "v"))
+    _, ring = TM.prefill(tcfg, tp, torch.from_numpy(toks))
+    local = [spec.mixer == "attn_local" for spec in tcfg.stages()[0].group]
+    assert local[0] and ring[0]["0"]["k"].shape[2] == tcfg.window_size
+
+    ps = 8
+    runner = ModelRunner(tcfg, tp, EngineConfig(max_batch=2, max_len=64, page_size=ps,
+                                                n_pages=20), "cpu")
+    table = np.array([11, 3, 17, 5, 8, 1, 2, 4], np.int32)  # pages_per_seq = 8
+    first, ok = runner.whole_prefill(toks[0].tolist(), table, 1, 0.0, None)
+    assert ok and first == int(np.argmax(np.asarray(jl)[0, -1, :jcfg.vocab_size]))
+    j = np.arange(S)
+    for si, stage in enumerate(runner.caches):
+        for g in stage:
+            for kv in ("k", "v"):
+                rows = stage[g][kv][:, table[j // ps], j % ps]  # [R, S, K, dh]
+                _gap(f"scattered stage {si} layer {g} {kv}", rows, np.asarray(jc[si][g][kv])[:, 0],
+                     ATOL["none"])

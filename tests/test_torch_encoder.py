@@ -97,7 +97,7 @@ def _t(a):
 def _layer(pair, part):
     jcfg, tcfg, params, tparams = pair
     jp = jax.tree.map(lambda a: a[0], params["stages"][0]["0"][part])
-    tp = TM._index(tparams["stages"][0]["0"][part], 0)
+    tp = TM._unstack(tparams["stages"][0]["0"][part], 1)[0]
     return jcfg, tcfg, jp, tp
 
 

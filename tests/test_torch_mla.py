@@ -97,7 +97,7 @@ def _layer(pair):
     """Layer 0's MLA weights on both sides."""
     jcfg, tcfg, params, tparams = pair
     jp = jax.tree.map(lambda a: a[0], params["stages"][0]["0"]["mixer"])
-    tp = TM._index(tparams["stages"][0]["0"]["mixer"], 0)
+    tp = TM._unstack(tparams["stages"][0]["0"]["mixer"], 1)[0]
     return jcfg, tcfg, jp, tp
 
 

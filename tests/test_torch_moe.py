@@ -107,7 +107,7 @@ def _ffn(pair):
     """Layer 0's MoE weights on both sides."""
     jcfg, tcfg, params, tparams = pair
     jp = jax.tree.map(lambda a: a[0], params["stages"][0]["0"]["ffn"])
-    tp = TM._index(tparams["stages"][0]["0"]["ffn"], 0)
+    tp = TM._unstack(tparams["stages"][0]["0"]["ffn"], 1)[0]
     return jcfg, tcfg, jp, tp
 
 
@@ -372,3 +372,72 @@ def test_leaves_under_the_threshold_draw_as_before():
         assert flat_g.keys() == flat_w.keys()
         for k in flat_g:
             np.testing.assert_array_equal(flat_g[k], flat_w[k], err_msg=f"{name} {k}")
+
+
+# ---------------------------------------------------------------------------
+# kimi-k2: the same MoE layer at 384 experts top-8 (registered in the port)
+# ---------------------------------------------------------------------------
+
+KIMI = "kimi-k2-1t-a32b"
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_kimi_k2_config_matches_jax(reduced):
+    """kimi-k2 is registered; its full and reduced configs have the JAX
+    package's widths field by field, every layer a MoE layer; the full
+    tree (counted, never allocated) has JAX's 1.042 T parameters, shape for
+    shape."""
+    jc, tc = JC.get_config(KIMI), TC.get_config(KIMI)
+    if reduced:
+        jc, tc = JC.reduce_config(jc), TC.reduce_config(tc)
+    for f in CONFIG_FIELDS:
+        assert getattr(jc, f) == getattr(tc, f), f
+    assert {s.ffn for s in tc.layer_specs()} == {"moe"}
+    jleaves = jax.tree_util.tree_flatten_with_path(
+        JM.param_specs(jc), is_leaf=lambda x: hasattr(x, "init"))[0]
+    jshapes = {"/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path):
+               tuple(spec.shape) for path, spec in jleaves}
+    tshapes = {}
+
+    def walk(t, path):
+        if isinstance(t, ParamSpec):
+            tshapes["/".join(path)] = tuple(t.shape)
+        elif isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + [k])
+        else:
+            for i, v in enumerate(t):
+                walk(v, path + [str(i)])
+    walk(TM.param_specs(tc), [])
+    assert tshapes == jshapes
+    n = count_params(TM.param_specs(tc))
+    assert n == jcount(JM.param_specs(jc))
+    if not reduced:
+        assert 1.04e12 < n < 1.05e12
+
+
+@pytest.fixture(scope="module")
+def kimi_pair():
+    jcfg = JC.reduce_config(JC.get_config(KIMI))
+    tcfg = TC.reduce_config(TC.get_config(KIMI))
+    params = JM.init(jcfg, jax.random.PRNGKey(3))
+    return jcfg, tcfg, params, bridge.params_from_numpy(tcfg, _flatten(params), device="cpu")
+
+
+@pytest.mark.parametrize("quant", ["none", "w8a8"])
+def test_kimi_k2_prefill_then_decode_matches_jax(kimi_pair, quant):
+    """Reduced kimi-k2 (2 MoE layers, 4 experts top-2): prefill(cache_len)
+    over two 20-token prompts, then 6 decode steps: logits within 1e-4 of
+    JAX's, as for qwen3-moe."""
+    jcfg, tcfg, jp, tp = _variant(kimi_pair, quant)
+    rng = np.random.RandomState(8)
+    toks = rng.randint(0, jcfg.vocab_size, (2, 20)).astype(np.int32)
+    jl, jc = JM.prefill(jcfg, jp, {"tokens": jnp.asarray(toks)}, cache_len=32)
+    tl, tc = TM.prefill(tcfg, tp, _t(toks), cache_len=32)
+    _gap(f"kimi {quant} prefill logits", tl, jl, MODEL_ATOL)
+    jdecode = jax.jit(lambda p, c, tok, pos: JM.decode_step(jcfg, p, c, tok, pos))
+    for i in range(6):
+        tok = rng.randint(0, jcfg.vocab_size, (2, 1)).astype(np.int32)
+        jl, jc = jdecode(jp, jc, jnp.asarray(tok), jnp.int32(20 + i))
+        tl, tc = TM.decode_step(tcfg, tp, tc, _t(tok), 20 + i)
+        _gap(f"kimi {quant} decode {i} logits", tl, jl, MODEL_ATOL)

@@ -682,7 +682,7 @@ def test_shared_quantize_is_bit_equal_to_separate_projections(sides):
     side = sides[1]
     cfg = side.cfg
     qp = TM.quantize_params(cfg, side.params)
-    layer = TM._index(qp["stages"][0], 0)["0"]
+    layer = TM._unstack(qp["stages"][0], 1)[0]["0"]
     x = torch.from_numpy(np.random.RandomState(5).randn(2, 3, cfg.d_model)
                          .astype(np.float32)).to(cfg.compute_dtype)
     xq = quantize_act(x)

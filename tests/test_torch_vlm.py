@@ -160,14 +160,14 @@ def test_param_count_and_tree_match_jax(pair):
     gate = tparams["stages"][si][gi]["mixer"]["cross"]["gate"]
     assert tuple(gate.shape) == (1,) and float(gate[0]) == pytest.approx(
         float(flat[f"stages/{si}/{gi}/mixer/cross/gate"][0]))
-    assert TM._index(tparams["stages"][si], 0)[gi]["mixer"]["cross"]["gate"].shape == ()
+    assert TM._unstack(tparams["stages"][si], 1)[0][gi]["mixer"]["cross"]["gate"].shape == ()
 
 
 def _cross(pair):
     jcfg, tcfg, params, tparams = pair
     si, gi = cross_layer(tcfg)
     jp = jax.tree.map(lambda a: a[0], params["stages"][si][gi]["mixer"]["cross"])
-    tp = TM._index(tparams["stages"][si][gi]["mixer"]["cross"], 0)
+    tp = TM._unstack(tparams["stages"][si][gi]["mixer"]["cross"], 1)[0]
     return jcfg, tcfg, jp, tp
 
 
