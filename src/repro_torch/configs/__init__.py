@@ -9,7 +9,8 @@ import torch
 from repro_torch.configs import (cgra_edge, deepseek_67b, gemma3_4b, hubert_xlarge,
                                  jamba_v01_52b, kimi_k2_1t_a32b, llama32_vision_11b,
                                  mamba2_130m, minicpm3_4b, olmo_1b, qwen3_moe_30b_a3b)
-from repro_torch.configs.base import ArchConfig, LayerSpec, Stage, build_stages
+from repro_torch.configs.base import (SHAPES, ArchConfig, LayerSpec, ShapeConfig, Stage,
+                                      build_stages, cell_skip_reason)
 
 REGISTRY: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG
@@ -17,6 +18,8 @@ REGISTRY: dict[str, ArchConfig] = {
               qwen3_moe_30b_a3b, mamba2_130m, jamba_v01_52b, llama32_vision_11b,
               hubert_xlarge, kimi_k2_1t_a32b)
 }
+
+ASSIGNED = [n for n in REGISTRY if n != "cgra-edge"]
 
 
 def get_config(name: str) -> ArchConfig:
@@ -46,6 +49,7 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
         compute_dtype=torch.float32,
         pad_heads_to=1,
         pad_vocab_to=32,
+        remat_policy="none",
     )
     if cfg.num_heads:
         kw.update(num_heads=4, head_dim=16)
@@ -66,5 +70,5 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
     return cfg.with_(**kw).with_(name=cfg.name + "-smoke")
 
 
-__all__ = ["ArchConfig", "LayerSpec", "Stage", "build_stages", "REGISTRY",
-           "get_config", "reduce_config"]
+__all__ = ["ArchConfig", "LayerSpec", "Stage", "ShapeConfig", "SHAPES", "build_stages",
+           "cell_skip_reason", "REGISTRY", "ASSIGNED", "get_config", "reduce_config"]

@@ -9,9 +9,9 @@ plain reshape.
 
 Differences from the JAX config: dtypes are ``torch`` dtypes, one
 ``compute_dtype`` also stores the float weights, and there is no ``kernel_mode``
-— a tensor's device chooses the kernel or its plain version.  Mesh, remat,
-training knobs and the widths of unported mixers are left out with the
-paths that use them.  ``kind="encoder"`` (hubert) makes self-attention
+— a tensor's device chooses the kernel or its plain version.  Mesh and
+sharding knobs are left out with the paths that use them (ROADMAP Queue 1
+item 13).  ``kind="encoder"`` (hubert) makes self-attention
 bidirectional, as the reference's ``causal = cfg.kind == "decoder"``.
 """
 from __future__ import annotations
@@ -127,6 +127,10 @@ class ArchConfig:
 
     compute_dtype: Any = torch.bfloat16  # weights are stored in it too
 
+    # activation rematerialisation of each layer group in a training step
+    # (``models.model.forward_hidden``): none | dots_nb | dots | full
+    remat_policy: str = "full"
+
     pad_heads_to: int = 1
     pad_vocab_to: int = 256
 
@@ -174,8 +178,47 @@ class ArchConfig:
             specs.append(LayerSpec(mixer, ffn))
         return specs
 
-    def stages(self) -> list[Stage]:
-        return build_stages(self.layer_specs())
+    def stages(self, main_repeats: int | None = None) -> list[Stage]:
+        """The stacked stages; ``main_repeats`` overrides the repeats of the
+        main (largest) stage, as the reference's depth cut for its
+        roofline extrapolation (exact: a stage is homogeneous)."""
+        stages = build_stages(self.layer_specs())
+        if main_repeats is not None and stages:
+            main = max(range(len(stages)), key=lambda i: stages[i].repeats)
+            stages = [dataclasses.replace(s, repeats=main_repeats) if i == main else s
+                      for i, s in enumerate(stages)]
+        return stages
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's assigned shape set)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    step: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_skip_reason(cfg: ArchConfig, shape: ShapeConfig) -> str | None:
+    """A reason string if this (arch x shape) cell is skipped, else None."""
+    if cfg.kind == "encoder" and shape.step == "decode":
+        return "encoder-only architecture has no autoregressive decode step"
+    if shape.name == "long_500k":
+        sub_quadratic = cfg.family in ("ssm", "hybrid") or cfg.local_global_pattern > 0
+        if not sub_quadratic:
+            return "pure full-attention arch: 524k dense-KV decode excluded per spec"
+    return None

@@ -2,7 +2,7 @@
 
 A CUDA tensor launches the hand-written kernel; a CPU tensor takes the
 kernel's plain version.  There is no other branch and no fallback.  The
-block GEMM is trainable (:class:`_CgraMatmul`, the reference's custom VJP);
+block GEMM is trainable (:data:`CGRA_MATMUL`, with the reference's custom VJP);
 every other kernel wrapper raises under autograd (``_build.refuse_grad``).
 """
 from __future__ import annotations
@@ -21,10 +21,25 @@ LAUNCH_COUNTERS = (block_gemm, block_gemm_int8, quantize_rows, flash_attention,
                    flash_attention_paged, flash_decode, flash_decode_paged)
 
 
-class _CgraMatmul(torch.autograd.Function):
-    """The block GEMM with its backward on the same kernel: the port of
-    ``repro.kernels.ops.cgra_matmul``'s ``jax.custom_vjp`` (``_mm_fwd`` /
-    ``_mm_bwd``).  With ``C = A @ B`` and the incoming ``g``:
+@torch.library.custom_op("repro_torch::cgra_matmul", mutates_args=(), schema=(
+    "(Tensor a, Tensor b, ScalarType? out_dtype, bool trans_b) -> Tensor"))
+def _cgra_matmul_op(a, b, out_dtype, trans_b):
+    """The block GEMM as a registered operator, so that a selective
+    checkpoint policy (``models.model``'s ``remat_policy``) sees it, and can
+    save its output, as it sees an ATen op."""
+    return block_gemm(a, b, out_dtype=out_dtype, trans_b=trans_b)
+
+
+def _cgra_matmul_setup(ctx, inputs, output):
+    a, b, _, trans_b = inputs
+    ctx.save_for_backward(a, b)
+    ctx.trans_b = trans_b
+
+
+def _cgra_matmul_backward(ctx, g):
+    """The backward on the same kernel: the port of ``repro.kernels.ops.
+    cgra_matmul``'s ``jax.custom_vjp`` (``_mm_fwd`` / ``_mm_bwd``).  With ``C
+    = A @ B`` and the incoming ``g``:
 
     - ``ga = g.to(b.dtype) @ B^T``, cast to ``a.dtype``: B read in place as
       the transposed operand (``trans_b``), or, for a B stored [N, K], as
@@ -36,36 +51,33 @@ class _CgraMatmul(torch.autograd.Function):
     So a GEMM of the forward launches the kernel three times in a train
     step and no operand is copied transposed.  The f32 head's ``g`` is cast
     to the weight dtype first, as ``_mm_bwd`` does."""
+    a, b = ctx.saved_tensors
+    ga = gb = None
+    if ctx.needs_input_grad[0]:
+        ga = block_gemm(g.to(b.dtype).contiguous(), b, trans_b=not ctx.trans_b).to(a.dtype)
+    if ctx.needs_input_grad[1]:
+        gt = g.to(a.dtype).contiguous()
+        gb = (block_gemm(gt, a, trans_a=True) if ctx.trans_b
+              else block_gemm(a, gt, trans_a=True)).to(b.dtype)
+    return ga, gb, None, None
 
-    @staticmethod
-    def forward(ctx, a, b, out_dtype, trans_b):
-        ctx.save_for_backward(a, b)
-        ctx.trans_b = trans_b
-        return block_gemm(a, b, out_dtype=out_dtype, trans_b=trans_b)
 
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        ga = gb = None
-        if ctx.needs_input_grad[0]:
-            ga = block_gemm(g.to(b.dtype).contiguous(), b,
-                            trans_b=not ctx.trans_b).to(a.dtype)
-        if ctx.needs_input_grad[1]:
-            gt = g.to(a.dtype).contiguous()
-            gb = (block_gemm(gt, a, trans_a=True) if ctx.trans_b
-                  else block_gemm(a, gt, trans_a=True)).to(b.dtype)
-        return ga, gb, None, None
+_cgra_matmul_op.register_autograd(_cgra_matmul_backward, setup_context=_cgra_matmul_setup)
+
+#: the operator a selective checkpoint policy saves to keep GEMM outputs
+CGRA_MATMUL = torch.ops.repro_torch.cgra_matmul.default
 
 
 def cgra_matmul(a, b, out_dtype=None, trans_b: bool = False):
     """C = A @ B through the block-GEMM kernel; ``out_dtype`` is the
     epilogue's store dtype (the f32 accumulator is cast exactly once);
     ``trans_b``: b is stored [N, K].  Differentiable: when autograd records
-    (grad mode on and an input requiring grad) the call goes through
-    :class:`_CgraMatmul`, whose backward runs the same kernel (or, on the
-    CPU, the same plain version); otherwise straight to the kernel."""
+    (grad mode on and an input requiring grad) the call goes through the
+    registered operator :data:`CGRA_MATMUL`, whose backward runs the same
+    kernel (or, on the CPU, the same plain version); otherwise straight to
+    the kernel."""
     if _build.records(a, b):
-        return _CgraMatmul.apply(a, b, out_dtype, trans_b)
+        return CGRA_MATMUL(a, b, out_dtype, trans_b)
     return block_gemm(a, b, out_dtype=out_dtype, trans_b=trans_b)
 
 

@@ -67,15 +67,18 @@ def _gather_pages(pool, pages):
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None,
-                        softcap=0.0):
+                        softcap=0.0, q_start=None):
     """Dense attention.  q: [B,H,Sq,d]; k/v: [B,K,Sk,d] with H % K == 0
     (query head h reads kv-head h // (H/K)).  Query row i sits at position
-    ``i + Sk - Sq`` (the last query aligned with the last key: ``Sq < Sk``
-    continues a cached prefix); masks: causal ``kpos <= qpos``, window
-    ``kpos > qpos - window``.  A row with every key masked gives zeros."""
+    ``q_start + i``, by default ``i + Sk - Sq`` (the last query aligned
+    with the last key: ``Sq < Sk`` continues a cached prefix; a block of a
+    query-chunked call passes its own start); masks: causal ``kpos <=
+    qpos``, window ``kpos > qpos - window``.  A row with every key masked
+    gives zeros."""
     B, H, Sq, d = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = H // K
+    q_start = Sk - Sq if q_start is None else q_start
     scale = scale if scale is not None else d ** -0.5
     kb = k.repeat_interleave(G, dim=1)
     vb = v.repeat_interleave(G, dim=1)
@@ -83,7 +86,7 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None,
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     dev = q.device
-    qpos = torch.arange(Sq, device=dev)[:, None] + (Sk - Sq)
+    qpos = torch.arange(Sq, device=dev)[:, None] + q_start
     kpos = torch.arange(Sk, device=dev)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
     if causal:

@@ -5,9 +5,11 @@ same flags):
 
 Seeded random weights (``model.init``), the deterministic synthetic stream,
 checkpoints every ``--ckpt-every`` steps with resume from the latest, the
-straggler monitor, gradient accumulation, f32 / bf16 / int8 moments.  It
-runs on ``cuda`` unless given ``--device cpu``.  Only ``--mesh 1x1`` is
-accepted: meshes are ROADMAP Queue 1 item 13.
+straggler monitor, gradient accumulation, f32 / bf16 / int8 moments, and
+the config's activation rematerialisation (``remat_policy``: ``full`` for
+a full config, ``none`` for a reduced one).  It runs on ``cuda`` unless
+given ``--device cpu``.  Only ``--mesh 1x1`` is accepted: meshes are
+ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ def main(argv=None):
     state = init_state(cfg, opt, 0, args.device)
     n = sum(x.numel() for x in tree_leaves(state.params))
     print(f"arch={cfg.name} params={n:,} device={args.device} accum={args.accum} "
-          f"moments={args.moments}")
+          f"moments={args.moments} remat={cfg.remat_policy}")
 
     step = make_train_step(cfg, opt, accum_steps=args.accum)
     data = SyntheticLM(cfg, batch=args.batch, seq=args.seq)

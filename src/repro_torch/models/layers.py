@@ -267,7 +267,29 @@ def _attn_inputs(cfg, p, cache, x, rows: StepRows, local: bool):
     return q, k, v
 
 
-def dense_attention(q, k, v, *, causal: bool, window: int = 0, softcap: float = 0.0):
+def plain_attention(q, k, v, *, causal: bool, window: int = 0, softcap: float = 0.0,
+                    chunk: int = 0):
+    """The plain attention (``kernels.ref.flash_attention_ref``), q
+    [B,H,Sq,d] over k/v [B,K,Sk,d] (v's width may differ), optionally
+    query-chunked as the reference's ``attend`` (``repro/models/layers.py:
+    336-350``): with ``0 < chunk < Sq`` the queries are padded to a multiple
+    of ``chunk`` and each block of ``chunk`` rows runs over all keys at its
+    own positions, so a block's f32 scores are [B,H,chunk,Sk] instead of
+    [B,H,Sq,Sk]; the padded rows are sliced off."""
+    Sq, Sk = q.shape[2], k.shape[2]
+    if not chunk or Sq <= chunk:
+        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    pad = (-Sq) % chunk
+    qp = F.pad(q, (0, 0, 0, pad))
+    out = torch.cat([flash_attention_ref(qp[:, :, i:i + chunk], k, v, causal=causal,
+                                         window=window, softcap=softcap,
+                                         q_start=Sk - Sq + i)
+                     for i in range(0, Sq + pad, chunk)], 2)
+    return out[:, :, :Sq]
+
+
+def dense_attention(q, k, v, *, causal: bool, window: int = 0, softcap: float = 0.0,
+                    chunk: int = 0):
     """Whole-prompt attention, q [B,H,Sq,d] over k/v [B,K,Sk,d]: the dense
     flash kernel, or its plain version when autograd records.  That is a
     rule, not a fallback: the reference's flash kernel has no VJP, and the
@@ -277,23 +299,26 @@ def dense_attention(q, k, v, *, causal: bool, window: int = 0, softcap: float = 
     devices; the kernel wrapper itself refuses to be recorded.  The plain
     call runs in a ``plain_attention`` profiler range, by which a trace
     finds attention's forward ops and, through their autograd sequence
-    numbers, its backward ones."""
+    numbers, its backward ones.  ``chunk`` (the reference's ``attn_chunk``)
+    query-chunks the plain version (:func:`plain_attention`); the kernel
+    keeps no score matrix and takes the whole query block."""
     if records(q, k, v):
         with torch.profiler.record_function("plain_attention"):
-            return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap)
+            return plain_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, chunk=chunk)
     return attention(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
 def attn_forward(cfg: ArchConfig, p: dict, x, rows: StepRows, *, local: bool,
-                 past_kv=None, causal: bool | None = None):
+                 past_kv=None, causal: bool | None = None, attn_chunk: int = 0):
     """Whole-prompt self-attention (training forward and prefill).  x:
     [B,S,D] at ``rows.positions`` [S]; ``past_kv`` ({"k","v"} [B,s,K,dh],
     post-RoPE) is a cached prefix the prompt continues: attention runs over
     concat(past, new) with the last query aligned with the last key.
     ``causal`` None: causal for a decoder, bidirectional for an encoder
     (``cfg.kind``), as the reference's training forward.  Returns (out, k,
-    v) with the new rows' post-RoPE k/v [B,S,K,dh]."""
+    v) with the new rows' post-RoPE k/v [B,S,K,dh].  ``attn_chunk``: see
+    :func:`dense_attention`."""
     if causal is None:
         causal = cfg.kind == "decoder"
     q, k, v = _qkv_rope(cfg, p, x, rows, local)
@@ -303,14 +328,14 @@ def attn_forward(cfg: ArchConfig, p: dict, x, rows: StepRows, *, local: bool,
         v_all = torch.cat([past_kv["v"].to(v.dtype), v], 1)
     o = dense_attention(q.transpose(1, 2), k_all.transpose(1, 2), v_all.transpose(1, 2),
                         causal=causal, window=cfg.window_size if local else 0,
-                        softcap=cfg.logit_softcap)
+                        softcap=cfg.logit_softcap, chunk=attn_chunk)
     o = o.transpose(1, 2)  # [B, S, H, dh]; free on the card (see flash_attention)
     out = dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"])
     return out, k, v
 
 
 def attn_prefill(cfg: ArchConfig, p: dict, x, rows: StepRows, *, local: bool,
-                 past_kv=None, full_kv: bool = False):
+                 past_kv=None, full_kv: bool = False, attn_chunk: int = 0):
     """Causal :func:`attn_forward` that also returns the prompt's cache
     (post-RoPE k/v of the new rows).  A sliding-window layer keeps only the
     last ``window`` rows, rolled so that entry ``pos % window`` holds row
@@ -318,7 +343,8 @@ def attn_prefill(cfg: ArchConfig, p: dict, x, rows: StepRows, *, local: bool,
     linearly instead (the paged engine stores every row and windows at
     decode time, as the reference's ``full_cache``).  Returns (out, {"k",
     "v"})."""
-    out, k, v = attn_forward(cfg, p, x, rows, local=local, past_kv=past_kv, causal=True)
+    out, k, v = attn_forward(cfg, p, x, rows, local=local, past_kv=past_kv, causal=True,
+                             attn_chunk=attn_chunk)
     window = cfg.window_size if local else 0
     S = k.shape[1]
     if window and not full_kv and past_kv is None and S > window:
@@ -436,11 +462,12 @@ def _mla_latent(cfg, p, xs, rows: StepRows):
     return latent, k_rope
 
 
-def _mla_attend(cfg, p, x, rows: StepRows):
+def _mla_attend(cfg, p, x, rows: StepRows, attn_chunk: int = 0):
     """Whole-prompt MLA: the latent expanded to per-head keys and values,
     then causal attention in plain PyTorch (q/k width dn + dr differs from
-    v's dv, as in the reference's ``attend``; no kernel lies behind it).
-    Returns (out [B,S,D], latent, k_rope)."""
+    v's dv, as in the reference's ``attend``; no kernel lies behind it),
+    query-chunked by ``attn_chunk`` (:func:`plain_attention`).  Returns
+    (out [B,S,D], latent, k_rope)."""
     dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
     H = cfg.padded_heads
     xs = shared_input(x, p["wq_a"])
@@ -450,22 +477,22 @@ def _mla_attend(cfg, p, x, rows: StepRows):
     k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], H, k_rope.shape[-1])
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([kv[..., :dn], k_rope_h], -1)
-    o = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                            kv[..., dn:].transpose(1, 2), causal=True)
+    o = plain_attention(q.transpose(1, 2), k.transpose(1, 2), kv[..., dn:].transpose(1, 2),
+                        causal=True, chunk=attn_chunk)
     o = o.transpose(1, 2)  # [B, S, H, dv]
     return dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"]), latent, k_rope
 
 
-def mla_forward(cfg: ArchConfig, p: dict, x, rows: StepRows):
+def mla_forward(cfg: ArchConfig, p: dict, x, rows: StepRows, attn_chunk: int = 0):
     """Training forward and prefill attention of an MLA layer: x [B,S,D] at
     ``rows.positions`` [S] -> [B,S,D]."""
-    return _mla_attend(cfg, p, x, rows)[0]
+    return _mla_attend(cfg, p, x, rows, attn_chunk)[0]
 
 
-def mla_prefill(cfg: ArchConfig, p: dict, x, rows: StepRows):
+def mla_prefill(cfg: ArchConfig, p: dict, x, rows: StepRows, attn_chunk: int = 0):
     """:func:`mla_forward` plus the prompt's cache ``{"kv": [B,S,kvr+dr]}``
     (the normed latent and the rotated shared key)."""
-    out, latent, k_rope = _mla_attend(cfg, p, x, rows)
+    out, latent, k_rope = _mla_attend(cfg, p, x, rows, attn_chunk)
     return out, {"kv": torch.cat([latent, k_rope.to(latent.dtype)], -1)}
 
 

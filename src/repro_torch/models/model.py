@@ -18,14 +18,18 @@ indexed by slot.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import (checkpoint, create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.core import resolve_device
 from repro_torch.core.gemm import cgra_gemm
 from repro_torch.core.quant import QTensor, quantize_over
+from repro_torch.kernels.ops import CGRA_MATMUL
 from repro_torch.models import layers as L
 from repro_torch.models import ssd as S
 from repro_torch.models.params import (ParamSpec, init_params, stack_tree,
@@ -64,7 +68,9 @@ def _layer_param_specs(cfg: ArchConfig, spec: LayerSpec) -> dict:
     return d
 
 
-def param_specs(cfg: ArchConfig) -> dict:
+def param_specs(cfg: ArchConfig, main_repeats: int | None = None) -> dict:
+    """The parameter spec tree; ``main_repeats`` cuts the main stage's
+    depth (``ArchConfig.stages``)."""
     D, Vp = cfg.d_model, cfg.padded_vocab
     tree: dict = {"embed": ParamSpec((Vp, D), ("vocab", "embed"), "normal")}
     if cfg.audio_frontend:
@@ -74,21 +80,21 @@ def param_specs(cfg: ArchConfig) -> dict:
     tree["stages"] = [
         stack_tree({str(i): _layer_param_specs(cfg, sp)
                     for i, sp in enumerate(stage.group)}, stage.repeats)
-        for stage in cfg.stages()]
+        for stage in cfg.stages(main_repeats)]
     tree["final_norm"] = L.norm_specs(cfg)
     if not cfg.tie_embeddings:
         tree["lm_head"] = ParamSpec((D, Vp), ("embed", "vocab"), "normal")
     return tree
 
 
-def init(cfg: ArchConfig, seed: int = 0, device=None) -> dict:
+def init(cfg: ArchConfig, seed: int = 0, device=None, main_repeats: int | None = None) -> dict:
     """Random weights from the JAX package's init rules, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (default
     ``cuda``; raises without a card unless ``device="cpu"``) and stored in
-    the compute dtype."""
+    the compute dtype (``param_specs(cfg, main_repeats)``'s tree)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return init_params(param_specs(cfg), gen, cfg.compute_dtype)
+    return init_params(param_specs(cfg, main_repeats), gen, cfg.compute_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -171,14 +177,16 @@ def _layer_cache_specs(cfg: ArchConfig, spec: LayerSpec, batch: int,
     return c
 
 
-def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> list:
+def cache_specs(cfg: ArchConfig, batch: int, seq: int,
+                main_repeats: int | None = None) -> list:
     """Per-stage slot-cache specs: global layers k/v [R, batch, seq, K, dh]
     (linear), sliding-window layers a ring of ``min(seq, window)`` rows, MLA
     layers one fused kv [R, batch, seq, kvr + dr], SSD layers their state
     (``ssd.ssd_cache_specs``, no ``kv_seq`` axis), cross layers k/v and the
-    image's ck/cv [R, batch, vision_tokens, K, dh] (no ``kv_seq`` axis)."""
+    image's ck/cv [R, batch, vision_tokens, K, dh] (no ``kv_seq`` axis).
+    ``main_repeats`` as :func:`param_specs`."""
     out = []
-    for stage in cfg.stages():
+    for stage in cfg.stages(main_repeats):
         group = {str(i): _layer_cache_specs(cfg, sp, batch, seq,
                                             local=sp.mixer == "attn_local")
                  for i, sp in enumerate(stage.group)}
@@ -186,12 +194,13 @@ def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> list:
     return out
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None) -> list:
+def init_cache(cfg: ArchConfig, batch: int, seq: int, device=None,
+               main_repeats: int | None = None) -> list:
     dev = resolve_device(device)
     return tree_map_specs(
         lambda s: torch.zeros(s.shape, dtype=s.dtype or cfg.compute_dtype,
                               device=dev),
-        cache_specs(cfg, batch, seq))
+        cache_specs(cfg, batch, seq, main_repeats))
 
 
 def cache_leaves(specs: list, *trees):
@@ -302,7 +311,8 @@ def _stack_layers(per_layer: list) -> dict:
 
 
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
-                 cache, rows: L.StepRows, img=None, full_kv: bool = False):
+                 cache, rows: L.StepRows, img=None, full_kv: bool = False,
+                 attn_chunk: int = 0):
     """Returns (x, cache, aux).  decode / chunk: ``cache`` is the layer's
     slot cache or page pools, updated in place.  prefill: ``cache`` is the
     layer's past KV or None, and the returned cache holds the new rows
@@ -315,7 +325,8 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
     latent cache, the SSD state and the image K/V are not
     prefix-decomposable: the engine prefills MLA and SSD whole) and no
     cached-prefix prefill.  A layer with ``ffn="none"`` (mamba2) is its
-    mixer and residual alone."""
+    mixer and residual alone.  ``attn_chunk`` query-chunks the plain
+    self-attention of the train and prefill modes (``layers.plain_attention``)."""
     _check_layer(spec)
     local = spec.mixer == "attn_local"
     h = L.apply_norm(cfg, p["norm1"], x)
@@ -323,9 +334,10 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
         m, cache = _apply_ssd(cfg, p["mixer"], h, mode=mode, cache=cache)
     elif spec.mixer == "cross":
         x, m, cache = _apply_cross(cfg, p["mixer"], x, h, mode=mode, cache=cache,
-                                   rows=rows, img=img)
+                                   rows=rows, img=img, attn_chunk=attn_chunk)
     elif cfg.use_mla:
-        m, cache = _apply_mla(cfg, p["mixer"], h, mode=mode, cache=cache, rows=rows)
+        m, cache = _apply_mla(cfg, p["mixer"], h, mode=mode, cache=cache, rows=rows,
+                              attn_chunk=attn_chunk)
     elif mode == "decode":
         m, cache = L.attn_decode(cfg, p["mixer"], cache, h, rows, local=local)
     elif mode == "chunk":
@@ -333,9 +345,9 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
                                         local=local)
     elif mode == "prefill":
         m, cache = L.attn_prefill(cfg, p["mixer"], h, rows, local=local,
-                                  past_kv=cache, full_kv=full_kv)
+                                  past_kv=cache, full_kv=full_kv, attn_chunk=attn_chunk)
     elif mode == "train":
-        m = L.attn_forward(cfg, p["mixer"], h, rows, local=local)[0]
+        m = L.attn_forward(cfg, p["mixer"], h, rows, local=local, attn_chunk=attn_chunk)[0]
     else:
         raise ValueError(f"unknown mode {mode!r}")
     x = x + m
@@ -369,7 +381,7 @@ def _apply_ssd(cfg: ArchConfig, p: dict, h, *, mode: str, cache):
 
 
 def _apply_cross(cfg: ArchConfig, p: dict, x, h, *, mode: str, cache,
-                 rows: L.StepRows, img):
+                 rows: L.StepRows, img, attn_chunk: int = 0):
     """The cross layer of :func:`_apply_layer` (the reference's ``mixer ==
     "cross"`` branch): causal self-attention and its residual, then
     ``norm_cross`` and the gated cross-attention over the image, whose
@@ -384,10 +396,10 @@ def _apply_cross(cfg: ArchConfig, p: dict, x, h, *, mode: str, cache,
         if cache is not None:
             raise NotImplementedError("cross-attention prefill does not continue a "
                                       "cached prefix")
-        m, sc = L.attn_prefill(cfg, p["self"], h, rows, local=False)
+        m, sc = L.attn_prefill(cfg, p["self"], h, rows, local=False, attn_chunk=attn_chunk)
         img_kv = None
     elif mode == "train":
-        m = L.attn_forward(cfg, p["self"], h, rows, local=False)[0]
+        m = L.attn_forward(cfg, p["self"], h, rows, local=False, attn_chunk=attn_chunk)[0]
         sc = img_kv = None
     elif mode == "chunk":
         raise NotImplementedError("chunked prefill does not support cross-attention "
@@ -400,16 +412,17 @@ def _apply_cross(cfg: ArchConfig, p: dict, x, h, *, mode: str, cache,
     return x, mc, (None if sc is None else dict(sc, ck=ck, cv=cv))
 
 
-def _apply_mla(cfg: ArchConfig, p: dict, h, *, mode: str, cache, rows: L.StepRows):
+def _apply_mla(cfg: ArchConfig, p: dict, h, *, mode: str, cache, rows: L.StepRows,
+               attn_chunk: int = 0):
     """The MLA mixer of :func:`_apply_layer`: returns (out, cache)."""
     if mode == "decode":
         return L.mla_decode(cfg, p, cache, h, rows)
     if mode == "prefill":
         if cache is not None:
             raise NotImplementedError("MLA prefill does not continue a cached prefix")
-        return L.mla_prefill(cfg, p, h, rows)
+        return L.mla_prefill(cfg, p, h, rows, attn_chunk)
     if mode == "train":
-        return L.mla_forward(cfg, p, h, rows), None
+        return L.mla_forward(cfg, p, h, rows, attn_chunk), None
     if mode == "chunk":
         raise NotImplementedError("chunked prefill over the paged past "
                                   "does not support MLA's fused cache")
@@ -478,10 +491,48 @@ def _rows(x, B: int, device) -> torch.Tensor:
     return torch.full((B,), int(x), dtype=torch.int32, device=device)
 
 
+REMAT_POLICIES = ("none", "dots_nb", "dots", "full")
+
+
+def _remat(policy: str):
+    """The activation rematerialisation of a training step's layer group:
+    the port's reading of the reference's ``_remat`` (``repro/models/
+    model.py:359-371``), as ``torch.utils.checkpoint.checkpoint(...,
+    use_reentrant=False)`` around each group of the layer loop, or None.
+
+    - ``none``: no checkpoint; autograd keeps every activation.
+    - ``full`` (``jax.checkpoint`` with no policy): the group keeps its
+      input only, and its forward runs again in the backward pass, so a
+      GEMM of the group launches 4 times a step instead of 3.
+    - ``dots_nb`` (``checkpoint_dots_with_no_batch_dims``): the outputs of
+      every weight GEMM (the registered :data:`~repro_torch.kernels.ops.
+      CGRA_MATMUL`) are saved, the rest is recomputed; the GEMMs do not run
+      again.
+    - ``dots`` (``checkpoint_dots``): those plus every batched product
+      (``aten.bmm``): the plain attention's scores and P·V (and a MoE
+      layer's experts, an SSD layer's chunk products).
+
+    Non-reentrant only: a reentrant checkpoint runs its first forward
+    without grad, where the GEMM and attention would take their inference
+    routes and the gradient would not be that of the loss."""
+    if policy == "none":
+        return None
+    if policy == "full":
+        ctx = noop_context_fn
+    elif policy in ("dots_nb", "dots"):
+        saved = [CGRA_MATMUL] + ([torch.ops.aten.bmm.default] if policy == "dots" else [])
+        ctx = functools.partial(create_selective_checkpoint_contexts, saved)
+    else:
+        raise ValueError(f"remat_policy={policy!r}: one of {REMAT_POLICIES}")
+    return functools.partial(checkpoint, use_reentrant=False, context_fn=ctx,
+                             preserve_rng_state=False)
+
+
 def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
                    caches=None, pos=None, pages=None, past_len=0,
                    chunk_len=None, images=None, frames=None, full_kv: bool = False,
-                   return_aux: bool = False):
+                   return_aux: bool = False, attn_chunk: int = 0,
+                   main_repeats: int | None = None):
     """Run the stack; returns (hidden, caches), or with ``return_aux``
     (hidden, aux, caches) as the reference does: ``aux`` the f32 sum of the
     MoE layers' load-balancing losses in train mode (0 without MoE layers
@@ -489,7 +540,8 @@ def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
 
     train: tokens [B, S] (an audio encoder: ``frames`` [B, S,
     frontend_dim]), no caches (None is returned); an encoder attends
-    bidirectionally.  prefill: tokens [B, S] at positions ``past_len +
+    bidirectionally.  When autograd records, each layer group runs under
+    ``cfg.remat_policy`` (:func:`_remat`).  prefill: tokens [B, S] at positions ``past_len +
     arange(S)``; ``caches``, if given, is the past KV tree of a cached
     prefix of ``past_len`` rows, and the returned tree holds only the new
     rows (sliding-window layers as rolled rings, or every row linear with
@@ -499,7 +551,10 @@ def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
     the pages and ``chunk_len`` valid rows in the buffer (ints or [B]
     tensors), pools updated in place.  A cross model's train and prefill
     read ``images`` [B, vision_tokens, vision_dim]; its decode reads the
-    image K/V its prefill cached.  An encoder has only the train mode."""
+    image K/V its prefill cached.  An encoder has only the train mode.
+    ``attn_chunk`` query-chunks the plain attention (train and prefill);
+    ``main_repeats`` runs the main stage at that depth (params and caches
+    made for it, or the first layers of deeper ones)."""
     if cfg.kind == "encoder" and mode != "train":
         raise ValueError(f"{cfg.name} is an encoder: it has no causal {mode} step; run "
                          f"forward_hidden(mode='train') and lm_logits on every frame")
@@ -520,21 +575,34 @@ def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
     else:
         rows = L.StepRows(torch.arange(C, dtype=torch.int32, device=dev)
                           + int(past_len), None)
+    remat = _remat(cfg.remat_policy) if mode == "train" and torch.is_grad_enabled() else None
     new_caches = []
-    aux = torch.zeros((), dtype=F32, device=dev) if return_aux else None
-    for si, stage in enumerate(cfg.stages()):
+    aux = torch.zeros((), dtype=F32, device=dev) if mode == "train" or return_aux else None
+    for si, stage in enumerate(cfg.stages(main_repeats)):
         sc = None if caches is None else caches[si]
-        per_layer = []
-        layer_caches = [None] * stage.repeats if sc is None else _unstack(sc, stage.repeats)
-        for lp, lc in zip(_unstack(params["stages"][si], stage.repeats), layer_caches):
+
+        # the specs are bound here: a checkpoint recomputes the group in the
+        # backward pass, when ``stage`` already holds the last stage
+        def group(x, aux, lp, lc, specs=stage.group):
             out = {}
-            for gi, spec in enumerate(stage.group):
+            for gi, spec in enumerate(specs):
                 c_in = None if lc is None else lc[str(gi)]
                 x, out[str(gi)], a = _apply_layer(cfg, spec, lp[str(gi)], x, mode=mode,
                                                   cache=c_in, rows=rows, img=img,
-                                                  full_kv=full_kv)
-                if a is not None and return_aux:
+                                                  full_kv=full_kv, attn_chunk=attn_chunk)
+                if a is not None:
                     aux = aux + a
+            return x, aux, out
+
+        per_layer = []
+        layer_caches = [None] * stage.repeats if sc is None else _unstack(sc, stage.repeats)
+        # each stacked leaf is unbound here, outside any checkpoint: a
+        # recompute must not scatter the stack's gradient again
+        for lp, lc in zip(_unstack(params["stages"][si], stage.repeats), layer_caches):
+            if remat is None:
+                x, aux, out = group(x, aux, lp, lc)
+            else:
+                x, aux, out = remat(group, x, aux, lp, lc)
             per_layer.append(out)
         if mode == "prefill":
             new_caches.append(_stack_layers(per_layer))
@@ -562,15 +630,18 @@ def cross_entropy(cfg: ArchConfig, logits, labels):
     return torch.mean(lse - ll)
 
 
-def loss_fn(cfg: ArchConfig, params, batch: dict):
+def loss_fn(cfg: ArchConfig, params, batch: dict, *, attn_chunk: int = 0,
+            main_repeats: int | None = None):
     """The training loss of the reference's ``loss_fn``: ``ce + 0.01 *
     aux`` and ``{"ce", "aux"}``.  ``batch`` holds tensors: ``labels`` [B, S]
     and ``tokens`` [B, S], or an audio encoder's ``frames`` [B, S,
     frontend_dim] (one label a frame); a cross model also reads
-    ``images``."""
+    ``images``.  ``attn_chunk`` / ``main_repeats``: see
+    :func:`forward_hidden`."""
     hidden, aux, _ = forward_hidden(cfg, params, batch.get("tokens"), mode="train",
                                     images=batch.get("images"),
-                                    frames=batch.get("frames"), return_aux=True)
+                                    frames=batch.get("frames"), return_aux=True,
+                                    attn_chunk=attn_chunk, main_repeats=main_repeats)
     logits = lm_logits(cfg, params, hidden)
     ce = cross_entropy(cfg, logits, batch["labels"])
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}

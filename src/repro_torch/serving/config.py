@@ -24,6 +24,11 @@ class CacheSpec:
     def pages_per_seq(self) -> int:
         return -(-self.max_len // self.page_size)
 
+    @property
+    def max_rows(self) -> int:
+        """Usable KV rows (the trash page is bookkeeping, not capacity)."""
+        return (self.n_pages - 1) * self.page_size
+
 
 @dataclass(frozen=True)
 class EngineConfig:

@@ -83,6 +83,10 @@ def bytes_tokenizer_encode(text: str, vocab: int) -> list[int]:
     return [b % vocab for b in text.encode("utf-8")]
 
 
+def bytes_tokenizer_decode(tokens) -> str:
+    return bytes(int(t) % 256 for t in tokens).decode("utf-8", errors="replace")
+
+
 class FinishReason(str, Enum):
     """Why a request retired.  ``STOP``/``LENGTH`` are healthy completions;
     everything else is a degraded exit."""
@@ -180,6 +184,12 @@ class ServeStats:
     faults_isolated: int = 0
 
     @property
+    def tokens_per_s(self) -> float:
+        """Generated tokens over the decode-only ticks' wall time (the
+        reference's measure: mixed ticks and whole prefills not counted)."""
+        return self.tokens_out / self.decode_s if self.decode_s else 0.0
+
+    @property
     def prefix_hit_rate(self) -> float:
         return (self.prefix_hit_tokens / self.prefix_lookup_tokens
                 if self.prefix_lookup_tokens else 0.0)
@@ -228,13 +238,18 @@ class ModelRunner:
         """lf [B, V] f32 -> [B] int32.  Rows with ``temps[i] > 0`` draw from
         ``gens[i]``; the rest take the first maximum.  A non-finite logit
         draws as 0 (its slot faults and the token is discarded; the
-        generator advances as the JAX key does)."""
+        generator advances as the JAX key does).  The draw is
+        ``torch.multinomial(probs, 1, generator=g)``'s own, the exponential
+        race ``argmax(probs / q)`` with ``q ~ Exp(1)`` (the same tokens from
+        the same generator), without its check of ``probs``, which reads
+        the device: a host sync a sampled row."""
         nxt = torch.argmax(lf, -1).to(torch.int32)
         for i, (t, g) in enumerate(zip(temps, gens)):
             if t > 0.0:
                 probs = torch.softmax(torch.nan_to_num(lf[i] / t, nan=0.0, posinf=0.0,
                                                        neginf=0.0), -1)
-                nxt[i] = torch.multinomial(probs, 1, generator=g)[0].to(torch.int32)
+                q = torch.empty_like(probs).exponential_(1.0, generator=g)
+                nxt[i] = torch.argmax(probs / q).to(torch.int32)
         return nxt
 
     def _decode_steps(self, remaining, temps, gens, steps):

@@ -6,7 +6,8 @@ come from ``torch.autograd.grad`` over leaf copies of the parameters (new
 tensors that share the weights' storage and require grad), so the state's
 own tensors never require grad.  On the card the GEMMs differentiate
 through ``ops.cgra_matmul``'s backward kernels and attention runs its plain
-version (``models.layers.dense_attention``).
+version (``models.layers.dense_attention``); each layer group runs under
+the config's ``remat_policy`` (``models.model._remat``).
 """
 from __future__ import annotations
 
@@ -31,11 +32,13 @@ class TrainState(NamedTuple):
     nu: Any
 
 
-def init_state(cfg: ArchConfig, opt: AdamWConfig, seed: int = 0, device=None) -> TrainState:
-    """Seeded random parameters (``model.init``) and zero moments on
-    ``device`` (default ``cuda``)."""
+def init_state(cfg: ArchConfig, opt: AdamWConfig, seed: int = 0, device=None,
+               main_repeats: int | None = None) -> TrainState:
+    """Seeded random parameters (``model.init``, the main stage cut to
+    ``main_repeats`` when given) and zero moments on ``device`` (default
+    ``cuda``)."""
     dev = resolve_device(device)
-    params = M.init(cfg, seed, dev)
+    params = M.init(cfg, seed, dev, main_repeats)
     mu, nu = init_moments(params, opt)
     return TrainState(torch.zeros((), dtype=torch.int32, device=dev), params, mu, nu)
 
@@ -44,7 +47,8 @@ def _device(params) -> torch.device:
     return tree_leaves(params)[0].device
 
 
-def value_and_grad(cfg: ArchConfig, params, batch: dict):
+def value_and_grad(cfg: ArchConfig, params, batch: dict, *, attn_chunk: int = 0,
+                   main_repeats: int | None = None):
     """(loss, extras, grads) of ``model.loss_fn`` at ``params``: grads in
     each parameter's dtype, in a tree of the params' structure (a leaf the
     loss does not read, as a text embedding under an audio frontend, gets
@@ -52,7 +56,8 @@ def value_and_grad(cfg: ArchConfig, params, batch: dict):
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     tracked = tree_unflatten(params, leaves)
     with torch.enable_grad():
-        loss, extras = M.loss_fn(cfg, tracked, batch)
+        loss, extras = M.loss_fn(cfg, tracked, batch, attn_chunk=attn_chunk,
+                                 main_repeats=main_repeats)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return (loss.detach(), {k: v.detach() for k, v in extras.items()},
@@ -71,29 +76,30 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig, *, accum_steps: int = 1,
     reference's accumulation, one microbatch's activations at a time.
     ``metrics``: loss (the microbatches' mean), ce and aux (the last
     microbatch's, as the reference), grad_norm, lr and the step.
+    ``attn_chunk`` query-chunks the plain attention; ``main_repeats`` trains
+    the main stage at that depth (a state from ``init_state(main_repeats=)``).
 
-    Not ported (the reference's multi-device and memory options):
-    ``compress_pod`` / ``mesh`` (ROADMAP Queue 1 item 13), ``attn_chunk``
-    (query-chunked attention) and ``main_repeats`` (the dry run's depth
-    cut) raise."""
+    Not ported (the reference's multi-device options): ``compress_pod`` /
+    ``mesh`` raise (ROADMAP Queue 1 item 13)."""
     if compress_pod or mesh is not None:
         raise NotImplementedError("compress_pod / mesh: the port trains on one device; "
                                   "the cross-pod compressed mean and meshes are "
                                   "ROADMAP Queue 1 item 13")
-    if attn_chunk or main_repeats is not None:
-        raise NotImplementedError("attn_chunk and main_repeats are not ported "
-                                  "(ROADMAP Queue 1 item 13)")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
 
+    def vg(params, batch):
+        return value_and_grad(cfg, params, batch, attn_chunk=attn_chunk,
+                              main_repeats=main_repeats)
+
     def grads_of(params, batch):
         if accum_steps == 1:
-            return value_and_grad(cfg, params, batch)
+            return vg(params, batch)
         micro = {k: v.reshape(accum_steps, -1, *v.shape[1:]) for k, v in batch.items()}
         acc = tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params)
         lsum = torch.zeros((), dtype=F32, device=_device(params))
         for i in range(accum_steps):
-            loss, extras, g = value_and_grad(cfg, params, {k: v[i] for k, v in micro.items()})
+            loss, extras, g = vg(params, {k: v[i] for k, v in micro.items()})
             tree_map(lambda a, x: a.add_(x), acc, g)  # acc is the step's own
             lsum = lsum + loss
         return lsum / accum_steps, extras, tree_map(lambda a: a / accum_steps, acc)
@@ -112,13 +118,14 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig, *, accum_steps: int = 1,
 
 def make_eval_step(cfg: ArchConfig, attn_chunk: int = 0):
     """Returns ``eval_step(params, batch) -> {"loss", "ce", "aux"}``, run
-    without autograd (attention on its kernel on the card)."""
-    if attn_chunk:
-        raise NotImplementedError("attn_chunk is not ported (ROADMAP Queue 1 item 13)")
+    without autograd: attention on its kernel (on the CPU its plain
+    version), which takes the whole query block; ``attn_chunk`` chunks
+    MLA's plain attention, which has no kernel."""
 
     @torch.no_grad()
     def eval_step(params, batch):
-        loss, extras = M.loss_fn(cfg, params, to_device(batch, _device(params)))
+        loss, extras = M.loss_fn(cfg, params, to_device(batch, _device(params)),
+                                 attn_chunk=attn_chunk)
         return {"loss": loss, **extras}
 
     return eval_step

@@ -28,7 +28,8 @@ def test_import_pulls_in_no_jax_and_no_repro():
     assert {"repro_torch.serving.engine", "repro_torch.core.quant",
             "repro_torch.configs.gemma3_4b", "repro_torch.kernels.block_gemm",
             "repro_torch.kernels.flash_attention",
-            "repro_torch.kernels.decode_attention"} <= set(mods)
+            "repro_torch.kernels.decode_attention", "repro_torch.launch.serve",
+            "repro_torch.core.cgra", "repro_torch.launch.roofline"} <= set(mods)
     assert len(mods) >= 22
     code = (
         "import importlib, sys\n"

@@ -1,7 +1,7 @@
 """The port's training step against the JAX package on the same numbers.
 
-- ``ops.cgra_matmul``'s autograd (the block GEMM as a
-  ``torch.autograd.Function``, plain / ``trans_b`` / f32 out) against
+- ``ops.cgra_matmul``'s autograd (the block GEMM as a registered
+  operator with its backward, plain / ``trans_b`` / f32 out) against
   PyTorch's autograd of a plain ``torch.matmul`` and against ``jax.grad`` of
   the reference's ``cgra_matmul`` (its custom VJP), tolerance 1e-5 (f32:
   the same products summed in other orders).
@@ -59,11 +59,12 @@ OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10, clip_norm=1e9)
 BATCH, SEQ = 2, 16
 
 
-def _numpy_params(jcfg, seed: int):
-    """The reference's param tree with numpy values from its init rules
-    (scaled: N(0, 1/fan_in), normal: N(0, 0.02^2), ssm_a: log U[1, 16],
-    dt_bias: inverse softplus of U[1e-3, 1e-1], ones), zero-init leaves as
-    0.1 x N(0, 1); f32 (a reduced config's dtype), the router f32 too."""
+def _numpy_params(jcfg, seed: int, main_repeats=None):
+    """The reference's param tree (``param_specs(jcfg, main_repeats)``)
+    with numpy values from its init rules (scaled: N(0, 1/fan_in), normal:
+    N(0, 0.02^2), ssm_a: log U[1, 16], dt_bias: inverse softplus of U[1e-3,
+    1e-1], ones), zero-init leaves as 0.1 x N(0, 1); f32 (a reduced
+    config's dtype), the router f32 too."""
     rng = np.random.default_rng(seed)
 
     def draw(s):
@@ -79,13 +80,15 @@ def _numpy_params(jcfg, seed: int):
         std = 0.02 if s.init == "normal" else 1.0 / np.sqrt(max(1, int(np.prod(shape[:-1]))))
         return (std * rng.standard_normal(shape)).astype(np.float32)
 
-    return jax.tree.map(lambda s: jnp.asarray(draw(s)), JM.param_specs(jcfg),
+    return jax.tree.map(lambda s: jnp.asarray(draw(s)), JM.param_specs(jcfg, main_repeats),
                         is_leaf=j_is_spec)
 
 
-def _setup(name, opt_kw=OPT, seed=0):
-    jcfg = JC.reduce_config(JC.get_config(name))
-    tcfg = TC.reduce_config(TC.get_config(name))
+def _setup(name, opt_kw=OPT, seed=0, **over):
+    """Both packages' reduced ``name`` (with the fields of ``over``), the
+    reference's state from ``seed`` and the port's bridged copy."""
+    jcfg = JC.reduce_config(JC.get_config(name)).with_(**over)
+    tcfg = TC.reduce_config(TC.get_config(name)).with_(**over)
     jopt, topt = JAdamW(**opt_kw), AdamWConfig(**opt_kw)
     params = _numpy_params(jcfg, seed)
     jstate = JTrainState(jnp.zeros((), jnp.int32), params, *j_init_moments(params, jopt))
