@@ -76,7 +76,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    request equals itself served alone with its seed, the decode tick at
    temperature 0.7 against greedy, and reduced olmo-1b under
    ``preemption="recompute"`` whose sampled tokens equal those of a run that
-   never preempts;
+   never preempts.  Then the mesh phase (``mesh_phase``): two ranks of the
+   port's mesh-sharded engine on this one card over gloo (NCCL refuses two
+   ranks on one device; every collective goes through host memory and the
+   decode step runs eagerly, by rule), each holding its shard: (a) full
+   olmo-1b at ``MeshSpec(1, 2)`` in bf16 and in f32, 8 requests of 100-500
+   tokens, 32 greedy new, against the single-rank engine on the same seed-0
+   weights -- both ranks the same tokens, each of the three path kernels
+   launched on every rank at the shard's shapes (printed), and every token
+   equal to the single rank's or its first difference a witnessed near-tie
+   (``mesh_flip_witness``; the logits there within 1e-2 in f32, the bf16
+   gap printed); (b) qwen3-moe-30b-a3b at full width over 8 of its 48
+   layers, expert-parallel (64 of 128 experts a rank): f32 prefill logits
+   within 1e-4 of the single rank's (bf16 printed), 4 requests' greedy
+   tokens under the same flip rule; (c) the four ring schedules of
+   ``core/torus.py`` at olmo-1b's FFN shapes (512 tokens, D 2048, F 8192, tp
+   2) against the dense product in f32 (1e-5) and bf16 (2^-7), timed beside
+   the single rank's dense GEMMs; (d) ``python -m repro_torch.launch.serve
+   --no-reduced --mesh 1x2 --backend gloo --requests 8 --max-new 16``, every
+   request ok.  Its times are two ranks sharing one card, not multi-GPU
+   scaling numbers;
 5. MLA: first ``mla_reference_check`` -- reduced minicpm3-4b on the card
    against the CPU (whole prefill, 12 paged ``decode_step``s, then a small
    engine; logits within 1e-4, equal greedy tokens; w8a8 under the flip
@@ -179,7 +198,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``vlm_encoder`` line (phase 8's summaries) and a ``vlm_encoder_kernels``
    line (its kernel rows), a JSON ``train`` line (phase 9's summary) and a
    ``train_kernels`` line (the GEMM's rows at the training shapes), a JSON
-   ``serve`` line (the serving driver's runs) and a ``train_options`` line,
+   ``serve`` line (``launch.serve``'s runs), a ``mesh`` line (the mesh
+   phase) and a ``train_options`` line,
    the script's wall time, a JSON ``kernels`` line
    (the six ported TPU kernels), then the JSON result as the last line.
 
@@ -4455,6 +4475,494 @@ def serve_phase(counters):
 
 
 # ---------------------------------------------------------------------------
+# the mesh phase: mesh-sharded serving, two gloo ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+MESH_WORK = os.path.join(HERE, "build", "mesh_phase")  # git-ignored
+MESH_CONF = dict(max_batch=8, max_len=1024, page_size=64, chunk_tokens=64, decode_chunk=8)
+MESH_MAX_NEW = 32
+MOE_MESH_LAYERS = 8  # of qwen3-moe-30b-a3b's 48: two ranks and the single rank in one budget
+MOE_MESH_MAX_NEW = 16
+MESH_LOGITS_BOUND = 1e-2  # the mesh's logits against the single rank's at a flip
+MESH_DTYPES = (("a", torch.bfloat16), ("a32", torch.float32))
+MOE_F32_BOUND = 1e-4  # expert-parallel prefill logits in f32 (the CPU tests' bound vs JAX)
+RING_T, RING_D, RING_F = 512, 2048, 8192  # olmo-1b's FFN at 512 tokens
+MESH_PATH = ("block_gemm", "flash_attention_paged", "flash_decode_paged")
+
+
+def _mesh_prompts(V, lengths, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, V, n).tolist() for n in lengths]
+
+
+MESH_LENGTHS = (100, 333, 480, 205, 120, 500, 260, 415)
+MOE_MESH_LENGTHS = (100, 280, 190, 333)
+
+
+def _serve_ticks(eng, prompts, max_new, mesh=None):
+    """Submit ``prompts`` (greedy) and step the engine to the end, timing each
+    tick on the host clock (a tick ends in its one device-to-host read) and
+    counting the mesh's collectives in it.  Returns (results by rid, ticks:
+    [(kind, ms, collectives)])."""
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new, 0.0, seed=i)
+    results, ticks = [], []
+    while eng.num_queued or eng.num_active:
+        c0 = mesh.collectives if mesh is not None else 0
+        m0, t0 = eng.stats.mixed_steps, time.time()
+        results.extend(eng.step())
+        ticks.append(("mixed" if eng.stats.mixed_steps > m0 else "decode",
+                      (time.time() - t0) * 1e3,
+                      (mesh.collectives - c0) if mesh is not None else 0))
+    return {r.rid: r for r in results}, ticks
+
+
+def _tick_summary(ticks):
+    dec = [t for t in ticks if t[0] == "decode"]
+    mix = [t for t in ticks if t[0] == "mixed"]
+    return dict(decode_ticks=len(dec), mixed_ticks=len(mix),
+                decode_tick_ms=statistics.median(t[1] for t in dec) if dec else None,
+                mixed_tick_ms=statistics.median(t[1] for t in mix) if mix else None,
+                collectives_per_decode_tick=max((t[2] for t in dec), default=0),
+                collectives_per_mixed_tick=max((t[2] for t in mix), default=0))
+
+
+class _ShapeRecorder:
+    """Records the distinct shapes the kernel entry points are called with
+    on the card (every call is eager under gloo): the block GEMM's (A, B),
+    paged chunk attention's (q, pool) and paged decode's (q, pool)."""
+
+    def __init__(self):
+        from repro_torch.core import gemm
+        from repro_torch.models import layers
+        self.gemm, self.layers, self.seen = gemm, layers, {}
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            if args[0].is_cuda:
+                key = " x ".join(str(list(a.shape)) for a in args[:2])
+                self.seen.setdefault(name, set()).add(key)
+            return fn(*args, **kw)
+        return call
+
+    def __enter__(self):
+        self._orig = (self.gemm.cgra_matmul, self.layers.attention, self.layers.attend_decode)
+        self.gemm.cgra_matmul = self._wrap("block_gemm", self._orig[0])
+        self.layers.attention = self._wrap("flash_attention_paged", self._orig[1])
+        self.layers.attend_decode = self._wrap("flash_decode_paged", self._orig[2])
+        return self
+
+    def __exit__(self, *exc):
+        self.gemm.cgra_matmul, self.layers.attention, self.layers.attend_decode = self._orig
+
+    def report(self):
+        return {k: sorted(v) for k, v in self.seen.items()}
+
+
+def _witness_rows(eng, results, single, prompts):
+    """For each request whose tokens leave the single rank's, the step where
+    they first differ: (rid, step, single token, mesh token) and this
+    mesh's f32 logits row there, from ``model.prefill`` of the prompt and
+    the single rank's tokens before that step."""
+    from repro_torch.models import model as M
+    rows, logits = [], []
+    for rid, r in results.items():
+        want = single[str(rid)]
+        if r.generated == want:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(want, r.generated)) if a != b)
+        toks = torch.tensor([prompts[rid] + want[:j]], dtype=torch.int32, device="cuda")
+        with eng.runner.on_mesh():
+            lg = M.prefill(eng.cfg, eng.runner.params, toks)[0][0, -1, : eng.cfg.vocab_size]
+        rows.append(dict(rid=rid, step=j, single=want[j], mesh=r.generated[j]))
+        logits.append(lg.float().cpu())
+    return rows, logits
+
+
+def _mesh_rank(rank, work):
+    """One rank of the mesh phase (two ranks on the one card over gloo):
+    (a) full olmo-1b served at 1x2, (b) 8 layers of qwen3-moe-30b-a3b served
+    expert-parallel at 1x2 and one prefill's logits, (c) the four ring
+    schedules at olmo-1b's FFN shapes.  Writes ``rank<r>.json`` (and the
+    logits rows as ``.pt``) into ``work``."""
+    import gc as _gc
+    from repro_torch.configs import get_config
+    from repro_torch.core import torus
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import LAUNCH_COUNTERS
+    from repro_torch.launch.sharding import activation_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, EngineConfig, MeshSpec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()  # the main process built them: loaded from build/
+    plan = json.load(open(os.path.join(work, "plan.json")))
+    mesh = MeshSpec(1, 2).build()
+    out = dict(rank=rank, backend=mesh.backend, device=str(torch.cuda.current_device()))
+
+    # (a) full olmo-1b at 1x2, in bf16 and in f32
+    for key, dtype in MESH_DTYPES:
+        cfg = get_config("olmo-1b").with_(compute_dtype=dtype)
+        params = M.init(cfg, seed=0, device="cuda")
+        eng = Engine(cfg, params, EngineConfig(mesh="1x2", **MESH_CONF))
+        del params
+        _gc.collect()
+        torch.cuda.empty_cache()
+        out[f"{key}_local_shapes"] = dict(
+            wq=list(eng.params["stages"][0]["0"]["mixer"]["wq"].shape),
+            w_gate=list(eng.params["stages"][0]["0"]["ffn"]["w_gate"].shape),
+            lm_head=list(eng.params["lm_head"].shape), embed=list(eng.params["embed"].shape),
+            k_pool=list(eng.runner.caches[0]["0"]["k"].shape))
+        for c in LAUNCH_COUNTERS:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with _ShapeRecorder() as rec:
+            res, ticks = _serve_ticks(eng, plan["a_prompts"], MESH_MAX_NEW, eng.mesh)
+        out[key] = dict(tokens={str(k): r.generated for k, r in res.items()},
+                        ok=all(r.ok for r in res.values()),
+                        agree=eng.ranks_agree(res.values()), graphed=eng.runner.graph.graphed,
+                        launches={c.__name__: c.launches for c in LAUNCH_COUNTERS},
+                        shapes=rec.report(), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                        **_tick_summary(ticks))
+        out[key]["witness"], lg = _witness_rows(eng, res, plan[f"{key}_single"],
+                                                plan["a_prompts"])
+        torch.save(lg, os.path.join(work, f"{key}_logits_r{rank}.pt"))
+        del eng, res
+        _gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) qwen3-moe-30b-a3b over 8 of its 48 layers, expert-parallel at 1x2:
+    # first one f32 prefill (the same draws, kept f32), then the bf16 engine
+    mcfg = get_config("qwen3-moe-30b-a3b").with_(num_layers=MOE_MESH_LAYERS)
+    toks = torch.tensor([plan["b_prompts"][1]], dtype=torch.int32, device="cuda")
+    cfg32 = mcfg.with_(compute_dtype=torch.float32, moe_shard_map=True)
+    for r in range(2):  # one rank at a time holds the whole f32 tree (22 GB)
+        if r == rank:
+            sp = M.shard_params(cfg32, M.init(cfg32, seed=0, device="cuda"), mesh)
+            _gc.collect()
+            torch.cuda.empty_cache()
+        mesh.broadcast(torch.zeros(1), None)
+    with activation_mesh(mesh):
+        lg = M.prefill(cfg32, sp, toks)[0][0, -1, : mcfg.vocab_size]
+    torch.save(lg.float().cpu(), os.path.join(work, f"b32_prefill_r{rank}.pt"))
+    del sp, lg
+    _gc.collect()
+    torch.cuda.empty_cache()
+    params = M.init(mcfg, seed=0, device="cuda")
+    eng = Engine(mcfg, params, EngineConfig(mesh="1x2", **MESH_CONF))
+    del params
+    _gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with eng.runner.on_mesh():
+        lg = M.prefill(eng.cfg, eng.runner.params, toks)[0][0, -1, : mcfg.vocab_size]
+    torch.save(lg.float().cpu(), os.path.join(work, f"b_prefill_r{rank}.pt"))
+    for c in LAUNCH_COUNTERS:
+        c.launches = 0
+    res, ticks = _serve_ticks(eng, plan["b_prompts"], MOE_MESH_MAX_NEW, eng.mesh)
+    out["b"] = dict(tokens={str(k): r.generated for k, r in res.items()},
+                    ok=all(r.ok for r in res.values()), agree=eng.ranks_agree(res.values()),
+                    shard_map=eng.cfg.moe_shard_map,
+                    experts_held=int(eng.params["stages"][0]["0"]["ffn"]["w_gate"].shape[1]),
+                    launches={c.__name__: c.launches for c in LAUNCH_COUNTERS},
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30, **_tick_summary(ticks))
+    out["b"]["witness"], lg = _witness_rows(eng, res, plan["b_single"], plan["b_prompts"])
+    torch.save(lg, os.path.join(work, f"b_logits_r{rank}.pt"))
+    del eng, res
+    _gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the ring schedules at olmo-1b's FFN shapes, f32 and bf16
+    out["c"] = {}
+    i, tp = mesh.index("model"), 2
+    Tl, Fl = RING_T // tp, RING_F // tp
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn(RING_T, RING_D, generator=g, device="cuda").to(dtype)
+        wg, wu = (torch.randn(RING_D, RING_F, generator=g, device="cuda").mul_(
+            RING_D ** -0.5).to(dtype) for _ in range(2))
+        wd = torch.randn(RING_F, RING_D, generator=g, device="cuda").mul_(
+            RING_F ** -0.5).to(dtype)
+        vs = torch.randn(tp, RING_T * RING_D, generator=g, device="cuda").to(dtype)
+        cols = slice(i * Fl, (i + 1) * Fl)
+        h = torch.nn.functional.silu(x.float() @ wg.float()).to(dtype)
+        calls = {
+            "ring_allgather_matmul": (
+                lambda: torus.ring_allgather_matmul(x[i * Tl:(i + 1) * Tl], wg[:, cols], mesh),
+                lambda: x.float() @ wg[:, cols].float()),
+            "matmul_reducescatter_ring": (
+                lambda: torus.matmul_reducescatter_ring(h[:, cols].contiguous(),
+                                                        wd[cols].contiguous(), mesh),
+                lambda: (h.float() @ wd.float())[i * Tl:(i + 1) * Tl]),
+            "ring_allreduce": (lambda: torus.ring_allreduce(vs[i], mesh),
+                               lambda: vs.float().sum(0)),
+            # the dense FFN rounds g, u and silu(g) * u to the dtype, as the
+            # schedule's GEMMs store them
+            "torus_ffn": (
+                lambda: torus.torus_ffn(x[None], wg[:, cols].contiguous(),
+                                        wu[:, cols].contiguous(), wd[cols].contiguous(),
+                                        mesh)[0],
+                lambda: (_swiglu_hidden(x, wg, wu).float() @ wd.float())[i * Tl:(i + 1) * Tl]),
+        }
+        row = {}
+        for name, (ring, dense) in calls.items():
+            got = ring()
+            want = dense()
+            err = float((got.float() - want).abs().max() / want.abs().max())
+            times = []
+            for _ in range(5):
+                mesh.broadcast(torch.zeros(1), None)  # both ranks start together
+                torch.cuda.synchronize()
+                t0 = time.time()
+                ring()
+                torch.cuda.synchronize()
+                times.append((time.time() - t0) * 1e3)
+            row[name] = dict(rel_err=err, ms=statistics.median(times))
+        out["c"][str(dtype).split(".")[-1]] = row
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _swiglu_hidden(x, wg, wu):
+    """silu(x wg) * (x wu) with each product stored in x's dtype."""
+    g = (x.float() @ wg.float()).to(x.dtype)
+    u = (x.float() @ wu.float()).to(x.dtype)
+    return torch.nn.functional.silu(g) * u
+
+
+def mesh_flip_witness(single, mesh, a: int, b: int, bound) -> dict:
+    """The flip rule for a token the mesh picks other than the single rank
+    (``a`` the single rank's token, ``b`` the mesh's) at the first step
+    they differ.  Both logits rows at that step come from ``model.prefill``
+    of the same tokens, on the one rank and on the mesh.  The flip is the
+    sharded sum's rounding, not a wrong token, when ``a`` and ``b`` are a
+    near-tie that the rows' difference can reorder: ``|l[a] - l[b]|`` in
+    the single rank's row at most twice the largest entry of ``|mesh -
+    single|``; and that difference is within ``bound`` (None: printed, not
+    gated)."""
+    gap = float((mesh - single).abs().max())
+    tie = float(single[a] - single[b])
+    return dict(logits_gap=gap, pair_gap=tie, bound=bound,
+                held=abs(tie) <= 2 * gap and (bound is None or gap <= bound))
+
+
+def _single_rank_logits(cfg, params, prompt, toks):
+    from repro_torch.models import model as M
+    t = torch.tensor([prompt + toks], dtype=torch.int32, device="cuda")
+    return M.prefill(cfg, params, t)[0][0, -1, : cfg.vocab_size].float().cpu()
+
+
+def _mesh_gate(name, single, ranks, key, cfg, prompts, bound, problems):
+    """Tokens equal to the single rank's, or every first difference held by
+    :func:`mesh_flip_witness`; both ranks the same tokens, every request
+    ok.  A gate that fails is added to ``problems``."""
+    a0, a1 = ranks[0][key], ranks[1][key]
+    if a0["tokens"] != a1["tokens"] or not (a0["agree"] and a1["agree"]):
+        problems.append(f"{name}: the two ranks emitted different tokens")
+    if not (a0["ok"] and a1["ok"]):
+        problems.append(f"{name}: a request did not finish ok")
+    mesh_rows = torch.load(os.path.join(MESH_WORK, f"{key}_logits_r0.pt"))
+    witnesses = []
+    params = None
+    if a0["witness"]:  # the seed-0 weights again, drawn after the ranks are done
+        from repro_torch.models import model as M
+        params = M.init(cfg, seed=0, device="cuda")
+    for w, row in zip(a0["witness"], mesh_rows):
+        s = _single_rank_logits(cfg, params, prompts[w["rid"]],
+                                single[str(w["rid"])][: w["step"]])
+        wit = dict(w, **mesh_flip_witness(s, row, w["single"], w["mesh"], bound))
+        witnesses.append(wit)
+        if not wit["held"]:
+            problems.append(f"{name}: request {w['rid']} leaves the single rank at step "
+                            f"{w['step']} without the flip witness: {wit}")
+    same = sum(a0["tokens"][k] == single[k] for k in single)
+    log(f"{name}: {same} of {len(single)} requests' tokens equal to the single rank's; "
+        f"{len(witnesses)} first differences: {json.dumps(witnesses)}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return witnesses
+
+
+def mesh_phase():
+    """Mesh-sharded serving on the one card: two ranks of the port's own
+    entry points on ``cuda:0`` over gloo (NCCL refuses two ranks on one
+    device), each holding its shard (8 heads of 16, an ffn of 4096, half
+    the vocab, 64 of 128 experts):
+
+    (a) full olmo-1b at ``MeshSpec(1, 2)``, ``EngineConfig(max_batch=8,
+        max_len=1024, page_size=64, chunk_tokens=64)``, 8 requests of 100-500
+        tokens, 32 greedy new, in bf16 and in f32: tokens equal to the
+        single-rank engine's with the same seed-0 weights, or each first
+        difference a witnessed flip (``mesh_flip_witness``: a near-tie, and
+        in f32 the logits there within 1e-2; bf16's gap is printed -- its
+        rounding through 16 layers moves the logits ~5e-2); both ranks the
+        same tokens; each rank launched the block GEMM and both paged
+        kernels, at its shard's shapes;
+    (b) qwen3-moe-30b-a3b at full width over 8 of its 48 layers, expert-
+        parallel (``moe_shard_map``): one prefill's logits within 1e-4 of
+        the single rank's in f32 (the CPU tests' bound against JAX; the
+        bf16 gap printed beside 1e-2), 4 requests' greedy tokens in bf16
+        under the same flip rule;
+    (c) the four ring schedules at olmo-1b's FFN shapes (512 tokens, D 2048,
+        F 8192, tp 2) against the dense product, f32 and bf16, timed beside
+        the single rank's dense GEMMs;
+    (d) ``python -m repro_torch.launch.serve --no-reduced --mesh 1x2 --backend
+        gloo --requests 8 --max-new 16``: every request ``ok``, rank 0's
+        summary line.
+
+    Times of two ranks sharing one card over gloo (every collective through
+    host memory, the decode step eager by rule) are not multi-GPU scaling
+    numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.gemm import cgra_gemm
+    from repro_torch.launch import dist as D
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, EngineConfig
+    os.makedirs(MESH_WORK, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    # the single-rank references, in this process: the engine's tokens and
+    # tick times, and (b)'s prefill logits
+    problems: list[str] = []
+    mcfg = get_config("qwen3-moe-30b-a3b").with_(num_layers=MOE_MESH_LAYERS)
+    b_prompts = _mesh_prompts(mcfg.vocab_size, MOE_MESH_LENGTHS, 4)
+    cfg32 = mcfg.with_(compute_dtype=torch.float32)
+    b32_prefill = _single_rank_logits(cfg32, M.init(cfg32, seed=0, device="cuda"),
+                                      b_prompts[1], [])
+    gc.collect()
+    torch.cuda.empty_cache()
+    singles = {}
+    a_prompts = _mesh_prompts(get_config("olmo-1b").vocab_size, MESH_LENGTHS, 3)
+    for key, dtype in MESH_DTYPES:
+        cfg = get_config("olmo-1b").with_(compute_dtype=dtype)
+        res, ticks = _serve_ticks(Engine(cfg, M.init(cfg, seed=0, device="cuda"),
+                                         EngineConfig(**MESH_CONF)), a_prompts, MESH_MAX_NEW)
+        singles[key] = ({str(k): r.generated for k, r in res.items()}, _tick_summary(ticks))
+        gc.collect()
+    mparams = M.init(mcfg, seed=0, device="cuda")
+    res, ticks = _serve_ticks(Engine(mcfg, mparams, EngineConfig(**MESH_CONF)), b_prompts,
+                              MOE_MESH_MAX_NEW)
+    b_single = {str(k): r.generated for k, r in res.items()}
+    b_ticks = _tick_summary(ticks)
+    b_prefill = _single_rank_logits(mcfg, mparams, b_prompts[1], [])
+    del res, mparams  # the ranks need the card's memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(os.path.join(MESH_WORK, "plan.json"), "w") as f:
+        json.dump(dict(a_prompts=a_prompts, b_prompts=b_prompts, b_single=b_single,
+                       **{f"{k}_single": v[0] for k, v in singles.items()}), f)
+    t0 = time.time()
+    D.spawn(_mesh_rank, 2, "gloo", args=(MESH_WORK,))
+    ranks_s = time.time() - t0
+    ranks = [json.load(open(os.path.join(MESH_WORK, f"rank{r}.json"))) for r in range(2)]
+    log(f"mesh: backend {ranks[0]['backend']}, both ranks on cuda:{ranks[0]['device']}; the "
+        f"decode step graphed: {ranks[0]['a']['graphed']} (eager by rule under gloo); the "
+        f"ranks' run {ranks_s:.1f} s")
+    # (a): f32 holds the flip rule's 1e-2 on the logits; bf16 is printed beside it
+    witnesses = {}
+    for key, dtype in MESH_DTYPES:
+        cfg = get_config("olmo-1b").with_(compute_dtype=dtype)
+        name = f"mesh (a) olmo-1b 1x2 {str(dtype).split('.')[-1]}"
+        witnesses[key] = _mesh_gate(name, singles[key][0], ranks, key, cfg, a_prompts,
+                                    MESH_LOGITS_BOUND if key == "a32" else None, problems)
+        for r in ranks:
+            a = r[key]
+            if a["graphed"]:
+                problems.append(f"{name}: a gloo rank graphed its decode step")
+            missing = [n for n in MESH_PATH if a["launches"][n] <= 0]
+            if missing:
+                problems.append(f"{name} rank {r['rank']}: {missing} never launched")
+            log(f"{name} rank {r['rank']}: shard {json.dumps(r[key + '_local_shapes'])}; "
+                f"launches {json.dumps({k: v for k, v in a['launches'].items() if v})}; peak "
+                f"{a['peak_gib']:.2f} GiB; collectives a decode tick "
+                f"{a['collectives_per_decode_tick']}, a mixed tick "
+                f"{a['collectives_per_mixed_tick']}")
+            log(f"{name} rank {r['rank']} kernel shapes: {json.dumps(a['shapes'])}")
+        a0, st = ranks[0][key], singles[key][1]
+        log(f"{name}: decode tick {a0['decode_tick_ms']:.2f} ms wall (eager, 2 ranks on one "
+            f"card over gloo) vs {st['decode_tick_ms']:.2f} ms single rank (graphed); mixed "
+            f"tick {a0['mixed_tick_ms']:.2f} vs {st['mixed_tick_ms']:.2f} ms")
+    # (b)
+    b0 = ranks[0]["b"]
+    if not (b0["shard_map"] and b0["experts_held"] == mcfg.num_experts // 2):
+        problems.append(f"mesh (b): expert-parallel not on: {b0['shard_map']}, "
+                        f"{b0['experts_held']} held")
+    # the gate reads f32 (bound 1e-4, the CPU tests' against JAX); the bf16
+    # gap is printed beside the bound 1e-2 of the flip rule
+    gaps = {}
+    for key, single in (("b32", b32_prefill), ("b", b_prefill)):
+        lg = [torch.load(os.path.join(MESH_WORK, f"{key}_prefill_r{r}.pt")) for r in range(2)]
+        gaps[key] = float((lg[0] - single).abs().max())
+        if not torch.equal(lg[0], lg[1]):
+            problems.append(f"mesh (b) {key}: the ranks' prefill logits differ")
+    b_gap = gaps["b"]
+    log(f"mesh (b) qwen3-moe {MOE_MESH_LAYERS} of 48 layers, 64 of 128 experts a rank, "
+        f"expert-parallel prefill logits from the single rank's: f32 {gaps['b32']:.3e} (gate "
+        f"{MOE_F32_BOUND}), bf16 {b_gap:.3e} (beside {MESH_LOGITS_BOUND}, not gated: bf16 "
+        f"rounding of the sharded sums through 8 layers)")
+    if not math.isfinite(gaps["b32"]) or gaps["b32"] > MOE_F32_BOUND:
+        problems.append(f"mesh (b): f32 prefill logits {gaps['b32']:.3e} from the single "
+                        f"rank's (bound {MOE_F32_BOUND})")
+    witnesses["b"] = _mesh_gate("mesh (b) qwen3-moe 1x2 bf16", b_single, ranks, "b", mcfg,
+                                b_prompts, None, problems)
+    log(f"mesh (b): decode tick {b0['decode_tick_ms']:.2f} ms (2 ranks, eager, gloo) vs "
+        f"{b_ticks['decode_tick_ms']:.2f} ms single rank (graphed); peak "
+        f"{b0['peak_gib']:.2f} GiB a rank; collectives a decode tick "
+        f"{b0['collectives_per_decode_tick']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c): agreement, and the single rank's dense GEMMs at the same shapes
+    ring = {}
+    for dt, tol in (("float32", 1e-5), ("bfloat16", 2 ** -7)):
+        g = torch.Generator(device="cuda").manual_seed(7)
+        dtype = getattr(torch, dt)
+        x = torch.randn(RING_T, RING_D, generator=g, device="cuda").to(dtype)
+        w = torch.randn(RING_D, RING_F, generator=g, device="cuda").to(dtype)
+        wd = torch.randn(RING_F, RING_D, generator=g, device="cuda").to(dtype)
+        h = torch.randn(RING_T, RING_F, generator=g, device="cuda").to(dtype)
+        dense = dict(ffn_up=time_ms(lambda: cgra_gemm(x, w), L2Flush(), reps=10),
+                     ffn_down=time_ms(lambda: cgra_gemm(h, wd), L2Flush(), reps=10))
+        for name in ranks[0]["c"][dt]:
+            errs = [r["c"][dt][name]["rel_err"] for r in ranks]
+            if max(errs) > tol:
+                problems.append(f"mesh (c) {name} {dt}: {max(errs):.3e} from the dense "
+                                f"product (relative, bound {tol})")
+        ring[dt] = dict(rows=ranks[0]["c"][dt], dense_single_rank_ms=dense)
+        log(f"mesh (c) ring schedules {dt}, tp 2, two ranks on one card over gloo (not a "
+            f"scaling number): " + ", ".join(
+                f"{n} {v['ms']:.2f} ms (rel err {v['rel_err']:.2e})"
+                for n, v in ranks[0]["c"][dt].items())
+            + f"; single-rank dense GEMMs x @ W_up {dense['ffn_up']:.3f} ms, h @ W_down "
+            f"{dense['ffn_down']:.3f} ms (CUDA events)")
+    # (d) launch.serve's own command line
+    t0 = time.time()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--no-reduced", "--mesh", "1x2",
+           "--backend", "gloo", "--requests", "8", "--max-new", "16"]
+    out = subprocess.run(cmd, cwd=HERE, env=dict(os.environ, PYTHONPATH=os.path.join(
+        HERE, "src")), text=True, capture_output=True, timeout=600)
+    lines = [ln for ln in out.stdout.splitlines() if "=" in ln]
+    for ln in lines:
+        log(f"mesh (d) {ln}")
+    if out.returncode != 0 or len(lines) != 2 or "requests=8 ok=8" not in lines[0] \
+            or "ranks_agree=True" not in lines[1]:
+        problems.append(f"mesh (d): {' '.join(cmd[2:])} gave {out.returncode}: "
+                        f"{out.stdout[-1500:]}{out.stderr[-1500:]}")
+    d_s = time.time() - t0
+    if problems:
+        fail("; ".join(problems))
+    return dict(backend=ranks[0]["backend"], graphed=ranks[0]["a"]["graphed"], ranks_s=ranks_s,
+                a={key: dict(single=singles[key][1], witnesses=witnesses[key],
+                             shard=ranks[0][key + "_local_shapes"],
+                             ranks=[r[key] | {"tokens": None} for r in ranks])
+                   for key, _ in MESH_DTYPES},
+                b=dict(single=b_ticks, prefill_logits_gap=gaps, witnesses=witnesses["b"],
+                       ranks=[r["b"] | {"tokens": None} for r in ranks]),
+                ring=ring, serve_line=lines, serve_s=d_s, wall_s=time.time() - t_phase)
+
+
+# ---------------------------------------------------------------------------
 # phase 9b: the reference's single-card training options
 # ---------------------------------------------------------------------------
 
@@ -4688,6 +5196,7 @@ def main() -> int:
     t_serve = time.time()
     served = serve_phase(counters)
     served["wall_s"] = time.time() - t_serve
+    meshed = mesh_phase()
     _, report["mla"] = mla_engine_phase(counters, gen)
     report["mla"].update(decode_max_abs_err_bf16=mla_err, decode=mla_rows, gemm=mla_gemm_rows)
     gc.collect()  # every earlier phase's model, pools and graphs go before the 61 GB MoE
@@ -4804,9 +5313,10 @@ def main() -> int:
     log(json.dumps({"train": train}))
     log(json.dumps({"train_kernels": train_kernels}))
     log(json.dumps({"serve": served}))
+    log(json.dumps({"mesh": meshed}))
     log(json.dumps({"train_options": options}))
     log(f"chip_smoke wall time {time.time() - t_start:.1f} s (the serve phase "
-        f"{served['wall_s']:.1f} s, the SSM engine phases {ssm['wall_s']:.1f} s, the VLM and "
+        f"{served['wall_s']:.1f} s, the mesh phase {meshed['wall_s']:.1f} s, the SSM engine phases {ssm['wall_s']:.1f} s, the VLM and "
         f"encoder phases {vlm['wall_s']:.1f} s, the training phases {train['wall_s']:.1f} s, "
         f"the training options {options['wall_s']:.1f} s)")
     log(json.dumps({"kernels": kernels}))

@@ -9,9 +9,13 @@ plain reshape.
 
 Differences from the JAX config: dtypes are ``torch`` dtypes, one
 ``compute_dtype`` also stores the float weights, and there is no ``kernel_mode``
-— a tensor's device chooses the kernel or its plain version.  Mesh and
-sharding knobs are left out with the paths that use them (ROADMAP Queue 1
-item 13).  ``kind="encoder"`` (hubert) makes self-attention
+— a tensor's device chooses the kernel or its plain version.  Of the mesh
+knobs only ``moe_shard_map`` is here (the serving engine switches it on for
+an expert-parallel mesh).  ``fsdp`` and ``parallel_mode`` wait for training
+over a mesh; ``use_torus_tp`` is read by no model code in the reference
+either; ``scan_layers`` serves only XLA's cost compile of the dry run (the
+port's layer loop is the reference's unrolled path).  ``kind="encoder"``
+(hubert) makes self-attention
 bidirectional, as the reference's ``causal = cfg.kind == "decoder"``.
 """
 from __future__ import annotations
@@ -98,6 +102,11 @@ class ArchConfig:
     moe_every: int = 1
     capacity_factor: float = 1.0
     num_moe_groups: int = 1
+    # expert-parallel dispatch over the mesh's model axis: each rank runs the
+    # E/tp experts it holds and one f32 all-reduce merges the partial outputs
+    # (``layers.moe_forward``); off by default, as the reference, and switched
+    # on by the engine when ``E % model == 0``
+    moe_shard_map: bool = False
 
     # Mamba-2 SSD: d_inner = ssm_expand * d_model in heads of ssm_headdim,
     # shared B/C of ssm_state, a depthwise causal conv of ssm_conv_width,

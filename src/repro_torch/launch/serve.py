@@ -11,20 +11,32 @@ It runs on ``cuda`` unless given ``--device cpu``.  The weights are seeded
 random (``model.init``, seed 0).  ``--reduced`` is on by default, as in the
 reference, and ``--no-reduced`` serves the config at full width.  There is
 no ``--kernel-mode``: a tensor's device picks each kernel or its plain
-version.  ``--mesh`` raises: meshes are ROADMAP Queue 1 item 13.  The
-summary line prints ``device=`` where the reference prints
+version.  The summary line prints ``device=`` where the reference prints
 ``kernel_mode=``.
+
+``--mesh DxM --backend {nccl,gloo}`` serves mesh-sharded: ``main`` starts
+one process per mesh position (``launch.dist.spawn``; or, inside a process
+group its caller started, it runs as that rank), each drawing the same
+seed-0 weights and keeping its slice, and rank 0 prints the summary line
+and a ``mesh=`` line.  A mesh has no default backend: NCCL needs one card a
+rank; gloo serves ranks that share a card (or the CPU)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \
+        --mesh 1x2 --backend gloo --requests 8 --max-new 16
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, reduce_config
+from repro_torch.launch import dist as D
 from repro_torch.models import model as M
-from repro_torch.serving import (ChaosInjector, Engine, EngineConfig,
+from repro_torch.serving import (ChaosInjector, Engine, EngineConfig, MeshSpec,
                                  bytes_tokenizer_encode)
 
 
@@ -55,7 +67,11 @@ def parser() -> argparse.ArgumentParser:
                     help="w8a8: int8-quantize weights at load and serve "
                          "through the packed int8 GEMM kernel")
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="not ported: meshes are ROADMAP Queue 1 item 13")
+                    help="serve on a data x model mesh of ranks (e.g. 1x2), one "
+                         "process each; needs --backend")
+    ap.add_argument("--backend", default=None, choices=list(D.BACKENDS),
+                    help="the mesh's process-group backend: nccl (one card a rank) "
+                         "or gloo (ranks may share a card, or run on the CPU)")
     ap.add_argument("--deadline", type=float, default=None, metavar="S",
                     help="per-request deadline in seconds (queueing + "
                          "execution); expired requests retire "
@@ -108,15 +124,15 @@ def run(cfg, params, args):
         max_len=args.max_len, max_batch=args.batch, page_size=args.page_size,
         n_pages=args.pages, prefix_cache=not args.no_prefix_cache,
         chunk_tokens=args.chunk_tokens, max_queue=args.max_queue,
-        deadline_s=args.deadline, preemption=args.preemption, quant=args.quant),
-        device=args.device, chaos=chaos)
+        deadline_s=args.deadline, preemption=args.preemption, quant=args.quant,
+        mesh=args.mesh), device=args.device, chaos=chaos)
     prompts, rng = _prompt_stream(args.requests, cfg.vocab_size, 0)
     results = []
     if args.rate > 0:  # streaming arrivals
         due = np.cumsum(rng.exponential(1.0 / args.rate, len(prompts)))
         t0, nxt = time.time(), 0
         while nxt < len(prompts) or eng.num_queued or eng.num_active:
-            now = time.time() - t0
+            now = eng.shared(time.time() - t0)  # rank 0's clock on a mesh
             while nxt < len(prompts) and now >= due[nxt]:
                 eng.submit(prompts[nxt], args.max_new, args.temperature, seed=nxt)
                 nxt += 1
@@ -162,19 +178,52 @@ def summary_lines(cfg, eng, results, args) -> list[str]:
     return lines
 
 
-def main(argv=None):
-    args = parser().parse_args(argv)
-    if args.mesh is not None:
-        raise NotImplementedError(f"--mesh {args.mesh}: the port serves on one device; "
-                                  f"meshes are ROADMAP Queue 1 item 13")
+def _serve(args, device):
+    """Serve as one process (or one rank): seed-0 weights on ``device``,
+    :func:`run`, and the summary lines, printed by rank 0 only; on a mesh
+    one ``mesh=`` line follows them."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
-    params = M.init(cfg, seed=0, device=args.device)
+    params = M.init(cfg, seed=0, device=device)
+    args.device = str(device)
     results, _, eng = run(cfg, params, args)
-    for line in summary_lines(cfg, eng, results, args):
-        print(line)
+    agree = eng.ranks_agree(results)
+    if eng.mesh is None or eng.mesh.rank == eng.mesh.peers(None)[0]:
+        for line in summary_lines(cfg, eng, results, args):
+            print(line)
+        if eng.mesh is not None:
+            print(f"mesh={args.mesh} backend={eng.mesh.backend} ranks={eng.mesh.size_total} "
+                  f"ranks_agree={agree} decode_graph={eng.runner.graph.graphed}", flush=True)
+    if not agree:
+        raise RuntimeError("the mesh's ranks emitted different tokens")
     return results
+
+
+def _rank(rank, argv):
+    args = parser().parse_args(argv)
+    _serve(args, D.rank_device(rank, args.backend, args.device))
+
+
+def main(argv=None):
+    """Serve from the command line.  Returns the results (rank 0's when
+    this process is a rank of a started group); ``None`` when it spawned
+    the mesh's ranks, which print the summary themselves."""
+    args = parser().parse_args(argv)
+    if args.mesh is None:
+        return _serve(args, args.device)
+    spec = MeshSpec.parse(args.mesh)
+    if args.backend is None:
+        raise ValueError(f"--mesh {args.mesh} needs --backend: nccl (one card a rank) "
+                         f"or gloo (ranks may share a card, or run on the CPU)")
+    if dist.is_initialized():  # started by the caller: serve as this rank
+        if dist.get_backend() != args.backend:
+            raise ValueError(f"--backend {args.backend}, but the process group runs "
+                             f"{dist.get_backend()}")
+        return _serve(args, D.rank_device(dist.get_rank(), args.backend, args.device))
+    D.spawn(_rank, spec.size, args.backend,
+            args=(list(sys.argv[1:] if argv is None else argv),))
+    return None
 
 
 if __name__ == "__main__":

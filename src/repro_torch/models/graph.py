@@ -24,6 +24,11 @@ Capture is at the first :meth:`run` on the card; a failed capture raises
 (no eager fallback on the card).  On the CPU :meth:`run` calls the same
 function eagerly, so the CPU tests run what the card captures.
 
+On a mesh the step holds its collectives.  NCCL's can be captured, so
+under NCCL the step is graphed as above, collectives inside.  gloo's run
+on the host and cannot be, so under gloo the step runs eagerly by rule
+(:attr:`graphed` is False), and asking for a graph there raises.
+
 What capture needs of the kernels' wrappers:
 
 - every per-step value is one of the static buffers, filled with
@@ -59,11 +64,22 @@ class DecodeGraph:
     when ``pages_per_seq`` is given, else slot caches), captured once and
     replayed.  :meth:`load` fills the static buffers with one step's inputs
     (a decode loop then advances :attr:`cur` and :attr:`pos` in place);
-    :meth:`run` steps."""
+    :meth:`run` steps.  ``capture``: None graphs the step on the card unless
+    ``mesh`` runs gloo (then eager, by rule); True asks for the graph and is
+    refused on a gloo mesh on the card; False runs eagerly."""
 
     def __init__(self, cfg, params, caches, batch: int,
-                 pages_per_seq: int | None = None, device=None):
+                 pages_per_seq: int | None = None, device=None, mesh=None,
+                 capture: bool | None = None):
         dev = torch.device(device) if device is not None else params["embed"].device
+        gloo = mesh is not None and mesh.backend == "gloo"
+        if capture and dev.type == "cuda" and gloo:
+            raise ValueError("a decode graph was asked for on a gloo mesh: gloo "
+                             "collectives run on the host and cannot be captured; serve "
+                             "it eagerly (decode_graph=None or False) or start the ranks "
+                             "on nccl, one card each")
+        #: True when :meth:`run` replays a captured graph; False: eager steps
+        self.graphed = dev.type == "cuda" and (not gloo if capture is None else capture)
         self.cfg, self.params, self.caches = cfg, params, caches
         self.device = dev
         self.cur = torch.zeros(batch, dtype=torch.int32, device=dev)
@@ -114,7 +130,7 @@ class DecodeGraph:
         card (captured at the first call), :meth:`eager` on the CPU.
         Returns ``(lf, finite)``; on the card both are the graph's static
         outputs, overwritten by the next replay."""
-        if self.device.type != "cuda":
+        if not self.graphed:
             return self.eager()
         if self.graph is None:
             self._capture()

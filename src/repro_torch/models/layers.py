@@ -19,6 +19,15 @@ table, or that belongs to a chunk's padding, lands there — the counterpart
 of JAX's ``.at[].set(mode="drop")`` with no host round trip, and never a
 clamp onto a real row.  A slot cache drops a write past its last row by
 writing that row's old value back (:func:`_slot_write`).
+
+Under a mesh (``launch.sharding.activation_mesh``, set by the serving
+engine's runner) each layer computes this rank's shard, as the reference's
+``shard_map`` bodies do: a projection with the ``shard=("col", blocks)``
+hint yields this rank's output columns, one with ``("row", blocks)`` sums
+its partial GEMM over the model group in f32, anything else (no hint, or
+``blocks`` not a multiple of the model axis: the weight was left whole) is
+whole.  Attention runs on this rank's heads over its KV-pool shard, and MoE
+on its ``E / tp`` experts (``cfg.moe_shard_map``).
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from repro_torch.core.quant import QTensor
 from repro_torch.kernels._build import records
 from repro_torch.kernels.ops import attend_decode, attention
 from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.launch.sharding import current_mesh, tp_size
 from repro_torch.models.params import ParamSpec
 
 F32 = torch.float32
@@ -44,7 +54,18 @@ F32 = torch.float32
 # Dense projection — the single GEMM choke point of the model
 # ---------------------------------------------------------------------------
 
-def dense_proj(cfg: ArchConfig, x, w, out_shape: tuple = (), out_dtype=None):
+def _split(shard) -> str | None:
+    """"col" / "row" when the hint ``shard`` splits its GEMM on the current
+    mesh (its ``blocks`` a multiple of the model axis, as the rule that
+    sliced the weight), else None (the weight is whole)."""
+    tp = tp_size()
+    if tp == 1 or not shard or shard[1] % tp:
+        return None
+    return shard[0]
+
+
+def dense_proj(cfg: ArchConfig, x, w, out_shape: tuple = (), out_dtype=None,
+               shard: tuple | None = None):
     """x: [..., K] @ w -> [..., N] (or [..., *out_shape]).  ``w`` is a float
     weight whose dims reshape row-major to [K, N] (wq [D,H,dh] -> [D, H*dh];
     wo [H,dh,D] -> [H*dh, D] with the caller flattening x's head dims),
@@ -53,12 +74,28 @@ def dense_proj(cfg: ArchConfig, x, w, out_shape: tuple = (), out_dtype=None):
     ``out_dtype`` overrides the accumulator's store dtype (default the
     compute dtype; the LM head asks for f32).  Under w8a8, ``x`` may be the
     activation already quantized by :func:`shared_input` (one quantize for
-    every projection that reads it)."""
+    every projection that reads it).
+
+    ``shard=("col"|"row", blocks)`` is the reference's tensor-parallel hint
+    (``blocks`` the head / kv-head / ffn / vocab count), read under a mesh:
+    "col" — ``w`` is this rank's column slice and the output (``out_shape``
+    with its leading count cut to ``blocks / tp``) this rank's shard; "row"
+    — ``x`` and ``w`` are this rank's slices of the contraction: each
+    partial product leaves the GEMM's f32 accumulator unrounded, the
+    partials are summed over the model group in f32 and the sum is rounded
+    once to the store dtype, as the single device rounds its one sum (the
+    reference rounds each partial first, then sums in f32)."""
+    split = None if isinstance(w, QTensor) else _split(shard)  # int8 leaves stay whole
     if isinstance(w, QTensor):
         out = cgra_gemm_w8a8(x, w, out_dtype=out_dtype or cfg.compute_dtype)
+    elif split == "row":
+        out = cgra_gemm(x, w.reshape(x.shape[-1], -1), out_dtype=F32)
+        out = current_mesh().all_reduce(out, "model").to(out_dtype or x.dtype)
     else:
         out = cgra_gemm(x, w.reshape(x.shape[-1], -1), out_dtype=out_dtype)
     if out_shape:
+        if split == "col":
+            out_shape = (out_shape[0] // tp_size(), *out_shape[1:])
         out = out.reshape(*out.shape[:-1], *out_shape)
     return out
 
@@ -159,13 +196,32 @@ def attn_cache_specs(cfg: ArchConfig, batch: int, seq: int,
 def _qkv(cfg, p, x):
     H, K, dh = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
     xs = shared_input(x, p["wq"])
-    q = dense_proj(cfg, xs, p["wq"], (H, dh))
-    k = dense_proj(cfg, xs, p["wk"], (K, dh))
-    v = dense_proj(cfg, xs, p["wv"], (K, dh))
+    q = dense_proj(cfg, xs, p["wq"], (H, dh), shard=("col", H))
+    k = dense_proj(cfg, xs, p["wk"], (K, dh), shard=("col", K))
+    v = dense_proj(cfg, xs, p["wv"], (K, dh), shard=("col", K))
     if "q_norm" in p:
         q = rms_only(q, p["q_norm"])
         k = rms_only(k, p["k_norm"])
     return q, k, v
+
+
+def local_kv(cfg, t, dim: int):
+    """The KV heads of ``t`` (whole K heads at ``dim``) that this rank's
+    query heads read, when the query heads split over the model axis and
+    the KV heads do not (the reference gathers q there and slices the
+    output; reading each local head's own KV head instead gives the same
+    per-head products).  Every other case returns ``t``: both split (the
+    GQA fold intact on the shard) or neither (whole)."""
+    tp = tp_size()
+    H, K = cfg.padded_heads, cfg.num_kv_heads
+    if tp == 1 or H % tp or K % tp == 0:
+        return t
+    Hl, G = H // tp, H // K
+    first = current_mesh().index("model") * Hl
+    if Hl % G == 0:  # whole groups: a contiguous run of KV heads
+        return t.narrow(dim, first // G, Hl // G).contiguous()
+    idx = torch.arange(first, first + Hl, device=t.device) // G
+    return t.index_select(dim, idx)
 
 
 def _rows_with_drop(pool):
@@ -216,11 +272,25 @@ class StepRows:
     bounds.  ``pages`` is None off the paged cache; ``n`` [B] is the valid
     row count of a chunk (None for decode: every row is valid)."""
 
-    def __init__(self, positions, pages, n=None):
+    def __init__(self, positions, pages, n=None, full: "StepRows | None" = None):
         self.positions = positions
         self.pages = pages
         self.n = n
+        #: the whole batch's rows when this step's rows are one data shard
+        #: of it (a decode step under a mesh with ``data > 1``): new KV rows
+        #: are gathered over the data group and every rank writes them all,
+        #: so the pools stay whole on every data rank
+        self.full = full
         self._cache: dict = {}
+
+    def write(self, pool, new):
+        """Write this step's new rows ``new`` [B*S, ...] into ``pool`` in
+        place through the page table (the whole batch's, gathered over the
+        data group, when the step holds one data shard)."""
+        if self.full is not None:
+            new = current_mesh().all_gather(new, "data", 0)
+            return _write_rows(pool, new, self.full.rows(pool))
+        return _write_rows(pool, new, self.rows(pool))
 
     def _memo(self, key, build):
         if key not in self._cache:
@@ -261,9 +331,8 @@ def _attn_inputs(cfg, p, cache, x, rows: StepRows, local: bool):
     the page table in place.  Returns (q, k_pool, v_pool)."""
     B, S = x.shape[0], x.shape[1]
     q, k_new, v_new = _qkv_rope(cfg, p, x, rows, local)
-    idx = rows.rows(cache["k"])
-    k = _write_rows(cache["k"], k_new.reshape(B * S, *k_new.shape[2:]), idx)
-    v = _write_rows(cache["v"], v_new.reshape(B * S, *v_new.shape[2:]), idx)
+    k = rows.write(cache["k"], k_new.reshape(B * S, *k_new.shape[2:]))
+    v = rows.write(cache["v"], v_new.reshape(B * S, *v_new.shape[2:]))
     return q, k, v
 
 
@@ -326,11 +395,13 @@ def attn_forward(cfg: ArchConfig, p: dict, x, rows: StepRows, *, local: bool,
     if past_kv is not None:
         k_all = torch.cat([past_kv["k"].to(k.dtype), k], 1)
         v_all = torch.cat([past_kv["v"].to(v.dtype), v], 1)
-    o = dense_attention(q.transpose(1, 2), k_all.transpose(1, 2), v_all.transpose(1, 2),
+    o = dense_attention(q.transpose(1, 2), local_kv(cfg, k_all, 2).transpose(1, 2),
+                        local_kv(cfg, v_all, 2).transpose(1, 2),
                         causal=causal, window=cfg.window_size if local else 0,
                         softcap=cfg.logit_softcap, chunk=attn_chunk)
     o = o.transpose(1, 2)  # [B, S, H, dh]; free on the card (see flash_attention)
-    out = dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"])
+    out = dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"],
+                     shard=("row", cfg.padded_heads))
     return out, k, v
 
 
@@ -365,11 +436,12 @@ def attn_chunk_prefill(cfg: ArchConfig, p: dict, cache: dict, x, rows: StepRows,
     Returns (out, cache)."""
     q, k, v = _attn_inputs(cfg, p, cache, x, rows, local)
     window = cfg.window_size if local else 0
-    o = attention(q.transpose(1, 2), k, v, window=window,
-                  softcap=cfg.logit_softcap, pages=rows.pages,
+    o = attention(q.transpose(1, 2), local_kv(cfg, k, 2), local_kv(cfg, v, 2),
+                  window=window, softcap=cfg.logit_softcap, pages=rows.pages,
                   q_start=rows.pos0(), k_len=rows.k_len())
     o = o.transpose(1, 2)  # [B, C, H, dh]; free on the card (see flash_attention_paged)
-    out = dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"])
+    out = dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"],
+                     shard=("row", cfg.padded_heads))
     return out, {"k": k, "v": v}
 
 
@@ -399,8 +471,8 @@ def attn_decode(cfg: ArchConfig, p: dict, cache: dict, x, rows: StepRows, *,
     window = cfg.window_size if local else 0
     if rows.pages is not None:
         q, k, v = _attn_inputs(cfg, p, cache, x, rows, local)
-        o = attend_decode(q[:, 0].contiguous(), k, v, rows.pos0(),
-                          rows.start(window), layout=CacheLayout.PAGED,
+        o = attend_decode(q[:, 0].contiguous(), local_kv(cfg, k, 2), local_kv(cfg, v, 2),
+                          rows.pos0(), rows.start(window), layout=CacheLayout.PAGED,
                           pages=rows.pages, softcap=cfg.logit_softcap)
     else:
         q, k_new, v_new = _qkv_rope(cfg, p, x, rows, local)
@@ -410,10 +482,11 @@ def attn_decode(cfg: ArchConfig, p: dict, cache: dict, x, rows: StepRows, *,
         widx = torch.remainder(pos, k.shape[1]) if ring else pos
         _slot_write(k, k_new[:, 0], widx)
         _slot_write(v, v_new[:, 0], widx)
-        o = attend_decode(q[:, 0].contiguous(), k, v, pos, rows.start(0),
+        o = attend_decode(q[:, 0].contiguous(), local_kv(cfg, k, 2), local_kv(cfg, v, 2),
+                          pos, rows.start(0),
                           layout=CacheLayout.RING if ring else CacheLayout.LINEAR,
                           softcap=cfg.logit_softcap)
-    out = dense_proj(cfg, o.reshape(B, 1, -1), p["wo"])
+    out = dense_proj(cfg, o.reshape(B, 1, -1), p["wo"], shard=("row", cfg.padded_heads))
     return out, {"k": k, "v": v}
 
 
@@ -449,7 +522,8 @@ def _mla_q(cfg, p, xs, rows: StepRows):
     [B,S,H,dn], q_rope [B,S,H,dr]).  ``xs`` is ``shared_input`` of x."""
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     cq = rms_only(dense_proj(cfg, xs, p["wq_a"]), p["q_norm"])
-    q = dense_proj(cfg, cq, p["wq_b"], (cfg.padded_heads, dn + dr))
+    q = dense_proj(cfg, cq, p["wq_b"], (cfg.padded_heads, dn + dr),
+                   shard=("col", cfg.padded_heads))
     return q[..., :dn], apply_rope(q[..., dn:], rows.rope(dr, cfg.rope_theta))
 
 
@@ -469,18 +543,20 @@ def _mla_attend(cfg, p, x, rows: StepRows, attn_chunk: int = 0):
     query-chunked by ``attn_chunk`` (:func:`plain_attention`).  Returns
     (out [B,S,D], latent, k_rope)."""
     dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
-    H = cfg.padded_heads
     xs = shared_input(x, p["wq_a"])
     q_nope, q_rope = _mla_q(cfg, p, xs, rows)
+    H = q_nope.shape[2]  # this rank's heads under a mesh
     latent, k_rope = _mla_latent(cfg, p, xs, rows)
-    kv = dense_proj(cfg, latent, p["wkv_b"], (H, dn + dv))
+    kv = dense_proj(cfg, latent, p["wkv_b"], (cfg.padded_heads, dn + dv),
+                    shard=("col", cfg.padded_heads))
     k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], H, k_rope.shape[-1])
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([kv[..., :dn], k_rope_h], -1)
     o = plain_attention(q.transpose(1, 2), k.transpose(1, 2), kv[..., dn:].transpose(1, 2),
                         causal=True, chunk=attn_chunk)
     o = o.transpose(1, 2)  # [B, S, H, dv]
-    return dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"]), latent, k_rope
+    return (dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"],
+                       shard=("row", cfg.padded_heads)), latent, k_rope)
 
 
 def mla_forward(cfg: ArchConfig, p: dict, x, rows: StepRows, attn_chunk: int = 0):
@@ -516,7 +592,7 @@ def mla_decode(cfg: ArchConfig, p: dict, cache: dict, x, rows: StepRows):
     pos = rows.pos0()
     kv = cache["kv"]
     if rows.pages is not None:
-        _write_rows(kv, row, rows.rows(kv))
+        rows.write(kv, row)
         layout = CacheLayout.PAGED
     else:
         _slot_write(kv, row, pos)
@@ -530,7 +606,7 @@ def mla_decode(cfg: ArchConfig, p: dict, cache: dict, x, rows: StepRows):
     o_lat = attend_decode(q_cat, kv4, kv4, pos, rows.start(0), layout=layout,
                           pages=rows.pages, scale=(dn + dr) ** -0.5, dv=kvr)
     o = torch.einsum("bhr,rhd->bhd", o_lat, wkv_b[..., dn:])  # [B, H, dv]
-    out = dense_proj(cfg, o.reshape(B, 1, -1), p["wo"])
+    out = dense_proj(cfg, o.reshape(B, 1, -1), p["wo"], shard=("row", cfg.padded_heads))
     return out, {"kv": kv}
 
 
@@ -557,19 +633,19 @@ def cross_attn(cfg: ArchConfig, p: dict, x, img=None, img_kv=None):
     H, K, dh = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
     if img_kv is None:
         xs = shared_input(img, p["wk"])
-        k = dense_proj(cfg, xs, p["wk"], (K, dh))
-        v = dense_proj(cfg, xs, p["wv"], (K, dh))
+        k = dense_proj(cfg, xs, p["wk"], (K, dh), shard=("col", K))
+        v = dense_proj(cfg, xs, p["wv"], (K, dh), shard=("col", K))
         if "q_norm" in p:
             k = rms_only(k, p["k_norm"])
     else:
         k, v = img_kv
-    q = dense_proj(cfg, x, p["wq"], (H, dh))
+    q = dense_proj(cfg, x, p["wq"], (H, dh), shard=("col", H))
     if "q_norm" in p:
         q = rms_only(q, p["q_norm"])
-    o = dense_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                        causal=False)
+    o = dense_attention(q.transpose(1, 2), local_kv(cfg, k, 2).transpose(1, 2),
+                        local_kv(cfg, v, 2).transpose(1, 2), causal=False)
     o = o.transpose(1, 2)  # [B, S, H, dh]; free on the card
-    o = dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"])
+    o = dense_proj(cfg, o.reshape(*o.shape[:-2], -1), p["wo"], shard=("row", H))
     return torch.tanh(p["gate"].to(F32)).to(o.dtype) * o, (k, v)
 
 
@@ -601,16 +677,18 @@ def ffn_forward(cfg: ArchConfig, p: dict, x):
     """SwiGLU / GeGLU, or the audio encoder's GELU MLP ``gelu(x w1 + b1) w2
     + b2``: each bias added in the compute dtype after the GEMM's store, and
     the tanh form of GELU (``jax.nn.gelu``'s default), as the reference."""
+    Fdim = cfg.d_ff
     if ffn_kind(cfg) == "gelu_mlp":
         dt = cfg.compute_dtype
-        h = dense_proj(cfg, x, p["w1"]) + p["b1"].to(dt)
-        return dense_proj(cfg, F.gelu(h, approximate="tanh"), p["w2"]) + p["b2"].to(dt)
+        h = dense_proj(cfg, x, p["w1"], shard=("col", Fdim)) + p["b1"].to(dt)
+        return dense_proj(cfg, F.gelu(h, approximate="tanh"), p["w2"],
+                          shard=("row", Fdim)) + p["b2"].to(dt)
     xs = shared_input(x, p["w_gate"])
-    g = dense_proj(cfg, xs, p["w_gate"])
-    u = dense_proj(cfg, xs, p["w_up"])
+    g = dense_proj(cfg, xs, p["w_gate"], shard=("col", Fdim))
+    u = dense_proj(cfg, xs, p["w_up"], shard=("col", Fdim))
     act = (F.gelu(g, approximate="tanh") if ffn_kind(cfg) == "geglu"
            else F.silu(g))
-    return dense_proj(cfg, act * u, p["w_down"])
+    return dense_proj(cfg, act * u, p["w_down"], shard=("row", Fdim))
 
 
 # ---------------------------------------------------------------------------
@@ -700,7 +778,14 @@ def moe_forward(cfg: ArchConfig, p: dict, x):
     The token -> slot inversion is an integer ``scatter_`` with dropped
     choices sent to a trash slot; nothing here syncs with the host, so the
     decode step captures.  The reference's second result, the aux loss,
-    is :func:`moe_aux` of the returned route (serving does not need it)."""
+    is :func:`moe_aux` of the returned route (serving does not need it).
+
+    Expert-parallel (``cfg.moe_shard_map`` under a mesh whose model axis
+    divides E: the reference's ``_moe_expert_block(axis="model")``): the
+    route is computed whole on every rank, this rank dispatches, runs and
+    combines only the choices of its ``E / tp`` experts (its slice of the
+    expert weights), and one f32 all-reduce over the model group sums the
+    partial outputs."""
     B, S, D = x.shape
     E, k, dt = cfg.num_experts, cfg.experts_per_token, cfg.compute_dtype
     G = max(1, min(cfg.num_moe_groups, B * S))
@@ -709,22 +794,32 @@ def moe_forward(cfg: ArchConfig, p: dict, x):
     xt = x.reshape(G, T, D)
     r = moe_route(cfg, p, xt)
     C, GC = r.C, G * r.C
-    # slot of each choice as a row of the [E, G, C] expert batch; E*G*C is
-    # the trash row / the zero row of the combine
+    El = p["w_gate"].shape[0]  # this rank's experts
+    base, mine = 0, r.kept
+    if El != E:
+        mesh = current_mesh()
+        if not cfg.moe_shard_map or mesh is None or E != El * mesh.size("model"):
+            raise ValueError(f"{El} of {E} experts held: expert-parallel MoE needs "
+                             f"cfg.moe_shard_map and a mesh whose model axis is E / {El}")
+        base = mesh.index("model") * El
+        mine = mine & (r.topi >= base) & (r.topi < base + El)
+    # slot of each choice as a row of the [El, G, C] expert batch; El*G*C is
+    # the trash row / the zero row of the combine (another rank's choices
+    # and dropped ones point there)
     grp = torch.arange(G, device=dev)[:, None, None]
-    row = torch.where(r.kept, r.topi * GC + grp * C + r.pos, E * GC)  # [G, T, k]
+    row = torch.where(mine, (r.topi - base) * GC + grp * C + r.pos, El * GC)  # [G, T, k]
     tok = (torch.arange(G * (T + 1), device=dev).reshape(G, T + 1)[:, 1:, None]
            .expand(G, T, k))  # the token's row in x_pad
-    slot_tok = torch.zeros(E * GC + 1, dtype=torch.int64, device=dev)
+    slot_tok = torch.zeros(El * GC + 1, dtype=torch.int64, device=dev)
     slot_tok.scatter_(0, row.reshape(-1), tok.reshape(-1))
     # x_pad: every group's row 0 is zero (an empty slot points there, to the
     # first group's: also zero)
     xd = xt.to(dt)
     x_pad = torch.cat([xd.new_zeros(G, 1, D), xd], 1).reshape(-1, D)
-    ein = x_pad.index_select(0, slot_tok[:-1]).view(E, GC, D)
+    ein = x_pad.index_select(0, slot_tok[:-1]).view(El, GC, D)
     g = torch.bmm(ein, p["w_gate"])
     u = torch.bmm(ein, p["w_up"])
-    eout = torch.bmm(F.silu(g) * u, p["w_down"]).view(E * GC, D)
+    eout = torch.bmm(F.silu(g) * u, p["w_down"]).view(El * GC, D)
     eout = torch.cat([eout, eout.new_zeros(1, D)])
     order = torch.argsort(r.topi, -1)  # each token's choices by expert id
     rows = torch.gather(row, -1, order)
@@ -733,6 +828,8 @@ def moe_forward(cfg: ArchConfig, p: dict, x):
     out = terms[:, :, 0]
     for j in range(1, k):
         out = out + terms[:, :, j]
+    if El != E:
+        out = current_mesh().all_reduce(out, "model")
     return out.reshape(B, S, D), r
 
 

@@ -15,6 +15,13 @@ has no prefill or decode.  Caches are updated in place by the decode and
 chunk steps.  A cache leaf with a ``kv_seq`` axis holds rows (paged as a
 pool by the engine); one without (SSD state, a cross layer's image K/V) is
 indexed by slot.
+
+Under a mesh (``launch.sharding.activation_mesh``) every entry point runs
+this rank's shard: params from :func:`shard_params`, pools from
+``init_paged_cache(mesh=...)``; the embedding is a masked lookup in this
+rank's vocab rows summed over the model group, the head's vocab shards are
+gathered whole before any caller sees the logits, and a paged decode step
+splits its batch over the data group (:func:`forward_hidden`).
 """
 from __future__ import annotations
 
@@ -30,9 +37,10 @@ from repro_torch.core import resolve_device
 from repro_torch.core.gemm import cgra_gemm
 from repro_torch.core.quant import QTensor, quantize_over
 from repro_torch.kernels.ops import CGRA_MATMUL
+from repro_torch.launch.sharding import current_mesh, local_shape, local_slice, resolve_pspec
 from repro_torch.models import layers as L
 from repro_torch.models import ssd as S
-from repro_torch.models.params import (ParamSpec, init_params, stack_tree,
+from repro_torch.models.params import (ParamSpec, init_params, is_spec, stack_tree,
                                        tree_map_specs)
 
 F32 = torch.float32
@@ -158,6 +166,31 @@ def quantize_params(cfg: ArchConfig, params: dict) -> dict:
     return new
 
 
+def shard_params(cfg: ArchConfig, params: dict, mesh) -> dict:
+    """This rank's slice of ``params`` on ``mesh``: each leaf cut along the
+    dimensions ``launch.sharding.resolve_pspec`` gives its spec
+    (heads / kv_heads / ffn / vocab / experts over ``model``, the
+    divisibility fallback intact), as a tensor of its own, so the whole
+    tree can be freed after.  As the reference's ``shard_params``:
+    ``QTensor`` leaves (w8a8) stay whole, and so does ``lm_head_q`` (the
+    reference places it with the float head's spec, but as a ``QTensor``
+    it is whole there too).  One leaf more stays whole here: a MoE layer's
+    ``router``, whose logits every rank needs whole to route (the
+    reference's partitioner gathers them; the port has none)."""
+    specs = param_specs(cfg)
+
+    def walk(spec, val, name=None):
+        if is_spec(spec):
+            if isinstance(val, QTensor) or name == "router":
+                return val
+            return local_slice(val, mesh, resolve_pspec(spec, mesh))
+        if isinstance(spec, dict):
+            return {k: (walk(spec[k], v, k) if k in spec else v) for k, v in val.items()}
+        return [walk(sp, v) for sp, v in zip(spec, val)]
+
+    return walk(specs, params)
+
+
 # ---------------------------------------------------------------------------
 # Slot caches (the direct prefill -> decode_step loop)
 # ---------------------------------------------------------------------------
@@ -240,13 +273,15 @@ def pad_cache_len(cfg: ArchConfig, caches: list, new_len: int) -> list:
 # ---------------------------------------------------------------------------
 
 def paged_cache_specs(cfg: ArchConfig, max_batch: int, n_pages: int,
-                      page_size: int) -> list:
+                      page_size: int, mesh=None) -> list:
     """Per-stage paged cache specs: every ``kv_seq`` leaf becomes a pool
     shared across sequences — an attention layer's k/v ``[R, n_pages,
     page_size, K, dh]`` (R = the stage's stacked layers; sliding-window
     layers keep every row), an MLA layer's kv ``[R, n_pages, page_size,
     kvr + dr]``; page 0 is the engine's trash page.  Leaves without a
-    ``kv_seq`` axis (SSD state) stay slot-indexed ``[R, max_batch, ...]``."""
+    ``kv_seq`` axis (SSD state) stay slot-indexed ``[R, max_batch, ...]``.
+    With ``mesh``, each leaf's shape is this rank's share (``kv_heads``
+    over the model axis, as the reference places the pools)."""
     def to_pool(spec):
         if "kv_seq" not in spec.axes:
             return spec
@@ -260,7 +295,8 @@ def paged_cache_specs(cfg: ArchConfig, max_batch: int, n_pages: int,
         group = {str(i): _layer_cache_specs(cfg, sp, max_batch, page_size, local=False)
                  for i, sp in enumerate(stage.group)}
         out.append(stack_tree(group, stage.repeats))
-    return tree_map_specs(to_pool, out)
+    out = tree_map_specs(to_pool, out)
+    return out if mesh is None else tree_map_specs(lambda s: local_shape(s, mesh), out)
 
 
 def _pool(spec: ParamSpec, dtype, device):
@@ -275,7 +311,7 @@ def _pool(spec: ParamSpec, dtype, device):
 
 
 def init_paged_cache(cfg: ArchConfig, max_batch: int, n_pages: int,
-                     page_size: int, device=None) -> list:
+                     page_size: int, device=None, mesh=None) -> list:
     dev = resolve_device(device)
 
     def make(s):
@@ -283,7 +319,7 @@ def init_paged_cache(cfg: ArchConfig, max_batch: int, n_pages: int,
             return _pool(s, cfg.compute_dtype, dev)
         return torch.zeros(s.shape, dtype=s.dtype or cfg.compute_dtype, device=dev)
 
-    return tree_map_specs(make, paged_cache_specs(cfg, max_batch, n_pages, page_size))
+    return tree_map_specs(make, paged_cache_specs(cfg, max_batch, n_pages, page_size, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -356,12 +392,25 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x, *, mode: str,
     h = L.apply_norm(cfg, p["norm2"], x)
     aux = None
     if spec.ffn == "moe":
-        f, route = L.moe_forward(cfg, p["ffn"], h)
+        f, route = _moe_whole_batch(cfg, p["ffn"], h, rows)
         if mode == "train":
             aux = L.moe_aux(cfg, route)
     else:
         f = L.ffn_forward(cfg, p["ffn"], h)
     return x + f, cache, aux
+
+
+def _moe_whole_batch(cfg: ArchConfig, p: dict, h, rows: L.StepRows):
+    """``layers.moe_forward`` of a step's rows.  A data shard of a decode
+    batch gathers the whole batch first and keeps its own rows of the
+    output: capacity is shared by every row of a call, so the route must
+    see them all, as on one device."""
+    if rows.full is None:
+        return L.moe_forward(cfg, p, h)
+    mesh = current_mesh()
+    n, i = h.shape[0], mesh.index("data")
+    f, route = L.moe_forward(cfg, p, mesh.all_gather(h, "data", 0))
+    return f[i * n:(i + 1) * n], route
 
 
 def _apply_ssd(cfg: ArchConfig, p: dict, h, *, mode: str, cache):
@@ -434,7 +483,19 @@ def _apply_mla(cfg: ArchConfig, p: dict, h, *, mode: str, cache, rows: L.StepRow
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ArchConfig, params, tokens):
-    x = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    """Token rows of the embedding table.  A rank holding a vocab shard
+    (fewer rows than ``padded_vocab``) looks up its own rows, zeros the
+    others and sums over the model group: one nonzero term a row, so the
+    sum is exact."""
+    emb, t = params["embed"], tokens.long()
+    if emb.shape[0] == cfg.padded_vocab:
+        x = emb[t].to(cfg.compute_dtype)
+    else:
+        mesh = current_mesh()
+        local = t - mesh.index("model") * emb.shape[0]
+        ok = ((local >= 0) & (local < emb.shape[0]))[..., None]
+        x = torch.where(ok, emb[torch.where(ok[..., 0], local, 0)], 0).to(cfg.compute_dtype)
+        x = mesh.all_reduce(x, "model")
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.compute_dtype)
     return x
@@ -472,12 +533,22 @@ def project_images(cfg: ArchConfig, params, images):
 def lm_logits(cfg: ArchConfig, params, hidden):
     """f32 logits straight from the GEMM's f32 accumulator.  A tied head
     reads the [Vp, D] embedding table in place as the GEMM's [N, K] operand
-    (no per-call transpose), or its int8 copy ``lm_head_q`` under w8a8."""
+    (no per-call transpose), or its int8 copy ``lm_head_q`` under w8a8.
+    Under a mesh the head is vocab-parallel (``shard=("col",
+    padded_vocab)``, the reference's): each rank computes its vocab shard
+    and the shards are gathered over the model group, so every rank holds
+    the whole row for its sampler."""
     if cfg.tie_embeddings:
         if "lm_head_q" in params:
-            return L.dense_proj(cfg, hidden, params["lm_head_q"], out_dtype=F32)
-        return cgra_gemm(hidden, params["embed"], out_dtype=F32, trans_b=True)
-    return L.dense_proj(cfg, hidden, params["lm_head"], out_dtype=F32)
+            logits = L.dense_proj(cfg, hidden, params["lm_head_q"], out_dtype=F32)
+        else:
+            logits = cgra_gemm(hidden, params["embed"], out_dtype=F32, trans_b=True)
+    else:
+        logits = L.dense_proj(cfg, hidden, params["lm_head"], out_dtype=F32,
+                              shard=("col", cfg.padded_vocab))
+    if logits.shape[-1] != cfg.padded_vocab:
+        logits = current_mesh().all_gather(logits, "model", dim=-1)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -565,6 +636,8 @@ def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
                          f"{cfg.vision_tokens}, {cfg.vision_dim}]")
     B, C = x.shape[0], x.shape[1]
     dev = x.device
+    mesh = current_mesh()
+    data_shard = None
     if mode == "chunk":
         past = _rows(past_len, B, dev)
         positions = past[:, None] + torch.arange(C, dtype=torch.int32,
@@ -572,6 +645,14 @@ def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
         rows = L.StepRows(positions, pages, _rows(chunk_len, B, dev))
     elif mode == "decode":
         rows = L.StepRows(pos[:, None], pages)
+        nd = mesh.size("data") if mesh is not None else 1
+        if nd > 1 and pages is not None and B % nd == 0:
+            # the reference's "batch" rule: the decode batch splits over the
+            # data group (a batch it does not divide stays whole everywhere)
+            lo = mesh.index("data") * (B // nd)
+            data_shard = slice(lo, lo + B // nd)
+            rows = L.StepRows(pos[data_shard, None], pages[data_shard], full=rows)
+            x = x[data_shard]
     else:
         rows = L.StepRows(torch.arange(C, dtype=torch.int32, device=dev)
                           + int(past_len), None)
@@ -607,6 +688,8 @@ def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
         if mode == "prefill":
             new_caches.append(_stack_layers(per_layer))
     hidden = L.apply_norm(cfg, params["final_norm"], x)
+    if data_shard is not None:
+        hidden = mesh.all_gather(hidden, "data", 0)
     if mode == "prefill":
         out_caches = new_caches
     else:

@@ -64,6 +64,36 @@ def count_params(spec_tree) -> int:
 MAX_DRAW = 2 ** 30
 
 
+_LN2 = 0.6931471805599453
+
+
+def _log(u):
+    """``log(u)`` for positive f32 ``u``, in f64 additions, products and
+    quotients only, rounded once to f32: ``e ln 2 + 2 atanh(s)`` with ``u =
+    m 2^e``, ``m`` in [0.5, 1), ``s = (m - 1) / (m + 1)`` in [-1/3, 0), the
+    series to 24 terms (|s|^49 < 2^-77).  Every step is one exactly rounded
+    IEEE operation, so the bits depend on ``u`` alone: not on the thread
+    count, the buffer or which vectorised or scalar path a library's ``log``
+    takes for an element."""
+    m, e = torch.frexp(u.double())
+    s = (m - 1.0) / (m + 1.0)
+    s2 = s * s
+    acc = torch.full_like(s, 1.0 / 47.0)
+    for k in range(45, 0, -2):
+        acc = acc * s2 + 1.0 / k
+    return (e.double() * _LN2 + 2.0 * s * acc).float()
+
+
+def _expm1(u):
+    """``exp(u) - 1`` for f32 ``u`` in [0, 0.1], as :func:`_log`: the Taylor
+    series to 16 terms in f64 (0.1^17 / 17! < 2^-110), rounded once to f32."""
+    x = u.double()
+    acc = torch.full_like(x, 1.0)
+    for k in range(16, 1, -1):
+        acc = acc * x / k + 1.0
+    return (x * acc).float()
+
+
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, default_dtype, device):
     dtype = spec.dtype or default_dtype
     shape = tuple(int(s) for s in spec.shape)
@@ -76,7 +106,7 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, default_dtype, device):
         u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
         u = u * (hi - lo) + lo
         # A_log ~ log U[1, 16]; dt_bias = inverse softplus of U[1e-3, 1e-1]
-        return (torch.log(u) if spec.init == "ssm_a" else torch.log(torch.expm1(u))).to(dtype)
+        return (_log(u) if spec.init == "ssm_a" else _log(_expm1(u))).to(dtype)
     if spec.init == "normal":
         std = 0.02
     elif spec.init == "scaled":

@@ -1,7 +1,7 @@
 from repro_torch.core.cache import CacheLayout  # noqa: F401
 from repro_torch.serving.chaos import (FAULT_POINTS, ChaosError,  # noqa: F401
                                        ChaosInjector)
-from repro_torch.serving.config import CacheSpec, EngineConfig  # noqa: F401
+from repro_torch.serving.config import CacheSpec, EngineConfig, MeshSpec  # noqa: F401
 from repro_torch.serving.engine import (Engine, FinishReason,  # noqa: F401
                                         ModelRunner, Request, RequestResult,
                                         Scheduler, ServeStats,

@@ -1,8 +1,7 @@
 """Serving configuration (port of ``repro.serving.config``): ``EngineConfig``
-with the fields this port implements, and the ``CacheSpec`` it derives.
-
-Mesh placement waits for the multi-GPU slice; the port has no kernel-mode
-override (a tensor's device picks the kernel or its plain version)."""
+with the fields this port implements, the ``CacheSpec`` it derives, and the
+``MeshSpec`` of a mesh-sharded engine.  The port has no kernel-mode override
+(a tensor's device picks the kernel or its plain version)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -28,6 +27,49 @@ class CacheSpec:
     def max_rows(self) -> int:
         """Usable KV rows (the trash page is bookkeeping, not capacity)."""
         return (self.n_pages - 1) * self.page_size
+
+
+@dataclass(frozen=True)
+class MeshSpec:
+    """Serving mesh geometry: ``data`` replicas x ``model`` tensor / expert-
+    parallel shards, built over the first ``data * model`` ranks of the
+    process group (``launch.mesh.make_device_mesh``).  Parse the CLI
+    spelling with ``MeshSpec.parse("2x4")`` (``"4"`` alone means
+    model-parallel only)."""
+    data: int = 1
+    model: int = 1
+
+    def __post_init__(self):
+        if self.data < 1 or self.model < 1:
+            raise ValueError(f"mesh axes must be >= 1, got "
+                             f"data={self.data} model={self.model}")
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+    @classmethod
+    def parse(cls, s: "str | MeshSpec") -> "MeshSpec":
+        if isinstance(s, MeshSpec):
+            return s
+        parts = str(s).lower().replace("×", "x").split("x")
+        try:
+            if len(parts) == 1:
+                return cls(1, int(parts[0]))
+            if len(parts) == 2:
+                return cls(int(parts[0]), int(parts[1]))
+        except ValueError:
+            pass
+        raise ValueError(f"mesh spec {s!r}: expected 'DxM' (e.g. '1x8') or "
+                         f"a bare model-parallel degree (e.g. '8')")
+
+    def build(self):
+        """The :class:`~repro_torch.launch.mesh.Mesh` over the first ``size``
+        ranks, its process groups made (a collective: every rank of the
+        world calls it).  A 1 x 1 spec needs no process group.  Raises when
+        the world has fewer ranks than the mesh."""
+        from repro_torch.launch.mesh import make_device_mesh
+        return make_device_mesh((self.data, self.model), ("data", "model"))
 
 
 @dataclass(frozen=True)
@@ -63,6 +105,12 @@ class EngineConfig:
     quant:        "w8a8" int8-quantizes the weights once at init
                   (``model.quantize_params``); None or "none" serves them as
                   given
+    mesh:         optional ``MeshSpec`` (or its CLI string, ``"1x2"`` /
+                  ``"2"``): every rank of a ``torch.distributed`` process
+                  group of that size runs the same engine on its slice of the
+                  params and pools (tensor-parallel dense layers, KV pools
+                  over KV heads, expert-parallel MoE, the decode batch over
+                  ``data``).  ``None`` keeps the single-device engine
     """
     page_size: int = 64
     n_pages: int | None = None
@@ -76,6 +124,7 @@ class EngineConfig:
     deadline_s: float | None = None
     preemption: str = "off"
     quant: str | None = None
+    mesh: MeshSpec | str | None = None
 
     def __post_init__(self):
         if self.quant not in (None, "none", "w8a8"):
@@ -103,6 +152,8 @@ class EngineConfig:
         if self.n_pages < 2:
             raise ValueError("n_pages must be >= 2 (one usable page plus the "
                              "reserved trash page)")
+        if self.mesh is not None and not isinstance(self.mesh, MeshSpec):
+            object.__setattr__(self, "mesh", MeshSpec.parse(self.mesh))
 
     def cache_spec(self) -> CacheSpec:
         return CacheSpec(CacheLayout.PAGED, self.page_size, self.n_pages,

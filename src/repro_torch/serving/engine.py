@@ -58,9 +58,26 @@ A preempted request keeps its generator, so its stream continues across
 the preemption as the JAX engine's saved key does.  ``jax.random``'s
 streams cannot be reproduced, so sampled tokens match the JAX engine's only
 in distribution.
+
+Mesh-sharded serving (``EngineConfig(mesh=MeshSpec(data, model))``): every
+rank of a ``torch.distributed`` process group runs this same engine and the
+same :class:`Scheduler` (SPMD: the caller makes the same calls on every
+rank).  The runner holds the rank's slice of the params
+(``model.shard_params``) and of the pools, and runs every device step under
+``activation_mesh``; the logits reach the sampler whole on every rank, so
+greedy and sampled tokens are the same bytes everywhere.  Every host value
+a rank could see differently is rank 0's, broadcast: the engine clock (wall
+or the chaos injector's skewed clock: deadlines, arrivals, emission times)
+and any value the caller passes through :meth:`Engine.shared` (the Poisson
+arrivals of ``launch.serve``).  Request seeds are the caller's (0 unless
+given), never drawn from the OS.  Under gloo the decode step runs eagerly
+by rule (gloo collectives cannot be captured in a CUDA graph); under NCCL
+it is captured with its collectives inside.
 """
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -71,6 +88,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import resolve_device, round_up
+from repro_torch.launch.sharding import activation_mesh
 from repro_torch.models import model as M
 from repro_torch.models.graph import DecodeGraph
 from repro_torch.serving.chaos import ChaosError, ChaosInjector
@@ -220,19 +238,30 @@ class ModelRunner:
     runs the decode chunk, the mixed step and the copy-on-write page copy
     on it."""
 
-    def __init__(self, cfg: ArchConfig, params, config: EngineConfig, device):
+    def __init__(self, cfg: ArchConfig, params, config: EngineConfig, device,
+                 mesh=None):
         self.cfg = cfg
         self.device = device
+        #: this rank's mesh (None: one device); params and pools are its shard
+        self.mesh = mesh
+        if mesh is not None:
+            params = M.shard_params(cfg, params, mesh)
         self.params = params
         self.vocab = cfg.vocab_size
         self.eos_id = config.eos_id
         self.page_size = config.page_size
         self.specs = M.paged_cache_specs(cfg, config.max_batch, config.n_pages,
-                                         config.page_size)
+                                         config.page_size, mesh)
         self.caches = M.init_paged_cache(cfg, config.max_batch, config.n_pages,
-                                         config.page_size, device=device)
+                                         config.page_size, device=device, mesh=mesh)
         self.graph = DecodeGraph(cfg, params, self.caches, config.max_batch,
-                                 config.cache_spec().pages_per_seq, device)
+                                 config.cache_spec().pages_per_seq, device, mesh=mesh)
+
+    def on_mesh(self):
+        """The context every device step runs in: ``activation_mesh`` of
+        this rank's mesh, or nothing off a mesh."""
+        return (contextlib.nullcontext() if self.mesh is None
+                else activation_mesh(self.mesh))
 
     def _sample(self, lf, temps, gens):
         """lf [B, V] f32 -> [B] int32.  Rows with ``temps[i] > 0`` draw from
@@ -284,7 +313,8 @@ class ModelRunner:
         [B, 3 + 2*steps] int32 = cur, pos, remaining, tokens, ok flags."""
         state = torch.from_numpy(np.stack([cur, pos, remaining])).to(self.device)
         self.graph.load(state[0], state[1], pages, nanmask)
-        c, p, r, toks, oks = self._decode_steps(state[2], temps, gens, steps)
+        with self.on_mesh():
+            c, p, r, toks, oks = self._decode_steps(state[2], temps, gens, steps)
         out = torch.cat([c[:, None], p[:, None], r[:, None], toks,
                          oks.to(torch.int32)], 1)
         return out.cpu().numpy()
@@ -300,14 +330,16 @@ class ModelRunner:
         state = torch.from_numpy(np.stack([cur, pos, remaining])).to(dev)
         tables = torch.from_numpy(np.concatenate([chunk_pages, dec_pages])).to(dev)
         buf_t = torch.from_numpy(buf).to(dev)
-        logits, _ = M.chunk_step(self.cfg, self.params, self.caches, buf_t,
-                                 tables[:1], past, n)
+        with self.on_mesh():
+            logits, _ = M.chunk_step(self.cfg, self.params, self.caches, buf_t,
+                                     tables[:1], past, n)
         lf = logits[:, -1, : self.vocab]
         if chunk_nan:
             lf = torch.full_like(lf, float("nan"))
         tok0 = self._sample(lf, [chunk_temp], [chunk_gen])
         self.graph.load(state[0], state[1], tables[1:], nanmask)
-        c, p, r, toks, oks = self._decode_steps(state[2], temps, gens, 1)
+        with self.on_mesh():
+            c, p, r, toks, oks = self._decode_steps(state[2], temps, gens, 1)
         head = torch.stack([tok0[0], torch.isfinite(lf).all().to(torch.int32)])
         out = torch.cat([head, torch.cat([c[:, None], p[:, None], r[:, None],
                                           toks, oks.to(torch.int32)], 1).reshape(-1)])
@@ -324,7 +356,8 @@ class ModelRunner:
         device->host copy."""
         dev = self.device
         toks = torch.tensor([tokens], dtype=torch.int32, device=dev)
-        logits, small = M.prefill(self.cfg, self.params, toks, full_kv=True)
+        with self.on_mesh():
+            logits, small = M.prefill(self.cfg, self.params, toks, full_kv=True)
         self._scatter_new(small, torch.from_numpy(table).to(dev), slot, len(tokens))
         lf = logits[:, -1, : self.vocab]
         tok = self._sample(lf, [temp], [gen])
@@ -757,6 +790,12 @@ class Engine:
     preemption behind ``EngineConfig(preemption=...)``.  Pass
     ``chaos=ChaosInjector(...)`` to drive the fault points
     deterministically (the injector also becomes the engine's clock).
+
+    ``EngineConfig(mesh=...)`` of more than one rank needs a started process
+    group (``launch.dist``) with at least that many ranks; every rank passes
+    the same whole ``params`` and keeps its slice.  The decode step is a
+    CUDA graph on the card unless the mesh's backend is gloo (then eager, by
+    rule: ``models.graph``).
     """
 
     def __init__(self, cfg: ArchConfig, params,
@@ -773,6 +812,25 @@ class Engine:
         if emb.device.type != self.device.type:
             raise ValueError(f"params live on {emb.device}, engine on {self.device}")
         self.config = config or EngineConfig()
+        spec = self.config.mesh
+        self.mesh = None
+        if spec is not None and spec.size > 1:
+            if any(sp.mixer == "ssm" for sp in cfg.layer_specs()):
+                raise NotImplementedError(f"{cfg.name}: SSD layers are not ported to a mesh "
+                                          f"(ROADMAP Queue 1 item 13); serve it on one device")
+            if self.config.quant == "w8a8" and spec.model > 1:
+                raise NotImplementedError("w8a8 over a model-parallel mesh is not ported "
+                                          "(ROADMAP Queue 1 item 13): its row-parallel int8 "
+                                          "GEMMs need the whole activation; serve w8a8 with "
+                                          "model=1")
+            self.mesh = spec.build()
+            if self.mesh.coords is None:
+                raise ValueError(f"rank {self.mesh.rank} lies outside the {spec.data}x"
+                                 f"{spec.model} mesh: only its first {spec.size} ranks serve")
+            if spec.model > 1 and cfg.num_experts and cfg.num_experts % spec.model == 0:
+                # expert-parallel MoE: each rank holds E / model experts (the
+                # reference's rule, repro/serving/engine.py:995-1001)
+                cfg = cfg.with_(moe_shard_map=True)
         if self.config.quant == "w8a8":
             params = M.quantize_params(cfg, params)  # idempotent
         self.cfg, self.params = cfg, params
@@ -781,7 +839,8 @@ class Engine:
         self.stats = ServeStats()
         self.chaos = chaos
         self._closed = False
-        self.runner = ModelRunner(cfg, params, self.config, self.device)
+        self.runner = ModelRunner(cfg, params, self.config, self.device, self.mesh)
+        self.params = self.runner.params  # on a mesh this rank's slice: the whole can go
         # prefix-decomposable prefill: attention other than MLA; SSD state
         # is not (the JAX engine's rule)
         decomposable = (not cfg.use_mla and
@@ -794,8 +853,34 @@ class Engine:
 
     def _now(self) -> float:
         """The engine clock: the chaos injector's skewed clock when one is
-        attached, wall time otherwise."""
-        return self.chaos.now() if self.chaos is not None else time.time()
+        attached, wall time otherwise; rank 0's on a mesh."""
+        return self.shared(self.chaos.now() if self.chaos is not None else time.time())
+
+    def _dev(self):
+        """Where a host value travels for a collective: the card under
+        NCCL (it moves device memory only), else the host."""
+        return self.device if self.mesh.backend == "nccl" else "cpu"
+
+    def shared(self, value: float) -> float:
+        """``value`` as rank 0 of the mesh sees it (one broadcast; ``value``
+        itself off a mesh): how every host decision that reads the clock or
+        anything else a rank could see differently is taken once."""
+        if self.mesh is None:
+            return value
+        t = torch.tensor([value], dtype=torch.float64, device=self._dev())
+        return float(self.mesh.broadcast(t, None)[0])
+
+    def ranks_agree(self, results) -> bool:
+        """Debug check for a mesh: True when every rank of it finished the
+        same requests with the same tokens and reasons (a digest of
+        ``results``, gathered).  Always True off a mesh."""
+        if self.mesh is None:
+            return True
+        h = hashlib.sha256(repr(sorted((r.rid, tuple(r.generated), r.finish_reason.value)
+                                       for r in results)).encode()).digest()
+        t = torch.tensor(list(h[:8]), dtype=torch.int64, device=self._dev())
+        everyone = self.mesh.all_gather(t[None], None, 0)
+        return bool((everyone == t[None]).all())
 
     @property
     def pool(self) -> PagePool:

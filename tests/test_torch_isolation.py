@@ -29,8 +29,10 @@ def test_import_pulls_in_no_jax_and_no_repro():
             "repro_torch.configs.gemma3_4b", "repro_torch.kernels.block_gemm",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.decode_attention", "repro_torch.launch.serve",
-            "repro_torch.core.cgra", "repro_torch.launch.roofline"} <= set(mods)
-    assert len(mods) >= 22
+            "repro_torch.core.cgra", "repro_torch.launch.roofline",
+            "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+            "repro_torch.launch.dist", "repro_torch.core.torus"} <= set(mods)
+    assert len(mods) >= 26
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

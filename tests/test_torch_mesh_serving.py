@@ -1,0 +1,323 @@
+"""Mesh-sharded serving in the port against the JAX single-device engine.
+
+The scenarios of ``tests/test_mesh_serving.py`` on reduced ``cgra-edge``
+and reduced qwen3-moe, with the reference's weights crossed as numpy
+(``bridge.params_from_numpy``): four gloo ranks on the CPU, spawned once
+for the module, serve them on meshes 1x2, 1x4, 2x1 and 2x2 (a rank outside
+a scenario's mesh sits it out), each rank writing what it served.  Each
+test case reads one scenario: greedy tokens equal to the JAX engine's
+(whole-suffix and chunked prefill, the batch over the data group at 2x1 and
+2x2), radix reuse, a prompt joining mid-stream, the composed resilience
+scenario (one REJECTED / CANCELLED / FAULT / DEADLINE, every counter moved
+once: the rank-0 clock broadcast carries the chaos skew), expert-parallel
+MoE at 1x2 and 2x2 (tokens equal, prefill logits within 1e-4 in f32), the
+same tokens on every rank, and the refusals."""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as JC
+from repro.checkpoint.manager import _flatten
+from repro.models import model as JM
+from repro.serving import Engine as JEngine
+from repro.serving import EngineConfig as JEngineConfig
+import repro_torch.configs as TC
+from repro_torch.models import model as TM
+from repro_torch.models.graph import DecodeGraph
+from repro_torch.serving import Engine, EngineConfig
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+KW = dict(max_batch=4, max_len=128, page_size=16)
+SHAPES = ("1x2", "1x4", "2x1", "2x2")
+
+
+def _prompts(V):
+    return [[(7 * i + j) % V for j in range(5 + 3 * i)] for i in range(4)]
+
+
+def _moe_prompts(V):
+    return [[(3 * i + j) % V for j in range(6 + 2 * i)] for i in range(3)]
+
+
+RANKS = textwrap.dedent("""
+    import json, sys
+    import numpy as np
+    import torch
+
+    import repro_torch.configs as TC
+    from repro_torch.launch import dist as D
+    from repro_torch.launch.sharding import activation_mesh
+    from repro_torch.models import bridge
+    from repro_torch.models import model as M
+    from repro_torch.serving import ChaosInjector, Engine, EngineConfig, MeshSpec
+
+    KW = dict(max_batch=4, max_len=128, page_size=16)
+
+    def body(rank, tmp):
+        torch.set_num_threads(1)
+        shapes = [MeshSpec.parse(s) for s in ("1x2", "1x4", "2x1", "2x2")]
+        for spec in shapes:  # every rank makes every mesh's groups, in order
+            spec.build()
+        out = {}
+
+        def record(key, eng, results, **extra):
+            out[key] = dict(tokens=sorted([r.rid, list(r.generated), r.finish_reason.value]
+                                          for r in results),
+                            agree=eng.ranks_agree(results),
+                            graphed=eng.runner.graph.graphed, **extra)
+
+        cfg = TC.reduce_config(TC.get_config("cgra-edge"))
+        params = bridge.params_from_numpy(cfg, dict(np.load(f"{tmp}/edge.npz")), "cpu")
+        prompts = [[(7 * i + j) % cfg.vocab_size for j in range(5 + 3 * i)] for i in range(4)]
+        for spec in shapes:
+            if spec.build().coords is None:
+                continue
+            for chunk in (None, 8):
+                eng = Engine(cfg, params, EngineConfig(mesh=spec, chunk_tokens=chunk, **KW),
+                             device="cpu")
+                for i, p in enumerate(prompts):
+                    eng.submit(p, 12, 0.0, seed=i)
+                record(f"dense/{spec.data}x{spec.model}/{chunk}", eng, eng.run(),
+                       collectives=eng.mesh.collectives)
+
+        mcfg = TC.reduce_config(TC.get_config("qwen3-moe-30b-a3b"))
+        mparams = bridge.params_from_numpy(mcfg, dict(np.load(f"{tmp}/moe.npz")), "cpu")
+        mp = [[(3 * i + j) % mcfg.vocab_size for j in range(6 + 2 * i)] for i in range(3)]
+        # expert-parallel over model and the decode batch over data at once
+        meng = Engine(mcfg, mparams, EngineConfig(mesh="2x2", **KW), device="cpu")
+        for i, p in enumerate(mp):
+            meng.submit(p, 8, 0.0, seed=i)
+        record("moe_2x2", meng, meng.run(), shard_map=meng.cfg.moe_shard_map)
+
+        one_by_two = shapes[0].build().coords is not None
+        if one_by_two:
+            shared = prompts[0] * 7
+            family = [shared + [t] for t in (1, 2, 3)]
+            warm = Engine(cfg, params, EngineConfig(mesh="1x2", **KW), device="cpu")
+            rids = [warm.submit(p, 8) for p in family]
+            res = warm.run()
+            record("radix", warm, res, hit_rate=warm.prefix_hit_rate,
+                   pages_back=warm.pool.num_free)
+            cold = Engine(cfg, params, EngineConfig(mesh="1x2", prefix_cache=False, **KW),
+                          device="cpu")
+            for p in family:
+                cold.submit(p, 8)
+            record("radix_cold", cold, cold.run())
+
+            seng = Engine(cfg, params, EngineConfig(mesh="1x2", chunk_tokens=8, **KW),
+                          device="cpu")
+            seng.submit(prompts[0], 16, 0.0, seed=0)
+            res = seng.step()
+            seng.submit(prompts[1], 16, 0.0, seed=1)
+            while seng.num_queued or seng.num_active:
+                res.extend(seng.step())
+            record("midstream", seng, res, mixed=seng.stats.mixed_steps)
+
+            chaos = ChaosInjector(schedule={"logits.nan": {2}, "clock.skew": {6}},
+                                  skew_s=1000.0)
+            reng = Engine(cfg, params, EngineConfig(mesh="1x2", max_batch=1, max_len=128,
+                                                    page_size=16, decode_chunk=4,
+                                                    max_queue=2, prefix_cache=False),
+                          device="cpu", chaos=chaos)
+            mk = lambda i: [(11 * i + j) % cfg.vocab_size for j in range(20)]
+            ra = reng.submit(mk(1), 6)
+            rb = reng.submit(mk(2), 6)
+            rc = reng.submit(mk(3), 6)
+            cancelled = reng.cancel(rb)
+            rd = reng.submit(mk(4), 30, deadline_s=5.0)
+            res = []
+            while reng.num_queued or reng.num_active:
+                res.extend(reng.step())
+            res.extend(reng.run())
+            s = reng.stats
+            record("resilience", reng, res, rids=[ra, rb, rc, rd], cancelled=cancelled,
+                   counters=[s.rejected, s.cancelled, s.faults_isolated,
+                             s.deadline_expired, s.preempted],
+                   pages_free=reng.pool.num_free, pages=reng.pool.n_pages,
+                   events=[list(e) for e in chaos.events])
+
+            meng = Engine(mcfg, mparams, EngineConfig(mesh="1x2", **KW), device="cpu")
+            for i, p in enumerate(mp):
+                meng.submit(p, 8, 0.0, seed=i)
+            record("moe", meng, meng.run(), shard_map=meng.cfg.moe_shard_map,
+                   experts_held=int(meng.runner.params["stages"][0]["0"]["ffn"]["w_gate"]
+                                    .shape[1]))
+            scfg = mcfg.with_(moe_shard_map=True)
+            sp = M.shard_params(scfg, mparams, meng.mesh)
+            with activation_mesh(meng.mesh):
+                lg = M.prefill(scfg, sp, torch.tensor([mp[0]], dtype=torch.int32))[0]
+            np.save(f"{tmp}/moe_logits_r{rank}.npy", lg.numpy())
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+
+    if __name__ == "__main__":
+        D.spawn(body, 4, "gloo", args=(sys.argv[1],))
+""")
+
+
+def _jax_tokens(eng, prompts, max_new):
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new, 0.0, seed=i)
+    return sorted([r.rid, list(r.generated), r.finish_reason.value] for r in eng.run())
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """(what each rank served, keyed by scenario; the JAX single-device
+    engine's answers to the same scenarios)."""
+    tmp = tmp_path_factory.mktemp("mesh")
+    ecfg = JC.reduce_config(JC.get_config("cgra-edge"))
+    eparams = JM.init(ecfg, jax.random.PRNGKey(0))
+    mcfg = JC.reduce_config(JC.get_config("qwen3-moe-30b-a3b"))
+    mparams = JM.init(mcfg, jax.random.PRNGKey(1))
+    np.savez(tmp / "edge.npz", **_flatten(eparams))
+    np.savez(tmp / "moe.npz", **_flatten(mparams))
+    script = tmp / "ranks.py"
+    script.write_text(RANKS)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.Popen([sys.executable, str(script), str(tmp)], env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+    # the JAX engine's answers, computed while the ranks serve
+    prompts = _prompts(ecfg.vocab_size)
+    want = {f"dense/{c}": _jax_tokens(JEngine(ecfg, eparams, JEngineConfig(
+        chunk_tokens=c, **KW)), prompts, 12) for c in (None, 8)}
+    family = [prompts[0] * 7 + [t] for t in (1, 2, 3)]
+    want["radix"] = _jax_tokens(JEngine(ecfg, eparams, JEngineConfig(**KW)), family, 8)
+    ref = JEngine(ecfg, eparams, JEngineConfig(chunk_tokens=8, **KW))
+    ref.submit(prompts[0], 16, 0.0, seed=0)
+    res = ref.step()
+    ref.submit(prompts[1], 16, 0.0, seed=1)
+    while ref.num_queued or ref.num_active:
+        res.extend(ref.step())
+    want["midstream"] = sorted([r.rid, list(r.generated), r.finish_reason.value] for r in res)
+    mp = _moe_prompts(mcfg.vocab_size)
+    want["moe"] = _jax_tokens(JEngine(mcfg, mparams, JEngineConfig(**KW)), mp, 8)
+    want["moe_logits"] = np.asarray(JM.prefill(mcfg, mparams, {"tokens": jnp.asarray(
+        np.array([mp[0]]), jnp.int32)})[0])
+
+    out, _ = proc.communicate(timeout=600)
+    assert proc.returncode == 0, out
+    ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(4)]
+    logits = [np.load(tmp / f"moe_logits_r{r}.npy") for r in range(2)]
+    return ranks, want, logits
+
+
+@pytest.mark.parametrize("chunk", [None, 8])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_greedy_tokens_equal_the_jax_engine(served, shape, chunk):
+    """1x2 / 1x4: tensor-parallel layers, KV pools over KV heads, the vocab-
+    parallel head; 2x1 / 2x2: the decode batch (4 slots) split over the data
+    group as well.  Whole-suffix and chunked prefill."""
+    ranks, want, _ = served
+    got = ranks[0][f"dense/{shape}/{chunk}"]
+    assert got["tokens"] == want[f"dense/{chunk}"]
+    assert got["agree"] and not got["graphed"] and got["collectives"] > 0
+
+
+def test_radix_reuse_under_the_mesh(served):
+    ranks, want, _ = served
+    warm, cold = ranks[0]["radix"], ranks[0]["radix_cold"]
+    assert warm["hit_rate"] > 0
+    assert warm["tokens"] == cold["tokens"] == want["radix"]
+
+
+def test_prompt_joins_mid_stream(served):
+    """A second prompt submitted while the first decodes streams in through
+    mixed ticks under the mesh, with the JAX engine's tokens."""
+    ranks, want, _ = served
+    got = ranks[0]["midstream"]
+    assert got["tokens"] == want["midstream"] and got["mixed"] > 0
+
+
+def test_resilience_counters_move_once(served):
+    """FAULT (a NaN-poisoned step), CANCELLED, REJECTED and DEADLINE (the
+    chaos clock skew, read by rank 0 and broadcast) each once; the pool
+    reconciles."""
+    ranks, _, _ = served
+    got = ranks[0]["resilience"]
+    ra, rb, rc, rd = got["rids"]
+    reasons = {rid: reason for rid, _, reason in got["tokens"]}
+    assert reasons == {ra: "fault", rb: "cancelled", rc: "rejected", rd: "deadline"}
+    assert got["cancelled"] and got["counters"] == [1, 1, 1, 1, 0]
+    assert got["pages_free"] == got["pages"] - 1
+    assert ranks[1]["resilience"]["events"] == got["events"]
+
+
+@pytest.mark.parametrize("key", ["moe", "moe_2x2"])
+def test_moe_expert_parallel_tokens_equal_the_jax_engine(served, key):
+    """1x2: 2 of the 4 experts a rank; 2x2: the same, and the decode batch
+    split over the data group (gathered whole before routing: capacity is
+    shared by every row of a call)."""
+    ranks, want, _ = served
+    got = ranks[0][key]
+    assert got["shard_map"] and got["tokens"] == want["moe"]
+    if key == "moe":
+        assert got["experts_held"] == 2
+
+
+def test_moe_expert_parallel_prefill_logits(served):
+    """The expert-parallel prefill (one f32 all-reduce of the partial
+    outputs a MoE layer) within 1e-4 of JAX's single-device prefill, f32,
+    and the same bytes on both ranks."""
+    _, want, logits = served
+    assert float(np.max(np.abs(logits[0] - want["moe_logits"]))) <= 1e-4
+    assert np.array_equal(logits[0], logits[1])
+
+
+def test_every_rank_emits_the_same_tokens(served):
+    """Each rank of a scenario's mesh recorded the same tokens, and the
+    engine's own digest check agreed on every rank."""
+    ranks, _, _ = served
+    n = {"1x2": 2, "1x4": 4, "2x1": 2, "2x2": 4}
+    checked = 0
+    for key, got in ranks[0].items():
+        size = (n[key.split("/")[1]] if key.startswith("dense/")
+                else 4 if key == "moe_2x2" else 2)
+        for r in range(1, size):
+            assert ranks[r][key]["tokens"] == got["tokens"], (key, r)
+            assert ranks[r][key]["agree"]
+            checked += 1
+        for r in range(size, 4):
+            assert key not in ranks[r]
+    assert checked >= 16 + 3 + 5
+
+
+def test_a_mesh_without_a_process_group_is_refused():
+    """No group started: the engine names how to start the ranks; SSD and
+    model-parallel w8a8 are refused before any group is needed."""
+    assert not torch.distributed.is_initialized()
+    cfg = TC.reduce_config(TC.get_config("cgra-edge"))
+    params = TM.init(cfg, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="init_process_group"):
+        Engine(cfg, params, EngineConfig(mesh="1x2", **KW), device="cpu")
+    with pytest.raises(NotImplementedError, match="w8a8"):
+        Engine(cfg, params, EngineConfig(mesh="1x2", quant="w8a8", **KW), device="cpu")
+    scfg = TC.reduce_config(TC.get_config("mamba2-130m"))
+    with pytest.raises(NotImplementedError, match="SSD"):
+        Engine(scfg, TM.init(scfg, seed=0, device="cpu"), EngineConfig(mesh="2x1", **KW),
+               device="cpu")
+
+
+def test_a_graph_under_gloo_on_the_card_is_refused():
+    """Asked for on a CUDA device of a gloo mesh, the decode graph raises
+    before it allocates anything (gloo collectives cannot be captured);
+    not asked for, it is eager there by rule, and graphed under NCCL."""
+    gloo = types.SimpleNamespace(backend="gloo")
+    with pytest.raises(ValueError, match="gloo.*cannot be captured"):
+        DecodeGraph(None, None, None, 4, 8, device="cuda", mesh=gloo, capture=True)
+    cfg = TC.reduce_config(TC.get_config("cgra-edge"))
+    params = TM.init(cfg, seed=0, device="cpu")
+    caches = TM.init_paged_cache(cfg, 2, 5, 8, device="cpu")
+    g = DecodeGraph(cfg, params, caches, 2, 4, device="cpu", mesh=gloo)
+    assert not g.graphed

@@ -6,8 +6,12 @@ recipe; ``run()`` on reduced olmo-1b with bridged JAX weights at ``--rate
 0 --temperature 0`` gives JAX's ``Engine``'s tokens for the same prompts
 and ``EngineConfig`` (whole-suffix and chunked prefill), token for token;
 ``main`` prints the reference's summary fields, serves Poisson arrivals,
-and refuses ``--mesh``."""
+refuses ``--mesh`` without ``--backend``, and with ``--mesh 1x2 --backend
+gloo`` spawns two ranks whose rank 0 prints the reference's summary line."""
+import os
 import re
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -96,5 +100,26 @@ def test_main_prints_the_reference_summary_and_streams(capsys):
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    """A mesh has no default backend: ``--mesh`` alone is refused, naming
+    the two."""
+    with pytest.raises(ValueError, match="--backend: nccl .* or gloo"):
         serve.main(["--device", "cpu", "--mesh", "1x2"])
+
+
+def test_mesh_1x2_over_gloo_prints_the_reference_summary():
+    """``--mesh 1x2 --backend gloo --device cpu``: ``main`` spawns two
+    ranks; rank 0 alone prints the reference's summary line (every request
+    ok) and the mesh line (the ranks agree; the decode step eager)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+                          "--mesh", "1x2", "--backend", "gloo", "--requests", "3",
+                          "--max-new", "4"], env=env, text=True, capture_output=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert len(lines) == 2, res.stdout
+    keys = re.findall(r"(\w+)=", lines[0])
+    assert keys == [("device" if k == "kernel_mode" else k) for k in J_FIELDS]
+    assert "arch=olmo-1b-smoke device=cpu quant=none requests=3 ok=3" in lines[0]
+    assert lines[1] == ("mesh=1x2 backend=gloo ranks=2 ranks_agree=True "
+                        "decode_graph=False")
