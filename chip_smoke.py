@@ -190,7 +190,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``full`` at 2 x 4096 tokens for 10 steps with its model-FLOP share
    (``launch/roofline.py``);
    ``attn_chunk`` equal to the unchunked loss, and an eval step on the
-   dense flash kernel;
+   dense flash kernel.  Then training over a mesh (``mesh_train_phase``):
+   two gloo ranks on the one card train full olmo-1b through
+   ``make_train_step(mesh=...)`` at 1x2 (tensor parallel), 2x1 (FSDP,
+   ``remat_policy="full"``) and pod=2 (the int8 pod mean), each step's loss
+   equal on both ranks and within a stated bound of the single rank's, the
+   block GEMM launched forward and with ``trans_a`` on both ranks; at 2
+   layers in f32 every layout's gathered gradients against the single
+   rank's; the GEMM at the shards' training shapes;
 10. a JSON ``added_kernels`` line (the quantize kernel), a JSON
    ``mla_kernels`` line (both decode kernels at the latent shape), a JSON
    ``moe`` line (the MoE phase's summary and its rows), a JSON ``ssm`` line
@@ -199,7 +206,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    line (its kernel rows), a JSON ``train`` line (phase 9's summary) and a
    ``train_kernels`` line (the GEMM's rows at the training shapes), a JSON
    ``serve`` line (``launch.serve``'s runs), a ``mesh`` line (the mesh
-   phase) and a ``train_options`` line,
+   phase), a ``train_options`` line, a ``mesh_train`` line (the mesh
+   training phase) and a ``mesh_train_kernels`` line (the GEMM's rows at
+   the shards' training shapes),
    the script's wall time, a JSON ``kernels`` line
    (the six ported TPU kernels), then the JSON result as the last line.
 
@@ -3812,19 +3821,19 @@ TRAIN_STEPS = 10
 TRAIN_KN = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 50432))
 
 
-def _train_gemm_cases():
+def _train_gemm_cases(T=TRAIN_T, kns=TRAIN_KN):
     """The three products of every forward GEMM A [T, K] @ W [K, N] of the
-    train step: forward (f32 out at the head), ``g @ W^T`` (``trans_b``,
-    the data gradient) and ``A^T @ g`` (``trans_a``, the weight gradient:
-    M = K rows over the T = 4096 tokens)."""
+    train step: forward (f32 out at the head, whose N is a vocab or its
+    shard), ``g @ W^T`` (``trans_b``, the data gradient) and ``A^T @ g``
+    (``trans_a``, the weight gradient: M = K rows over the T tokens)."""
     out = []
-    for K, N in TRAIN_KN:
-        head = N == 50432
-        out.append(dict(kind="forward", M=TRAIN_T, K=K, N=N, ta=False, tb=False,
+    for K, N in kns:
+        head = N >= 25216
+        out.append(dict(kind="forward", M=T, K=K, N=N, ta=False, tb=False,
                         out=torch.float32 if head else torch.bfloat16))
-        out.append(dict(kind="backward g @ W^T", M=TRAIN_T, K=N, N=K, ta=False, tb=True,
+        out.append(dict(kind="backward g @ W^T", M=T, K=N, N=K, ta=False, tb=True,
                         out=torch.bfloat16))
-        out.append(dict(kind="backward A^T @ g", M=K, K=TRAIN_T, N=N, ta=True, tb=False,
+        out.append(dict(kind="backward A^T @ g", M=K, K=T, N=N, ta=True, tb=False,
                         out=torch.bfloat16))
     return out
 
@@ -3837,30 +3846,17 @@ def _gemm_operands(gen, M, K, N, ta, tb, dtype=torch.bfloat16):
     return a.to(dtype), b.to(dtype)
 
 
-def train_gemm_phase(flush, gen):
-    """The bf16 GEMM at olmo-1b's training shapes (T = 8 x 512 = 4096
-    tokens): each of the twelve products of ``_train_gemm_cases`` against
-    its plain version (``gemm_phase``'s tolerances: 1e-4 + 2^-7 relative
-    for bf16 out, 1e-4 + 1e-5 for f32 out), timed beside the plain
-    version, ``torch.matmul`` and the bound (operations at the bf16 peak, or
-    bytes); ``trans_a`` also in f32 (the CUDA-core kernel) and at a ragged
-    shape; rows bit-identical across M, ``trans_a`` included.  Returns
-    (max abs error, rows)."""
+def _gemm_case_rows(cases, flush, gen, what=None):
+    """Each product of ``cases`` (dicts of M, K, N, ta, tb, out, kind) on
+    the bf16 GEMM against its plain version (1e-4 + 2^-7 relative for bf16
+    out, 1e-4 + 1e-5 for f32 out), timed beside the plain version,
+    ``torch.matmul`` and the bound (operations at the bf16 peak, or bytes);
+    ``what`` prefixes each printed row's kind.  Returns (max abs error,
+    rows)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.block_gemm import block_gemm, gemm_splits
-    err = 0.0
-    for (M, K, N, ta, tb) in ((37, 1000, 777, True, False), (16, 4096, 2048, True, False),
-                              (2048, 4096, 2048, True, False), (4096, 2048, 2048, False, True)):
-        for dtype in (torch.float32, torch.bfloat16):
-            a, b = _gemm_operands(gen, M, K, N, ta, tb, dtype)
-            rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
-            err = max(err, check_close(
-                f"block_gemm {str(dtype)[6:]} {M}x{K}x{N} trans_a={ta} trans_b={tb}",
-                block_gemm(a, b, trans_a=ta, trans_b=tb),
-                ref.block_gemm_ref(a, b, trans_a=ta, trans_b=tb), 1e-4, rtol))
-    train_row_invariance(gen)
-    rows = []
-    for c in _train_gemm_cases():
+    err, rows = 0.0, []
+    for c in cases:
         M, K, N, ta, tb, out = c["M"], c["K"], c["N"], c["ta"], c["tb"], c["out"]
         a, b = _gemm_operands(gen, M, K, N, ta, tb)
         got = block_gemm(a, b, out_dtype=out, trans_a=ta, trans_b=tb)
@@ -3880,11 +3876,39 @@ def train_gemm_phase(flush, gen):
                            2 * M * N * K, torch.bfloat16)
         rows.append(dict(shape=shape, kind=c["kind"], ms=ms, plain_ms=plain, library_ms=lib,
                          bound_ms=bms, bound_by=by))
-        log(f"  block_gemm bf16 {shape} ({c['kind']}, K split {gemm_splits(K, N)}): kernel "
+        kind = f"{what}, {c['kind']}" if what else c["kind"]
+        log(f"  block_gemm bf16 {shape} ({kind}, K split {gemm_splits(K, N)}): kernel "
             f"{ms:.4f} ms, plain {plain:.4f} ms, torch.matmul {lib:.4f} ms, bound {bms:.4f} ms "
             f"({by}); {2 * M * N * K / ms / 1e9:.1f} TFLOP/s")
         del a, b
     torch.cuda.empty_cache()
+    return err, rows
+
+
+def train_gemm_phase(flush, gen):
+    """The bf16 GEMM at olmo-1b's training shapes (T = 8 x 512 = 4096
+    tokens): each of the twelve products of ``_train_gemm_cases`` against
+    its plain version (``gemm_phase``'s tolerances: 1e-4 + 2^-7 relative
+    for bf16 out, 1e-4 + 1e-5 for f32 out), timed beside the plain
+    version, ``torch.matmul`` and the bound (operations at the bf16 peak, or
+    bytes); ``trans_a`` also in f32 (the CUDA-core kernel) and at a ragged
+    shape; rows bit-identical across M, ``trans_a`` included.  Returns
+    (max abs error, rows)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_gemm import block_gemm
+    err = 0.0
+    for (M, K, N, ta, tb) in ((37, 1000, 777, True, False), (16, 4096, 2048, True, False),
+                              (2048, 4096, 2048, True, False), (4096, 2048, 2048, False, True)):
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = _gemm_operands(gen, M, K, N, ta, tb, dtype)
+            rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            err = max(err, check_close(
+                f"block_gemm {str(dtype)[6:]} {M}x{K}x{N} trans_a={ta} trans_b={tb}",
+                block_gemm(a, b, trans_a=ta, trans_b=tb),
+                ref.block_gemm_ref(a, b, trans_a=ta, trans_b=tb), 1e-4, rtol))
+    train_row_invariance(gen)
+    row_err, rows = _gemm_case_rows(_train_gemm_cases(), flush, gen)
+    err = max(err, row_err)
     log(f"block_gemm at olmo-1b's training shapes (T = {TRAIN_T}): {len(rows)} products agree "
         f"(forward, g @ W^T, A^T @ g), trans_a also in f32 and ragged; max_abs_err {err:.3e}")
     return err, rows
@@ -5136,6 +5160,315 @@ def train_options_phase(counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training over a mesh (two gloo ranks sharing the one card)
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_WORK = os.path.join(HERE, "build", "mesh_train_phase")  # git-ignored
+# layout: (mesh shape, axes, remat policy, compress_pod, steps, what)
+MESH_TRAIN_LAYOUTS = {
+    "a": ((1, 2), ("data", "model"), "none", False, 3, "1x2 2d (tensor parallel)"),
+    "b": ((2, 1), ("data", "model"), "full", False, 3, "2x1 FSDP (ZeRO-3 over data)"),
+    "c": ((2, 1, 1), ("pod", "data", "model"), "none", True, 2, "pod=2 compress_pod"),
+}
+# stated before the first run: bf16 over 16 layers rounds differently when the
+# sums are split (row-parallel partials, shard gathers, the int8 pod mean),
+# and an AdamW step near sign(g) can turn a near-zero entry either way; a mean
+# loss over 4096 tokens moves far less than a logit (~5e-2 in PR 23's serving)
+MESH_TRAIN_LOSS_BOUND = 2e-2   # |mesh loss - single rank's| at each step, bf16
+MESH_TRAIN_GNORM_RTOL = 2e-2   # grad_norm, relative (the int8 pod mean included)
+MESH_TRAIN_F32_LAYERS = 2      # (d): f32 at full width, the main stage cut to 2 layers
+MESH_TRAIN_GRAD_RTOL = 1e-4    # (d): gathered gradients vs the single rank's, of each leaf's max
+# the bf16 GEMM at the shards' training shapes: 1x2 halves every GEMM's N (a
+# column-parallel weight) or K (a row-parallel one) at all T = 4096 rows; 2x1
+# and pod=2 run the whole widths at T / 2 = 2048 rows a rank
+MESH_TRAIN_GEMMS = ((TRAIN_T, ((2048, 1024), (1024, 2048), (2048, 4096), (4096, 2048),
+                               (2048, 25216))),
+                    (TRAIN_T // 2, TRAIN_KN))
+
+
+def _mesh_train_state(cfg, opt, mesh, dev, main_repeats=None):
+    """Seed-0 weights drawn whole on the card, this rank's shard kept
+    (``model.shard_params`` with ``cfg.fsdp``), zero moments of the shard:
+    ``training.step.shard_state`` of ``init_state``, without the whole
+    moments."""
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import init_moments
+    from repro_torch.training.step import TrainState
+    params = M.init(cfg, 0, dev, main_repeats)
+    local = M.shard_params(cfg, params, mesh, fsdp=cfg.fsdp, main_repeats=main_repeats)
+    del params
+    mu, nu = init_moments(local, opt)
+    return TrainState(torch.zeros((), dtype=torch.int32, device=dev), local, mu, nu)
+
+
+def _grad_gap(got, want) -> float:
+    """The largest of each leaf's max |got - want| over its max |want|."""
+    worst = 0.0
+    for g, w in zip(_leaves(got), _leaves(want)):
+        worst = max(worst, float((g.float() - w.float()).abs().max())
+                    / max(float(w.float().abs().max()), 1e-30))
+    return worst
+
+
+def _mesh_train_rank(rank, work):
+    """One rank of the mesh training phase (two ranks on ``cuda:0`` over
+    gloo): (a)-(c) full olmo-1b in bf16 on each layout of
+    ``MESH_TRAIN_LAYOUTS``, a row a step (loss, grad_norm, host ms, the
+    mesh's collectives and bytes, block GEMM launches and those with
+    ``trans_a``) and the rank's peak; (d) f32 at 2 layers: each layout's
+    gathered gradients against the single rank's (rank 0 computes those
+    alone first), the compressed pod mean against the exact one, 2 steps'
+    losses.  Writes ``rank<r>.json`` into ``work``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.block_gemm import block_gemm
+    from repro_torch.kernels.ops import LAUNCH_COUNTERS
+    from repro_torch.launch.cells import prepare_arch
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.sharding import gather_whole
+    from repro_torch.models import model as M
+    from repro_torch.training import AdamWConfig, init_state, make_train_step
+    from repro_torch.training.step import mesh_config, mesh_value_and_grad, value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()  # the main process built them: loaded from build/
+    dev = torch.device("cuda", 0)
+    meshes = {k: make_device_mesh(v[0], v[1]) for k, v in MESH_TRAIN_LAYOUTS.items()}
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS, moments_dtype="f32")
+    data = SyntheticLM(get_config(TRAIN), batch=TRAIN_B, seq=TRAIN_S, seed=0)
+    batches = [data.batch_at(i) for i in range(3)]
+    out = {"backend": meshes["a"].backend}
+    for key, (shape, axes, remat, compress, n_steps, _) in MESH_TRAIN_LAYOUTS.items():
+        mesh = meshes[key]
+        cfg = prepare_arch(get_config(TRAIN).with_(remat_policy=remat), mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = _mesh_train_state(cfg, opt, mesh, dev)
+        wq = state.params["stages"][0]["0"]["mixer"]["wq"]
+        n_local = sum(t.numel() for t in tree_leaves(state.params))
+        step = make_train_step(cfg, opt, mesh=mesh, compress_pod=compress)
+        rows = []
+        for i in range(n_steps):
+            for c in LAUNCH_COUNTERS:
+                c.launches = 0
+            block_gemm.trans_a_launches = 0
+            c0, b0 = mesh.collectives, mesh.wire_bytes
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state, m = step(state, batches[i])
+            loss = float(m["loss"])  # waits for the step
+            rows.append(dict(loss=loss, grad_norm=float(m["grad_norm"]),
+                             ms=(time.time() - t0) * 1e3, collectives=mesh.collectives - c0,
+                             wire_bytes=mesh.wire_bytes - b0,
+                             launches={c.__name__: c.launches for c in LAUNCH_COUNTERS
+                                       if c.launches},
+                             trans_a=block_gemm.trans_a_launches))
+        out[key] = dict(steps=rows, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        wq_local=list(wq.shape), params_local=n_local)
+        del state, step, m, wq
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) f32 at 2 layers: gradients and losses against the single rank's
+    cfg32 = get_config(TRAIN).with_(compute_dtype=torch.float32, remat_policy="none")
+    R = MESH_TRAIN_F32_LAYERS
+    b0 = to_device(batches[0], dev)
+    single = None
+    if rank == 0:  # the single rank, alone (no collective runs meanwhile)
+        st = init_state(cfg32, opt, 0, dev, main_repeats=R)
+        single = value_and_grad(cfg32, st.params, b0, main_repeats=R)[2]
+        step = make_train_step(cfg32, opt, main_repeats=R)
+        single_losses = []
+        for i in range(2):
+            st, m = step(st, batches[i])
+            single_losses.append(float(m["loss"]))
+        del st, step, m
+        out["d_single_losses"] = single_losses
+    d = {}
+    for key, (shape, axes, remat, compress, _, _) in MESH_TRAIN_LAYOUTS.items():
+        mesh = meshes[key]
+        cfg = prepare_arch(cfg32, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = _mesh_train_state(cfg, opt, mesh, dev, main_repeats=R)
+        pspecs = M.param_pspecs(mesh_config(cfg, mesh), mesh, fsdp=cfg.fsdp, main_repeats=R)
+        _, _, g = mesh_value_and_grad(cfg, state.params, batches[0], mesh, main_repeats=R)
+        whole = tree_map(lambda t, ps: gather_whole(t, mesh, ps), g, pspecs)
+        row = {}
+        if rank == 0:
+            row["grad_gap"] = _grad_gap(whole, single)
+        if compress:  # the int8 pod mean against the exact one, leaf by leaf
+            _, _, gc_ = mesh_value_and_grad(cfg, state.params, batches[0], mesh,
+                                            main_repeats=R, compress_pod=True)
+            gcw = tree_map(lambda t, ps: gather_whole(t, mesh, ps), gc_, pspecs)
+            row["compressed_gap"] = _grad_gap(gcw, whole)
+            del gc_, gcw
+        del g, whole
+        step = make_train_step(cfg, opt, mesh=mesh, main_repeats=R, compress_pod=compress)
+        losses = []
+        for i in range(2):
+            state, m = step(state, batches[i])
+            losses.append(float(m["loss"]))
+        row["losses"] = losses
+        d[key] = row
+        del state, step, m
+    out["d"] = d
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mesh_train_phase():
+    """Training over a mesh on the one card: two ranks of the port's own
+    entry points on ``cuda:0`` over gloo (NCCL refuses two ranks on one
+    device), full-width olmo-1b (1.280 B parameters), ``train_phase``'s 8 x
+    512 tokens and AdamW settings, each rank holding its shard:
+
+    (a) 1x2 ``"2d"`` (tensor parallel: 8 of 16 heads, an ffn of 4096, half
+        the vocab a rank), 3 steps, bf16, ``remat_policy="none"``;
+    (b) 2x1 with ``cfg.fsdp`` (ZeRO-3: every weight and moment cut over
+        ``data``, each layer's weights gathered when it runs), 3 steps,
+        bf16, ``remat_policy="full"`` (the gather runs again in the
+        recompute, so a rank holds one layer's gathered weights at a time);
+    (c) ``(pod, data, model) = (2, 1, 1)`` with ``compress_pod``: the int8
+        pod mean, 2 steps, bf16;
+    (d) f32 with the main stage cut to 2 layers at full width: each
+        layout's gathered gradients within 1e-4 of each leaf's max of the
+        single rank's, (c)'s compressed mean within one int8 quantum of its
+        exact mean (``max |g| / 127``: a scale at most twice the mean's
+        largest entry, halved by rounding), each layout's 2 losses within
+        1e-4 (relative) of the single rank's.
+
+    Gates (a)-(c): each step's loss finite, the same on both ranks, within
+    ``MESH_TRAIN_LOSS_BOUND`` of the single rank's at that step (and
+    grad_norm within ``MESH_TRAIN_GNORM_RTOL``); both ranks launched the
+    block GEMM forward and with ``trans_a``: 3 launches a forward GEMM a
+    step (``full``: 4 inside a layer group), one of them ``trans_a``.  Then
+    the GEMM at the shards' training shapes (``MESH_TRAIN_GEMMS``).  Times of
+    two ranks sharing one card over gloo (every collective through host
+    memory) are not multi-GPU scaling numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dist as D
+    from repro_torch.training import AdamWConfig, init_state, make_train_step
+    os.makedirs(MESH_TRAIN_WORK, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    # the single rank's bf16 steps, in this process, freed before the ranks start
+    cfg = get_config(TRAIN).with_(remat_policy="none")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS, moments_dtype="f32")
+    from repro_torch.data.pipeline import SyntheticLM
+    data = SyntheticLM(cfg, batch=TRAIN_B, seq=TRAIN_S, seed=0)
+    state = init_state(cfg, opt, seed=0, device="cuda")
+    step = make_train_step(cfg, opt)
+    single, single_ms = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, m = step(state, data.batch_at(i))
+        single.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"])))
+        single_ms.append((time.time() - t0) * 1e3)
+    del state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    D.spawn(_mesh_train_rank, 2, "gloo", args=(MESH_TRAIN_WORK,))
+    ranks_s = time.time() - t0
+    ranks = [json.load(open(os.path.join(MESH_TRAIN_WORK, f"rank{r}.json"))) for r in range(2)]
+    problems = []
+    n_fwd = 16 * 7 + 1  # q, k, v, o, gate, up, down a layer, and the head
+    summary = {}
+    for key, (shape, _, remat, compress, n_steps, what) in MESH_TRAIN_LAYOUTS.items():
+        rows = [r[key]["steps"] for r in ranks]
+        per_gemm = 4 if remat == "full" else 3
+        want_gemm = per_gemm * (n_fwd - 1) + 3
+        for i in range(n_steps):
+            a, b, s = rows[0][i], rows[1][i], single[i]
+            if not math.isfinite(a["loss"]) or a["loss"] != b["loss"]:
+                problems.append(f"mesh train ({key}) step {i}: losses {a['loss']} / {b['loss']} "
+                                f"(finite, equal on both ranks)")
+            if abs(a["loss"] - s["loss"]) > MESH_TRAIN_LOSS_BOUND:
+                problems.append(f"mesh train ({key}) step {i}: loss {a['loss']:.6f} vs the single "
+                                f"rank's {s['loss']:.6f} (bound {MESH_TRAIN_LOSS_BOUND})")
+            if abs(a["grad_norm"] - s["grad_norm"]) > MESH_TRAIN_GNORM_RTOL * s["grad_norm"]:
+                problems.append(f"mesh train ({key}) step {i}: grad_norm {a['grad_norm']:.6f} vs "
+                                f"{s['grad_norm']:.6f} (relative bound {MESH_TRAIN_GNORM_RTOL})")
+            for r, row in enumerate((a, b)):
+                got = row["launches"].get("block_gemm", 0)
+                if got != want_gemm or row["trans_a"] != n_fwd or set(row["launches"]) != {
+                        "block_gemm"}:
+                    problems.append(f"mesh train ({key}) rank {r} step {i}: launches "
+                                    f"{row['launches']}, trans_a {row['trans_a']} (want "
+                                    f"block_gemm {want_gemm}, trans_a {n_fwd}, nothing else)")
+        ms = [statistics.median(x["ms"] for x in r_[1:] or r_) for r_ in rows]
+        summary[key] = dict(
+            what=what, step_ms_median=ms, step_ms_all=[[x["ms"] for x in r_] for r_ in rows],
+            losses=[x["loss"] for x in rows[0]], single_losses=[s["loss"] for s in single[:n_steps]],
+            grad_norms=[x["grad_norm"] for x in rows[0]],
+            single_grad_norms=[s["grad_norm"] for s in single[:n_steps]],
+            collectives_per_step=[x["collectives"] for x in rows[0]],
+            wire_bytes_per_step=[x["wire_bytes"] for x in rows[0]],
+            peak_gib=[r[key]["peak_gib"] for r in ranks],
+            gemm_launches_per_step=[[x["launches"].get("block_gemm", 0) for x in r_]
+                                    for r_ in rows],
+            trans_a_per_step=[[x["trans_a"] for x in r_] for r_ in rows],
+            wq_local=ranks[0][key]["wq_local"], params_local=ranks[0][key]["params_local"])
+        extra = ""
+        if compress:
+            n = ranks[0][key]["params_local"]
+            extra = (f"; the int8 pod mean gathers {n:,} bytes a rank a step, where an f32 "
+                     f"mean would all-reduce {4 * n:,}")
+            summary[key].update(int8_payload_bytes=n, f32_payload_bytes=4 * n)
+        log(f"mesh train ({key}) {what}, two ranks on one card over gloo (not a scaling number): "
+            f"step {ms[0]:.1f} / {ms[1]:.1f} ms a rank (median of steps 2-{n_steps}; all: "
+            + ", ".join(f"{x['ms']:.1f}" for x in rows[0])
+            + f"); single rank {statistics.median(single_ms[1:]):.1f} ms; losses "
+            + ", ".join(f"{x['loss']:.5f}" for x in rows[0]) + " (single rank "
+            + ", ".join(f"{s['loss']:.5f}" for s in single[:n_steps]) + ")")
+        log(f"mesh train ({key}): {rows[0][-1]['collectives']} collectives and "
+            f"{rows[0][-1]['wire_bytes'] / 1e9:.3f} GB handed to them a step a rank{extra}; peak "
+            f"{ranks[0][key]['peak_gib']:.2f} / {ranks[1][key]['peak_gib']:.2f} GiB a rank; "
+            f"block_gemm {rows[0][-1]['launches'].get('block_gemm', 0)} launches a step a rank "
+            f"({rows[0][-1]['trans_a']} trans_a); wq held {ranks[0][key]['wq_local']}")
+    # (d)
+    sl = ranks[0]["d_single_losses"]
+    for key, row in ranks[0]["d"].items():
+        if not row["grad_gap"] <= MESH_TRAIN_GRAD_RTOL:
+            problems.append(f"mesh train (d) {key}: gradients {row['grad_gap']:.3e} from the "
+                            f"single rank's (bound {MESH_TRAIN_GRAD_RTOL} of each leaf's max)")
+        if "compressed_gap" in row and not row["compressed_gap"] <= 1 / 127:
+            problems.append(f"mesh train (d) {key}: the int8 pod mean {row['compressed_gap']:.3e} "
+                            f"from the exact mean (bound 1/127 of each leaf's max)")
+        for i, (x, y) in enumerate(zip(row["losses"], sl)):
+            if not abs(x - y) <= 1e-4 * abs(y) or x != ranks[1]["d"][key]["losses"][i]:
+                problems.append(f"mesh train (d) {key} step {i}: f32 loss {x} vs the single "
+                                f"rank's {y} (1e-4 relative) and rank 1's "
+                                f"{ranks[1]['d'][key]['losses'][i]}")
+        log(f"mesh train (d) {key} f32, {MESH_TRAIN_F32_LAYERS} layers at full width: gradients "
+            f"{row['grad_gap']:.3e} of each leaf's max from the single rank's"
+            + (f", the int8 pod mean {row['compressed_gap']:.3e} from the exact mean"
+               if "compressed_gap" in row else "")
+            + f"; losses " + ", ".join(f"{x:.6f}" for x in row["losses"])
+            + " (single " + ", ".join(f"{y:.6f}" for y in sl) + ")")
+    if problems:
+        fail("; ".join(problems))
+    flush = L2Flush()
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    cases = [c for T, kns in MESH_TRAIN_GEMMS for c in _train_gemm_cases(T, kns)]
+    err, gemm_rows = _gemm_case_rows(cases, flush, gen, "mesh shard")
+    del flush
+    launches = sum(sum(x) for key in summary for x in summary[key]["gemm_launches_per_step"][:1])
+    wall = time.time() - t_phase
+    log(f"mesh train phase: {wall:.1f} s (the ranks {ranks_s:.1f} s; backend "
+        f"{ranks[0]['backend']}, both ranks on cuda:0)")
+    return dict(layouts=summary, d=ranks[0]["d"], d_single_losses=sl, single_step_ms=single_ms,
+                gemm_rows=gemm_rows, gemm_max_abs_err=err, block_gemm_launches_rank0=launches,
+                ranks_s=ranks_s, wall_s=wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card",
@@ -5227,6 +5560,9 @@ def main() -> int:
     t_opt = time.time()
     options = train_options_phase(counters)
     options["wall_s"] = time.time() - t_opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_train = mesh_train_phase()
 
     def pick(name, shape):  # the row's contract keys
         row = next(r for r in rows[name] if r["shape"] == shape)
@@ -5315,10 +5651,20 @@ def main() -> int:
     log(json.dumps({"serve": served}))
     log(json.dumps({"mesh": meshed}))
     log(json.dumps({"train_options": options}))
+    # the block GEMM at the mesh shards' training shapes; launches: rank 0's
+    # over the bf16 mesh training steps (a)-(c)
+    mesh_train_kernels = [dict(name="block_gemm", route="cuda",
+                               source=f"src/repro_torch/kernels/csrc/{bg[0]}", replaces=bg[1],
+                               launches=mesh_train["block_gemm_launches_rank0"],
+                               max_abs_err=mesh_train["gemm_max_abs_err"], **row)
+                          for row in mesh_train["gemm_rows"]]
+    log(json.dumps({"mesh_train": mesh_train}))
+    log(json.dumps({"mesh_train_kernels": mesh_train_kernels}))
     log(f"chip_smoke wall time {time.time() - t_start:.1f} s (the serve phase "
         f"{served['wall_s']:.1f} s, the mesh phase {meshed['wall_s']:.1f} s, the SSM engine phases {ssm['wall_s']:.1f} s, the VLM and "
         f"encoder phases {vlm['wall_s']:.1f} s, the training phases {train['wall_s']:.1f} s, "
-        f"the training options {options['wall_s']:.1f} s)")
+        f"the training options {options['wall_s']:.1f} s, the mesh training phase "
+        f"{mesh_train['wall_s']:.1f} s)")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

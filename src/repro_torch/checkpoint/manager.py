@@ -14,6 +14,15 @@ A path joins dict keys, list indices and, for a NamedTuple such as the
 the 2-byte records (numpy dtype ``|V2``) that JAX's bf16 arrays become in
 an npz, and read back by viewing them as uint16 and then bfloat16.  (The
 reference's own restore cannot cast them and raises: ROADMAP Queue 3.)
+
+Over a mesh (``CheckpointManager(mesh=, specs=)``, ``specs`` a tree of
+the saved tree's partition specs, e.g. ``training.step.state_pspecs``)
+the checkpoint holds the *logical* tree in the same layout: every rank
+gathers the shards (``launch.sharding.gather_whole``) and rank 0 writes.
+A restore reads the logical tree and each rank keeps its slice, so a
+checkpoint written on one mesh restores on another (or on one device).
+Every rank passes a barrier after rank 0's write has committed and before
+any rank lists or reads the directory.
 """
 from __future__ import annotations
 
@@ -75,39 +84,87 @@ def flatten(tree) -> dict[str, np.ndarray]:
     return {k: _to_numpy(v) for k, v in _walk(tree)}
 
 
-def _rebuild(like, data: dict, path: tuple = ()):
+def _leaf_specs(specs) -> dict:
+    """{path key: partition spec} of a specs tree whose leaves are spec
+    tuples (a ``QTensor`` of two specs counts as a node)."""
+    out: dict = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (str(k),))
+        elif _is_namedtuple(tree):
+            for f in tree._fields:
+                walk(getattr(tree, f), path + ("." + f,))
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                walk(v, path + (str(i),))
+        else:
+            out["/".join(path)] = tuple(tree)
+    walk(specs, ())
+    return out
+
+
+def _rebuild(like, data: dict, path: tuple = (), cut=None):
     if isinstance(like, dict):
-        return {k: _rebuild(v, data, path + (str(k),)) for k, v in like.items()}
+        return {k: _rebuild(v, data, path + (str(k),), cut) for k, v in like.items()}
     if _is_namedtuple(like):
-        return type(like)(*(_rebuild(getattr(like, f), data, path + ("." + f,))
+        return type(like)(*(_rebuild(getattr(like, f), data, path + ("." + f,), cut)
                             for f in like._fields))
     if isinstance(like, (list, tuple)):
-        return type(like)(_rebuild(v, data, path + (str(i),)) for i, v in enumerate(like))
+        return type(like)(_rebuild(v, data, path + (str(i),), cut)
+                          for i, v in enumerate(like))
     key = "/".join(path)
     if key not in data:
         raise KeyError(f"checkpoint has no leaf {key!r}")
-    arr = data[key]
-    if tuple(arr.shape) != tuple(like.shape):
-        raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(like.shape)}")
-    t = to_tensor(arr)
+    t = to_tensor(data[key])
+    if cut is not None:
+        t = cut(key, t)
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"shape mismatch for {key}: {tuple(t.shape)} vs {tuple(like.shape)}")
     return t.to(device=like.device, dtype=like.dtype) if isinstance(like, torch.Tensor) else t
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep_n: int = 3, async_save: bool = True):
+    def __init__(self, directory: str, keep_n: int = 3, async_save: bool = True,
+                 mesh=None, specs=None):
         self.dir = directory
         self.keep_n = keep_n
         self.async_save = async_save
         self._thread: threading.Thread | None = None
-        os.makedirs(directory, exist_ok=True)
+        self.mesh = mesh if mesh is not None and mesh.size_total > 1 else None
+        self.specs = _leaf_specs(specs) if self.mesh is not None else None
+        self.writer = self.mesh is None or self.mesh.rank == self.mesh.peers(None)[0]
+        if self.writer:
+            os.makedirs(directory, exist_ok=True)
+        self._sync()
+
+    def _sync(self):
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _whole(self, tree) -> dict[str, np.ndarray]:
+        """The logical tree's leaves as numpy (every rank gathers; only the
+        writer keeps them)."""
+        from repro_torch.launch.sharding import gather_whole
+        out = {}
+        for k, v in _walk(tree):
+            ps = self.specs.get(k, ())
+            x = gather_whole(v, self.mesh, ps) if isinstance(v, torch.Tensor) and ps else v
+            if self.writer:
+                out[k] = _to_numpy(x)
+        return out
 
     # ------------------------------------------------------------- save
     def save(self, step: int, tree: Any, extra_meta: dict | None = None):
         """Write ``tree`` as checkpoint ``step``.  The leaves are copied to
         the host here; the write runs in a background thread when
-        ``async_save`` (one save in flight at a time)."""
+        ``async_save`` (one save in flight at a time).  Over a mesh every
+        rank calls it: the shards are gathered and rank 0 writes."""
         self.wait()
-        flat = flatten(tree)
+        flat = flatten(tree) if self.mesh is None else self._whole(tree)
+        if not self.writer:
+            return
         meta = {"step": int(step), "time": time.time(), **(extra_meta or {})}
 
         def _write():
@@ -129,17 +186,24 @@ class CheckpointManager:
             _write()
 
     def wait(self):
+        """Block until the save in flight has committed; over a mesh every
+        rank then passes a barrier (rank 0 after its write)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._sync()
 
     def _gc(self):
-        steps = sorted(self.all_steps())
+        steps = self._steps()
         for s in steps[: max(0, len(steps) - self.keep_n)]:
             shutil.rmtree(os.path.join(self.dir, f"step_{s}"), ignore_errors=True)
 
     # ------------------------------------------------------------- load
     def all_steps(self) -> list[int]:
+        self.wait()
+        return self._steps()
+
+    def _steps(self) -> list[int]:
         out = []
         for name in os.listdir(self.dir):
             m = re.fullmatch(r"step_(\d+)", name)
@@ -153,10 +217,20 @@ class CheckpointManager:
 
     def restore(self, step: int, like: Any) -> Any:
         """Checkpoint ``step`` in the structure of ``like``: every leaf a
-        new tensor of the like leaf's shape, dtype and device."""
+        new tensor of the like leaf's shape, dtype and device.  Over a mesh
+        ``like`` is this rank's shard and each leaf this rank's slice of the
+        logical one."""
+        self.wait()
         with np.load(os.path.join(self.dir, f"step_{step}", "arrays.npz")) as z:
             data = {k: z[k] for k in z.files}
-        return _rebuild(like, data)
+        cut = None
+        if self.mesh is not None:
+            from repro_torch.launch.sharding import local_slice
+
+            def cut(key, t):
+                ps = self.specs.get(key, ())
+                return local_slice(t, self.mesh, ps) if ps else t
+        return _rebuild(like, data, cut=cut)
 
     def meta(self, step: int) -> dict:
         with open(os.path.join(self.dir, f"step_{step}", "meta.json")) as f:

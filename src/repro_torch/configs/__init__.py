@@ -49,6 +49,7 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
         compute_dtype=torch.float32,
         pad_heads_to=1,
         pad_vocab_to=32,
+        fsdp=False,
         remat_policy="none",
     )
     if cfg.num_heads:

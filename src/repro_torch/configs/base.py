@@ -10,10 +10,13 @@ plain reshape.
 Differences from the JAX config: dtypes are ``torch`` dtypes, one
 ``compute_dtype`` also stores the float weights, and there is no ``kernel_mode``
 — a tensor's device chooses the kernel or its plain version.  Of the mesh
-knobs only ``moe_shard_map`` is here (the serving engine switches it on for
-an expert-parallel mesh).  ``fsdp`` and ``parallel_mode`` wait for training
-over a mesh; ``use_torus_tp`` is read by no model code in the reference
-either; ``scan_layers`` serves only XLA's cost compile of the dry run (the
+knobs, ``moe_shard_map`` (the serving engine and the mesh train step switch
+it on for an expert-parallel mesh), ``fsdp`` (shard parameters and moments
+over the data axis, ZeRO-3) and ``parallel_mode`` (``"2d"``: tensor
+parallel over ``model`` and FSDP over ``data``; ``"fsdp"``: no tensor
+parallelism, batch and parameters over both axes) are here, read by
+``launch.sharding.profile_for`` and ``training.step.make_train_step``;
+``use_torus_tp`` is read by no model code in the reference either; ``scan_layers`` serves only XLA's cost compile of the dry run (the
 port's layer loop is the reference's unrolled path).  ``kind="encoder"``
 (hubert) makes self-attention
 bidirectional, as the reference's ``causal = cfg.kind == "decoder"``.
@@ -142,6 +145,8 @@ class ArchConfig:
 
     pad_heads_to: int = 1
     pad_vocab_to: int = 256
+    fsdp: bool = True  # shard params / moments over the data axis (a mesh's train step)
+    parallel_mode: str = "2d"  # "2d" (TP x FSDP) | "fsdp" (ZeRO-3 only)
 
     @property
     def padded_vocab(self) -> int:

@@ -15,4 +15,5 @@ CONFIG = ArchConfig(
     d_ff=1024,
     vocab_size=30_522,
     compute_dtype=torch.float32,
+    fsdp=False,
 )

@@ -28,11 +28,13 @@ def quantize(x, axis: int | None = -1) -> QTensor:
     return quantize_over(x, tuple(i for i in range(x.dim()) if i != axis % x.dim()))
 
 
-def quantize_over(x, red_axes: tuple | None) -> QTensor:
+def quantize_over(x, red_axes: tuple | None, amax_hook=None) -> QTensor:
     """Symmetric int8 with the max taken over ``red_axes`` (kept as size-1
     dims; ``None``: all of x, one scalar scale).  The port's one copy of
     the rule: activations per row, weights per output channel, and the
-    quantize kernel's plain version all call it."""
+    quantize kernel's plain version all call it.  ``amax_hook`` maps the
+    local max before the scale is taken: a shard's max all-reduced over the
+    ranks that hold the rest of the reduced dims."""
     xf = x.to(F32)
     if red_axes is None:
         amax = xf.abs().amax()
@@ -40,6 +42,8 @@ def quantize_over(x, red_axes: tuple | None) -> QTensor:
         amax = xf.abs()
     else:
         amax = xf.abs().amax(dim=red_axes, keepdim=True)
+    if amax_hook is not None:
+        amax = amax_hook(amax)
     scale = torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return QTensor(q, scale)

@@ -6,7 +6,9 @@ Stateless by design: ``batch_at(step)`` is a pure function of (seed, step)
 both packages draw the same batches bit for bit -- and a restart resumes the
 exact token stream with no loader state to save.  The stream mixes
 Zipf-distributed tokens with copied spans (induction patterns), so a small
-model has something to learn.
+model has something to learn.  Over a mesh every rank draws the same global
+batch and keeps its own rows (:func:`local_batch`), split as the
+reference's ``batch`` rule splits them.
 """
 from __future__ import annotations
 
@@ -48,6 +50,25 @@ class SyntheticLM:
                 (B, self.seq, self.cfg.frontend_dim)).astype(np.float32)
             batch.pop("tokens")
         return batch
+
+
+def local_batch(batch: dict, mesh, profile=None, accum_steps: int = 1) -> dict:
+    """This rank's rows of a global ``batch`` (numpy arrays or tensors with
+    the batch leading): the split ``launch.sharding.resolve_pspec`` gives a
+    ``batch`` dim -- pod-major over the profile's batch axes, its graded
+    fallback included, so a batch it cannot split is replicated.  With
+    ``accum_steps`` the rows are this rank's share of each of the
+    ``accum_steps`` microbatches the step cuts the batch into, in order
+    (each microbatch split as a batch of its own)."""
+    from repro_torch.launch.sharding import batch_rows
+    B = next(iter(batch.values())).shape[0]
+    sl = batch_rows(mesh, B // accum_steps, profile)
+
+    def take(v):
+        v = v.reshape(accum_steps, B // accum_steps, *v.shape[1:])[:, sl]
+        return v.reshape(-1, *v.shape[2:])
+
+    return {k: take(v) for k, v in batch.items()}
 
 
 def to_device(batch: dict, device) -> dict:

@@ -3,7 +3,9 @@ on the card, the plain versions on the CPU.
 
 Ports of ``repro.kernels.block_gemm.block_gemm`` (TPU kernel
 ``_gemm_kernel``) and ``block_gemm_int8`` (``_gemm_int8_kernel``).  Each
-wrapper's ``.launches`` counts its kernel launches.
+wrapper's ``.launches`` counts its kernel launches; ``block_gemm``'s
+``.trans_a_launches`` those of them that read A transposed (the weight
+gradients of a train step).
 """
 from __future__ import annotations
 
@@ -142,10 +144,12 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
                    gemm_splits(K, N), _build.stream_ptr(a.device))
     _build.check(err, "block_gemm")
     block_gemm.launches += 1
+    block_gemm.trans_a_launches += int(trans_a)
     return c
 
 
 block_gemm.launches = 0
+block_gemm.trans_a_launches = 0
 
 
 def block_gemm_int8(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Meshes over ``torch.distributed`` ranks (port of ``repro.launch.mesh``).
+"""Meshes over ``torch.distributed`` ranks (port of ``repro.launch.mesh``),
+and the collectives that training differentiates through.
 
 A JAX mesh is an array of devices that one program spans; here it is an
 array of *ranks*, one process each, every rank running the same code (the
@@ -7,9 +8,25 @@ grid of global ranks, this rank's coordinates on each named axis, and one
 process group per axis line through it: ``("data", "model")`` gives a
 model group (the ranks that share this rank's data index) and a data
 group.  Its collectives are the reference's ``psum`` (an f32 all-reduce),
-``all_gather`` and ``ppermute`` (``batch_isend_irecv`` to a ring
-neighbour), plus the rank-0 broadcast the serving engine takes its host
-decisions from.
+``pmax``, ``all_gather``, a reduce-scatter (the transpose of an FSDP
+gather) and ``ppermute`` (``batch_isend_irecv`` to a ring neighbour), plus
+the rank-0 broadcast the serving engine and the training runner take their
+host decisions from.  A collective over several axes (an FSDP leaf cut
+over ``("data", "model")``) runs one axis at a time, minor axis first for a
+gather, major first for a reduce-scatter, which lays the shards out
+major to minor as JAX does.
+
+The mesh's collectives are in-place ``dist.*`` calls that autograd does
+not see.  Training goes through four ``torch.autograd.Function``s over
+them (:func:`enter_tp`, :func:`leave_tp`, :func:`fsdp_gather`,
+:func:`mean_across`), each staging to the host inside its ``forward`` /
+``backward`` on detached tensors: the Megatron pair around a tensor-
+parallel region (identity forward and all-reduce backward on entry,
+all-reduce forward and identity backward on exit), the ZeRO-3 parameter
+gather (all-gather forward, reduce-scatter backward) and the mean of a
+replicated statistic over the data ranks.  ``torch.distributed.nn``'s
+all-reduce is not used: its backward is another sum, which multiplies the
+gradient of a replicated loss by the axis size.
 
 The backend is the caller's to name when the process group starts
 (``launch.dist.init_process``): ``nccl`` across cards, ``gloo`` on the CPU
@@ -17,9 +34,12 @@ or for ranks that share one card (NCCL refuses two ranks on one device).
 Under gloo a CUDA tensor is copied to the host for every collective and
 back after it (:meth:`Mesh._host`): one rule, written here once.  The copy
 is gloo's price on a card, not a choice made behind the caller's back.
+:attr:`Mesh.collectives` and :attr:`Mesh.wire_bytes` count what the mesh
+issued (bytes: the payload this rank hands each collective).
 
-Defined as functions and classes only: importing this module touches no
-process group.
+Not ported: the reference's ``AxisType`` shims and ``jax.make_mesh``'s
+device ordering (a rank list is the order).  Defined as functions and
+classes only: importing this module touches no process group.
 """
 from __future__ import annotations
 
@@ -58,6 +78,8 @@ class Mesh:
                        if len(where) else None)
         #: collectives this mesh has issued (the engine reads it per tick)
         self.collectives = 0
+        #: bytes this rank handed to those collectives
+        self.wire_bytes = 0
         self.groups: dict = {}
         if self.ranks.size == 1:
             return
@@ -103,37 +125,75 @@ class Mesh:
         host copy of a CUDA tensor (gloo moves host memory)."""
         return x.cpu() if self.backend == "gloo" and x.is_cuda else x
 
+    def _count(self, t):
+        self.collectives += 1
+        self.wire_bytes += t.numel() * t.element_size()
+
     def all_reduce(self, x, axis: str = "model"):
         """Sum of ``x`` over ``axis`` in f32, cast back to x's dtype: the
         reference's ``psum(o.astype(F32))``.  Identity on an axis of 1."""
         if axis not in self.groups:
             return x
-        self.collectives += 1
         t = self._host(x.float().contiguous())
+        self._count(t)
         dist.all_reduce(t, group=self.groups[axis][0])
         return t.to(device=x.device, dtype=x.dtype)
 
-    def all_gather(self, x, axis: str, dim: int = 0):
-        """The shards of ``axis`` concatenated along ``dim`` in axis order."""
-        if axis not in self.groups:
-            return x
-        self.collectives += 1
-        g, line = self.groups[axis]
-        t = self._host(x.contiguous())
-        parts = [torch.empty_like(t) for _ in line]
-        dist.all_gather(parts, t, group=g)
-        return torch.cat(parts, dim).to(x.device)
+    def all_max(self, x, axes):
+        """Elementwise max of ``x`` over every axis of ``axes`` (a name or a
+        tuple of names; the reference's ``pmax``), in x's dtype."""
+        for axis in _axes(axes):
+            if axis in self.groups:
+                t = self._host(x.contiguous())
+                self._count(t)
+                dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.groups[axis][0])
+                x = t.to(x.device)
+        return x
+
+    def all_gather(self, x, axis, dim: int = 0):
+        """The shards of ``axis`` concatenated along ``dim`` in axis order
+        (a tuple of axes: major to minor)."""
+        for a in reversed(_axes(axis)):
+            if a not in self.groups:
+                continue
+            g, line = self.groups[a]
+            t = self._host(x.contiguous())
+            self._count(t)
+            parts = [torch.empty_like(t) for _ in line]
+            dist.all_gather(parts, t, group=g)
+            x = torch.cat(parts, dim).to(x.device)
+        return x
+
+    def reduce_scatter(self, x, axis, dim: int = 0):
+        """This rank's shard along ``dim`` of the sum of ``x`` over ``axis``
+        (a tuple of axes: major to minor), summed in f32 and cast back: the
+        transpose of :meth:`all_gather`."""
+        for a in _axes(axis):
+            if a not in self.groups:
+                continue
+            g, line = self.groups[a]
+            t = self._host(x.float().movedim(dim, 0).contiguous())
+            self._count(t)
+            out = t.new_empty((t.shape[0] // len(line), *t.shape[1:]))
+            dist.reduce_scatter_tensor(out, t, group=g)
+            x = out.movedim(0, dim).to(device=x.device, dtype=x.dtype)
+        return x
 
     def broadcast(self, x, axis: str | None = None):
         """The value of ``x`` on the first rank of ``axis`` (None: the first
         rank of the mesh), everywhere."""
         if axis not in self.groups:
             return x
-        self.collectives += 1
         g, line = self.groups[axis]
         t = self._host(x.contiguous())
+        self._count(t)
         dist.broadcast(t, src=line[0], group=g)
         return t.to(x.device)
+
+    def barrier(self):
+        """Every rank of the mesh waits for the others here."""
+        if None in self.groups:
+            dist.barrier(group=self.groups[None][0])
 
     def ring_shift(self, x, axis: str = "model", shift: int = 1) -> "RingHop":
         """Send ``x`` to the rank ``shift`` places on along ``axis``'s ring
@@ -143,12 +203,108 @@ class Mesh:
         tensor.  The caller runs its GEMM between the two."""
         g, line = self.groups[axis]
         n, i = len(line), line.index(self.rank)
-        self.collectives += 1
         send = self._host(x.contiguous())
+        self._count(send)
         recv = torch.empty_like(send)
         ops = [dist.P2POp(dist.isend, send, line[(i + shift) % n], g),
                dist.P2POp(dist.irecv, recv, line[(i - shift) % n], g)]
         return RingHop(dist.batch_isend_irecv(ops), recv, x.device, send)
+
+
+def _axes(axes) -> tuple:
+    if axes is None:
+        return ()
+    return tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+
+
+# -- collectives autograd differentiates through ---------------------------
+
+class _EnterTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g, ctx.axis), None, None
+
+
+class _LeaveTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _FSDPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(g, ctx.axes, ctx.dim), None, None, None
+
+
+class _MeanAcross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        n = 1
+        for a in _axes(axes):
+            x = mesh.all_reduce(x, a)
+            n *= mesh.size(a)
+        return x / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def enter_tp(x, mesh, axis: str = "model"):
+    """``x`` (replicated over ``axis``) entering rank-specific compute:
+    identity forward; backward, the partial gradients of the ranks summed
+    over ``axis`` (f32), so that a replicated tensor's gradient is whole on
+    every rank.  Placed before a column-parallel projection's input, on a
+    replicated weight used on this rank's heads, and on a tensor a rank
+    slices for itself.  ``x`` itself off a mesh or on an axis of 1."""
+    if mesh is None or axis not in mesh.groups:
+        return x
+    return _EnterTP.apply(x, mesh, axis)
+
+
+def leave_tp(x, mesh, axis: str = "model"):
+    """Partial results of a tensor-parallel region summed over ``axis`` in
+    f32 (the forward of a row-parallel projection); backward, the identity:
+    the incoming gradient is already whole on every rank."""
+    if mesh is None or axis not in mesh.groups:
+        return x
+    return _LeaveTP.apply(x, mesh, axis)
+
+
+def fsdp_gather(x, mesh, axes, dim: int):
+    """The whole of an FSDP-sharded parameter: its shards over ``axes``
+    gathered along ``dim`` forward; backward, the gradient reduce-scattered
+    back to this rank's shard (summed over ``axes`` in f32)."""
+    if mesh is None or not any(a in mesh.groups for a in _axes(axes)):
+        return x
+    return _FSDPGather.apply(x, mesh, _axes(axes), dim)
+
+
+def mean_across(x, mesh, axes):
+    """The mean of ``x`` over the ranks of ``axes`` (a statistic each data
+    rank computes over its own rows); backward, the identity.  A loss term
+    built from it is replicated over ``axes``, and the train step averages
+    the data ranks' gradients: the identity backward is what makes that
+    average the gradient of the term (the derivative of the mean, ``1/n``,
+    would count it ``n`` times too small)."""
+    if mesh is None or not any(a in mesh.groups for a in _axes(axes)):
+        return x
+    return _MeanAcross.apply(x, mesh, _axes(axes))
 
 
 class RingHop:

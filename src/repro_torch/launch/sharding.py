@@ -9,11 +9,16 @@ is a tuple with one entry a dimension: a mesh axis name, a tuple of them,
 or None (the reference's ``PartitionSpec`` entries).
 
 In the port a spec says which slice of a leaf a rank *holds*
-(:func:`local_slice`, :func:`local_shape`); there is no partitioner, so
-there is no counterpart of the reference's ``constrain`` (a hint to XLA's
-sharding propagation) and no ``NamedSharding``.  :func:`activation_mesh` /
-:func:`current_mesh` carry the mesh to the model code, as the reference's
-trace-time context does, here at call time.
+(:func:`local_slice`, :func:`local_shape`; :func:`gather_whole` joins the
+slices again); there is no partitioner, so there is no counterpart of the
+reference's ``constrain`` (a hint to XLA's sharding propagation) and no
+``NamedSharding``.  :func:`moment_pspecs` places AdamW's moments as the
+reference's ``moment_pspecs`` / ``qtensor_pspecs`` do, :func:`fsdp_dims`
+says which dims of a held leaf a layer gathers before it computes, and
+:func:`batch_entry` how a batch splits over the ranks.
+:func:`activation_mesh` / :func:`current_mesh` carry the mesh (and a train
+step's batch split) to the model code, as the reference's trace-time
+context does, here at call time.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ import contextlib
 import contextvars
 import dataclasses as _dc
 
+from repro_torch.core.quant import QTensor
+from repro_torch.core.tree import tree_map
 from repro_torch.models.params import ParamSpec, tree_map_specs
 
 # tensor-parallel rules: logical axis -> mesh axis
@@ -128,10 +135,19 @@ def _entry_axes(entry) -> tuple:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+def spec_axes(pspec: tuple, dims=None) -> tuple:
+    """The mesh axes that cut any of ``dims`` (default every dim) under
+    ``pspec``, in dim order."""
+    return tuple(a for d in sliced_dims(pspec or ()) if dims is None or d in dims
+                 for a in _entry_axes(pspec[d]))
+
+
 def _shards(mesh, entry) -> tuple[int, int]:
     """(shard count, this rank's shard) of a dimension split over the mesh
     axes of ``entry``, major to minor, as JAX lays a multi-axis entry."""
     n, i = 1, 0
+    if entry is None:
+        return n, i
     for a in _entry_axes(entry):
         n, i = n * mesh.size(a), i * mesh.size(a) + mesh.index(a)
     return n, i
@@ -156,10 +172,60 @@ def local_slice(x, mesh, pspec: tuple):
     return x.contiguous().clone() if sliced_dims(pspec) else x
 
 
+def gather_whole(x, mesh, pspec: tuple):
+    """The whole tensor of which ``x`` is this rank's slice under ``pspec``
+    (every rank calls it; a plain collective, not differentiable)."""
+    for d in sliced_dims(pspec):
+        x = mesh.all_gather(x, _entry_axes(pspec[d]), d)
+    return x
+
+
+def fsdp_dims(pspec: tuple, profile: ShardingProfile) -> list[tuple[int, tuple]]:
+    """(dim, axes) of every FSDP entry of a held leaf's spec: an entry whose
+    axes are all FSDP axes of ``profile`` (``data`` under "2d", where
+    ``model`` is the tensor-parallel axis; ``data`` and ``model`` under
+    "fsdp")."""
+    return [(d, _entry_axes(pspec[d])) for d in sliced_dims(pspec)
+            if set(_entry_axes(pspec[d])) <= set(profile.fsdp_axes)]
+
+
+def moment_pspecs(param_pspecs, kind: str = "f32"):
+    """Specs of AdamW's moments: each moment follows its parameter's spec;
+    an int8 moment is a ``QTensor`` whose values follow it and whose scale
+    (``quantize(x, axis=-1)``: [1, ..., 1, N] for a leaf [..., N], one scale
+    an element for a vector) keeps only the last dim's entry -- the dims its
+    max reduces over are size 1 in the scale, so no shard cuts them there.
+    (The reference's ``qtensor_pspecs`` keeps the other entries and drops
+    the last, for its dry-run ``[..., 1]`` scales, which its update does
+    not make: ROADMAP Queue 3.)"""
+    def conv(ps):
+        if kind != "int8":
+            return ps
+        scale = ps if len(ps) <= 1 else (None,) * (len(ps) - 1) + (ps[-1],)
+        return QTensor(ps, scale)
+    return tree_map(conv, param_pspecs)
+
+
+def batch_entry(mesh, batch: int, profile: ShardingProfile | None = None):
+    """The mesh axes (a tuple, major to minor; empty: replicated) that a
+    batch of ``batch`` rows splits over: ``resolve_pspec``'s ``batch``
+    entry, pod-major, its graded fallback included."""
+    ps = resolve_pspec(ParamSpec((batch,), ("batch",)), mesh, profile=profile)
+    return () if ps[0] is None else _entry_axes(ps[0])
+
+
+def batch_rows(mesh, batch: int, profile: ShardingProfile | None = None) -> slice:
+    """This rank's rows of a batch of ``batch`` rows (:func:`batch_entry`)."""
+    n, i = _shards(mesh, batch_entry(mesh, batch, profile) or None)
+    return slice(i * (batch // n), (i + 1) * (batch // n))
+
+
 def tp_size(mesh=None) -> int:
-    """Size of the tensor-parallel (`model`) axis; 1 when no mesh is active."""
+    """Size of the tensor-parallel (`model`) axis; 1 when no mesh is active
+    or the current profile has no tensor parallelism (``"fsdp"``, where the
+    model axis carries batch and FSDP shards instead)."""
     mesh = mesh if mesh is not None else _ACT_MESH.get()
-    if mesh is None:
+    if mesh is None or "model" not in _current_profile().tp_rules.values():
         return 1
     return dict(mesh.shape).get("model", 1)
 
@@ -167,23 +233,33 @@ def tp_size(mesh=None) -> int:
 _ACT_MESH: contextvars.ContextVar = contextvars.ContextVar("act_mesh", default=None)
 _ACT_PROFILE: contextvars.ContextVar = contextvars.ContextVar("act_profile",
                                                               default=None)
+_ACT_BATCH: contextvars.ContextVar = contextvars.ContextVar("act_batch", default=())
 
 
 @contextlib.contextmanager
-def activation_mesh(mesh, profile: ShardingProfile | None = None):
+def activation_mesh(mesh, profile: ShardingProfile | None = None, batch_axes: tuple = ()):
     """Run the model code inside with ``mesh`` current: each layer then
-    computes this rank's shard and issues the collectives that join them."""
+    computes this rank's shard and issues the collectives that join them.
+    ``batch_axes``: the axes a train step's batch is split over
+    (:func:`batch_entry`), whose ranks each hold their own rows; statistics
+    over the whole batch (the MoE aux) are averaged over them."""
     tok = _ACT_MESH.set(mesh)
     tok2 = _ACT_PROFILE.set(profile)
+    tok3 = _ACT_BATCH.set(tuple(batch_axes))
     try:
         yield
     finally:
         _ACT_MESH.reset(tok)
         _ACT_PROFILE.reset(tok2)
+        _ACT_BATCH.reset(tok3)
 
 
 def current_mesh():
     return _ACT_MESH.get()
+
+
+def current_batch_axes() -> tuple:
+    return _ACT_BATCH.get()
 
 
 def _current_profile() -> ShardingProfile:

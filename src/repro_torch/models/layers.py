@@ -27,7 +27,14 @@ hint yields this rank's output columns, one with ``("row", blocks)`` sums
 its partial GEMM over the model group in f32, anything else (no hint, or
 ``blocks`` not a multiple of the model axis: the weight was left whole) is
 whole.  Attention runs on this rank's heads over its KV-pool shard, and MoE
-on its ``E / tp`` experts (``cfg.moe_shard_map``).
+on its ``E / tp`` experts (``cfg.moe_shard_map``).  The same code trains:
+a replicated tensor that enters rank-specific compute (a column-parallel
+projection's input, a replicated weight applied to this rank's heads, a
+tensor a rank slices for itself) goes through ``launch.mesh.enter_tp``,
+whose backward sums the ranks' partial gradients, and every sum of partial
+results through ``leave_tp``, whose backward is the identity; so each
+replicated tensor's gradient is whole on every rank.  Under the
+``"fsdp"`` profile nothing is tensor parallel (``tp_size`` is 1).
 """
 from __future__ import annotations
 
@@ -44,7 +51,8 @@ from repro_torch.core.quant import QTensor
 from repro_torch.kernels._build import records
 from repro_torch.kernels.ops import attend_decode, attention
 from repro_torch.kernels.ref import flash_attention_ref
-from repro_torch.launch.sharding import current_mesh, tp_size
+from repro_torch.launch.mesh import enter_tp, leave_tp, mean_across
+from repro_torch.launch.sharding import current_batch_axes, current_mesh, tp_size
 from repro_torch.models.params import ParamSpec
 
 F32 = torch.float32
@@ -64,8 +72,21 @@ def _split(shard) -> str | None:
     return shard[0]
 
 
+def tp_input(x, w, shard):
+    """``x`` as the input of a projection of ``w`` with the hint ``shard``:
+    entered into the tensor-parallel region (``enter_tp``) when the
+    projection is column-split, else ``x`` itself.  A caller whose input
+    feeds several column-split projections enters it once here and passes
+    ``entered=True`` to each (one all-reduce of its gradient, not one a
+    projection); a replicated parameter applied to a shard's heads is
+    entered the same way (``w`` itself as ``x``)."""
+    if isinstance(w, QTensor) or _split(shard) != "col":
+        return x
+    return enter_tp(x, current_mesh())
+
+
 def dense_proj(cfg: ArchConfig, x, w, out_shape: tuple = (), out_dtype=None,
-               shard: tuple | None = None):
+               shard: tuple | None = None, entered: bool = False):
     """x: [..., K] @ w -> [..., N] (or [..., *out_shape]).  ``w`` is a float
     weight whose dims reshape row-major to [K, N] (wq [D,H,dh] -> [D, H*dh];
     wo [H,dh,D] -> [H*dh, D] with the caller flattening x's head dims),
@@ -84,14 +105,18 @@ def dense_proj(cfg: ArchConfig, x, w, out_shape: tuple = (), out_dtype=None,
     partial product leaves the GEMM's f32 accumulator unrounded, the
     partials are summed over the model group in f32 and the sum is rounded
     once to the store dtype, as the single device rounds its one sum (the
-    reference rounds each partial first, then sums in f32)."""
+    reference rounds each partial first, then sums in f32).  Under autograd
+    a "col" input enters the region (:func:`tp_input`, unless the caller
+    did: ``entered``) and a "row" sum leaves it (``leave_tp``)."""
     split = None if isinstance(w, QTensor) else _split(shard)  # int8 leaves stay whole
     if isinstance(w, QTensor):
         out = cgra_gemm_w8a8(x, w, out_dtype=out_dtype or cfg.compute_dtype)
     elif split == "row":
         out = cgra_gemm(x, w.reshape(x.shape[-1], -1), out_dtype=F32)
-        out = current_mesh().all_reduce(out, "model").to(out_dtype or x.dtype)
+        out = leave_tp(out, current_mesh()).to(out_dtype or x.dtype)
     else:
+        if split == "col" and not entered:
+            x = tp_input(x, w, shard)
         out = cgra_gemm(x, w.reshape(x.shape[-1], -1), out_dtype=out_dtype)
     if out_shape:
         if split == "col":
@@ -196,12 +221,15 @@ def attn_cache_specs(cfg: ArchConfig, batch: int, seq: int,
 def _qkv(cfg, p, x):
     H, K, dh = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
     xs = shared_input(x, p["wq"])
-    q = dense_proj(cfg, xs, p["wq"], (H, dh), shard=("col", H))
-    k = dense_proj(cfg, xs, p["wk"], (K, dh), shard=("col", K))
-    v = dense_proj(cfg, xs, p["wv"], (K, dh), shard=("col", K))
-    if "q_norm" in p:
-        q = rms_only(q, p["q_norm"])
-        k = rms_only(k, p["k_norm"])
+    xq = tp_input(xs, p["wq"], ("col", H))
+    # K heads split only where H's do (K divides H): whole k / v read xs
+    xk = xq if _split(("col", K)) == "col" else xs
+    q = dense_proj(cfg, xq, p["wq"], (H, dh), shard=("col", H), entered=True)
+    k = dense_proj(cfg, xk, p["wk"], (K, dh), shard=("col", K), entered=True)
+    v = dense_proj(cfg, xk, p["wv"], (K, dh), shard=("col", K), entered=True)
+    if "q_norm" in p:  # replicated scales on this rank's heads
+        q = rms_only(q, tp_input(p["q_norm"], p["q_norm"], ("col", H)))
+        k = rms_only(k, tp_input(p["k_norm"], p["k_norm"], ("col", K)))
     return q, k, v
 
 
@@ -218,6 +246,7 @@ def local_kv(cfg, t, dim: int):
         return t
     Hl, G = H // tp, H // K
     first = current_mesh().index("model") * Hl
+    t = enter_tp(t, current_mesh())  # each rank reads its own heads' share
     if Hl % G == 0:  # whole groups: a contiguous run of KV heads
         return t.narrow(dim, first // G, Hl // G).contiguous()
     idx = torch.arange(first, first + Hl, device=t.device) // G
@@ -683,9 +712,9 @@ def ffn_forward(cfg: ArchConfig, p: dict, x):
         h = dense_proj(cfg, x, p["w1"], shard=("col", Fdim)) + p["b1"].to(dt)
         return dense_proj(cfg, F.gelu(h, approximate="tanh"), p["w2"],
                           shard=("row", Fdim)) + p["b2"].to(dt)
-    xs = shared_input(x, p["w_gate"])
-    g = dense_proj(cfg, xs, p["w_gate"], shard=("col", Fdim))
-    u = dense_proj(cfg, xs, p["w_up"], shard=("col", Fdim))
+    xs = tp_input(shared_input(x, p["w_gate"]), p["w_gate"], ("col", Fdim))
+    g = dense_proj(cfg, xs, p["w_gate"], shard=("col", Fdim), entered=True)
+    u = dense_proj(cfg, xs, p["w_up"], shard=("col", Fdim), entered=True)
     act = (F.gelu(g, approximate="tanh") if ffn_kind(cfg) == "geglu"
            else F.silu(g))
     return dense_proj(cfg, act * u, p["w_down"], shard=("row", Fdim))
@@ -785,24 +814,44 @@ def moe_forward(cfg: ArchConfig, p: dict, x):
     route is computed whole on every rank, this rank dispatches, runs and
     combines only the choices of its ``E / tp`` experts (its slice of the
     expert weights), and one f32 all-reduce over the model group sums the
-    partial outputs."""
+    partial outputs.
+
+    In a mesh's train step each data rank holds its own rows of the batch
+    (``current_batch_axes``) and routes them as ``num_moe_groups / n`` of
+    the step's groups (``prepare_arch`` makes the groups the data ranks, so
+    one a rank); the tokens it dispatches enter the expert-parallel region
+    and its partial outputs leave it (``enter_tp`` / ``leave_tp``)."""
     B, S, D = x.shape
     E, k, dt = cfg.num_experts, cfg.experts_per_token, cfg.compute_dtype
-    G = max(1, min(cfg.num_moe_groups, B * S))
+    groups = cfg.num_moe_groups
+    mesh = current_mesh()
+    n = 1
+    for a in current_batch_axes():
+        n *= mesh.size(a)
+    if groups % n:
+        raise NotImplementedError(
+            f"{cfg.name}: {groups} MoE dispatch groups over a batch split {n} ways: a "
+            f"group would span ranks (ROADMAP Queue 1 item 13); train MoE with "
+            f"parallel_mode='2d' on a mesh from prepare_arch")
+    if p["w_gate"].shape[-1] != cfg.moe_d_ff:
+        raise NotImplementedError(
+            f"{cfg.name}: expert FFNs split over the model axis ({cfg.num_experts} experts "
+            f"do not divide over it) are not ported (ROADMAP Queue 1 item 13)")
+    G = max(1, min(groups // n, B * S))
     T = (B * S) // G
     dev = x.device
     xt = x.reshape(G, T, D)
     r = moe_route(cfg, p, xt)
     C, GC = r.C, G * r.C
     El = p["w_gate"].shape[0]  # this rank's experts
-    base, mine = 0, r.kept
+    base, mine, w_route = 0, r.kept, r.topw
     if El != E:
-        mesh = current_mesh()
         if not cfg.moe_shard_map or mesh is None or E != El * mesh.size("model"):
             raise ValueError(f"{El} of {E} experts held: expert-parallel MoE needs "
                              f"cfg.moe_shard_map and a mesh whose model axis is E / {El}")
         base = mesh.index("model") * El
         mine = mine & (r.topi >= base) & (r.topi < base + El)
+        xt, w_route = enter_tp(xt, mesh), enter_tp(r.topw, mesh)
     # slot of each choice as a row of the [El, G, C] expert batch; El*G*C is
     # the trash row / the zero row of the combine (another rank's choices
     # and dropped ones point there)
@@ -823,20 +872,27 @@ def moe_forward(cfg: ArchConfig, p: dict, x):
     eout = torch.cat([eout, eout.new_zeros(1, D)])
     order = torch.argsort(r.topi, -1)  # each token's choices by expert id
     rows = torch.gather(row, -1, order)
-    w = torch.gather(r.topw, -1, order).to(dt)
+    w = torch.gather(w_route, -1, order).to(dt)
     terms = eout.index_select(0, rows.reshape(-1)).view(G, T, k, D) * w[..., None]
     out = terms[:, :, 0]
     for j in range(1, k):
         out = out + terms[:, :, j]
     if El != E:
-        out = current_mesh().all_reduce(out, "model")
+        out = leave_tp(out, mesh)
     return out.reshape(B, S, D), r
 
 
 def moe_aux(cfg: ArchConfig, r: MoeRoute):
     """The Switch load-balancing loss of one :func:`moe_forward` call,
     ``E * sum_e f_e * p_e``: f_e the share of all (token, choice) pairs
-    that chose e, dropped ones included; p_e the mean router probability."""
+    that chose e, dropped ones included; p_e the mean router probability.
+    In a mesh's train step both means run over every group of the step:
+    this rank's groups' means averaged over the batch axes
+    (``mean_across``) before their product."""
     E = cfg.num_experts
     load = (r.topi[..., None] == torch.arange(E, device=r.topi.device)).sum((0, 1, 2))
-    return E * torch.sum(r.probs.mean((0, 1)) * (load.to(F32) / r.topi.numel()))
+    me, fe = r.probs.mean((0, 1)), load.to(F32) / r.topi.numel()
+    axes = current_batch_axes()
+    if axes:
+        me, fe = mean_across(me, current_mesh(), axes), mean_across(fe, current_mesh(), axes)
+    return E * torch.sum(me * fe)

@@ -21,7 +21,12 @@ this rank's shard: params from :func:`shard_params`, pools from
 ``init_paged_cache(mesh=...)``; the embedding is a masked lookup in this
 rank's vocab rows summed over the model group, the head's vocab shards are
 gathered whole before any caller sees the logits, and a paged decode step
-splits its batch over the data group (:func:`forward_hidden`).
+splits its batch over the data group (:func:`forward_hidden`).  The
+training loss (:func:`loss_fn`) runs on this rank's rows of the batch: a
+leaf sharded over FSDP axes (``shard_params(fsdp=True)``) is gathered when
+its layer runs (``launch.mesh.fsdp_gather``, again under remat's
+recompute), and the cross entropy is vocab-parallel: the max and the sum of
+exponentials are joined over the vocab shards, never the logits.
 """
 from __future__ import annotations
 
@@ -37,7 +42,9 @@ from repro_torch.core import resolve_device
 from repro_torch.core.gemm import cgra_gemm
 from repro_torch.core.quant import QTensor, quantize_over
 from repro_torch.kernels.ops import CGRA_MATMUL
-from repro_torch.launch.sharding import current_mesh, local_shape, local_slice, resolve_pspec
+from repro_torch.launch.mesh import fsdp_gather, leave_tp
+from repro_torch.launch.sharding import (current_mesh, fsdp_dims, local_shape, local_slice,
+                                         profile_for, tree_pspecs)
 from repro_torch.models import layers as L
 from repro_torch.models import ssd as S
 from repro_torch.models.params import (ParamSpec, init_params, is_spec, stack_tree,
@@ -166,29 +173,103 @@ def quantize_params(cfg: ArchConfig, params: dict) -> dict:
     return new
 
 
-def shard_params(cfg: ArchConfig, params: dict, mesh) -> dict:
+def param_pspecs(cfg: ArchConfig, mesh, *, fsdp: bool = False,
+                 main_repeats: int | None = None) -> dict:
+    """The spec of every leaf a rank holds after :func:`shard_params`, in
+    ``param_specs(cfg, main_repeats)``'s tree: ``resolve_pspec`` under the
+    config's profile (``launch.sharding.profile_for``), with ``fsdp``; a MoE
+    layer's ``router`` whole (see :func:`shard_params`)."""
+    profile = profile_for(cfg)
+    ps = tree_pspecs(param_specs(cfg, main_repeats), mesh, fsdp=fsdp, profile=profile)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: ((None,) * len(v) if k == "router" else walk(v))
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return tree
+
+    return walk(ps)
+
+
+def shard_params(cfg: ArchConfig, params: dict, mesh, *, fsdp: bool = False,
+                 main_repeats: int | None = None) -> dict:
     """This rank's slice of ``params`` on ``mesh``: each leaf cut along the
-    dimensions ``launch.sharding.resolve_pspec`` gives its spec
-    (heads / kv_heads / ffn / vocab / experts over ``model``, the
-    divisibility fallback intact), as a tensor of its own, so the whole
-    tree can be freed after.  As the reference's ``shard_params``:
+    dimensions ``launch.sharding.resolve_pspec`` gives its spec under the
+    config's profile (heads / kv_heads / ffn / vocab / experts over
+    ``model`` in ``"2d"``, the divisibility fallback intact; with ``fsdp``
+    one more dim over the FSDP axes, ZeRO-3), as a tensor of its own, so the
+    whole tree can be freed after (:func:`param_pspecs`; ``main_repeats``
+    for a tree made at that depth).  As the reference's ``shard_params``:
     ``QTensor`` leaves (w8a8) stay whole, and so does ``lm_head_q`` (the
     reference places it with the float head's spec, but as a ``QTensor``
     it is whole there too).  One leaf more stays whole here: a MoE layer's
     ``router``, whose logits every rank needs whole to route (the
     reference's partitioner gathers them; the port has none)."""
-    specs = param_specs(cfg)
+    specs = param_pspecs(cfg, mesh, fsdp=fsdp, main_repeats=main_repeats)
 
-    def walk(spec, val, name=None):
-        if is_spec(spec):
-            if isinstance(val, QTensor) or name == "router":
-                return val
-            return local_slice(val, mesh, resolve_pspec(spec, mesh))
+    def walk(spec, val):
+        if isinstance(spec, tuple):
+            return val if isinstance(val, QTensor) else local_slice(val, mesh, spec)
         if isinstance(spec, dict):
-            return {k: (walk(spec[k], v, k) if k in spec else v) for k, v in val.items()}
+            return {k: (walk(spec[k], v) if k in spec else v) for k, v in val.items()}
         return [walk(sp, v) for sp, v in zip(spec, val)]
 
     return walk(specs, params)
+
+
+def fsdp_plan(cfg: ArchConfig, params: dict, mesh, main_repeats: int | None = None):
+    """For every leaf of ``params`` (this rank's tree), the (dim, axes) of
+    each FSDP shard it holds -- a dim its spec with FSDP cuts over FSDP
+    axes and that is shorter here than the whole -- in the params' tree;
+    None when no leaf is FSDP-sharded."""
+    profile = profile_for(cfg)
+    specs = param_specs(cfg, main_repeats)
+    pss = tree_pspecs(specs, mesh, fsdp=True, profile=profile)
+    found = False
+
+    def walk(spec, ps, val):
+        nonlocal found
+        if is_spec(spec):
+            dims = [(d, ax) for d, ax in fsdp_dims(ps, profile)
+                    if not isinstance(val, QTensor) and val.shape[d] < spec.shape[d]]
+            found = found or bool(dims)
+            return dims
+        if isinstance(spec, dict):
+            return {k: walk(spec[k], ps[k], v) for k, v in val.items() if k in spec}
+        return [walk(a, b, v) for a, b, v in zip(spec, ps, val)]
+
+    plan = walk(specs, pss, params)
+    return plan if found else None
+
+
+def fsdp_gathered(tree, plan, mesh, skip: int = 0):
+    """``tree`` with every leaf's FSDP shards gathered whole
+    (``launch.mesh.fsdp_gather``: all-gather forward, reduce-scatter
+    backward); ``skip`` leading dims of the plan's are gone from the leaves
+    (1 for one layer of a stacked tree)."""
+    if isinstance(tree, dict):
+        return {k: (fsdp_gathered(v, plan[k], mesh, skip) if k in plan else v)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [fsdp_gathered(v, p, mesh, skip) for v, p in zip(tree, plan)]
+    for d, axes in plan:
+        tree = fsdp_gather(tree, mesh, axes, d - skip)
+    return tree
+
+
+def _stack_dim_gathered(tree, plan, mesh):
+    """(tree, plan) with the leaves FSDP-sharded on their stacked layer
+    axis gathered whole (a layer's weights cannot be gathered layer by
+    layer then) and the plan left for the others."""
+    if isinstance(tree, dict):
+        pairs = {k: _stack_dim_gathered(v, plan[k], mesh) for k, v in tree.items()}
+        return ({k: a for k, (a, _) in pairs.items()}, {k: b for k, (_, b) in pairs.items()})
+    for d, axes in plan:
+        if d == 0:
+            tree = fsdp_gather(tree, mesh, axes, 0)
+    return tree, [(d, a) for d, a in plan if d != 0]
 
 
 # ---------------------------------------------------------------------------
@@ -495,7 +576,7 @@ def embed_tokens(cfg: ArchConfig, params, tokens):
         local = t - mesh.index("model") * emb.shape[0]
         ok = ((local >= 0) & (local < emb.shape[0]))[..., None]
         x = torch.where(ok, emb[torch.where(ok[..., 0], local, 0)], 0).to(cfg.compute_dtype)
-        x = mesh.all_reduce(x, "model")
+        x = leave_tp(x, mesh)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.compute_dtype)
     return x
@@ -530,6 +611,20 @@ def project_images(cfg: ArchConfig, params, images):
     return _project(cfg, images, params["vision_proj"])
 
 
+def head_logits(cfg: ArchConfig, params, hidden):
+    """f32 logits of this rank's vocab shard (all of them off a mesh): the
+    head of :func:`lm_logits` before its gather."""
+    if cfg.tie_embeddings:
+        if "lm_head_q" in params:
+            return L.dense_proj(cfg, hidden, params["lm_head_q"], out_dtype=F32)
+        emb = params["embed"]
+        if emb.shape[0] != cfg.padded_vocab:  # a vocab shard: enter the region
+            hidden = L.tp_input(hidden, emb, ("col", cfg.padded_vocab))
+        return cgra_gemm(hidden, emb, out_dtype=F32, trans_b=True)
+    return L.dense_proj(cfg, hidden, params["lm_head"], out_dtype=F32,
+                        shard=("col", cfg.padded_vocab))
+
+
 def lm_logits(cfg: ArchConfig, params, hidden):
     """f32 logits straight from the GEMM's f32 accumulator.  A tied head
     reads the [Vp, D] embedding table in place as the GEMM's [N, K] operand
@@ -538,14 +633,7 @@ def lm_logits(cfg: ArchConfig, params, hidden):
     padded_vocab)``, the reference's): each rank computes its vocab shard
     and the shards are gathered over the model group, so every rank holds
     the whole row for its sampler."""
-    if cfg.tie_embeddings:
-        if "lm_head_q" in params:
-            logits = L.dense_proj(cfg, hidden, params["lm_head_q"], out_dtype=F32)
-        else:
-            logits = cgra_gemm(hidden, params["embed"], out_dtype=F32, trans_b=True)
-    else:
-        logits = L.dense_proj(cfg, hidden, params["lm_head"], out_dtype=F32,
-                              shard=("col", cfg.padded_vocab))
+    logits = head_logits(cfg, params, hidden)
     if logits.shape[-1] != cfg.padded_vocab:
         logits = current_mesh().all_gather(logits, "model", dim=-1)
     return logits
@@ -603,7 +691,7 @@ def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
                    caches=None, pos=None, pages=None, past_len=0,
                    chunk_len=None, images=None, frames=None, full_kv: bool = False,
                    return_aux: bool = False, attn_chunk: int = 0,
-                   main_repeats: int | None = None):
+                   main_repeats: int | None = None, plan=None):
     """Run the stack; returns (hidden, caches), or with ``return_aux``
     (hidden, aux, caches) as the reference does: ``aux`` the f32 sum of the
     MoE layers' load-balancing losses in train mode (0 without MoE layers
@@ -625,7 +713,10 @@ def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
     image K/V its prefill cached.  An encoder has only the train mode.
     ``attn_chunk`` query-chunks the plain attention (train and prefill);
     ``main_repeats`` runs the main stage at that depth (params and caches
-    made for it, or the first layers of deeper ones)."""
+    made for it, or the first layers of deeper ones).  ``plan``: the
+    params' :func:`fsdp_plan` under the current mesh: each layer gathers its
+    FSDP shards when it runs, inside its remat group (the top-level leaves
+    are the caller's to gather, as :func:`loss_fn` does)."""
     if cfg.kind == "encoder" and mode != "train":
         raise ValueError(f"{cfg.name} is an encoder: it has no causal {mode} step; run "
                          f"forward_hidden(mode='train') and lm_logits on every frame")
@@ -662,9 +753,15 @@ def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
     for si, stage in enumerate(cfg.stages(main_repeats)):
         sc = None if caches is None else caches[si]
 
+        stage_params, lplan = params["stages"][si], None
+        if plan is not None:
+            stage_params, lplan = _stack_dim_gathered(stage_params, plan["stages"][si], mesh)
+
         # the specs are bound here: a checkpoint recomputes the group in the
         # backward pass, when ``stage`` already holds the last stage
-        def group(x, aux, lp, lc, specs=stage.group):
+        def group(x, aux, lp, lc, specs=stage.group, lplan=lplan):
+            if lplan is not None:  # this layer's FSDP shards, gathered now
+                lp = fsdp_gathered(lp, lplan, mesh, skip=1)
             out = {}
             for gi, spec in enumerate(specs):
                 c_in = None if lc is None else lc[str(gi)]
@@ -679,7 +776,7 @@ def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
         layer_caches = [None] * stage.repeats if sc is None else _unstack(sc, stage.repeats)
         # each stacked leaf is unbound here, outside any checkpoint: a
         # recompute must not scatter the stack's gradient again
-        for lp, lc in zip(_unstack(params["stages"][si], stage.repeats), layer_caches):
+        for lp, lc in zip(_unstack(stage_params, stage.repeats), layer_caches):
             if remat is None:
                 x, aux, out = group(x, aux, lp, lc)
             else:
@@ -713,6 +810,30 @@ def cross_entropy(cfg: ArchConfig, logits, labels):
     return torch.mean(lse - ll)
 
 
+def vocab_parallel_cross_entropy(cfg: ArchConfig, logits, labels, mesh):
+    """:func:`cross_entropy` of logits held as vocab shards over the model
+    group (logits [B, S, Vp / tp], this rank's columns): the row max joined
+    by a max all-reduce (no gradient: the log-sum-exp does not depend on
+    it), the sum of exponentials and each row's label logit (from the one
+    shard that holds it) by f32 all-reduces whose backward is the identity
+    (``leave_tp``); the padded vocab's columns are masked by their global
+    index.  No rank sees a whole row of logits."""
+    lf = logits.to(F32)
+    Vl = lf.shape[-1]
+    lo = mesh.index("model") * Vl
+    col = torch.arange(lo, lo + Vl, device=lf.device)
+    if cfg.padded_vocab != cfg.vocab_size:
+        lf = torch.where(col < cfg.vocab_size, lf, torch.full_like(lf, NEG_INF))
+    m = mesh.all_max(lf.detach().amax(-1), "model")
+    se = leave_tp(torch.exp(lf - m[..., None]).sum(-1), mesh)
+    lse = m + torch.log(se)
+    local = labels.long() - lo
+    ok = (local >= 0) & (local < Vl)
+    ll = torch.gather(lf, -1, torch.where(ok, local, 0)[..., None])[..., 0]
+    ll = leave_tp(torch.where(ok, ll, torch.zeros_like(ll)), mesh)
+    return torch.mean(lse - ll)
+
+
 def loss_fn(cfg: ArchConfig, params, batch: dict, *, attn_chunk: int = 0,
             main_repeats: int | None = None):
     """The training loss of the reference's ``loss_fn``: ``ce + 0.01 *
@@ -720,13 +841,28 @@ def loss_fn(cfg: ArchConfig, params, batch: dict, *, attn_chunk: int = 0,
     and ``tokens`` [B, S], or an audio encoder's ``frames`` [B, S,
     frontend_dim] (one label a frame); a cross model also reads
     ``images``.  ``attn_chunk`` / ``main_repeats``: see
-    :func:`forward_hidden`."""
+    :func:`forward_hidden`.
+
+    Under a mesh ``params`` is this rank's shard and ``batch`` its rows: the
+    loss is the mean over those rows (the train step averages the data
+    ranks), FSDP shards are gathered where they are read (the embedding,
+    final norm and head here, each layer's in :func:`forward_hidden`), and a
+    vocab-sharded head takes :func:`vocab_parallel_cross_entropy`."""
+    mesh = current_mesh()
+    plan = fsdp_plan(cfg, params, mesh, main_repeats) if mesh is not None else None
+    if plan is not None:
+        params = dict(params, **{k: fsdp_gathered(v, plan[k], mesh)
+                                 for k, v in params.items() if k != "stages" and k in plan})
     hidden, aux, _ = forward_hidden(cfg, params, batch.get("tokens"), mode="train",
                                     images=batch.get("images"),
                                     frames=batch.get("frames"), return_aux=True,
-                                    attn_chunk=attn_chunk, main_repeats=main_repeats)
-    logits = lm_logits(cfg, params, hidden)
-    ce = cross_entropy(cfg, logits, batch["labels"])
+                                    attn_chunk=attn_chunk, main_repeats=main_repeats,
+                                    plan=plan)
+    logits = head_logits(cfg, params, hidden)
+    if logits.shape[-1] != cfg.padded_vocab:
+        ce = vocab_parallel_cross_entropy(cfg, logits, batch["labels"], mesh)
+    else:
+        ce = cross_entropy(cfg, logits, batch["labels"])
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 

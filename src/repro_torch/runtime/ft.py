@@ -7,6 +7,11 @@
   step is pure, a restart resumes the exact loss stream.  On a restart with
   no checkpoint yet the run starts again from the state it was given, which
   the pure step never wrote.
+- Over a mesh (``TrainRunner(mesh=)``) every rank runs the runner: the
+  failure schedule is the same on every rank, so all fail and resume at
+  the same step, and the decisions a rank could take differently -- the
+  step to resume from and a straggler flag -- are rank 0's, broadcast.
+  Every collective of a step is issued by every rank or by none.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.serving.chaos import ChaosInjector
@@ -81,7 +87,7 @@ class TrainRunner:
                  ckpt: CheckpointManager, *, ckpt_every: int = 10,
                  monitor: StragglerMonitor | None = None,
                  injector: FailureInjector | None = None,
-                 max_restarts: int = 3):
+                 max_restarts: int = 3, mesh=None):
         self.train_step = train_step
         self.batch_fn = batch_fn
         self.ckpt = ckpt
@@ -89,10 +95,20 @@ class TrainRunner:
         self.monitor = monitor or StragglerMonitor()
         self.injector = injector
         self.max_restarts = max_restarts
+        self.mesh = mesh if mesh is not None and mesh.size_total > 1 else None
+
+    def _rank0(self, value: float) -> float:
+        """``value`` as rank 0 of the mesh has it (``value`` off a mesh)."""
+        if self.mesh is None:
+            return value
+        dev = "cpu" if self.mesh.backend == "gloo" else torch.cuda.current_device()
+        t = torch.tensor([value], dtype=torch.float64, device=dev)
+        return float(self.mesh.broadcast(t, None)[0])
 
     def _resume(self, init_state):
         latest = self.ckpt.latest_step()
-        if latest is None:
+        latest = int(self._rank0(-1 if latest is None else latest))
+        if latest < 0:
             return init_state, 0
         return self.ckpt.restore(latest, init_state), latest
 
@@ -113,7 +129,7 @@ class TrainRunner:
                         if not np.isfinite(loss):
                             raise FloatingPointError(f"non-finite loss at {step}")
                         report.losses.append(loss)
-                    if self.monitor.observe(step, time.time() - t0):
+                    if self._rank0(self.monitor.observe(step, time.time() - t0)):
                         report.straggler_flags += 1
                     report.steps_run += 1
                     if (step + 1) % self.ckpt_every == 0 or step + 1 == total_steps:

@@ -8,18 +8,35 @@ own tensors never require grad.  On the card the GEMMs differentiate
 through ``ops.cgra_matmul``'s backward kernels and attention runs its plain
 version (``models.layers.dense_attention``); each layer group runs under
 the config's ``remat_policy`` (``models.model._remat``).
+
+Over a mesh (``make_train_step(mesh=...)``, one process a rank) each rank
+holds its shard of the state (:func:`shard_state`: parameters and moments
+cut by ``models.model.param_pspecs``, FSDP with ``cfg.fsdp``, the profile
+``cfg.parallel_mode`` names) and computes the loss of its rows of the
+global batch the step is handed (:func:`local_batch`).  Gradients come out
+of autograd whole on the tensor-parallel ranks and reduce-scattered over
+the FSDP axes; :func:`mesh_value_and_grad` sums the rest over the batch
+axes in f32 and divides, so every rank holds the mean gradient of its
+shard, and AdamW updates the shards (``optimizer.adamw_update(mesh=)``).
+With ``compress_pod`` the mean over ``pod`` is ``training.compress``'s
+int8 one.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import resolve_device
+from repro_torch.core.quant import QTensor
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
-from repro_torch.data.pipeline import to_device
+from repro_torch.data.pipeline import local_batch, to_device
+from repro_torch.launch.sharding import (activation_mesh, batch_entry, local_slice,
+                                         moment_pspecs, profile_for, spec_axes)
 from repro_torch.models import model as M
+from repro_torch.training.compress import compressed_tree_mean
 from repro_torch.training.optimizer import AdamWConfig, adamw_update, init_moments
 
 F32 = torch.float32
@@ -64,6 +81,120 @@ def value_and_grad(cfg: ArchConfig, params, batch: dict, *, attn_chunk: int = 0,
             tree_unflatten(params, grads))
 
 
+# -- over a mesh ---------------------------------------------------------------
+
+def check_mesh_family(cfg: ArchConfig):
+    """Raise for a family whose training is not ported to a mesh: MLA, SSD,
+    cross-attention and the audio encoder train on one device."""
+    mixers = {sp.mixer for sp in cfg.layer_specs()}
+    if cfg.use_mla or cfg.kind == "encoder" or cfg.vision_tokens or cfg.audio_frontend \
+            or mixers & {"ssm", "cross"}:
+        raise NotImplementedError(
+            f"{cfg.name}: training over a mesh is ported for attention decoders with dense "
+            f"or MoE FFNs; MLA, SSD, cross-attention and encoder models train on one "
+            f"device (ROADMAP Queue 1 item 13)")
+
+
+def mesh_config(cfg: ArchConfig, mesh) -> ArchConfig:
+    """``cfg`` as a mesh's train step runs it: expert-parallel MoE
+    (``moe_shard_map``) where tensor parallelism splits the experts."""
+    tp = mesh.size("model") if profile_for(cfg).tp_rules else 1
+    if tp > 1 and cfg.num_experts and cfg.num_experts % tp == 0:
+        return cfg.with_(moe_shard_map=True)
+    return cfg
+
+
+def state_pspecs(cfg: ArchConfig, opt: AdamWConfig, mesh,
+                 main_repeats: int | None = None) -> TrainState:
+    """How each leaf of a :class:`TrainState` is cut on ``mesh``: the
+    parameters by ``model.param_pspecs`` (with ``cfg.fsdp``), the moments as
+    ``launch.sharding.moment_pspecs`` places them, the step whole."""
+    ps = M.param_pspecs(cfg, mesh, fsdp=cfg.fsdp, main_repeats=main_repeats)
+    mom = moment_pspecs(ps, opt.moments_dtype)
+    return TrainState((), ps, mom, mom)
+
+
+def shard_state(cfg: ArchConfig, opt: AdamWConfig, state: TrainState, mesh,
+                main_repeats: int | None = None) -> TrainState:
+    """This rank's shard of a whole ``state`` (as :func:`init_state` or a
+    restore makes it), each leaf a tensor of its own (:func:`state_pspecs`)."""
+    specs = state_pspecs(cfg, opt, mesh, main_repeats)
+
+    def cut(x, ps):
+        if isinstance(x, QTensor):
+            return QTensor(local_slice(x.q, mesh, ps.q), local_slice(x.scale, mesh, ps.scale))
+        return local_slice(x, mesh, ps)
+
+    return TrainState(state.step, *(tree_map(cut, getattr(state, f), getattr(specs, f))
+                                    for f in ("params", "mu", "nu")))
+
+
+def _batch_axes(cfg: ArchConfig, mesh) -> tuple:
+    return tuple(a for a in profile_for(cfg).batch_axes if a in mesh.shape)
+
+
+def mesh_value_and_grad(cfg: ArchConfig, params, batch: dict, mesh, *, accum_steps: int = 1,
+                        attn_chunk: int = 0, main_repeats: int | None = None,
+                        compress_pod: bool = False):
+    """(loss, extras, grads) of one step over ``mesh``: ``params`` this
+    rank's shard (:func:`shard_state`), ``batch`` the step's *global* batch
+    (this rank takes its rows, :func:`local_batch`).  ``grads`` holds the
+    mean gradient of the global loss for each leaf this rank holds, in the
+    leaf's dtype; loss and extras are the means over the batch ranks.
+
+    Each leaf's local gradient is already summed over its FSDP axes (the
+    gather's reduce-scatter); it is summed over the other batch axes in f32
+    and divided by the number of batch ranks.  With ``compress_pod`` and a
+    ``pod`` axis the exact sum runs within the pod and the mean over pods
+    is ``compressed_tree_mean`` (no error feedback, as the reference's
+    step).  ``accum_steps`` splits each rank's rows into that many
+    microbatches, the rows of global microbatch i in the i-th."""
+    cfg = mesh_config(cfg, mesh)
+    profile = profile_for(cfg)
+    pspecs = M.param_pspecs(cfg, mesh, fsdp=cfg.fsdp, main_repeats=main_repeats)
+    axes = _batch_axes(cfg, mesh)
+    pod = compress_pod and "pod" in mesh.shape
+    exact = tuple(a for a in axes if not (pod and a == "pod"))
+    B = next(iter(batch.values())).shape[0]
+    split = batch_entry(mesh, B // accum_steps, profile)
+    rows = to_device(local_batch(batch, mesh, profile, accum_steps), _device(params))
+    with activation_mesh(mesh, profile, split):
+        if accum_steps == 1:
+            loss, extras, grads = value_and_grad(cfg, params, rows, attn_chunk=attn_chunk,
+                                                 main_repeats=main_repeats)
+            grads = tree_map(lambda g: g.to(F32), grads)
+        else:
+            loss, extras, grads = _accumulated(cfg, params, rows, accum_steps, attn_chunk,
+                                               main_repeats)
+
+    def mean(x, axes, summed=()):  # ``summed``: axes x is already a sum over
+        for a in axes:
+            if a not in summed:
+                x = mesh.all_reduce(x, a)
+        return x / math.prod(mesh.size(a) for a in axes)
+
+    grads = tree_map(lambda g, ps: mean(g, exact, spec_axes(ps)), grads, pspecs)
+    if pod:
+        grads, _ = compressed_tree_mean(grads, mesh, "pod", pspecs=pspecs)
+    grads = tree_map(lambda g, p: g.to(p.dtype), grads, params)
+    return (mean(loss.to(F32), axes),
+            {k: mean(v.to(F32), axes) for k, v in extras.items()}, grads)
+
+
+def _accumulated(cfg, params, batch, accum_steps, attn_chunk, main_repeats):
+    """The microbatches' mean loss, the last one's extras and the mean of
+    their gradients (summed in f32): the reference's accumulation."""
+    micro = {k: v.reshape(accum_steps, -1, *v.shape[1:]) for k, v in batch.items()}
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params)
+    lsum = torch.zeros((), dtype=F32, device=_device(params))
+    for i in range(accum_steps):
+        loss, extras, g = value_and_grad(cfg, params, {k: v[i] for k, v in micro.items()},
+                                         attn_chunk=attn_chunk, main_repeats=main_repeats)
+        tree_map(lambda a, x: a.add_(x), acc, g)  # acc is the step's own
+        lsum = lsum + loss
+    return lsum / accum_steps, extras, tree_map(lambda a: a / accum_steps, acc)
+
+
 def make_train_step(cfg: ArchConfig, opt: AdamWConfig, *, accum_steps: int = 1,
                     attn_chunk: int = 0, main_repeats: int | None = None,
                     compress_pod: bool = False, mesh=None):
@@ -79,37 +210,38 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig, *, accum_steps: int = 1,
     ``attn_chunk`` query-chunks the plain attention; ``main_repeats`` trains
     the main stage at that depth (a state from ``init_state(main_repeats=)``).
 
-    Not ported (the reference's multi-device options): ``compress_pod`` /
-    ``mesh`` raise (ROADMAP Queue 1 item 13)."""
-    if compress_pod or mesh is not None:
-        raise NotImplementedError("compress_pod / mesh: the port trains on one device; "
-                                  "the cross-pod compressed mean and meshes are "
-                                  "ROADMAP Queue 1 item 13")
+    ``mesh`` (a ``launch.mesh.Mesh`` this process is a rank of): the state
+    is this rank's shard (:func:`shard_state`) and ``batch`` the step's
+    global batch, of which the step takes this rank's rows; gradients as
+    :func:`mesh_value_and_grad`.  ``compress_pod`` on a mesh with a ``pod``
+    axis means the gradients over pods with the int8 compressed mean;
+    without a ``pod`` axis (or a mesh) it trains plainly, as the reference.
+    MLA, SSD, cross-attention and encoder models raise on a mesh
+    (:func:`check_mesh_family`)."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-
-    def vg(params, batch):
-        return value_and_grad(cfg, params, batch, attn_chunk=attn_chunk,
-                              main_repeats=main_repeats)
+    pspecs = None
+    if mesh is not None:
+        check_mesh_family(cfg)
+        pspecs = M.param_pspecs(mesh_config(cfg, mesh), mesh, fsdp=cfg.fsdp,
+                                main_repeats=main_repeats)
 
     def grads_of(params, batch):
+        if mesh is not None:
+            return mesh_value_and_grad(cfg, params, batch, mesh, accum_steps=accum_steps,
+                                       attn_chunk=attn_chunk, main_repeats=main_repeats,
+                                       compress_pod=compress_pod)
+        batch = to_device(batch, _device(params))
         if accum_steps == 1:
-            return vg(params, batch)
-        micro = {k: v.reshape(accum_steps, -1, *v.shape[1:]) for k, v in batch.items()}
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params)
-        lsum = torch.zeros((), dtype=F32, device=_device(params))
-        for i in range(accum_steps):
-            loss, extras, g = vg(params, {k: v[i] for k, v in micro.items()})
-            tree_map(lambda a, x: a.add_(x), acc, g)  # acc is the step's own
-            lsum = lsum + loss
-        return lsum / accum_steps, extras, tree_map(lambda a: a / accum_steps, acc)
+            return value_and_grad(cfg, params, batch, attn_chunk=attn_chunk,
+                                  main_repeats=main_repeats)
+        return _accumulated(cfg, params, batch, accum_steps, attn_chunk, main_repeats)
 
     def train_step(state: TrainState, batch: dict):
-        batch = to_device(batch, _device(state.params))
         loss, extras, grads = grads_of(state.params, batch)
         with torch.profiler.record_function("adamw_update"):  # a trace's optimizer span
             params, mu, nu, om = adamw_update(opt, state.params, grads, state.mu,
-                                              state.nu, state.step)
+                                              state.nu, state.step, mesh, pspecs)
         metrics = {"loss": loss, **extras, **om, "step": state.step}
         return TrainState(state.step + 1, params, mu, nu), metrics
 

@@ -31,8 +31,9 @@ def test_import_pulls_in_no_jax_and_no_repro():
             "repro_torch.kernels.decode_attention", "repro_torch.launch.serve",
             "repro_torch.core.cgra", "repro_torch.launch.roofline",
             "repro_torch.launch.mesh", "repro_torch.launch.sharding",
-            "repro_torch.launch.dist", "repro_torch.core.torus"} <= set(mods)
-    assert len(mods) >= 26
+            "repro_torch.launch.dist", "repro_torch.core.torus",
+            "repro_torch.launch.cells", "repro_torch.training.compress"} <= set(mods)
+    assert len(mods) >= 28
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -133,7 +133,7 @@ RANKS = textwrap.dedent("""
             rb = reng.submit(mk(2), 6)
             rc = reng.submit(mk(3), 6)
             cancelled = reng.cancel(rb)
-            rd = reng.submit(mk(4), 30, deadline_s=5.0)
+            rd = reng.submit(mk(4), 30, deadline_s=500.0)  # expires at the skew (tick 6)
             res = []
             while reng.num_queued or reng.num_active:
                 res.extend(reng.step())

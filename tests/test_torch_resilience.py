@@ -207,7 +207,7 @@ def _whole_prefill_cancel_deadline(side):
     eng = side.engine(max_batch=1, chaos=chaos)
     assert eng.radix is None
     ra = eng.submit(pa, max_new=30)
-    rb = eng.submit(pb, max_new=30, deadline_s=5.0)
+    rb = eng.submit(pb, max_new=30, deadline_s=500.0)  # expires at the skew (tick 4)
     eng.step()
     assert eng.cancel(ra)          # in flight (decoding after whole prefill)
     res = _drain(eng)

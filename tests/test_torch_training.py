@@ -6,6 +6,8 @@ relative (f32; the same elementwise formulas, the norms' sums in other
 orders); int8 moments' ``q`` equal and their scales within 1e-7; bf16
 moments equal to one bf16 rounding (2^-8 relative); data bit-equal.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -236,9 +238,11 @@ def test_eval_step_and_refusals():
     state = init_state(cfg, opt, device="cpu")
     out = make_eval_step(cfg)(state.params, SyntheticLM(cfg, batch=2, seq=8).batch_at(0))
     assert set(out) == {"loss", "ce", "aux"} and out["loss"].grad_fn is None
-    for kw in ({"compress_pod": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            make_train_step(cfg, opt, **kw)
+    # a mesh trains attention decoders; an SSD model raises naming the item
+    ssd = TC.reduce_config(TC.get_config("mamba2-130m"))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        make_train_step(ssd, opt, mesh=types.SimpleNamespace(shape={"data": 2, "model": 1}))
+    make_train_step(cfg, opt, compress_pod=True)  # no pod axis: trains plainly, as JAX
     make_train_step(cfg, opt, attn_chunk=64, main_repeats=1)  # accepted
 
 
@@ -304,6 +308,6 @@ def test_train_cli_runs_on_the_cpu_and_refuses_a_mesh(tmp_path, capsys):
     assert report.final_step == 4 and len(report.losses) == 4
     assert all(np.isfinite(report.losses))
     assert "step     4 loss" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit):  # a mesh names its process-group backend
         train_cli.main(["--mesh", "2x1", "--device", "cpu"])
-    assert "item 13" in capsys.readouterr().err
+    assert "--mesh 2x1 needs --backend" in capsys.readouterr().err
