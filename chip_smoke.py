@@ -21,7 +21,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    their type);
    the bf16 and int8 GEMMs' rows must be bit-identical across M; the
    per-row activation quantize kernel the port adds must equal its plain
-   version bit for bit; and at minicpm3-4b's shapes: slot and paged
+   version bit for bit; the row-parallel w8a8 GEMM's four entries at
+   olmo-1b's K halves (``rowpar_kernel_phase``: the int32 partials of two
+   halves sum exactly to the whole-K accumulator on every route, their
+   epilogue equals the fused int8 GEMM, the row max and the given-max
+   quantize equal the row quantize, each timed beside ``torch._int_mm``);
+   and at minicpm3-4b's shapes: slot and paged
    flash-decode at the latent call (B = 8, 40 query heads over one kv-head,
    dq 288, dv 256, v is k; a linear slot cache and pools of page size 16
    and 64; f32 and bf16; empty and frozen full slots; each slot alone ==
@@ -94,8 +99,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    2) against the dense product in f32 (1e-5) and bf16 (2^-7), timed beside
    the single rank's dense GEMMs; (d) ``python -m repro_torch.launch.serve
    --no-reduced --mesh 1x2 --backend gloo --requests 8 --max-new 16``, every
-   request ok.  Its times are two ranks sharing one card, not multi-GPU
-   scaling numbers;
+   request ok; (e) full olmo-1b w8a8 at 1x2 (wo and w_down row-parallel on
+   the int8 GEMM's int32-partial and epilogue entries and the quantize's
+   row-max and given-max entries: the whole row's scale, an exact int32
+   sum), (f) full mamba2-130m head-parallel at 1x2 and over the data group
+   at 2x1, bf16 and f32, and a w8a8 pass, (g) reduced jamba at 1x2 in f32,
+   each against its single-rank engine under the same flip rule.  The
+   row-parallel entries are checked exactly in phase 2
+   (``rowpar_kernel_phase``: olmo-1b's K halves, M 1-512, every route).
+   Its times are two ranks sharing one card, not multi-GPU scaling numbers;
 5. MLA: first ``mla_reference_check`` -- reduced minicpm3-4b on the card
    against the CPU (whole prefill, 12 paged ``decode_step``s, then a small
    engine; logits within 1e-4, equal greedy tokens; w8a8 under the flip
@@ -130,7 +142,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``prefill(cache_len=512)`` -> 8 ``decode_step``s (B = 2 x 300) follow;
 7. SSD (after the MoE model is freed): first the kernels of the SSM paths
    (in phase 2: the bf16 GEMM at mamba2-130m's head, 768 x 50432 f32 out,
-   and at jamba's five (K, N), rows bit-identical across M; the int8 head
+   its w_out, 1536 x 768, and at jamba's six (K, N), rows bit-identical
+   across M; the int8 head
    exactly; paged flash-decode and dense attention at jamba's 32 heads over
    8), then ``ssm_reference_check`` -- reduced mamba2-130m and reduced
    jamba on the card against the CPU (a whole prefill of a prime length,
@@ -140,10 +153,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    serves 8 greedy requests (prompts 100-500 tokens, one of prime length
    499, one of 256) through the whole-prefill engine with the prefix
    cache asked for: no radix tree, every tick a decode tick replaying the
-   decode graph, only the head's bf16 GEMM launched (once a prefill, once a
-   replay), ``graph_check`` holding the SSD state too, the pool reconciled,
-   two prompts alone == batched, a traced decode tick; a short w8a8 pass
-   (the int8 head, no bf16 GEMM) and the direct ``prefill(cache_len=512)``
+   decode graph, only the bf16 GEMM launched (the head and the 24 w_out
+   projections, once a prefill, once a replay), ``graph_check`` holding the
+   SSD state too, the pool reconciled, two prompts alone == batched, a
+   traced decode tick; a short w8a8 pass (the int8 head; w_out stays a bf16
+   GEMM) and the direct ``prefill(cache_len=512)``
    -> 8 ``decode_step``s.  Last, full-width jamba over one layer period (8
    layers, 26.5 GB of bf16 weights; the whole 32 layers, ~103 GB, exceed the
    card, and the cut is printed with that reason) serves the same 8
@@ -198,7 +212,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    block GEMM launched forward and with ``trans_a`` on both ranks; at 2
    layers in f32 every layout's gathered gradients against the single
    rank's; the GEMM at the shards' training shapes;
-10. a JSON ``added_kernels`` line (the quantize kernel), a JSON
+10. a JSON ``added_kernels`` line (the quantize kernels and the int8
+   GEMM's row-parallel entries), a JSON
    ``mla_kernels`` line (both decode kernels at the latent shape), a JSON
    ``moe`` line (the MoE phase's summary and its rows), a JSON ``ssm`` line
    (the SSD phases' summaries and the rows at their shapes), a JSON
@@ -210,12 +225,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    training phase) and a ``mesh_train_kernels`` line (the GEMM's rows at
    the shards' training shapes),
    the script's wall time, a JSON ``kernels`` line
-   (the six ported TPU kernels), then the JSON result as the last line.
+   (the six ported TPU kernels, the row quantize and the four row-parallel
+   entries), then the JSON result as the last line.
 
 It needs CUDA: without a card it exits 2 before printing anything else.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -631,6 +648,163 @@ def quantize_phase(flush, gen):
         log(f"  quantize_rows bf16 {M}x{K}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"bound {bms:.4f} ms ({by})")
     return 0.0, rows
+
+
+# the row-parallel w8a8 GEMM's shapes on a mesh of 2 (olmo-1b): a rank's K
+# half of wo (1024 of 2048) and of w_down (4096 of 8192), N = d_model; M: a
+# decode step's rows, the decode batch, a chunk, a whole prompt
+ROWPAR_KN = ((1024, 2048), (4096, 2048))
+ROWPAR_M = (1, 8, 64, 512)
+ROWPAR_MAIN = (64, 4096, 2048)  # the kernels line's row: w_down's half at a 64-row chunk
+# the int32 partial on every route of int8_route (M, K, N): 16 x 32 tiles
+# unsplit, 16-row tiles with K split, 64-row tiles, wgmma 128 x 128 and
+# 128 x 256 tiles, and the wgmma tiles' ragged edges with element-wise stores
+ROWPAR_ROUTES = ((2, 2048, 50432), (2, 2560, 2048), (64, 4096, 2048), (3072, 2560, 2048),
+                 (3072, 2560, 10240), (3000, 2000, 1001))
+
+
+def _pad32(a):
+    """``a`` [M, K] int8 with rows of zeros to 32 when M <= 16 (the least
+    M ``torch._int_mm`` takes) and the count of its own rows."""
+    M = a.shape[0]
+    return (torch.cat([a, a.new_zeros(32 - M, a.shape[1])]) if M <= 16 else a), M
+
+
+def rowpar_kernel_phase(flush, gen):
+    """The entries of the row-parallel int8 GEMM (``core.gemm.
+    cgra_gemm_w8a8_row``) at olmo-1b's shard shapes (``ROWPAR_M`` x
+    ``ROWPAR_KN``), tolerance 0: the int32 partials of the two K halves
+    (``block_gemm_int8_acc``, on the route and split ``int8_route`` /
+    ``int8_splits`` pick; first exact on all four routes at
+    ``ROWPAR_ROUTES``) sum to the whole-K accumulator and to the plain
+    version's; ``int8_epilogue`` of that sum equals the fused
+    ``block_gemm_int8`` of the whole K bit for bit, f32 and bf16 out; the
+    halves' ``row_amax`` joined by a max, then ``quantize_rows_given`` of
+    each half, equal ``quantize_rows`` of the whole row (q and scale, f32
+    and bf16 in, with a zero row and exact ties).  Each entry timed beside
+    its plain version, the bound and a library call: ``torch._int_mm`` for
+    the int32 partial (A padded to 32 rows at M <= 16), ``torch.linalg.
+    vector_norm(ord=inf)`` for the row max, none for the epilogue and the
+    quantize (no single PyTorch call); ``torch._int_mm`` of the half is
+    printed beside every row.  Returns {kernel name: rows}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_gemm import (block_gemm_int8, block_gemm_int8_acc,
+                                                int8_epilogue, int8_route, int8_splits)
+    from repro_torch.kernels.quantize import quantize_rows, quantize_rows_given, row_amax
+    routes = set()
+    for M, K, N in ROWPAR_ROUTES:
+        routes.add(int8_route(M, N, tma_ok=K % 16 == 0))
+        a, b = _int8_operands(gen, M, K, N, 127)
+        sa, sb = _int8_scales(gen, M, N)
+        acc = block_gemm_int8_acc(a, b)
+        if not torch.equal(acc, ref.block_gemm_int8_acc_ref(a, b)):
+            fail(f"block_gemm_int8_acc {M}x{K}x{N}: differs from the plain version")
+        for dt in (torch.float32, torch.bfloat16):
+            if not torch.equal(int8_epilogue(acc, sa, sb, dt), block_gemm_int8(a, b, sa, sb, dt)):
+                fail(f"int8_epilogue {M}x{K}x{N} {dt}: differs from the fused block_gemm_int8")
+    if routes != {0, 1, 2, 3}:
+        fail(f"block_gemm_int8_acc: the checked shapes took routes {sorted(routes)}, not all four")
+    n = 0
+    for M in ROWPAR_M:
+        for Kh, N in ROWPAR_KN:
+            K = 2 * Kh
+            a, b = _int8_operands(gen, M, K, N, 127)
+            a[0], b[0] = 127, 127  # an accumulator of K * 127^2, past 2^24
+            halves = [(a[:, i * Kh:(i + 1) * Kh].contiguous(),
+                       b[:, i * Kh:(i + 1) * Kh].contiguous()) for i in range(2)]
+            parts = [block_gemm_int8_acc(x, w) for x, w in halves]
+            whole = block_gemm_int8_acc(a, b)
+            want = ref.block_gemm_int8_acc_ref(a, b)
+            if not (torch.equal(parts[0] + parts[1], want) and torch.equal(whole, want)
+                    and torch.equal(parts[0], ref.block_gemm_int8_acc_ref(*halves[0]))):
+                fail(f"block_gemm_int8_acc {M}x{K}x{N}: the halves' int32 partials do not "
+                     f"sum exactly to the whole-K accumulator")
+            sa, sb = _int8_scales(gen, M, N)
+            for dt in (torch.float32, torch.bfloat16):
+                got = int8_epilogue(parts[0] + parts[1], sa, sb, dt)
+                if not (torch.equal(got, block_gemm_int8(a, b, sa, sb, dt))
+                        and torch.equal(got, ref.int8_epilogue_ref(want, sa, sb, dt))):
+                    fail(f"int8_epilogue {M}x{K}x{N} {dt}: differs from the fused "
+                         f"block_gemm_int8 of the whole K")
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.randn(M, K, generator=gen, device="cuda").to(dt)
+                if M > 2:
+                    x[1] = 0.0
+                    x[2, :6] = torch.tensor([127.0, 2.5, -3.5, 0.5, -1.5, 126.5])
+                xs = [x[:, :Kh].contiguous(), x[:, Kh:].contiguous()]
+                amaxes = [row_amax(h) for h in xs]
+                if not all(torch.equal(m, ref.row_amax_ref(h)) for m, h in zip(amaxes, xs)):
+                    fail(f"row_amax {M}x{Kh} {dt}: differs from the plain version")
+                amax = torch.maximum(*amaxes)
+                qs = [quantize_rows_given(h, amax) for h in xs]
+                q, scale = quantize_rows(x)
+                if not (torch.equal(torch.cat([qs[0][0], qs[1][0]], 1), q)
+                        and all(torch.equal(sc, scale) for _, sc in qs)
+                        and all(torch.equal(g[0], r[0]) and torch.equal(g[1], r[1])
+                                for g, r in zip(qs, (ref.quantize_rows_given_ref(h, amax)
+                                                     for h in xs)))):
+                    fail(f"quantize_rows_given {M}x{Kh} {dt}: the halves quantized with the "
+                         f"joined row max differ from quantize_rows of the whole row")
+            n += 1
+    torch.cuda.synchronize()
+    log(f"row-parallel int8 entries: the int32 partial exact and its epilogue equal to the "
+        f"fused product on all four routes at {ROWPAR_ROUTES}; "
+        f"{n} shapes (M {ROWPAR_M} x (K half, N) {ROWPAR_KN}) -- "
+        f"the int32 partials sum exactly to the whole-K accumulator, the epilogue of the sum "
+        f"equals the fused block_gemm_int8 (f32 and bf16 out), row_amax + "
+        f"quantize_rows_given of the halves equal quantize_rows (f32 and bf16 in)")
+    rows = {"block_gemm_int8_acc": [], "int8_epilogue": [], "row_amax": [],
+            "quantize_rows_given": []}
+    for M in ROWPAR_M:
+        for K, N in ROWPAR_KN:
+            a, b = _int8_operands(gen, M, K, N, 127)
+            sa, sb = _int8_scales(gen, M, N)
+            ap, m_own = _pad32(a)
+            bt = b.T
+            lib_mm = time_ms(lambda: torch._int_mm(ap, bt), flush)
+            acc = block_gemm_int8_acc(a, b)
+            route = int8_route(M, N)
+            shape = f"{M}x{K}x{N}"
+            ms = time_ms(lambda: block_gemm_int8_acc(a, b), flush)
+            plain = time_ms(lambda: ref.block_gemm_int8_acc_ref(a, b), flush, reps=5)
+            bms, by = bound_ms(M * K + N * K + 4 * M * N, 2 * M * N * K, torch.int8)
+            rows["block_gemm_int8_acc"].append(dict(
+                shape=shape, ms=ms, plain_ms=plain, library_ms=lib_mm,
+                library="torch._int_mm" + (", A padded to 32 rows" if M <= 16 else ""),
+                bound_ms=bms, bound_by=by, route=route,
+                splits=int8_splits(K, N) if route < 2 else 1))
+            # the epilogue does not read K: one row an (M, N)
+            e_ms = time_ms(lambda: int8_epilogue(acc, sa, sb, torch.bfloat16), flush)
+            e_plain = time_ms(lambda: ref.int8_epilogue_ref(acc, sa, sb, torch.bfloat16), flush)
+            e_bms, e_by = bound_ms(4 * M * N + 4 * (M + N) + 2 * M * N, 2 * M * N,
+                                   torch.float32)
+            if K == ROWPAR_MAIN[1]:
+                rows["int8_epilogue"].append(dict(shape=f"{M}x{N} bf16 out", ms=e_ms,
+                                                  plain_ms=e_plain, library_ms=None,
+                                                  bound_ms=e_bms, bound_by=e_by))
+            x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+            amax = row_amax(x)
+            m_ms = time_ms(lambda: row_amax(x), flush)
+            m_plain = time_ms(lambda: ref.row_amax_ref(x), flush)
+            m_lib = time_ms(lambda: torch.linalg.vector_norm(
+                x, float("inf"), dim=1, keepdim=True, dtype=torch.float32), flush)
+            m_bms, m_by = bound_ms(M * K * 2 + 4 * M, 0, torch.bfloat16)
+            rows["row_amax"].append(dict(shape=f"{M}x{K} bf16", ms=m_ms, plain_ms=m_plain,
+                                         library_ms=m_lib, bound_ms=m_bms, bound_by=m_by))
+            g_ms = time_ms(lambda: quantize_rows_given(x, amax), flush)
+            g_plain = time_ms(lambda: ref.quantize_rows_given_ref(x, amax), flush)
+            g_bms, g_by = bound_ms(M * K * 2 + 4 * M + M * K + 4 * M, 0, torch.bfloat16)
+            rows["quantize_rows_given"].append(dict(shape=f"{M}x{K} bf16", ms=g_ms,
+                                                    plain_ms=g_plain, library_ms=None,
+                                                    bound_ms=g_bms, bound_by=g_by))
+            log(f"  row-parallel M={M} K={K} N={N}: int32 partial {ms:.4f} ms (route {route}, "
+                f"plain {plain:.4f}, bound {bms:.4f} {by}), epilogue bf16 {e_ms:.4f} ms "
+                f"(plain {e_plain:.4f}, bound {e_bms:.4f} {e_by}), row_amax {m_ms:.4f} ms "
+                f"(plain {m_plain:.4f}, vector_norm {m_lib:.4f}, bound {m_bms:.4f}), "
+                f"quantize_rows_given {g_ms:.4f} ms (plain {g_plain:.4f}, bound {g_bms:.4f}); "
+                f"torch._int_mm of the half {lib_mm:.4f} ms"
+                + (f" (A padded from {m_own} to 32 rows)" if M <= 16 else ""))
+    return rows
 
 
 def dense_attention_phase(flush, gen):
@@ -2405,9 +2579,10 @@ def mla_engine_phase(counters, gen):
 
 class _MoeRecorder:
     """Records every eager MoE routing (``layers.moe_route``) by device, in
-    call order: the top-k experts, the kept masks, the capacity and each
-    token's gap between its k-th and (k+1)-th probability.  Eager calls
-    only: a graph replay runs no Python (and a capture must not sync)."""
+    call order: the top-k experts, the kept masks, the capacity, each
+    token's gap between its k-th and (k+1)-th probability and (on the CPU)
+    the probabilities.  Eager calls only: a graph replay runs no Python
+    (and a capture must not sync)."""
 
     def __init__(self):
         from repro_torch.models import layers
@@ -2422,7 +2597,8 @@ class _MoeRecorder:
             top = torch.topk(r.probs, k + 1, -1).values
             self.calls[xt.device.type].append(dict(
                 topi=r.topi.cpu(), kept=r.kept.cpu(), C=r.C,
-                gap=(top[..., k - 1] - top[..., k]).cpu()))
+                gap=(top[..., k - 1] - top[..., k]).cpu(),
+                probs=r.probs.float().cpu() if xt.device.type == "cpu" else None))
             return r
         self.layers.moe_route = moe_route
         return self
@@ -2431,13 +2607,16 @@ class _MoeRecorder:
         self.layers.moe_route = self._route
 
 
-MOE_TIE = 1e-6  # a k-th / (k+1)-th probability gap under which f32 rounding may flip
+MOE_TIE = 1e-6  # a gap between two experts' probabilities under which f32 rounding may flip
 
 
 def routing_check(name, rec, strict=True):
     """The card's MoE routing against the CPU's, call by call.  Top-k
-    experts must be equal, except at a token whose k-th and (k+1)-th
-    probabilities (on the CPU) lie within ``MOE_TIE``: each such token is
+    experts (in order) must be equal, except at a token where each position
+    the two devices fill differently holds two experts whose probabilities
+    (on the CPU) lie within ``MOE_TIE``: a k-th / (k+1)-th near-tie that
+    swaps an expert in or out, or a near-tie inside the top k that swaps
+    two choices' order (their priority for capacity).  Each such token is
     printed as a witness.  Kept masks must be equal on every choice of an
     expert no witness touches (a flipped choice moves the slots of both its
     experts).  ``strict=False`` (w8a8 after an int8 flip upstream) prints
@@ -2452,8 +2631,10 @@ def routing_check(name, rec, strict=True):
         touched = torch.zeros(c["topi"].shape[0], int(max(c["topi"].max(), g["topi"].max())) + 1,
                               dtype=torch.bool)
         for gi, t in flip.nonzero().tolist():
-            w = dict(call=i, group=gi, token=t, gap=float(c["gap"][gi, t]),
-                     cpu=c["topi"][gi, t].tolist(), card=g["topi"][gi, t].tolist())
+            ci, gc = c["topi"][gi, t], g["topi"][gi, t]
+            pc, d = c["probs"][gi, t], ci != gc
+            w = dict(call=i, group=gi, token=t, gap=float((pc[ci[d]] - pc[gc[d]]).abs().max()),
+                     kth_gap=float(c["gap"][gi, t]), cpu=ci.tolist(), card=gc.tolist())
             if w["gap"] > MOE_TIE and bad is None:
                 bad = w
             witnesses.append(w)
@@ -2815,15 +2996,20 @@ def moe_engine_phase(counters, gen):
 # whole-prefill engine
 # ---------------------------------------------------------------------------
 
-# mamba2-130m's one GEMM on a kernel, the untied head (K, N), f32 out: the
-# SSD projections are the reference's einsums (torch.matmul); the M it
-# meets: a whole prefill's last row, the decode batch, the direct prefill
+# mamba2-130m's GEMMs on a kernel: the untied head (K, N), f32 out, and each
+# layer's w_out (d_inner 1536 -> 768, the row-parallel projection on a
+# mesh); the SSD input projections are the reference's einsums
+# (torch.matmul).  The M the head meets: a whole prefill's last row, the
+# decode batch, the direct prefill; w_out also a whole prompt's rows
 MAMBA_HEAD = (768, 50432)
 MAMBA_M = (1, 8, 2)
+MAMBA_W_OUT = (1536, 768)
+MAMBA_W_OUT_M = (1, 8, 120, 499)
 # jamba's bf16 GEMMs (K, N): wq / wo, wk / wv, a dense FFN's w_gate / w_up,
-# w_down, the head (f32 out); its attention: 32 query heads over 8 of 128
+# w_down, the head (f32 out), the SSD layer's w_out; its attention: 32
+# query heads over 8 of 128
 JAMBA_BF16_KN = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
-                 (4096, 65536))
+                 (4096, 65536), (8192, 4096))
 JAMBA_H, JAMBA_K = 32, 8
 # the engine's prompts: a prime length (499: chunks of one row), a multiple
 # of 256 (one full chunk) and 500 (two chunks of 250)
@@ -2833,8 +3019,9 @@ SSM_POS = [153, 366, 532, 289, 133, 293, 448, 533]  # the engine's decode state,
 
 def ssm_kernel_phase(flush, gen):
     """The kernels of the SSM paths at their shapes.  bf16 GEMM at
-    mamba2-130m's head (768 x 50432, f32 out) for M in ``MAMBA_M`` and at
-    jamba's five (K, N) for M = 8 and 500 against the plain version
+    mamba2-130m's head (768 x 50432, f32 out) for M in ``MAMBA_M``, its
+    w_out (1536 x 768) for M in ``MAMBA_W_OUT_M``, and at jamba's six
+    (K, N) for M = 8 and 500 against the plain version
     (``gemm_phase``'s tolerances), rows bit-identical across M; the int8
     GEMM at the head for M = 1 and 8 exactly (``int8_exact``); paged
     flash-decode (B = 8, 32 heads over 8, d = 128, page size 64, an empty
@@ -2852,7 +3039,8 @@ def ssm_kernel_phase(flush, gen):
     from repro_torch.kernels.flash_attention import flash_attention
     rows = {"gemm": [], "int8": []}
     K, N = MAMBA_HEAD
-    for (k, n), Ms in [(MAMBA_HEAD, MAMBA_M)] + [(kn, (8, 500)) for kn in JAMBA_BF16_KN]:
+    for (k, n), Ms in [(MAMBA_HEAD, MAMBA_M), (MAMBA_W_OUT, MAMBA_W_OUT_M)] + \
+            [(kn, (8, 500)) for kn in JAMBA_BF16_KN]:
         f32_out = n in (50432, 65536)
         out_dtype = torch.float32 if f32_out else torch.bfloat16
         for M in Ms:
@@ -2861,7 +3049,8 @@ def ssm_kernel_phase(flush, gen):
             check_close(f"block_gemm bf16 {M}x{k}x{n}", block_gemm(a, b, out_dtype=out_dtype),
                         ref.block_gemm_ref(a, b, out_dtype), 1e-4,
                         1e-5 if f32_out else 2.0 ** -7)
-    gemm_row_invariance(gen, [MAMBA_HEAD + (False,)] + [kn + (False,) for kn in JAMBA_BF16_KN])
+    gemm_row_invariance(gen, [MAMBA_HEAD + (False,), MAMBA_W_OUT + (False,)]
+                        + [kn + (False,) for kn in JAMBA_BF16_KN])
     for M in (1, 8):
         a = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
         b = (torch.randn(K, N, generator=gen, device="cuda") / math.sqrt(K)).bfloat16()
@@ -2918,7 +3107,8 @@ def ssm_kernel_phase(flush, gen):
                                            flash_attention(qd, kd, vd),
                                            ref.flash_attention_ref(qd, kd, vd), dtype)
     torch.cuda.synchronize()
-    log(f"SSM paths' kernels: bf16 GEMM at mamba2's head and jamba's (K, N) agree, rows "
+    log(f"SSM paths' kernels: bf16 GEMM at mamba2's head and w_out and jamba's (K, N) "
+        f"agree, rows "
         f"bit-identical across M; int8 head exact; paged decode and dense attention at "
         f"jamba's heads (H {H} over K {Kh}, d {d}) x (f32, bf16) agree, the empty slot "
         f"exactly 0, every slot alone == batched; " + _errs(err))
@@ -3102,14 +3292,15 @@ def ssm_engine_phase(counters, gen):
     ``EngineConfig(max_batch=8, max_len=1024, page_size=64, decode_chunk=8,
     prefix_cache=True)``.  Gates (``_check_served``): no radix tree, every
     tick a decode tick replaying the decode graph, the pool reconciles;
-    only the bf16 GEMM launches (the head: once a whole prefill, once a
-    replay, and once for the warm-up before capture); ``graph_check`` (SSD
+    only the bf16 GEMM launches (the head and each layer's w_out: 25 times
+    a whole prefill, a replay, and the warm-up before capture); ``graph_check`` (SSD
     state included); two prompts served alone (the prime and the 256-row
     one) give the batched tokens; a traced decode tick as ``trace_ticks``.
     Then a short w8a8 pass (4 requests x 16 tokens: the head on the int8
-    GEMM after one quantize, no bf16 GEMM; its graph checked) and the direct
-    ``prefill(cache_len=512)`` -> 8 greedy ``decode_step``s (B = 2 x 300
-    tokens; only the head's bf16 GEMM, once a call)."""
+    GEMM after one quantize, w_out -- no ``dense_proj`` weight of the
+    reference's quantizer -- on the bf16 GEMM; its graph checked) and the
+    direct ``prefill(cache_len=512)`` -> 8 greedy ``decode_step``s (B = 2 x
+    300 tokens; only the bf16 GEMM, 25 times a call)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.serving import Engine, EngineConfig
@@ -3139,13 +3330,15 @@ def ssm_engine_phase(counters, gen):
     _check_served("mamba2-130m", eng, results, max_new, V, econf)
     graph = eng.runner.graph
     state_mb = sum(t.numel() * t.element_size() for t in graph.state) / 1e6
+    per_fwd = 1 + cfg.num_layers  # the head and each layer's w_out
     for n, c in launches.items():
         if (n == "block_gemm") != (c > 0):
-            fail(f"mamba2-130m engine: {n} launched {c} times (only the head's bf16 GEMM)")
-    if graph.per_replay != {names["block_gemm"]: 1} \
-            or launches["block_gemm"] != len(prompts) + graph.replays + 1:
+            fail(f"mamba2-130m engine: {n} launched {c} times (only the bf16 GEMM)")
+    if graph.per_replay != {names["block_gemm"]: per_fwd} \
+            or launches["block_gemm"] != per_fwd * (len(prompts) + graph.replays + 1):
         fail(f"mamba2-130m engine: {graph.per_replay} a replay, {launches['block_gemm']} bf16 "
-             f"GEMMs for {len(prompts)} prefills and {graph.replays} replays")
+             f"GEMMs for {len(prompts)} prefills and {graph.replays} replays ({per_fwd} a "
+             f"forward)")
     summary.update(_engine_summary("mamba2-130m", eng, results, wall, launches, prefills,
                                    econf))
     summary.update(weights_gb=w_bytes / 1e9, params_b=n_params / 1e9, state_mb=state_mb)
@@ -3176,10 +3369,11 @@ def ssm_engine_phase(counters, gen):
                          prefix_cache=True, quant="w8a8")
     qeng, qres, qwall, qlaunch, _ = _serve(cfg, params, qconf, prompts[:4], 16, counters)
     _check_served("mamba2-130m w8a8", qeng, qres, 16, V, qconf)
-    if qlaunch["block_gemm"] != 0 or qlaunch["block_gemm_int8"] <= 0 \
+    if qlaunch["block_gemm"] != cfg.num_layers * qlaunch["block_gemm_int8"] \
+            or qlaunch["block_gemm_int8"] <= 0 \
             or qlaunch["quantize_rows"] != qlaunch["block_gemm_int8"]:
         fail(f"mamba2-130m w8a8 engine launches {qlaunch}: the head on the int8 GEMM after "
-             f"one quantize, no bf16 GEMM")
+             f"one quantize, each layer's float w_out on the bf16 GEMM")
     agree = statistics.mean(sum(a == b for a, b in zip(r.generated, batched[tuple(p)])) / 16
                             for r, p in zip(qres, prompts[:4]))
     log(f"mamba2-130m engine w8a8: 4 requests x 16 tokens in {qwall:.3f} s; launches "
@@ -3215,7 +3409,7 @@ def ssm_engine_phase(counters, gen):
     direct = {n: c.launches for n, c in names.items()}
     h = caches[0]["0"]["h"]
     if tuple(h.shape) != (cfg.num_layers, Bd, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state) \
-            or pre["block_gemm"] != 1 or direct["block_gemm"] != 1 + steps \
+            or pre["block_gemm"] != per_fwd or direct["block_gemm"] != per_fwd * (1 + steps) \
             or sum(direct.values()) != direct["block_gemm"]:
         fail(f"mamba2-130m direct loop: state {tuple(h.shape)}, launches after the prefill "
              f"{pre}, after {steps} steps {direct}")
@@ -4512,6 +4706,25 @@ MESH_DTYPES = (("a", torch.bfloat16), ("a32", torch.float32))
 MOE_F32_BOUND = 1e-4  # expert-parallel prefill logits in f32 (the CPU tests' bound vs JAX)
 RING_T, RING_D, RING_F = 512, 2048, 8192  # olmo-1b's FFN at 512 tokens
 MESH_PATH = ("block_gemm", "flash_attention_paged", "flash_decode_paged")
+# (e): the w8a8 path's kernels; the row-parallel entries launch for wo and
+# w_down (2 a layer a forward), the fused int8 GEMM for the column splits
+# and the head
+MESH_W8A8_PATH = ("block_gemm_int8", "quantize_rows", "block_gemm_int8_acc", "int8_epilogue",
+                  "row_amax", "quantize_rows_given", "flash_attention_paged",
+                  "flash_decode_paged")
+# (f): mamba2-130m's runs (key, mesh, dtype, quant) and its engine
+MESH_SSD_RUNS = (("f", "1x2", torch.bfloat16, None), ("f32", "1x2", torch.float32, None),
+                 ("f21", "2x1", torch.bfloat16, None), ("f21_32", "2x1", torch.float32, None),
+                 ("fq", "1x2", torch.bfloat16, "w8a8"))
+MESH_SSD_CONF = dict(max_batch=8, max_len=1024, page_size=64, decode_chunk=8)
+MESH_SSD_MAX_NEW = 32
+MESH_SSD_W8A8_NEW = 16  # the short w8a8 pass: 4 requests
+MESH_SSD_PATH = ("block_gemm",)  # the head and each layer's w_out (SSD's einsums are plain)
+# (g): reduced jamba (f32, 8 layers, 4 experts) at 1x2
+MESH_JAMBA_CONF = dict(max_batch=4, max_len=256, page_size=16, decode_chunk=4)
+MESH_JAMBA_LENGTHS = (37, 64, 101, 20)
+MESH_JAMBA_NEW = 16
+MESH_JAMBA_PATH = ("block_gemm", "flash_attention", "flash_decode_paged")
 
 
 def _mesh_prompts(V, lengths, seed):
@@ -4548,13 +4761,16 @@ def _tick_summary(ticks):
                 decode_tick_ms=statistics.median(t[1] for t in dec) if dec else None,
                 mixed_tick_ms=statistics.median(t[1] for t in mix) if mix else None,
                 collectives_per_decode_tick=max((t[2] for t in dec), default=0),
+                collectives_median_decode_tick=(statistics.median(t[2] for t in dec)
+                                                if dec else 0),
                 collectives_per_mixed_tick=max((t[2] for t in mix), default=0))
 
 
 class _ShapeRecorder:
     """Records the distinct shapes the kernel entry points are called with
     on the card (every call is eager under gloo): the block GEMM's (A, B),
-    paged chunk attention's (q, pool) and paged decode's (q, pool)."""
+    the row-parallel int8 GEMM's int32 partial (A, B), paged chunk
+    attention's (q, pool) and paged decode's (q, pool)."""
 
     def __init__(self):
         from repro_torch.core import gemm
@@ -4570,14 +4786,17 @@ class _ShapeRecorder:
         return call
 
     def __enter__(self):
-        self._orig = (self.gemm.cgra_matmul, self.layers.attention, self.layers.attend_decode)
+        self._orig = (self.gemm.cgra_matmul, self.layers.attention, self.layers.attend_decode,
+                      self.gemm.block_gemm_int8_acc)
         self.gemm.cgra_matmul = self._wrap("block_gemm", self._orig[0])
         self.layers.attention = self._wrap("flash_attention_paged", self._orig[1])
         self.layers.attend_decode = self._wrap("flash_decode_paged", self._orig[2])
+        self.gemm.block_gemm_int8_acc = self._wrap("block_gemm_int8_acc", self._orig[3])
         return self
 
     def __exit__(self, *exc):
-        self.gemm.cgra_matmul, self.layers.attention, self.layers.attend_decode = self._orig
+        (self.gemm.cgra_matmul, self.layers.attention, self.layers.attend_decode,
+         self.gemm.block_gemm_int8_acc) = self._orig
 
     def report(self):
         return {k: sorted(v) for k, v in self.seen.items()}
@@ -4605,15 +4824,16 @@ def _witness_rows(eng, results, single, prompts):
 
 def _mesh_rank(rank, work):
     """One rank of the mesh phase (two ranks on the one card over gloo):
-    (a) full olmo-1b served at 1x2, (b) 8 layers of qwen3-moe-30b-a3b served
-    expert-parallel at 1x2 and one prefill's logits, (c) the four ring
-    schedules at olmo-1b's FFN shapes.  Writes ``rank<r>.json`` (and the
-    logits rows as ``.pt``) into ``work``."""
+    (a) full olmo-1b served at 1x2, (e) the same in w8a8, (f) full
+    mamba2-130m at 1x2 and 2x1 (bf16, f32, a w8a8 pass), (g) reduced jamba
+    at 1x2, (b) 8 layers of qwen3-moe-30b-a3b served expert-parallel at 1x2
+    and one prefill's logits, (c) the four ring schedules at olmo-1b's FFN
+    shapes.  Writes ``rank<r>.json`` (and the logits rows as ``.pt``) into
+    ``work``."""
     import gc as _gc
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduce_config
     from repro_torch.core import torus
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ops import LAUNCH_COUNTERS
     from repro_torch.launch.sharding import activation_mesh
     from repro_torch.models import model as M
     from repro_torch.serving import Engine, EngineConfig, MeshSpec
@@ -4637,23 +4857,60 @@ def _mesh_rank(rank, work):
             w_gate=list(eng.params["stages"][0]["0"]["ffn"]["w_gate"].shape),
             lm_head=list(eng.params["lm_head"].shape), embed=list(eng.params["embed"].shape),
             k_pool=list(eng.runner.caches[0]["0"]["k"].shape))
-        for c in LAUNCH_COUNTERS:
-            c.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        with _ShapeRecorder() as rec:
-            res, ticks = _serve_ticks(eng, plan["a_prompts"], MESH_MAX_NEW, eng.mesh)
-        out[key] = dict(tokens={str(k): r.generated for k, r in res.items()},
-                        ok=all(r.ok for r in res.values()),
-                        agree=eng.ranks_agree(res.values()), graphed=eng.runner.graph.graphed,
-                        launches={c.__name__: c.launches for c in LAUNCH_COUNTERS},
-                        shapes=rec.report(), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                        **_tick_summary(ticks))
-        out[key]["witness"], lg = _witness_rows(eng, res, plan[f"{key}_single"],
-                                                plan["a_prompts"])
-        torch.save(lg, os.path.join(work, f"{key}_logits_r{rank}.pt"))
-        del eng, res
+        out[key] = _mesh_serve(eng, plan["a_prompts"], plan[f"{key}_single"], MESH_MAX_NEW,
+                               work, key, rank, record=True)
+        del eng
         _gc.collect()
         torch.cuda.empty_cache()
+
+    # (e) full olmo-1b w8a8 at 1x2: wo and w_down row-parallel on the int8
+    # entries (the whole row's max, the int32 partial, the exact sum, the
+    # epilogue), the column-split projections and the head on the fused one
+    cfg = get_config("olmo-1b")
+    eng = Engine(cfg, M.init(cfg, seed=0, device="cuda"),
+                 EngineConfig(mesh="1x2", quant="w8a8", **MESH_CONF))
+    _gc.collect()
+    torch.cuda.empty_cache()
+    lay = eng.params["stages"][0]["0"]
+    out["e_local_shapes"] = dict(
+        wq=list(lay["mixer"]["wq"].q.shape), wo=list(lay["mixer"]["wo"].q.shape),
+        wo_scale=list(lay["mixer"]["wo"].scale.shape), w_down=list(lay["ffn"]["w_down"].q.shape),
+        lm_head=list(eng.params["lm_head"].q.shape))
+    out["e"] = _mesh_serve(eng, plan["a_prompts"], plan["e_single"], MESH_MAX_NEW, work, "e",
+                           rank, record=True)
+    del eng, lay
+    _gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) full mamba2-130m, head-parallel (12 of 24 SSD heads a rank) at 1x2
+    # and the state's slots over the data group at 2x1, bf16 and f32; then a
+    # short w8a8 pass at 1x2
+    for key, shape, dtype, quant in MESH_SSD_RUNS:
+        cfg = get_config("mamba2-130m").with_(compute_dtype=dtype)
+        eng = Engine(cfg, M.init(cfg, seed=0, device="cuda"),
+                     EngineConfig(mesh=shape, quant=quant, **MESH_SSD_CONF))
+        n = MESH_SSD_MAX_NEW if quant is None else MESH_SSD_W8A8_NEW
+        prompts = plan["f_prompts"][: len(plan[f"{key}_single"])]
+        out[key] = _mesh_serve(eng, prompts, plan[f"{key}_single"], n, work, key, rank)
+        out[key]["h"] = list(eng.runner.caches[0]["0"]["h"].shape)
+        del eng
+        _gc.collect()
+        torch.cuda.empty_cache()
+
+    # (g) reduced jamba at 1x2 in f32: SSD, attention and expert-parallel MoE
+    cfg = reduce_config(get_config("jamba-v0.1-52b"))
+    eng = Engine(cfg, M.init(cfg, seed=0, device="cuda"),
+                 EngineConfig(mesh="1x2", **MESH_JAMBA_CONF))
+    out["g"] = _mesh_serve(eng, plan["g_prompts"], plan["g_single"], MESH_JAMBA_NEW, work, "g",
+                           rank)
+    out["g"].update(shard_map=eng.cfg.moe_shard_map,
+                    h=list(next(g for g in eng.runner.caches[0].values() if "h" in g)["h"].shape),
+                    experts_held=int(next(g for g in eng.params["stages"][0].values()
+                                          if "router" in g.get("ffn", {}))["ffn"]["w_gate"]
+                                     .shape[1]))
+    del eng
+    _gc.collect()
+    torch.cuda.empty_cache()
 
     # (b) qwen3-moe-30b-a3b over 8 of its 48 layers, expert-parallel at 1x2:
     # first one f32 prefill (the same draws, kept f32), then the bf16 engine
@@ -4677,22 +4934,14 @@ def _mesh_rank(rank, work):
     del params
     _gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     with eng.runner.on_mesh():
         lg = M.prefill(eng.cfg, eng.runner.params, toks)[0][0, -1, : mcfg.vocab_size]
     torch.save(lg.float().cpu(), os.path.join(work, f"b_prefill_r{rank}.pt"))
-    for c in LAUNCH_COUNTERS:
-        c.launches = 0
-    res, ticks = _serve_ticks(eng, plan["b_prompts"], MOE_MESH_MAX_NEW, eng.mesh)
-    out["b"] = dict(tokens={str(k): r.generated for k, r in res.items()},
-                    ok=all(r.ok for r in res.values()), agree=eng.ranks_agree(res.values()),
-                    shard_map=eng.cfg.moe_shard_map,
-                    experts_held=int(eng.params["stages"][0]["0"]["ffn"]["w_gate"].shape[1]),
-                    launches={c.__name__: c.launches for c in LAUNCH_COUNTERS},
-                    peak_gib=torch.cuda.max_memory_allocated() / 2**30, **_tick_summary(ticks))
-    out["b"]["witness"], lg = _witness_rows(eng, res, plan["b_single"], plan["b_prompts"])
-    torch.save(lg, os.path.join(work, f"b_logits_r{rank}.pt"))
-    del eng, res
+    out["b"] = _mesh_serve(eng, plan["b_prompts"], plan["b_single"], MOE_MESH_MAX_NEW, work,
+                           "b", rank)
+    out["b"].update(shard_map=eng.cfg.moe_shard_map,
+                    experts_held=int(eng.params["stages"][0]["0"]["ffn"]["w_gate"].shape[1]))
+    del eng
     _gc.collect()
     torch.cuda.empty_cache()
 
@@ -4747,6 +4996,32 @@ def _mesh_rank(rank, work):
         json.dump(out, f)
 
 
+def _mesh_serve(eng, prompts, single, max_new, work, key, rank, record=False):
+    """A rank's run of ``eng`` over ``prompts`` (greedy, ``max_new``) with
+    every launch counter at 0 just before and read just after: the tokens,
+    ok / agree, the launches, the kernel shapes (``record``), the tick
+    summary and peak memory, and the witness rows of each request whose
+    tokens leave ``single`` (their logits rows saved as
+    ``<key>_logits_r<rank>.pt``)."""
+    from repro_torch.kernels.ops import LAUNCH_COUNTERS
+    for c in LAUNCH_COUNTERS:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rec = _ShapeRecorder() if record else contextlib.nullcontext()
+    with rec:
+        res, ticks = _serve_ticks(eng, prompts, max_new, eng.mesh)
+    got = dict(tokens={str(k): r.generated for k, r in res.items()},
+               ok=all(r.ok for r in res.values()), agree=eng.ranks_agree(res.values()),
+               graphed=eng.runner.graph.graphed,
+               launches={c.__name__: c.launches for c in LAUNCH_COUNTERS},
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, **_tick_summary(ticks))
+    if record:
+        got["shapes"] = rec.report()
+    got["witness"], lg = _witness_rows(eng, res, single, prompts)
+    torch.save(lg, os.path.join(work, f"{key}_logits_r{rank}.pt"))
+    return got
+
+
 def _swiglu_hidden(x, wg, wu):
     """silu(x wg) * (x wu) with each product stored in x's dtype."""
     g = (x.float() @ wg.float()).to(x.dtype)
@@ -4776,10 +5051,11 @@ def _single_rank_logits(cfg, params, prompt, toks):
     return M.prefill(cfg, params, t)[0][0, -1, : cfg.vocab_size].float().cpu()
 
 
-def _mesh_gate(name, single, ranks, key, cfg, prompts, bound, problems):
+def _mesh_gate(name, single, ranks, key, cfg, prompts, bound, problems, quant=None):
     """Tokens equal to the single rank's, or every first difference held by
     :func:`mesh_flip_witness`; both ranks the same tokens, every request
-    ok.  A gate that fails is added to ``problems``."""
+    ok.  A gate that fails is added to ``problems``.  ``quant``: the
+    single rank's weights for a witness are quantized so (w8a8)."""
     a0, a1 = ranks[0][key], ranks[1][key]
     if a0["tokens"] != a1["tokens"] or not (a0["agree"] and a1["agree"]):
         problems.append(f"{name}: the two ranks emitted different tokens")
@@ -4791,6 +5067,8 @@ def _mesh_gate(name, single, ranks, key, cfg, prompts, bound, problems):
     if a0["witness"]:  # the seed-0 weights again, drawn after the ranks are done
         from repro_torch.models import model as M
         params = M.init(cfg, seed=0, device="cuda")
+        if quant == "w8a8":
+            params = M.quantize_params(cfg, params)
     for w, row in zip(a0["witness"], mesh_rows):
         s = _single_rank_logits(cfg, params, prompts[w["rid"]],
                                 single[str(w["rid"])][: w["step"]])
@@ -4806,6 +5084,97 @@ def _mesh_gate(name, single, ranks, key, cfg, prompts, bound, problems):
     gc.collect()
     torch.cuda.empty_cache()
     return witnesses
+
+
+def _mesh_gates_efg(ranks, singles, a_prompts, f_prompts, g_prompts, problems):
+    """The gates of (e)-(g) on what the ranks wrote: tokens (``_mesh_gate``:
+    equal to the single rank's or witnessed flips; both ranks the same),
+    each path's kernels launched on every rank and no other, (e)'s
+    row-parallel entries exactly 2 a layer a forward at the shard's shapes
+    (K 1024 and 4096, N 2048), (f)'s state holding the rank's heads or
+    slots.  Returns {key: summary}, with the witnesses under
+    ``"witnesses"``."""
+    from repro_torch.configs import get_config, reduce_config
+    out, witnesses = {}, {}
+    olmo = get_config("olmo-1b")
+    witnesses["e"] = _mesh_gate("mesh (e) olmo-1b 1x2 w8a8", singles["e"][0], ranks, "e", olmo,
+                                a_prompts, None, problems, quant="w8a8")
+    for r in ranks:
+        e, name = r["e"], f"mesh (e) rank {r['rank']}"
+        ln = e["launches"]
+        missing = [n for n in MESH_W8A8_PATH if ln[n] <= 0]
+        extra = [n for n, c in ln.items() if c and n not in MESH_W8A8_PATH]
+        acc = ln["block_gemm_int8_acc"]
+        rowpar = {n: ln[n] for n in ("int8_epilogue", "row_amax", "quantize_rows_given")}
+        if missing or extra or any(c != acc for c in rowpar.values()) \
+                or acc % (2 * olmo.num_layers):
+            problems.append(f"{name}: launches {json.dumps(ln)} (the path {MESH_W8A8_PATH}; the "
+                            f"row-parallel entries 2 a layer a forward, equal counts)")
+        # B [N, K/2]: the K halves of wo (H * dh = 2048) and w_down (8192)
+        want = {str([olmo.d_model, K // 2]) for K in (olmo.num_heads * olmo.head_dim,
+                                                      olmo.d_ff)}
+        got_b = {k.split(" x ")[1] for k in e["shapes"].get("block_gemm_int8_acc", [])}
+        if got_b != want:
+            problems.append(f"{name}: int32 partials at B shapes {sorted(got_b)}, not wo's and "
+                            f"w_down's halves {sorted(want)}")
+        if e["graphed"]:
+            problems.append(f"{name}: a gloo rank graphed its decode step")
+        log(f"{name}: shard {json.dumps(r['e_local_shapes'])}; launches "
+            f"{json.dumps({k: v for k, v in ln.items() if v})} ({acc // (2 * olmo.num_layers)} "
+            f"forwards); int32-partial shapes {e['shapes'].get('block_gemm_int8_acc')}; peak "
+            f"{e['peak_gib']:.2f} GiB; collectives a decode tick "
+            f"{e['collectives_per_decode_tick']}, a mixed tick {e['collectives_per_mixed_tick']}")
+    e0, st = ranks[0]["e"], singles["e"][1]
+    log(f"mesh (e): decode tick {e0['decode_tick_ms']:.2f} ms wall (eager, 2 ranks on one card "
+        f"over gloo) vs {st['decode_tick_ms']:.2f} ms single rank (graphed); mixed tick "
+        f"{e0['mixed_tick_ms']:.2f} vs {st['mixed_tick_ms']:.2f} ms")
+    out["e"] = dict(single=st, shard=ranks[0]["e_local_shapes"],
+                    launches=e0["launches"], ranks=[r["e"] | {"tokens": None} for r in ranks])
+    for key, shape, dtype, quant in MESH_SSD_RUNS:
+        cfg = get_config("mamba2-130m").with_(compute_dtype=dtype)
+        name = f"mesh (f) mamba2-130m {shape} {str(dtype).split('.')[-1]}" + \
+            (" w8a8" if quant else "")
+        k = len(singles[key][0])
+        witnesses[key] = _mesh_gate(name, singles[key][0], ranks, key, cfg, f_prompts[:k],
+                                    MESH_LOGITS_BOUND if dtype == torch.float32 else None,
+                                    problems, quant=quant)
+        data, model = (int(v) for v in shape.split("x"))
+        for r in ranks:
+            f = r[key]
+            path = MESH_SSD_PATH + (("block_gemm_int8", "quantize_rows") if quant else ())
+            bad = [n for n, c in f["launches"].items() if (c > 0) != (n in path)]
+            if bad or f["h"][1:3] != [MESH_SSD_CONF["max_batch"] // data,
+                                      cfg.ssm_heads // model]:
+                problems.append(f"{name} rank {r['rank']}: launches {json.dumps(f['launches'])} "
+                                f"(the path {path}), state {f['h']} (want the rank's "
+                                f"{MESH_SSD_CONF['max_batch'] // data} slots of "
+                                f"{cfg.ssm_heads // model} heads)")
+        f0, st = ranks[0][key], singles[key][1]
+        log(f"{name}: state a rank {f0['h']}; decode tick {f0['decode_tick_ms']:.2f} ms (eager, "
+            f"gloo) vs {st['decode_tick_ms']:.2f} ms single rank (graphed); collectives a "
+            f"decode tick: median {f0['collectives_median_decode_tick']}, most "
+            f"{f0['collectives_per_decode_tick']} (a tick that also admits whole prefills); "
+            f"peak {f0['peak_gib']:.2f} GiB")
+        out[key] = dict(single=st, ranks=[r[key] | {"tokens": None} for r in ranks])
+    jcfg = reduce_config(get_config("jamba-v0.1-52b"))
+    witnesses["g"] = _mesh_gate("mesh (g) reduced jamba 1x2 f32", singles["g"][0], ranks, "g",
+                                jcfg, g_prompts, MESH_LOGITS_BOUND, problems)
+    for r in ranks:
+        g = r["g"]
+        bad = [n for n, c in g["launches"].items() if (c > 0) != (n in MESH_JAMBA_PATH)]
+        if bad or not g["shard_map"] or g["experts_held"] != jcfg.num_experts // 2 \
+                or g["h"][2] != jcfg.ssm_heads // 2:
+            problems.append(f"mesh (g) rank {r['rank']}: launches {json.dumps(g['launches'])}, "
+                            f"expert-parallel {g['shard_map']} ({g['experts_held']} held), "
+                            f"state {g['h']}")
+    same = sum(ranks[0]["g"]["tokens"][k] == v for k, v in singles["g"][0].items())
+    log(f"mesh (g) reduced jamba 1x2 f32: {same} of {len(singles['g'][0])} requests equal to "
+        f"the single rank's; {ranks[0]['g']['experts_held']} of {jcfg.num_experts} experts and "
+        f"state {ranks[0]['g']['h']} a rank; launches "
+        f"{json.dumps({k: v for k, v in ranks[0]['g']['launches'].items() if v})}")
+    out["g"] = dict(single=singles["g"][1], ranks=[r["g"] | {"tokens": None} for r in ranks])
+    out["witnesses"] = witnesses
+    return out
 
 
 def mesh_phase():
@@ -4833,12 +5202,30 @@ def mesh_phase():
         the single rank's dense GEMMs;
     (d) ``python -m repro_torch.launch.serve --no-reduced --mesh 1x2 --backend
         gloo --requests 8 --max-new 16``: every request ``ok``, rank 0's
-        summary line.
+        summary line;
+    (e) full olmo-1b w8a8 at ``MeshSpec(1, 2)`` with (a)'s engine and prompts:
+        wo and w_down row-parallel (the whole row's max, the int32 partial,
+        the exact int32 sum, the epilogue), the other projections and the
+        head on the fused int8 GEMM of their column slices; tokens equal to
+        the single rank's w8a8 engine or witnessed flips, both ranks the
+        same, the path's kernels launched and no other, the row-parallel
+        entries 2 a layer a forward at wo's and w_down's K halves;
+    (f) full mamba2-130m, head-parallel at 1x2 (12 of 24 SSD heads a rank)
+        and with the state's slots over the data group at 2x1, in bf16 and
+        f32 (8 requests, ``SSM_PROMPTS``, 32 new; f32 under the flip rule's
+        1e-2, bf16's gap printed), and a short w8a8 pass at 1x2 (4 x 16):
+        tokens equal to the single rank's or witnessed flips, only the bf16
+        GEMM (and, in w8a8, the int8 head) launched, each rank's state its
+        heads and slots;
+    (g) reduced jamba (f32; SSD, attention and 4 experts, expert-parallel) at
+        1x2: tokens equal to the single rank's or witnessed flips.  The
+        full-width period does not fit here: each rank would draw the whole
+        26.5 GB period before it keeps its half, beside the single rank's.
 
     Times of two ranks sharing one card over gloo (every collective through
     host memory, the decode step eager by rule) are not multi-GPU scaling
     numbers."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduce_config
     from repro_torch.core.gemm import cgra_gemm
     from repro_torch.launch import dist as D
     from repro_torch.models import model as M
@@ -4865,6 +5252,29 @@ def mesh_phase():
                                          EngineConfig(**MESH_CONF)), a_prompts, MESH_MAX_NEW)
         singles[key] = ({str(k): r.generated for k, r in res.items()}, _tick_summary(ticks))
         gc.collect()
+    # (e) the single rank's w8a8 engine
+    cfg = get_config("olmo-1b")
+    res, ticks = _serve_ticks(Engine(cfg, M.init(cfg, seed=0, device="cuda"),
+                                     EngineConfig(quant="w8a8", **MESH_CONF)), a_prompts,
+                              MESH_MAX_NEW)
+    singles["e"] = ({str(k): r.generated for k, r in res.items()}, _tick_summary(ticks))
+    # (f) mamba2-130m, (g) reduced jamba: the single rank's engines
+    f_prompts = _mesh_prompts(get_config("mamba2-130m").vocab_size, SSM_PROMPTS, 9)
+    for key, _, dtype, quant in MESH_SSD_RUNS:
+        cfg = get_config("mamba2-130m").with_(compute_dtype=dtype)
+        n_new, n_req = (MESH_SSD_MAX_NEW, 8) if quant is None else (MESH_SSD_W8A8_NEW, 4)
+        res, ticks = _serve_ticks(Engine(cfg, M.init(cfg, seed=0, device="cuda"),
+                                         EngineConfig(quant=quant, **MESH_SSD_CONF)),
+                                  f_prompts[:n_req], n_new)
+        singles[key] = ({str(k): r.generated for k, r in res.items()}, _tick_summary(ticks))
+    jcfg = reduce_config(get_config("jamba-v0.1-52b"))
+    g_prompts = _mesh_prompts(jcfg.vocab_size, MESH_JAMBA_LENGTHS, 11)
+    res, ticks = _serve_ticks(Engine(jcfg, M.init(jcfg, seed=0, device="cuda"),
+                                     EngineConfig(**MESH_JAMBA_CONF)), g_prompts, MESH_JAMBA_NEW)
+    singles["g"] = ({str(k): r.generated for k, r in res.items()}, _tick_summary(ticks))
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
     mparams = M.init(mcfg, seed=0, device="cuda")
     res, ticks = _serve_ticks(Engine(mcfg, mparams, EngineConfig(**MESH_CONF)), b_prompts,
                               MOE_MESH_MAX_NEW)
@@ -4876,6 +5286,7 @@ def mesh_phase():
     torch.cuda.empty_cache()
     with open(os.path.join(MESH_WORK, "plan.json"), "w") as f:
         json.dump(dict(a_prompts=a_prompts, b_prompts=b_prompts, b_single=b_single,
+                       f_prompts=f_prompts, g_prompts=g_prompts,
                        **{f"{k}_single": v[0] for k, v in singles.items()}), f)
     t0 = time.time()
     D.spawn(_mesh_rank, 2, "gloo", args=(MESH_WORK,))
@@ -4937,6 +5348,10 @@ def mesh_phase():
         f"{b0['collectives_per_decode_tick']}")
     gc.collect()
     torch.cuda.empty_cache()
+    e_f_g = _mesh_gates_efg(ranks, singles, a_prompts, f_prompts, g_prompts, problems)
+    witnesses.update(e_f_g.pop("witnesses"))
+    gc.collect()
+    torch.cuda.empty_cache()
     # (c): agreement, and the single rank's dense GEMMs at the same shapes
     ring = {}
     for dt, tol in (("float32", 1e-5), ("bfloat16", 2 ** -7)):
@@ -4983,6 +5398,7 @@ def mesh_phase():
                    for key, _ in MESH_DTYPES},
                 b=dict(single=b_ticks, prefill_logits_gap=gaps, witnesses=witnesses["b"],
                        ranks=[r["b"] | {"tokens": None} for r in ranks]),
+                **{k: dict(v, witnesses=witnesses[k]) for k, v in e_f_g.items()},
                 ring=ring, serve_line=lines, serve_s=d_s, wall_s=time.time() - t_phase)
 
 
@@ -5508,6 +5924,8 @@ def main() -> int:
     errs["block_gemm"], rows["block_gemm"] = gemm_phase(flush, gen)
     errs["block_gemm_int8"], rows["block_gemm_int8"] = int8_phase(flush, gen)
     errs["quantize_rows"], rows["quantize_rows"] = quantize_phase(flush, gen)
+    rowpar_rows = rowpar_kernel_phase(flush, gen)
+    rows.update(rowpar_rows)
     errs["flash_attention"], rows["flash_attention"] = dense_attention_phase(flush, gen)
     errs["flash_decode"], rows["flash_decode"] = slot_decode_phase(flush, gen)
     errs["flash_decode_paged"], rows["flash_decode_paged"] = decode_phase(flush, gen)
@@ -5604,8 +6022,23 @@ def main() -> int:
                  launches=launches["quantize_rows"], max_abs_err=errs["quantize_rows"],
                  **pick("quantize_rows", "3072x2560 bf16"))
     report["quantize_rows"] = quant
+    # the row-parallel w8a8 GEMM's entries (the int8 GEMM's two halves and
+    # the quantize's two passes) at w_down's K half of a 64-row chunk;
+    # launches from rank 0's mesh (e) run
+    M_, K_, N_ = ROWPAR_MAIN
+    rowpar = [dict(name=n, route="cuda", source=f"src/repro_torch/kernels/csrc/{src}",
+                   replaces=rep_, launches=meshed["e"]["launches"][n], max_abs_err=0.0,
+                   **pick(n, shape))
+              for n, src, rep_, shape in (
+                  ("block_gemm_int8_acc", "block_gemm_int8.cu", sources["block_gemm_int8"][1],
+                   f"{M_}x{K_}x{N_}"),
+                  ("int8_epilogue", "block_gemm_int8.cu", sources["block_gemm_int8"][1],
+                   f"{M_}x{N_} bf16 out"),
+                  ("row_amax", "quantize.cu", quant["replaces"], f"{M_}x{K_} bf16"),
+                  ("quantize_rows_given", "quantize.cu", quant["replaces"], f"{M_}x{K_} bf16"))]
+    kernels += [quant] + rowpar
     log(json.dumps({"kernel_shapes": rows, **report}))
-    log(json.dumps({"added_kernels": [quant]}))
+    log(json.dumps({"added_kernels": [quant] + rowpar}))
     # the two decode kernels at minicpm3-4b's latent shape, launches from the
     # MLA engine run (paged) and the direct slot-cache loop (slot)
     mla = report["mla"]

@@ -2,10 +2,13 @@
 on the card, the plain versions on the CPU.
 
 Ports of ``repro.kernels.block_gemm.block_gemm`` (TPU kernel
-``_gemm_kernel``) and ``block_gemm_int8`` (``_gemm_int8_kernel``).  Each
-wrapper's ``.launches`` counts its kernel launches; ``block_gemm``'s
-``.trans_a_launches`` those of them that read A transposed (the weight
-gradients of a train step).
+``_gemm_kernel``) and ``block_gemm_int8`` (``_gemm_int8_kernel``).  A
+row-parallel int8 product (K cut over a mesh's ranks) runs the int8 GEMM's
+two halves apart: :func:`block_gemm_int8_acc` stores the raw int32 sums,
+the ranks add them exactly, and :func:`int8_epilogue` scales the whole
+sum.  Each wrapper's ``.launches`` counts its kernel launches;
+``block_gemm``'s ``.trans_a_launches`` those of them that read A
+transposed (the weight gradients of a train step).
 """
 from __future__ import annotations
 
@@ -14,11 +17,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import block_gemm_int8_ref, block_gemm_ref
+from repro_torch.kernels.ref import (block_gemm_int8_acc_ref, block_gemm_int8_ref,
+                                     block_gemm_ref, int8_epilogue_ref)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _fn = None
 _fn_int8 = None
+_fn_acc = None
+_fn_epi = None
 
 GEMM_BN = 64  # the column tile of the split rule (the kernel's 64-column tiles)
 _SMS = 132  # an H100's SMs
@@ -104,6 +110,24 @@ def _entry_int8():
     return _fn_int8
 
 
+def _entry_acc():
+    global _fn_acc
+    if _fn_acc is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        _fn_acc = _build.bind("block_gemm_int8", "repro_block_gemm_int8_acc",
+                              [P, P, P, I, I, I, I, I, I, P])
+    return _fn_acc
+
+
+def _entry_epi():
+    global _fn_epi
+    if _fn_epi is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        _fn_epi = _build.bind("block_gemm_int8", "repro_int8_epilogue",
+                              [P, P, P, P, I, I, I, I, P])
+    return _fn_epi
+
+
 def block_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
                trans_b: bool = False, trans_a: bool = False) -> torch.Tensor:
     """C = A @ B with an f32 accumulator and one cast to ``out_dtype``
@@ -163,44 +187,117 @@ def block_gemm_int8(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
     _build.refuse_grad("block_gemm_int8", a_q, b_q, a_scale, b_scale)
     if a_q.device.type == "cpu":
         return block_gemm_int8_ref(a_q, b_q, a_scale, b_scale, out_dtype)
-    dev = a_q.device
-    for name, x in (("b_q", b_q), ("a_scale", a_scale), ("b_scale", b_scale)):
-        if a_q.device.type != "cuda" or x.device != dev:
-            raise ValueError(f"block_gemm_int8: a_q on {dev}, {name} on {x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"block_gemm_int8: {name} must be contiguous")
-    if not a_q.is_contiguous():
-        raise ValueError("block_gemm_int8: a_q must be contiguous")
-    if a_q.dtype != torch.int8 or b_q.dtype != torch.int8 \
-            or a_scale.dtype != torch.float32 or b_scale.dtype != torch.float32:
-        raise TypeError(f"block_gemm_int8: dtypes {a_q.dtype}, {b_q.dtype}, "
-                        f"{a_scale.dtype}, {b_scale.dtype}")
-    if out_dtype not in _DTYPES:
-        raise TypeError(f"block_gemm_int8: out_dtype {out_dtype}")
-    if a_q.dim() != 2 or b_q.dim() != 2 or a_q.shape[1] != b_q.shape[1]:
-        raise ValueError(f"block_gemm_int8: shapes {tuple(a_q.shape)} @ "
-                         f"{tuple(b_q.shape)}^T")
-    M, K = a_q.shape
-    N = b_q.shape[0]
-    if a_scale.numel() != M or b_scale.numel() != N:
-        raise ValueError(f"block_gemm_int8: scales {tuple(a_scale.shape)}, "
-                         f"{tuple(b_scale.shape)} for M={M}, N={N}")
-    c = torch.empty((M, N), dtype=out_dtype, device=dev)
+    M, N, K = _int8_operands("block_gemm_int8", a_q, b_q)
+    _check_scales("block_gemm_int8", a_q.device, M, N, a_scale, b_scale, out_dtype)
+    c = torch.empty((M, N), dtype=out_dtype, device=a_q.device)
     if M == 0 or N == 0:
         return c
     if K == 0:
         return c.zero_()
-    sms = _sm_count(dev)
-    tma_ok = K % 16 == 0 and a_q.data_ptr() % 16 == 0 and b_q.data_ptr() % 16 == 0
-    route = int8_route(M, N, sms, tma_ok)
+    route, splits, sms = _int8_plan(a_q, b_q)
     err = _entry_int8()(a_q.data_ptr(), b_q.data_ptr(), a_scale.data_ptr(),
                         b_scale.data_ptr(), c.data_ptr(), M, N, K,
-                        int(out_dtype == torch.bfloat16), route,
-                        int8_splits(K, N) if route < 2 else 1, sms,
-                        _build.stream_ptr(dev))
+                        int(out_dtype == torch.bfloat16), route, splits, sms,
+                        _build.stream_ptr(a_q.device))
     _build.check(err, "block_gemm_int8")
     block_gemm_int8.launches += 1
     return c
 
 
 block_gemm_int8.launches = 0
+
+
+def _int8_operands(what: str, a_q, b_q) -> tuple[int, int, int]:
+    """Checks a_q [M, K] and b_q [N, K] (int8, contiguous, on one card);
+    returns (M, N, K)."""
+    if a_q.device.type != "cuda" or b_q.device != a_q.device:
+        raise ValueError(f"{what}: a_q on {a_q.device}, b_q on {b_q.device}")
+    if not (a_q.is_contiguous() and b_q.is_contiguous()):
+        raise ValueError(f"{what}: a_q and b_q must be contiguous")
+    if a_q.dtype != torch.int8 or b_q.dtype != torch.int8:
+        raise TypeError(f"{what}: dtypes {a_q.dtype}, {b_q.dtype}")
+    if a_q.dim() != 2 or b_q.dim() != 2 or a_q.shape[1] != b_q.shape[1]:
+        raise ValueError(f"{what}: shapes {tuple(a_q.shape)} @ {tuple(b_q.shape)}^T")
+    return a_q.shape[0], b_q.shape[0], a_q.shape[1]
+
+
+def _check_scales(what: str, dev, M: int, N: int, a_scale, b_scale, out_dtype):
+    for name, x in (("a_scale", a_scale), ("b_scale", b_scale)):
+        if x.device != dev:
+            raise ValueError(f"{what}: {name} on {x.device}, the operands on {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} dtype {x.dtype}")
+    if out_dtype not in _DTYPES:
+        raise TypeError(f"{what}: out_dtype {out_dtype}")
+    if a_scale.numel() != M or b_scale.numel() != N:
+        raise ValueError(f"{what}: scales {tuple(a_scale.shape)}, "
+                         f"{tuple(b_scale.shape)} for M={M}, N={N}")
+
+
+def _int8_plan(a_q, b_q) -> tuple[int, int, int]:
+    """(route, splits, SM count) of the int8 kernels for these operands."""
+    M, K = a_q.shape
+    N = b_q.shape[0]
+    sms = _sm_count(a_q.device)
+    tma_ok = K % 16 == 0 and a_q.data_ptr() % 16 == 0 and b_q.data_ptr() % 16 == 0
+    route = int8_route(M, N, sms, tma_ok)
+    return route, (int8_splits(K, N) if route < 2 else 1), sms
+
+
+def block_gemm_int8_acc(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
+    """The raw int32 sums of :func:`block_gemm_int8`: a_q [M, K] int8 times
+    b_q [N, K] int8 -> acc [M, N] int32, with no epilogue, on the same
+    route and K split as the fused product (``int8_route``,
+    ``int8_splits``).  Exact while ``K * 127^2 < 2^31``; a row-parallel
+    caller sums the ranks' partials as int32 and applies
+    :func:`int8_epilogue` once.  Inference only."""
+    _build.refuse_grad("block_gemm_int8_acc", a_q, b_q)
+    if a_q.device.type == "cpu":
+        return block_gemm_int8_acc_ref(a_q, b_q)
+    M, N, K = _int8_operands("block_gemm_int8_acc", a_q, b_q)
+    acc = torch.empty((M, N), dtype=torch.int32, device=a_q.device)
+    if M == 0 or N == 0:
+        return acc
+    if K == 0:
+        return acc.zero_()
+    route, splits, sms = _int8_plan(a_q, b_q)
+    err = _entry_acc()(a_q.data_ptr(), b_q.data_ptr(), acc.data_ptr(), M, N, K, route,
+                       splits, sms, _build.stream_ptr(a_q.device))
+    _build.check(err, "block_gemm_int8_acc")
+    block_gemm_int8_acc.launches += 1
+    return acc
+
+
+block_gemm_int8_acc.launches = 0
+
+
+def int8_epilogue(acc: torch.Tensor, a_scale: torch.Tensor, b_scale: torch.Tensor,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """The fused store of :func:`block_gemm_int8` on an int32 accumulator
+    acc [M, N] (contiguous): ``(float(acc) * a_scale[m]) * b_scale[n]`` in
+    f32, cast once to ``out_dtype`` (f32 or bf16).  a_scale: [M, 1] f32;
+    b_scale: [1, N] f32.  Of a whole-K accumulator it equals
+    ``block_gemm_int8`` bit for bit.  Inference only."""
+    _build.refuse_grad("int8_epilogue", acc, a_scale, b_scale)
+    if acc.device.type == "cpu":
+        return int8_epilogue_ref(acc, a_scale, b_scale, out_dtype)
+    if acc.device.type != "cuda" or acc.dtype != torch.int32 or acc.dim() != 2 \
+            or not acc.is_contiguous():
+        raise ValueError(f"int8_epilogue: acc {tuple(acc.shape)} {acc.dtype} on "
+                         f"{acc.device}: a contiguous [M, N] int32 on the card")
+    M, N = acc.shape
+    _check_scales("int8_epilogue", acc.device, M, N, a_scale, b_scale, out_dtype)
+    c = torch.empty((M, N), dtype=out_dtype, device=acc.device)
+    if M == 0 or N == 0:
+        return c
+    err = _entry_epi()(acc.data_ptr(), a_scale.data_ptr(), b_scale.data_ptr(), c.data_ptr(),
+                       M, N, int(out_dtype == torch.bfloat16), _sm_count(acc.device),
+                       _build.stream_ptr(acc.device))
+    _build.check(err, "int8_epilogue")
+    int8_epilogue.launches += 1
+    return c
+
+
+int8_epilogue.launches = 0

@@ -62,6 +62,21 @@
 // (f32 or bf16).  Ragged M/N/K edges are zero-filled on load (TMA
 // out-of-bounds fill; cp.async src-size 0 or element by element), never by
 // padded copies, and masked on store.
+//
+// Two more entries serve a row-parallel product, whose K is split over the
+// ranks of a mesh (core/gemm.py, cgra_gemm_w8a8_row):
+//
+// - repro_block_gemm_int8_acc: the same kernels, every route and split,
+//   with TO = int: the raw int32 accumulator [M, N] is stored and no
+//   epilogue runs (the scales are never read).  Bounded like the fused
+//   product, plus 4*M*N bytes of int32 out.  The ranks' partials are summed
+//   exactly as int32 (launch/mesh.py, Mesh.all_sum_int).
+// - repro_int8_epilogue: C = (float(acc) * a_scale[m]) * b_scale[n], one
+//   cast -- the fused store's arithmetic, in its order, so the epilogue of
+//   a whole-K accumulator equals the fused kernel's output bit for bit.  An
+//   elementwise pass bounded by bytes: 4*M*N in, 4*(M + N) of scales, M*N*
+//   (4 or 2) out.  One thread four consecutive columns of a row (one
+//   16-byte load of acc where N % 4 == 0), grid-stride.
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and the driver's enums (types only: no -lcuda)
 
@@ -81,9 +96,23 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// TO = int: the raw accumulator, no epilogue (the scale pointers are null)
+template <typename TO> struct RawOut { static constexpr bool value = false; };
+template <> struct RawOut<int> { static constexpr bool value = true; };
+
+__device__ __forceinline__ float dequant_f(int acc, float sa, float sb) {
+  return (__int2float_rn(acc) * sa) * sb;
+}
+
+// output (m, n) of accumulator acc: the epilogue, or acc itself
 template <typename TO>
-__device__ __forceinline__ TO dequant(int acc, float sa, float sb) {
-  return from_f<TO>((__int2float_rn(acc) * sa) * sb);
+__device__ __forceinline__ TO out_val(int acc, const float* __restrict__ sa,
+                                      const float* __restrict__ sb, int m, int n) {
+  if constexpr (RawOut<TO>::value) {
+    return acc;
+  } else {
+    return from_f<TO>(dequant_f(acc, sa[m], sb[n]));
+  }
 }
 
 // an output from its bits: an f32 word, or a bf16 in the low 16 bits
@@ -93,6 +122,9 @@ template <> __device__ __forceinline__ float to_out<float>(uint32_t bits) {
 }
 template <> __device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(uint32_t bits) {
   return __ushort_as_bfloat16(static_cast<unsigned short>(bits));
+}
+template <> __device__ __forceinline__ int to_out<int>(uint32_t bits) {
+  return static_cast<int>(bits);
 }
 
 // ---------------------------------------------------------------------------
@@ -227,7 +259,7 @@ gemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
           const int gm = m0 + wm * WM + mi * 16 + g + (r >= 2 ? 8 : 0);
           const int gn = n0 + wn * WN + ni * 8 + c2 + (r & 1);
           if (gm < M && gn < N)
-            C[(size_t)gm * N + gn] = dequant<TO>(acc[mi][ni][r], sa[gm], sb[gn]);
+            C[(size_t)gm * N + gn] = out_val<TO>(acc[mi][ni][r], sa, sb, gm, gn);
         }
     return;
   }
@@ -268,7 +300,7 @@ gemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
     TO* out = C + (size_t)gm * N + n0 + col;
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      if (n0 + col + u < N) out[u] = dequant<TO>(vals[u], sa[gm], sb[n0 + col + u]);
+      if (n0 + col + u < N) out[u] = out_val<TO>(vals[u], sa, sb, gm, n0 + col + u);
   }
   cluster.sync();  // no block leaves while the others read its partial
 }
@@ -450,8 +482,13 @@ __device__ __forceinline__ void store_tile(const int* acc, const float* sbs,
                                            const float* __restrict__ sa, TO* __restrict__ C,
                                            int M, int N, int row0, int n0, int lane) {
   constexpr int W = sizeof(TO) == 2 ? 1 : 2;  // 32-bit words per output pair
+  constexpr bool RAW = RawOut<TO>::value;
   const int c = lane & 3, rb = row0 + (lane >> 2);
-  const float am0 = rb < M ? sa[rb] : 0.f, am1 = rb + 8 < M ? sa[rb + 8] : 0.f;
+  float am0 = 0.f, am1 = 0.f;
+  if constexpr (!RAW) {
+    am0 = rb < M ? sa[rb] : 0.f;
+    am1 = rb + 8 < M ? sa[rb + 8] : 0.f;
+  }
   const int row = rb + 8 * (c >> 1);
   const bool vec = row < M && N % 8 == 0;
   TO* crow = C + (size_t)row * N;
@@ -463,14 +500,19 @@ __device__ __forceinline__ void store_tile(const int* acc, const float* sbs,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int i = 4 * (2 * k + jj) + 2 * h, col = 16 * k + 8 * jj + 2 * c;
-        const float am = h ? am1 : am0;
-        const float x0 = (__int2float_rn(acc[i]) * am) * sbs[col];
-        const float x1 = (__int2float_rn(acc[i + 1]) * am) * sbs[col + 1];
-        if (W == 1) {
-          w[jj][h][0] = pack_bf16x2(x0, x1);
+        if constexpr (RAW) {
+          w[jj][h][0] = static_cast<uint32_t>(acc[i]);
+          w[jj][h][W - 1] = static_cast<uint32_t>(acc[i + 1]);
         } else {
-          w[jj][h][0] = __float_as_uint(x0);
-          w[jj][h][W - 1] = __float_as_uint(x1);
+          const float am = h ? am1 : am0;
+          const float x0 = dequant_f(acc[i], am, sbs[col]);
+          const float x1 = dequant_f(acc[i + 1], am, sbs[col + 1]);
+          if (W == 1) {
+            w[jj][h][0] = pack_bf16x2(x0, x1);
+          } else {
+            w[jj][h][0] = __float_as_uint(x0);
+            w[jj][h][W - 1] = __float_as_uint(x1);
+          }
         }
       }
     uint32_t o[4][W];  // o[q]: columns 8 * (c % 2) + 2q, +1 of `row`
@@ -578,7 +620,8 @@ gemm_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
       // this tile's column scales, read from shared memory by the epilogue
       // (the barrier: the warpgroup's last epilogue is done with them)
       wg_bar(1 + wg);
-      for (int i = tid & 127; i < BN; i += 128) sbs[i] = n0 + i < N ? sb[n0 + i] : 0.f;
+      if constexpr (!RawOut<TO>::value)
+        for (int i = tid & 127; i < BN; i += 128) sbs[i] = n0 + i < N ? sb[n0 + i] : 0.f;
       int acc[BN / 2];
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
@@ -607,6 +650,42 @@ gemm_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
       if (KT > 0 && lane == 0) mbar_arrive(&empty[s == 0 ? STAGES - 1 : s - 1]);
       wg_bar(1 + wg);  // sbs is written
       store_tile<BN, TO>(acc, sbs, sa, C, M, N, m0 + wg * 64 + wi * 16, n0, lane);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3. the epilogue alone, on a summed int32 accumulator
+// ---------------------------------------------------------------------------
+
+constexpr int EPI_THREADS = 256;
+
+// Thread t of the grid-stride loop takes columns 4j .. 4j+3 of one row
+// (vec: N % 4 == 0 and acc 16-byte aligned, so they are one int4 load);
+// otherwise one element a step.
+template <typename TO>
+__global__ void __launch_bounds__(EPI_THREADS)
+int8_epilogue_kernel(const int* __restrict__ acc, const float* __restrict__ sa,
+                     const float* __restrict__ sb, TO* __restrict__ C, int M, int N, int vec) {
+  const size_t stride = (size_t)gridDim.x * EPI_THREADS;
+  const size_t t0 = (size_t)blockIdx.x * EPI_THREADS + threadIdx.x;
+  if (vec) {
+    const size_t n4 = (size_t)M * (N / 4);
+    for (size_t t = t0; t < n4; t += stride) {
+      const size_t e = t * 4;
+      const int m = static_cast<int>(e / N), n = static_cast<int>(e % N);
+      const int4 a = *reinterpret_cast<const int4*>(acc + e);
+      const float s = sa[m];
+      C[e] = from_f<TO>(dequant_f(a.x, s, sb[n]));
+      C[e + 1] = from_f<TO>(dequant_f(a.y, s, sb[n + 1]));
+      C[e + 2] = from_f<TO>(dequant_f(a.z, s, sb[n + 2]));
+      C[e + 3] = from_f<TO>(dequant_f(a.w, s, sb[n + 3]));
+    }
+  } else {
+    const size_t total = (size_t)M * N;
+    for (size_t e = t0; e < total; e += stride) {
+      const int m = static_cast<int>(e / N), n = static_cast<int>(e % N);
+      C[e] = from_f<TO>(dequant_f(acc[e], sa[m], sb[n]));
     }
   }
 }
@@ -740,4 +819,36 @@ extern "C" int repro_block_gemm_int8(const void* a, const void* b, const void* a
                                              N, K, route, splits, sms, s);
   return repro::launch_int8<float>(A, B, sa, sb, static_cast<float*>(c), M, N, K, route,
                                    splits, sms, s);
+}
+
+// a [M,K] int8; b [N,K] int8; acc [M,N] int32: the raw sums over k, no
+// epilogue.  route, splits and sms as repro_block_gemm_int8's.
+extern "C" int repro_block_gemm_int8_acc(const void* a, const void* b, void* acc, int M, int N,
+                                         int K, int route, int splits, int sms, void* stream) {
+  return repro::launch_int8<int>(static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
+                                 nullptr, nullptr, static_cast<int*>(acc), M, N, K, route,
+                                 splits, sms, static_cast<cudaStream_t>(stream));
+}
+
+// acc [M,N] int32; a_scale [M] f32; b_scale [N] f32; c [M,N] f32 or, out_bf16,
+// bf16: c = (float(acc) * a_scale[m]) * b_scale[n], cast once.  sms sizes the
+// grid (8 blocks an SM at most).
+extern "C" int repro_int8_epilogue(const void* acc, const void* a_scale, const void* b_scale,
+                                   void* c, int M, int N, int out_bf16, int sms, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* A = static_cast<const int*>(acc);
+  const float* sa = static_cast<const float*>(a_scale);
+  const float* sb = static_cast<const float*>(b_scale);
+  const int vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(acc) % 16 == 0;
+  const size_t work = vec ? (size_t)M * (N / 4) : (size_t)M * N;
+  size_t blocks = (work + repro::EPI_THREADS - 1) / repro::EPI_THREADS;
+  if (blocks > (size_t)sms * 8) blocks = (size_t)sms * 8;
+  if (blocks == 0) return 0;
+  if (out_bf16)
+    repro::int8_epilogue_kernel<__nv_bfloat16><<<(unsigned)blocks, repro::EPI_THREADS, 0, s>>>(
+        A, sa, sb, static_cast<__nv_bfloat16*>(c), M, N, vec);
+  else
+    repro::int8_epilogue_kernel<float><<<(unsigned)blocks, repro::EPI_THREADS, 0, s>>>(
+        A, sa, sb, static_cast<float*>(c), M, N, vec);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -11,14 +11,16 @@ import torch
 
 from repro_torch.core.cache import CacheLayout
 from repro_torch.kernels import _build
-from repro_torch.kernels.block_gemm import block_gemm, block_gemm_int8
+from repro_torch.kernels.block_gemm import (block_gemm, block_gemm_int8, block_gemm_int8_acc,
+                                            int8_epilogue)
 from repro_torch.kernels.decode_attention import flash_decode, flash_decode_paged
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_paged
-from repro_torch.kernels.quantize import quantize_rows
+from repro_torch.kernels.quantize import quantize_rows, quantize_rows_given, row_amax
 
 #: every kernel wrapper; each counts its launches in ``.launches``
 LAUNCH_COUNTERS = (block_gemm, block_gemm_int8, quantize_rows, flash_attention,
-                   flash_attention_paged, flash_decode, flash_decode_paged)
+                   flash_attention_paged, flash_decode, flash_decode_paged,
+                   block_gemm_int8_acc, int8_epilogue, row_amax, quantize_rows_given)
 
 
 @torch.library.custom_op("repro_torch::cgra_matmul", mutates_args=(), schema=(

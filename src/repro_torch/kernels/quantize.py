@@ -3,8 +3,11 @@ plain version on the CPU.
 
 Port of the activation half of ``repro.core.gemm.cgra_gemm_w8a8``:
 ``repro.core.quant.quantize(x, axis=0)`` just before the int8 GEMM, which
-XLA fuses into one pass.  ``quantize_rows.launches`` counts the kernel's
-launches.
+XLA fuses into one pass.  A row whose K is cut over a mesh's ranks (the
+row-parallel w8a8 GEMM, ``core.gemm.cgra_gemm_w8a8_row``) takes its two
+passes apart: :func:`row_amax`, then, after the ranks' maxima are joined,
+:func:`quantize_rows_given`.  Each wrapper's ``.launches`` counts its
+kernel's launches.
 """
 from __future__ import annotations
 
@@ -13,18 +16,31 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import quantize_rows_ref
+from repro_torch.kernels.ref import quantize_rows_given_ref, quantize_rows_ref, row_amax_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_fn = None
+_FNS: dict = {}
 
 
-def _entry():
-    global _fn
-    if _fn is None:
+def _entry(fn: str, n_ptrs: int):
+    """The C entry ``fn`` of ``csrc/quantize.cu``: ``n_ptrs`` pointers, then
+    M, K, is_bf16 and the stream."""
+    if fn not in _FNS:
         P, I = ctypes.c_void_p, ctypes.c_int
-        _fn = _build.bind("quantize", "repro_quantize_rows", [P, P, P, I, I, I, P])
-    return _fn
+        _FNS[fn] = _build.bind("quantize", fn, [P] * n_ptrs + [I, I, I, P])
+    return _FNS[fn]
+
+
+def _check_x(what: str, x):
+    _build.refuse_grad(what, x)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: x on {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {x.dtype}")
+    if x.dim() != 2:
+        raise ValueError(f"{what}: x must be [M, K], got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: x must be contiguous")
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -32,15 +48,7 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     f32): ``scale = max(max_k |x|, 1e-8) / 127`` and ``q = clip(round(x /
     scale), -127, 127)``, rounding half to even, in f32 -- bit for bit
     ``core.quant.quantize(x, axis=0)`` for finite x.  Inference only."""
-    _build.refuse_grad("quantize_rows", x)
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"quantize_rows: x on {x.device}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"quantize_rows: dtype {x.dtype}")
-    if x.dim() != 2:
-        raise ValueError(f"quantize_rows: x must be [M, K], got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("quantize_rows: x must be contiguous")
+    _check_x("quantize_rows", x)
     if x.device.type == "cpu":
         return quantize_rows_ref(x)
     M, K = x.shape
@@ -48,11 +56,64 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     if M == 0:
         return q, scale
-    err = _entry()(x.data_ptr(), q.data_ptr(), scale.data_ptr(), M, K,
-                   int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device))
+    err = _entry("repro_quantize_rows", 3)(x.data_ptr(), q.data_ptr(), scale.data_ptr(), M,
+                                           K, int(x.dtype == torch.bfloat16),
+                                           _build.stream_ptr(x.device))
     _build.check(err, "quantize_rows")
     quantize_rows.launches += 1
     return q, scale
 
 
 quantize_rows.launches = 0
+
+
+def row_amax(x: torch.Tensor) -> torch.Tensor:
+    """x [M, K] (f32 or bf16, contiguous) -> max_k |x| [M, 1] f32: the first
+    pass of :func:`quantize_rows` alone.  Inference only."""
+    _check_x("row_amax", x)
+    if x.device.type == "cpu":
+        return row_amax_ref(x)
+    M, K = x.shape
+    amax = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    if M == 0:
+        return amax
+    err = _entry("repro_row_amax", 2)(x.data_ptr(), amax.data_ptr(), M, K,
+                                      int(x.dtype == torch.bfloat16),
+                                      _build.stream_ptr(x.device))
+    _build.check(err, "row_amax")
+    row_amax.launches += 1
+    return amax
+
+
+row_amax.launches = 0
+
+
+def quantize_rows_given(x: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor,
+                                                                     torch.Tensor]:
+    """x [M, K] (f32 or bf16, contiguous) quantized with the row maxima
+    ``amax`` [M, 1] f32 (a whole row's, of which x may be a slice of the
+    columns): ``scale = max(amax, 1e-8) / 127`` and ``q = clip(round(x /
+    scale), -127, 127)`` as :func:`quantize_rows`.  With ``amax =
+    row_amax(x)`` the two equal ``quantize_rows(x)`` bit for bit.
+    Returns (q [M, K] int8, scale [M, 1] f32).  Inference only."""
+    _check_x("quantize_rows_given", x)
+    M, K = x.shape
+    if amax.shape != (M, 1) or amax.dtype != torch.float32 or amax.device != x.device:
+        raise ValueError(f"quantize_rows_given: amax {tuple(amax.shape)} {amax.dtype} on "
+                         f"{amax.device} for x [{M}, {K}] on {x.device}")
+    if x.device.type == "cpu":
+        return quantize_rows_given_ref(x, amax)
+    amax = amax.contiguous()
+    q = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    if M == 0:
+        return q, scale
+    err = _entry("repro_quantize_rows_given", 4)(
+        x.data_ptr(), amax.data_ptr(), q.data_ptr(), scale.data_ptr(), M, K,
+        int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device))
+    _build.check(err, "quantize_rows_given")
+    quantize_rows_given.launches += 1
+    return q, scale
+
+
+quantize_rows_given.launches = 0

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quant import quantize
+from repro_torch.core.quant import quantize, quantize_over
 
 F32 = torch.float32
 NEG = -1e30
@@ -32,9 +32,35 @@ def block_gemm_int8_ref(a_q, b_q, a_scale, b_scale, out_dtype=F32):
     (K contiguous: the port's packed weight layout, the transpose of the
     JAX operand); a_scale: [M, 1] f32; b_scale: [1, N] f32.  The sums run
     in f64, exact for |acc| < 2^53, since CUDA has no integer matmul."""
-    acc = torch.matmul(a_q.to(torch.float64), b_q.to(torch.float64).T)
-    acc = acc.to(torch.int32).to(F32)
+    return int8_epilogue_ref(block_gemm_int8_acc_ref(a_q, b_q), a_scale, b_scale, out_dtype)
+
+
+def block_gemm_int8_acc_ref(a_q, b_q):
+    """The raw accumulator of :func:`block_gemm_int8_ref`: a_q [M, K] int8
+    times b_q [N, K] int8 -> the exact integer sums [M, N] int32 (summed in
+    f64, exact for |acc| < 2^53), no epilogue."""
+    return torch.matmul(a_q.to(torch.float64), b_q.to(torch.float64).T).to(torch.int32)
+
+
+def int8_epilogue_ref(acc, a_scale, b_scale, out_dtype=F32):
+    """The epilogue of :func:`block_gemm_int8_ref` on an int32 accumulator
+    [M, N]: ``(float(acc) * a_scale[m]) * b_scale[n]`` in f32, cast once.
+    Of the whole-K accumulator it is ``block_gemm_int8_ref`` bit for bit."""
+    acc = acc.to(F32)
     return (acc * a_scale.reshape(-1, 1) * b_scale.reshape(1, -1)).to(out_dtype)
+
+
+def row_amax_ref(x):
+    """max_k |x[m, k]| of x [M, K] as [M, 1] f32."""
+    return x.to(F32).abs().amax(dim=1, keepdim=True)
+
+
+def quantize_rows_given_ref(x, amax):
+    """x [M, K] quantized per row with the given maxima ``amax`` [M, 1] f32
+    (``core.quant.quantize_over``'s rule with the max replaced): (q [M, K]
+    int8, scale [M, 1] f32)."""
+    qt = quantize_over(x, (1,), amax_hook=lambda _: amax)
+    return qt.q, qt.scale
 
 
 def quantize_rows_ref(x):

@@ -7,7 +7,8 @@ reference's ``shard_map`` bodies, written once).  :class:`Mesh` holds the
 grid of global ranks, this rank's coordinates on each named axis, and one
 process group per axis line through it: ``("data", "model")`` gives a
 model group (the ranks that share this rank's data index) and a data
-group.  Its collectives are the reference's ``psum`` (an f32 all-reduce),
+group.  Its collectives are the reference's ``psum`` (an f32 all-reduce;
+an int32 one, exact, for the row-parallel int8 GEMM's partial sums),
 ``pmax``, ``all_gather``, a reduce-scatter (the transpose of an FSDP
 gather) and ``ppermute`` (``batch_isend_irecv`` to a ring neighbour), plus
 the rank-0 broadcast the serving engine and the training runner take their
@@ -138,6 +139,20 @@ class Mesh:
         self._count(t)
         dist.all_reduce(t, group=self.groups[axis][0])
         return t.to(device=x.device, dtype=x.dtype)
+
+    def all_sum_int(self, x, axis: str = "model"):
+        """Sum of the int32 tensor ``x`` over ``axis`` as int32, never cast:
+        exact while the sum fits (the row-parallel int8 GEMM's accumulators,
+        ``core.gemm.cgra_gemm_w8a8_row``; an f32 sum is not exact past
+        2^24).  Identity on an axis of 1."""
+        if x.dtype != torch.int32:
+            raise TypeError(f"all_sum_int: {x.dtype}, not int32")
+        if axis not in self.groups:
+            return x
+        t = self._host(x.contiguous())
+        self._count(t)
+        dist.all_reduce(t, group=self.groups[axis][0])
+        return t.to(x.device)
 
     def all_max(self, x, axes):
         """Elementwise max of ``x`` over every axis of ``axes`` (a name or a

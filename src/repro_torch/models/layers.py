@@ -24,7 +24,8 @@ Under a mesh (``launch.sharding.activation_mesh``, set by the serving
 engine's runner) each layer computes this rank's shard, as the reference's
 ``shard_map`` bodies do: a projection with the ``shard=("col", blocks)``
 hint yields this rank's output columns, one with ``("row", blocks)`` sums
-its partial GEMM over the model group in f32, anything else (no hint, or
+its partial GEMM over the model group in f32 (a w8a8 weight: in int32,
+exactly, ``core.gemm.cgra_gemm_w8a8_row``), anything else (no hint, or
 ``blocks`` not a multiple of the model axis: the weight was left whole) is
 whole.  Attention runs on this rank's heads over its KV-pool shard, and MoE
 on its ``E / tp`` experts (``cfg.moe_shard_map``).  The same code trains:
@@ -46,7 +47,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import round_up
 from repro_torch.core.cache import CacheLayout
-from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8, quantize_act
+from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8, cgra_gemm_w8a8_row, quantize_act
 from repro_torch.core.quant import QTensor
 from repro_torch.kernels._build import records
 from repro_torch.kernels.ops import attend_decode, attention
@@ -105,12 +106,21 @@ def dense_proj(cfg: ArchConfig, x, w, out_shape: tuple = (), out_dtype=None,
     partial product leaves the GEMM's f32 accumulator unrounded, the
     partials are summed over the model group in f32 and the sum is rounded
     once to the store dtype, as the single device rounds its one sum (the
-    reference rounds each partial first, then sums in f32).  Under autograd
-    a "col" input enters the region (:func:`tp_input`, unless the caller
-    did: ``entered``) and a "row" sum leaves it (``leave_tp``)."""
-    split = None if isinstance(w, QTensor) else _split(shard)  # int8 leaves stay whole
+    reference rounds each partial first, then sums in f32).  A ``QTensor``
+    weight is sliced by the same rule (``model.shard_params``): "col" runs
+    the int8 GEMM on its column slice, "row" the row-parallel int8 GEMM
+    (``core.gemm.cgra_gemm_w8a8_row``: the whole row's scale and an exact
+    int32 sum), whose output equals the single device's bit for bit.
+    Under autograd a "col" input enters the region (:func:`tp_input`,
+    unless the caller did: ``entered``) and a "row" sum leaves it
+    (``leave_tp``)."""
+    split = _split(shard)
     if isinstance(w, QTensor):
-        out = cgra_gemm_w8a8(x, w, out_dtype=out_dtype or cfg.compute_dtype)
+        if split == "row":
+            out = cgra_gemm_w8a8_row(x, w, current_mesh(),
+                                     out_dtype=out_dtype or cfg.compute_dtype)
+        else:
+            out = cgra_gemm_w8a8(x, w, out_dtype=out_dtype or cfg.compute_dtype)
     elif split == "row":
         out = cgra_gemm(x, w.reshape(x.shape[-1], -1), out_dtype=F32)
         out = leave_tp(out, current_mesh()).to(out_dtype or x.dtype)
@@ -128,7 +138,10 @@ def dense_proj(cfg: ArchConfig, x, w, out_shape: tuple = (), out_dtype=None,
 def shared_input(x, w):
     """``x`` for several projections with weights like ``w``: quantized once
     here when ``w`` is a w8a8 ``QTensor`` (the int8 values and every output
-    stay bit-identical to quantizing per projection), else ``x``."""
+    stay bit-identical to quantizing per projection), else ``x``.  Only for
+    readers of the whole activation -- whole or column-split projections;
+    a row-split one quantizes its slice itself, with the whole row's
+    scale."""
     return quantize_act(x) if isinstance(w, QTensor) else x
 
 

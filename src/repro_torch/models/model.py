@@ -124,6 +124,13 @@ _QUANT_NAMES = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                           "w1", "w2", "wq_a", "wkv_a", "lm_head"})
 
 
+def _n_red(name: str, ndim: int, lead: int) -> int:
+    """How many leading dims (after ``lead`` stacked ones) of a float GEMM
+    weight of ``ndim`` dims are its contraction: ``wo`` [*, H, dh, D]
+    contracts (H, dh), every other weight its first dim."""
+    return ndim - lead - 1 if name == "wo" else 1
+
+
 def _pack(qt: QTensor, lead: int, n_red: int) -> QTensor:
     """JAX layout [*lead, *contraction, *out] -> the int8 kernel's layout:
     q [*lead, N, K] contiguous (K contiguous), scale [*lead, 1, N]."""
@@ -156,8 +163,8 @@ def quantize_params(cfg: ArchConfig, params: dict) -> dict:
                 out[name] = walk(v)
             elif (name in _QUANT_NAMES and not isinstance(v, QTensor)
                   and v.dim() >= 2):
-                red = tuple(range(1, v.dim() - 1)) if name == "wo" else (1,)
-                out[name] = _pack(quantize_over(v, red), 1, len(red))
+                n = _n_red(name, v.dim(), 1)
+                out[name] = _pack(quantize_over(v, tuple(range(1, 1 + n))), 1, n)
             else:
                 out[name] = v
         return out
@@ -193,6 +200,25 @@ def param_pspecs(cfg: ArchConfig, mesh, *, fsdp: bool = False,
     return walk(ps)
 
 
+def _slice_qtensor(qt: QTensor, shape: tuple, pspec: tuple, lead: int, n_red: int,
+                   mesh) -> QTensor:
+    """This rank's slice of a packed w8a8 weight (q [*lead, N, K], scale
+    [*lead, 1, N]) under ``pspec``, the spec of its float leaf of ``shape``
+    [*lead, *contraction (n_red dims), *out]: q is viewed in those dims
+    (out before contraction), cut as the float leaf would be and packed
+    again.  A cut output dim takes the same columns of the scale; a cut
+    contraction dim keeps the whole scale, which a column's max over the
+    whole K gave (the weight is quantized before it is sliced)."""
+    lead_shape, red, out = shape[:lead], shape[lead:lead + n_red], shape[lead + n_red:]
+    ps_lead, ps_red, ps_out = pspec[:lead], pspec[lead:lead + n_red], pspec[lead + n_red:]
+    q = local_slice(qt.q.reshape(*lead_shape, *out, *red), mesh, ps_lead + ps_out + ps_red)
+    scale = local_slice(qt.scale.reshape(*lead_shape, 1, *out), mesh,
+                        ps_lead + (None,) + ps_out)
+    lead_l = q.shape[:lead]
+    N = math.prod(q.shape[lead:lead + len(out)])
+    return QTensor(q.reshape(*lead_l, N, -1), scale.reshape(*lead_l, 1, N))
+
+
 def shard_params(cfg: ArchConfig, params: dict, mesh, *, fsdp: bool = False,
                  main_repeats: int | None = None) -> dict:
     """This rank's slice of ``params`` on ``mesh``: each leaf cut along the
@@ -201,22 +227,36 @@ def shard_params(cfg: ArchConfig, params: dict, mesh, *, fsdp: bool = False,
     ``model`` in ``"2d"``, the divisibility fallback intact; with ``fsdp``
     one more dim over the FSDP axes, ZeRO-3), as a tensor of its own, so the
     whole tree can be freed after (:func:`param_pspecs`; ``main_repeats``
-    for a tree made at that depth).  As the reference's ``shard_params``:
-    ``QTensor`` leaves (w8a8) stay whole, and so does ``lm_head_q`` (the
-    reference places it with the float head's spec, but as a ``QTensor``
-    it is whole there too).  One leaf more stays whole here: a MoE layer's
-    ``router``, whose logits every rank needs whole to route (the
-    reference's partitioner gathers them; the port has none)."""
+    for a tree made at that depth).  A ``QTensor`` leaf (w8a8, packed by
+    :func:`quantize_params`) is cut by its float leaf's spec
+    (:func:`_slice_qtensor`): a column split takes its columns and their
+    scales, a row split its slice of K and the whole scales; a tied head's
+    ``lm_head_q`` (q [Vp, D], scale [1, Vp]) takes the embedding's vocab
+    rows.  Quantize first, then shard: a weight's per-column scale spans
+    the whole K, so a slice quantized alone would get other scales.  One
+    leaf stays whole here: a MoE layer's ``router``, whose logits every
+    rank needs whole to route (the reference's partitioner gathers them;
+    the port has none)."""
     specs = param_pspecs(cfg, mesh, fsdp=fsdp, main_repeats=main_repeats)
+    shapes = param_specs(cfg, main_repeats)
 
-    def walk(spec, val):
+    def walk(spec, val, shape, name, lead):
         if isinstance(spec, tuple):
-            return val if isinstance(val, QTensor) else local_slice(val, mesh, spec)
+            if not isinstance(val, QTensor):
+                return local_slice(val, mesh, spec)
+            return _slice_qtensor(val, shape.shape, spec, lead,
+                                  _n_red(name, len(shape.shape), lead), mesh)
         if isinstance(spec, dict):
-            return {k: (walk(spec[k], v) if k in spec else v) for k, v in val.items()}
-        return [walk(sp, v) for sp, v in zip(spec, val)]
+            return {k: (walk(spec[k], v, shape[k], k, lead) if k in spec else v)
+                    for k, v in val.items()}
+        return [walk(sp, v, sh, name, 1) for sp, v, sh in zip(spec, val, shape)]
 
-    return walk(specs, params)
+    out = walk(specs, params, shapes, None, 0)
+    if "lm_head_q" in params:  # the embedding's layout [Vp, D]: its spec
+        qt, ps = params["lm_head_q"], specs["embed"]
+        out["lm_head_q"] = QTensor(local_slice(qt.q, mesh, ps),
+                                   local_slice(qt.scale, mesh, (None, ps[0])))
+    return out
 
 
 def fsdp_plan(cfg: ArchConfig, params: dict, mesh, main_repeats: int | None = None):
@@ -616,7 +656,8 @@ def head_logits(cfg: ArchConfig, params, hidden):
     head of :func:`lm_logits` before its gather."""
     if cfg.tie_embeddings:
         if "lm_head_q" in params:
-            return L.dense_proj(cfg, hidden, params["lm_head_q"], out_dtype=F32)
+            return L.dense_proj(cfg, hidden, params["lm_head_q"], out_dtype=F32,
+                                shard=("col", cfg.padded_vocab))
         emb = params["embed"]
         if emb.shape[0] != cfg.padded_vocab:  # a vocab shard: enter the region
             hidden = L.tp_input(hidden, emb, ("col", cfg.padded_vocab))

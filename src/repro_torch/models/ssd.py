@@ -13,6 +13,19 @@ layer is ``h`` [B, H, P, N] (f32) and the raw pre-conv tails ``conv_x``
 :func:`ssd_decode` writes all four **in place** into the tensors it is
 given (views of the stacked cache leaves, whose addresses a captured decode
 graph keeps).
+
+Under a mesh (``launch.sharding.activation_mesh``) the layer is
+head-parallel, as the reference's logical axes place it: a rank holds its
+heads' share of every ``"heads"`` leaf (``w_z``, ``w_x``, ``w_dt``,
+``conv_x``, ``dt_bias``, ``A_log``, ``D_skip``, ``norm`` and ``w_out``;
+the state's ``h`` and ``conv_x``), and ``w_B`` / ``w_C`` / ``conv_B`` /
+``conv_C`` (axis ``"state"``) are whole on every rank.  Everything up to
+the gated norm is per head, so it runs on the rank's heads as it is; the
+norm's mean over (H, P) sums each rank's squares and joins the sums over
+the model group (:func:`_gate_norm_out`); ``w_out`` is a row-parallel
+``layers.dense_proj``.  The head count comes from the held weights, so a
+model axis that does not divide H leaves every leaf whole and the layer
+runs whole.
 """
 from __future__ import annotations
 
@@ -20,6 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import leave_tp
+from repro_torch.launch.sharding import current_mesh
+from repro_torch.models import layers as L
 from repro_torch.models.params import ParamSpec
 
 F32 = torch.float32
@@ -90,13 +106,19 @@ def _segsum(x):
     return diff.masked_fill(~mask, float("-inf"))
 
 
+def _heads(p: dict) -> int:
+    """The SSD heads this rank holds (all of them off a mesh)."""
+    return p["A_log"].shape[0]
+
+
 def _proj_inputs(cfg: ArchConfig, p: dict, x):
-    """The five input projections of x [B, S, D].  z / xs / B / C are stored
-    in the compute dtype (they feed the conv and gate path); dt stays f32,
-    a product of f32 operands, as the reference's ``preferred_element_type``
-    keeps it (its analysis rule J002)."""
+    """The five input projections of x [B, S, D] (z / xs / dt on this
+    rank's heads).  z / xs / B / C are stored in the compute dtype (they
+    feed the conv and gate path); dt stays f32, a product of f32 operands,
+    as the reference's ``preferred_element_type`` keeps it (its analysis
+    rule J002)."""
     B_, S, D = x.shape
-    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    H, P, N = _heads(p), cfg.ssm_headdim, cfg.ssm_state
     x2 = x.reshape(B_ * S, D)
     z = (x2 @ p["w_z"].reshape(D, H * P)).reshape(B_, S, H, P)
     xs = (x2 @ p["w_x"].reshape(D, H * P)).reshape(B_, S, H, P)
@@ -106,15 +128,29 @@ def _proj_inputs(cfg: ArchConfig, p: dict, x):
     return z, xs, Bm, Cm, dt
 
 
+def gated_rms(y, z, norm, heads: int, mesh=None):
+    """y [B, S, h, P] (compute dtype) gated by silu(z), RMS-normed over
+    (H, P) in f32 and scaled by ``norm`` [h, P]: the mean of the squares
+    runs over all ``heads`` of the layer.  A rank holding ``h < heads`` of
+    them sums its heads' squares in f32, the sums are joined over ``mesh``'s
+    model group (f32) and the total is divided by ``heads * P``; off a mesh
+    the mean is taken directly.  Returns the f32 normed rows."""
+    P = y.shape[-1]
+    yf = (y * F.silu(z)).to(F32)
+    if y.shape[-2] == heads:
+        ms = yf.square().mean((-2, -1), keepdim=True)
+    else:
+        ms = leave_tp(yf.square().sum((-2, -1), keepdim=True), mesh) / (heads * P)
+    return yf * torch.rsqrt(ms + 1e-6) * norm.to(F32)
+
+
 def _gate_norm_out(cfg: ArchConfig, p: dict, y, z):
-    """y [B, S, H, P] (compute dtype) gated by silu(z), RMS-normed over
-    (H, P) in f32, scaled, projected to [B, S, D]."""
+    """y [B, S, h, P] (compute dtype; this rank's heads) through
+    :func:`gated_rms` and the row-parallel ``w_out`` to [B, S, D]."""
     B_, S, H, P = y.shape
-    y = y * F.silu(z)
-    yf = y.to(F32)
-    yf = yf * torch.rsqrt(yf.square().mean((-2, -1), keepdim=True) + 1e-6)
-    y = (yf * p["norm"].to(F32)).to(cfg.compute_dtype)
-    return (y.reshape(B_ * S, H * P) @ p["w_out"].reshape(H * P, -1)).reshape(B_, S, -1)
+    y = gated_rms(y, z, p["norm"], cfg.ssm_heads, current_mesh()).to(cfg.compute_dtype)
+    return L.dense_proj(cfg, y.reshape(B_, S, H * P), p["w_out"],
+                        shard=("row", cfg.ssm_heads))
 
 
 def ssd_forward(cfg: ArchConfig, p: dict, x, return_cache: bool = False):
@@ -126,7 +162,7 @@ def ssd_forward(cfg: ArchConfig, p: dict, x, return_cache: bool = False):
     rows has no full tail: it is refused (ValueError), where the reference
     fails to write its short tail into the cache (see ROADMAP Queue 3)."""
     B_, S, D = x.shape
-    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    H, P, N = _heads(p), cfg.ssm_headdim, cfg.ssm_state
     W = cfg.ssm_conv_width
     if return_cache and S < W - 1:
         raise ValueError(f"an SSM prefill of {S} rows has no full conv tail of "

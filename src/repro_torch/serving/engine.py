@@ -63,7 +63,10 @@ Mesh-sharded serving (``EngineConfig(mesh=MeshSpec(data, model))``): every
 rank of a ``torch.distributed`` process group runs this same engine and the
 same :class:`Scheduler` (SPMD: the caller makes the same calls on every
 rank).  The runner holds the rank's slice of the params
-(``model.shard_params``) and of the pools, and runs every device step under
+(``model.shard_params``; under w8a8 the int8 weights, quantized whole
+first) and of the pools -- KV pools over their kv heads, SSD state over
+its heads and, under a data axis, over the data group by slot, as the
+decode step splits its batch -- and runs every device step under
 ``activation_mesh``; the logits reach the sampler whole on every rank, so
 greedy and sampled tokens are the same bytes everywhere.  Every host value
 a rank could see differently is rank 0's, broadcast: the engine clock (wall
@@ -250,6 +253,7 @@ class ModelRunner:
         self.vocab = cfg.vocab_size
         self.eos_id = config.eos_id
         self.page_size = config.page_size
+        self.max_batch = config.max_batch
         self.specs = M.paged_cache_specs(cfg, config.max_batch, config.n_pages,
                                          config.page_size, mesh)
         self.caches = M.init_paged_cache(cfg, config.max_batch, config.n_pages,
@@ -369,7 +373,9 @@ class ModelRunner:
         ``slot`` (the JAX runner's ``_scatter_new``): a ``kv_seq`` leaf's
         rows [R, 1, n, ...] go to logical rows ``[0, n)`` of its pool
         through ``table``; a state leaf [R, 1, ...] overwrites batch row
-        ``slot`` and no other."""
+        ``slot`` and no other.  On a mesh a state leaf holds this rank's
+        heads, and under a data axis only its data rank's slots
+        (:meth:`_state_row`): the others write nothing."""
         j = torch.arange(n, device=table.device)
         ps = self.page_size
         page, row = table[j // ps].long(), j % ps
@@ -377,7 +383,20 @@ class ModelRunner:
             if "kv_seq" in spec.axes:
                 pool[:, page, row] = new[:, 0].to(pool.dtype)
             else:
-                pool[:, slot] = new[:, 0].to(pool.dtype)
+                r = self._state_row(pool, slot)
+                if r is not None:
+                    pool[:, r] = new[:, 0].to(pool.dtype)
+
+    def _state_row(self, leaf, slot: int) -> int | None:
+        """Row of ``slot`` in a slot-indexed state leaf [R, B_local, ...]:
+        the slot itself when the leaf holds every slot, else (its batch cut
+        over the data group, as the decode step cuts the batch) the slot's
+        row on its data rank, None on the others."""
+        held = leaf.shape[1]
+        if held == self.max_batch:
+            return slot
+        lo = self.mesh.index("data") * held
+        return slot - lo if lo <= slot < lo + held else None
 
     def copy_page(self, src: int, dst: int):
         """Copy page ``src`` -> ``dst`` in every pool (the copy half of a
@@ -815,14 +834,6 @@ class Engine:
         spec = self.config.mesh
         self.mesh = None
         if spec is not None and spec.size > 1:
-            if any(sp.mixer == "ssm" for sp in cfg.layer_specs()):
-                raise NotImplementedError(f"{cfg.name}: SSD layers are not ported to a mesh "
-                                          f"(ROADMAP Queue 1 item 13); serve it on one device")
-            if self.config.quant == "w8a8" and spec.model > 1:
-                raise NotImplementedError("w8a8 over a model-parallel mesh is not ported "
-                                          "(ROADMAP Queue 1 item 13): its row-parallel int8 "
-                                          "GEMMs need the whole activation; serve w8a8 with "
-                                          "model=1")
             self.mesh = spec.build()
             if self.mesh.coords is None:
                 raise ValueError(f"rank {self.mesh.rank} lies outside the {spec.data}x"
@@ -832,6 +843,7 @@ class Engine:
                 # reference's rule, repro/serving/engine.py:995-1001)
                 cfg = cfg.with_(moe_shard_map=True)
         if self.config.quant == "w8a8":
+            # before the runner shards: a column's scale spans the whole K
             params = M.quantize_params(cfg, params)  # idempotent
         self.cfg, self.params = cfg, params
         self.max_len = self.config.max_len

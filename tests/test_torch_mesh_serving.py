@@ -11,7 +11,13 @@ test case reads one scenario: greedy tokens equal to the JAX engine's
 scenario (one REJECTED / CANCELLED / FAULT / DEADLINE, every counter moved
 once: the rank-0 clock broadcast carries the chaos skew), expert-parallel
 MoE at 1x2 and 2x2 (tokens equal, prefill logits within 1e-4 in f32), the
-same tokens on every rank, and the refusals."""
+same tokens on every rank, and the refusals.  In the same four ranks: w8a8
+on the model axis (reduced cgra-edge at 1x2 and 2x2: 4 heads, 4 KV heads
+and an ffn of 128 over 2 ranks, the row-parallel int8 GEMMs exact, prefill
+logits equal to the port's single rank bit for bit), head-parallel Mamba-2
+SSD (reduced mamba2-130m, 8 SSD heads of 16, at 1x2, 2x1 and 2x2, and w8a8
+at 1x2) and the jamba hybrid (reduced: 8 SSD heads, 4 attention heads over
+2 KV heads, 4 experts) at 1x2."""
 import json
 import os
 import subprocess
@@ -46,6 +52,15 @@ def _prompts(V):
 
 def _moe_prompts(V):
     return [[(3 * i + j) % V for j in range(6 + 2 * i)] for i in range(3)]
+
+
+SSD_ARCHS = ("mamba2-130m", "jamba-v0.1-52b")
+
+
+def _ssd_prompts(V):
+    """Two lengths (two whole-prefill compilations on the JAX side), each at
+    least the ``ssm_conv_width - 1`` rows an SSD prefill needs."""
+    return [[(5 * i + j) % V for j in range((6, 11)[i % 2])] for i in range(4)]
 
 
 RANKS = textwrap.dedent("""
@@ -156,6 +171,46 @@ RANKS = textwrap.dedent("""
             with activation_mesh(meng.mesh):
                 lg = M.prefill(scfg, sp, torch.tensor([mp[0]], dtype=torch.int32))[0]
             np.save(f"{tmp}/moe_logits_r{rank}.npy", lg.numpy())
+
+        # w8a8 on the model axis: the row-parallel int8 GEMMs (wo, w_down)
+        toks = torch.tensor([prompts[2]], dtype=torch.int32)
+        single = None
+        for shape in ("1x2", "2x2"):
+            spec = MeshSpec.parse(shape)
+            if spec.build().coords is None:
+                continue
+            eng = Engine(cfg, params, EngineConfig(mesh=spec, quant="w8a8", **KW),
+                         device="cpu")
+            for i, p in enumerate(prompts):
+                eng.submit(p, 12, 0.0, seed=i)
+            record(f"w8a8/{shape}", eng, eng.run(),
+                   wo=list(eng.params["stages"][0]["0"]["mixer"]["wo"].q.shape))
+            with eng.runner.on_mesh():
+                lg = M.prefill(eng.cfg, eng.runner.params, toks)[0]
+            if single is None:
+                single = M.prefill(cfg, M.quantize_params(cfg, params), toks)[0]
+            out[f"w8a8/{shape}"]["logits_equal_single"] = bool(torch.equal(lg, single))
+            np.save(f"{tmp}/w8a8_{shape}_logits_r{rank}.npy", lg.numpy())
+
+        # head-parallel Mamba-2 SSD, and the jamba hybrid
+        for arch, runs in (("mamba2-130m", (("1x2", None), ("2x1", None), ("2x2", None),
+                                            ("1x2", "w8a8"))),
+                           ("jamba-v0.1-52b", (("1x2", None),))):
+            scfg = TC.reduce_config(TC.get_config(arch))
+            sparams = bridge.params_from_numpy(scfg, dict(np.load(f"{tmp}/{arch}.npz")), "cpu")
+            sp = [[(5 * i + j) % scfg.vocab_size for j in range((6, 11)[i % 2])]
+                  for i in range(4)]
+            for shape, quant in runs:
+                spec = MeshSpec.parse(shape)
+                if spec.build().coords is None:
+                    continue
+                eng = Engine(scfg, sparams, EngineConfig(mesh=spec, quant=quant, **KW),
+                             device="cpu")
+                for i, p in enumerate(sp):
+                    eng.submit(p, 8, 0.0, seed=i)
+                ssm = next(g for g in eng.runner.caches[0].values() if "h" in g)
+                record(f"ssd/{arch}/{shape}/{quant}", eng, eng.run(),
+                       h=list(ssm["h"].shape), shard_map=eng.cfg.moe_shard_map)
         with open(f"{tmp}/rank{rank}.json", "w") as f:
             json.dump(out, f)
 
@@ -181,6 +236,11 @@ def served(tmp_path_factory):
     mparams = JM.init(mcfg, jax.random.PRNGKey(1))
     np.savez(tmp / "edge.npz", **_flatten(eparams))
     np.savez(tmp / "moe.npz", **_flatten(mparams))
+    ssd = {}
+    for arch in SSD_ARCHS:
+        scfg = JC.reduce_config(JC.get_config(arch))
+        ssd[arch] = (scfg, JM.init(scfg, jax.random.PRNGKey(2)))
+        np.savez(tmp / f"{arch}.npz", **_flatten(ssd[arch][1]))
     script = tmp / "ranks.py"
     script.write_text(RANKS)
     env = dict(os.environ, PYTHONPATH=SRC)
@@ -205,11 +265,24 @@ def served(tmp_path_factory):
     want["moe"] = _jax_tokens(JEngine(mcfg, mparams, JEngineConfig(**KW)), mp, 8)
     want["moe_logits"] = np.asarray(JM.prefill(mcfg, mparams, {"tokens": jnp.asarray(
         np.array([mp[0]]), jnp.int32)})[0])
+    want["w8a8"] = _jax_tokens(JEngine(ecfg, eparams, JEngineConfig(quant="w8a8", **KW)),
+                               prompts, 12)
+    qcfg = ecfg.with_(quant="w8a8")
+    want["w8a8_logits"] = np.asarray(JM.prefill(qcfg, JM.quantize_params(qcfg, eparams), {
+        "tokens": jnp.asarray(np.array([prompts[2]]), jnp.int32)})[0])
+    for arch, (scfg, sparams) in ssd.items():
+        sp = _ssd_prompts(scfg.vocab_size)
+        for quant in (None, "w8a8") if arch == "mamba2-130m" else (None,):
+            want[f"ssd/{arch}/{quant}"] = _jax_tokens(
+                JEngine(scfg, sparams, JEngineConfig(quant=quant, **KW)), sp, 8)
 
     out, _ = proc.communicate(timeout=600)
     assert proc.returncode == 0, out
     ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(4)]
     logits = [np.load(tmp / f"moe_logits_r{r}.npy") for r in range(2)]
+    for shape, n in (("1x2", 2), ("2x2", 4)):
+        want[f"w8a8/{shape}/ranks"] = [np.load(tmp / f"w8a8_{shape}_logits_r{r}.npy")
+                                       for r in range(n)]
     return ranks, want, logits
 
 
@@ -275,6 +348,42 @@ def test_moe_expert_parallel_prefill_logits(served):
     assert np.array_equal(logits[0], logits[1])
 
 
+@pytest.mark.parametrize("shape", ["1x2", "2x2"])
+def test_w8a8_on_the_model_axis_equals_the_single_device(served, shape):
+    """w8a8 with wo and w_down row-parallel (each rank's K slice quantized
+    with the whole row's scale, the int32 partials summed exactly): greedy
+    tokens equal the JAX single-device w8a8 engine's; a prefill's logits
+    equal the port's single rank bit for bit on every rank, and sit within
+    1e-4 of JAX's."""
+    ranks, want, _ = served
+    got = ranks[0][f"w8a8/{shape}"]
+    assert got["tokens"] == want["w8a8"] and got["agree"]
+    assert got["wo"][-1] == 64 // 2  # K = H * dh = 64, cut over the model axis
+    n = 2 if shape == "1x2" else 4
+    assert all(ranks[r][f"w8a8/{shape}"]["logits_equal_single"] for r in range(n))
+    lg = want[f"w8a8/{shape}/ranks"]
+    assert all(np.array_equal(lg[0], x) for x in lg[1:])
+    assert float(np.max(np.abs(lg[0] - want["w8a8_logits"]))) <= 1e-4
+
+
+@pytest.mark.parametrize("arch,shape,quant", [
+    ("mamba2-130m", "1x2", None), ("mamba2-130m", "2x1", None), ("mamba2-130m", "2x2", None),
+    ("mamba2-130m", "1x2", "w8a8"), ("jamba-v0.1-52b", "1x2", None)])
+def test_ssd_on_a_mesh_equals_the_jax_engine(served, arch, shape, quant):
+    """Head-parallel SSD (4 of the 8 heads a rank on a model axis of 2; the
+    state's slots over the data group at 2x1 and 2x2) through whole-prefill
+    admission and decode ticks: greedy tokens equal the JAX single-device
+    engine's.  jamba at 1x2 also splits its attention heads and runs its
+    MoE expert-parallel."""
+    ranks, want, _ = served
+    got = ranks[0][f"ssd/{arch}/{shape}/{quant}"]
+    assert got["tokens"] == want[f"ssd/{arch}/{quant}"] and got["agree"]
+    data, model = (int(v) for v in shape.split("x"))
+    _, slots, heads = got["h"][:3]
+    assert (slots, heads) == (KW["max_batch"] // data, 8 // model)
+    assert got["shard_map"] == (arch == "jamba-v0.1-52b")
+
+
 def test_every_rank_emits_the_same_tokens(served):
     """Each rank of a scenario's mesh recorded the same tokens, and the
     engine's own digest check agreed on every rank."""
@@ -282,7 +391,9 @@ def test_every_rank_emits_the_same_tokens(served):
     n = {"1x2": 2, "1x4": 4, "2x1": 2, "2x2": 4}
     checked = 0
     for key, got in ranks[0].items():
+        shape = key.split("/")[2] if key.startswith("ssd/") else key.split("/")[-1]
         size = (n[key.split("/")[1]] if key.startswith("dense/")
+                else n[shape] if key.startswith(("w8a8/", "ssd/"))
                 else 4 if key == "moe_2x2" else 2)
         for r in range(1, size):
             assert ranks[r][key]["tokens"] == got["tokens"], (key, r)
@@ -290,21 +401,22 @@ def test_every_rank_emits_the_same_tokens(served):
             checked += 1
         for r in range(size, 4):
             assert key not in ranks[r]
-    assert checked >= 16 + 3 + 5
+    assert checked >= 16 + 3 + 5 + 4 + 7
 
 
 def test_a_mesh_without_a_process_group_is_refused():
-    """No group started: the engine names how to start the ranks; SSD and
-    model-parallel w8a8 are refused before any group is needed."""
+    """No group started: the engine names how to start the ranks, for w8a8
+    on a model axis and for SSD on a mesh too -- both are served on a
+    mesh, so they reach the same refusal as any other model."""
     assert not torch.distributed.is_initialized()
     cfg = TC.reduce_config(TC.get_config("cgra-edge"))
     params = TM.init(cfg, seed=0, device="cpu")
     with pytest.raises(ValueError, match="init_process_group"):
         Engine(cfg, params, EngineConfig(mesh="1x2", **KW), device="cpu")
-    with pytest.raises(NotImplementedError, match="w8a8"):
+    with pytest.raises(ValueError, match="init_process_group"):
         Engine(cfg, params, EngineConfig(mesh="1x2", quant="w8a8", **KW), device="cpu")
     scfg = TC.reduce_config(TC.get_config("mamba2-130m"))
-    with pytest.raises(NotImplementedError, match="SSD"):
+    with pytest.raises(ValueError, match="init_process_group"):
         Engine(scfg, TM.init(scfg, seed=0, device="cpu"), EngineConfig(mesh="2x1", **KW),
                device="cpu")
 

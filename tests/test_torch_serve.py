@@ -7,7 +7,8 @@ recipe; ``run()`` on reduced olmo-1b with bridged JAX weights at ``--rate
 and ``EngineConfig`` (whole-suffix and chunked prefill), token for token;
 ``main`` prints the reference's summary fields, serves Poisson arrivals,
 refuses ``--mesh`` without ``--backend``, and with ``--mesh 1x2 --backend
-gloo`` spawns two ranks whose rank 0 prints the reference's summary line."""
+gloo`` spawns two ranks whose rank 0 prints the reference's summary line
+(also under ``--quant w8a8`` and for ``--arch mamba2-130m``)."""
 import os
 import re
 import subprocess
@@ -121,5 +122,25 @@ def test_mesh_1x2_over_gloo_prints_the_reference_summary():
     keys = re.findall(r"(\w+)=", lines[0])
     assert keys == [("device" if k == "kernel_mode" else k) for k in J_FIELDS]
     assert "arch=olmo-1b-smoke device=cpu quant=none requests=3 ok=3" in lines[0]
+    assert lines[1] == ("mesh=1x2 backend=gloo ranks=2 ranks_agree=True "
+                        "decode_graph=False")
+
+
+@pytest.mark.parametrize("extra,head", [
+    (["--quant", "w8a8"], "arch=olmo-1b-smoke device=cpu quant=w8a8 requests=3 ok=3"),
+    (["--arch", "mamba2-130m"], "arch=mamba2-130m-smoke device=cpu quant=none requests=3 ok=3"),
+])
+def test_mesh_1x2_over_gloo_serves_w8a8_and_ssd(extra, head):
+    """The same command line serves w8a8 on the model axis (the row-parallel
+    int8 GEMMs) and a Mamba-2 SSD model (head-parallel): every request ok,
+    the ranks agree."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(__file__), "..", "src"))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+                          "--mesh", "1x2", "--backend", "gloo", "--requests", "3",
+                          "--max-new", "4", *extra], env=env, text=True, capture_output=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert len(lines) == 2 and head in lines[0], res.stdout
     assert lines[1] == ("mesh=1x2 backend=gloo ranks=2 ranks_agree=True "
                         "decode_graph=False")
