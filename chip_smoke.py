@@ -4015,14 +4015,15 @@ TRAIN_STEPS = 10
 TRAIN_KN = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 50432))
 
 
-def _train_gemm_cases(T=TRAIN_T, kns=TRAIN_KN):
+def _train_gemm_cases(T=TRAIN_T, kns=TRAIN_KN, head_n=None):
     """The three products of every forward GEMM A [T, K] @ W [K, N] of the
     train step: forward (f32 out at the head, whose N is a vocab or its
-    shard), ``g @ W^T`` (``trans_b``, the data gradient) and ``A^T @ g``
-    (``trans_a``, the weight gradient: M = K rows over the T tokens)."""
+    shard: ``head_n``, or any N of 25216 and more), ``g @ W^T``
+    (``trans_b``, the data gradient) and ``A^T @ g`` (``trans_a``, the
+    weight gradient: M = K rows over the T tokens)."""
     out = []
     for K, N in kns:
-        head = N >= 25216
+        head = N == head_n if head_n is not None else N >= 25216
         out.append(dict(kind="forward", M=T, K=K, N=N, ta=False, tb=False,
                         out=torch.float32 if head else torch.bfloat16))
         out.append(dict(kind="backward g @ W^T", M=T, K=N, N=K, ta=False, tb=True,
@@ -5601,30 +5602,141 @@ MESH_TRAIN_GRAD_RTOL = 1e-4    # (d): gathered gradients vs the single rank's, o
 MESH_TRAIN_GEMMS = ((TRAIN_T, ((2048, 1024), (1024, 2048), (2048, 4096), (4096, 2048),
                                (2048, 25216))),
                     (TRAIN_T // 2, TRAIN_KN))
+# (e)-(h): the other families at full width in bf16, each against the single
+# rank in this phase: (arch, layouts, batch, seq, what); a layout is (the key
+# of the (a)-(c) mesh it runs on, remat policy)
+MESH_TRAIN_FAMILIES = {
+    "e": ("mamba2-130m", (("a", "none"), ("b", "full")), 8, 512,
+          "mamba2-130m whole (24 SSD layers), 1x2 head-parallel (12 of 24 heads a rank) and "
+          "2x1 FSDP"),
+    "f": ("minicpm3-4b", (("a", "full"),), 4, 512,
+          "minicpm3-4b MLA, 1x2 (20 of 40 heads a rank), the main stage cut to 35 of 62 layers"),
+    "g": ("llama-3.2-vision-11b", (("a", "none"),), 2, 512,
+          "llama-3.2-vision-11b one period (4 self + 1 cross layer), 1x2, 1601 stub patch "
+          "embeddings a row, gates 0.5"),
+    "h": ("hubert-xlarge", (("a", "full"),), 4, 1000,
+          "hubert-xlarge whole (48 layers), 1x2, 4 x 1000 frames, biases opened"),
+}
+MESH_TRAIN_FAMILY_STEPS = 2    # (e)-(h): 2 steps each, to keep the phase's growth near 200 s
+MESH_TRAIN_F32_PERIODS = 2     # (i): f32 at full width, 2 layers (the VLM: one period)
+# the main stage's depth of (e)-(h) where it is cut (the others run whole):
+# (f) minicpm3-4b at 35 of its 62 layers (2.570 B parameters).  A rank pays
+# about 28 bytes a parameter it holds (bf16 weights and gradients, f32
+# moments, the step's f32 gradient copies) and holds about half of each
+# layer (62.7 M parameters) and of the rest (438.9 M), so 35 layers are the
+# most two ranks fit in 85 % of an 80 GB card; (g) one VLM period
+MESH_TRAIN_FAMILY_DEPTH = {"f": 35, "g": 1}
+# the GEMM at the new families' shard shapes (1x2 unless said), as (T, (K,
+# N) of each forward GEMM, the head's N): mamba2 w_out (row-parallel) and
+# head, also at 2x1; minicpm3-4b wq_a, wq_b, wkv_a, wkv_b, wo, gate / up,
+# down, head; llama-3.2-vision q, k / v, o, gate / up, down, head and the
+# image's k / v (T = 2 x 1601); hubert q / k / v, o, w1, w2, head
+MESH_TRAIN_FAMILY_GEMMS = {
+    "e": ((4096, ((768, 768), (768, 25216)), 25216), (2048, ((1536, 768), (768, 50432)), 50432)),
+    "f": ((2048, ((2560, 768), (768, 1920), (2560, 288), (256, 2560), (1280, 2560),
+                  (2560, 3200), (3200, 2560), (2560, 36736)), 36736),),
+    "g": ((1024, ((4096, 2048), (4096, 512), (2048, 4096), (4096, 7168), (7168, 4096),
+                  (4096, 64128)), 64128), (3202, ((4096, 512),), None)),
+    "h": ((4000, ((1280, 640), (640, 1280), (1280, 2560), (2560, 1280), (1280, 256)), 256),),
+}
 
 
-def _mesh_train_state(cfg, opt, mesh, dev, main_repeats=None):
+def _mesh_train_state(cfg, opt, mesh, dev, main_repeats=None, opened=False):
     """Seed-0 weights drawn whole on the card, this rank's shard kept
-    (``model.shard_params`` with ``cfg.fsdp``), zero moments of the shard:
-    ``training.step.shard_state`` of ``init_state``, without the whole
-    moments."""
+    (``model.shard_params`` with ``cfg.fsdp``; all of them without
+    ``mesh``), zero moments of the shard: ``training.step.shard_state`` of
+    ``init_state``, without the whole moments.  ``opened``: the zero-
+    initialised leaves opened first (``_open_zero_leaves``, its own seed),
+    the same on every rank and on the single rank."""
     from repro_torch.models import model as M
     from repro_torch.training.optimizer import init_moments
     from repro_torch.training.step import TrainState
-    params = M.init(cfg, 0, dev, main_repeats)
-    local = M.shard_params(cfg, params, mesh, fsdp=cfg.fsdp, main_repeats=main_repeats)
+    params = _seed_params(cfg, dev, main_repeats, opened)
+    if mesh is None:
+        local = params
+    else:
+        local = M.shard_params(cfg, params, mesh, fsdp=cfg.fsdp, main_repeats=main_repeats)
     del params
     mu, nu = init_moments(local, opt)
     return TrainState(torch.zeros((), dtype=torch.int32, device=dev), local, mu, nu)
 
 
-def _grad_gap(got, want) -> float:
-    """The largest of each leaf's max |got - want| over its max |want|."""
-    worst = 0.0
-    for g, w in zip(_leaves(got), _leaves(want)):
-        worst = max(worst, float((g.float() - w.float()).abs().max())
-                    / max(float(w.float().abs().max()), 1e-30))
-    return worst
+def _seed_params(cfg, dev, main_repeats=None, opened=False):
+    """Seed-0 weights drawn whole on the card (``model.init``); ``opened``:
+    with the zero-initialised leaves opened (``_open_zero_leaves``, seed 27)."""
+    from repro_torch.models import model as M
+    params = M.init(cfg, 0, dev, main_repeats)
+    if opened:
+        _open_zero_leaves(params, torch.Generator(device=dev).manual_seed(27))
+    return params
+
+
+def _grad_gap(got, want) -> tuple[float, str]:
+    """The largest of each leaf's max |got - want| over its max |want|,
+    leaves paired by key, and that leaf's key."""
+    def walk(g, w, path):
+        if isinstance(w, (dict, list)):
+            for k in (w if isinstance(w, dict) else range(len(w))):
+                yield from walk(g[k], w[k], f"{path}/{k}" if path else str(k))
+        else:
+            yield (float((g.float() - w.float()).abs().max())
+                   / max(float(w.float().abs().max()), 1e-30), path)
+    return max(walk(got, want, ""))
+
+
+def _family_batches(key):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    arch, _, B, S, _ = MESH_TRAIN_FAMILIES[key]
+    data = SyntheticLM(get_config(arch), batch=B, seq=S, seed=0)
+    return [data.batch_at(i) for i in range(MESH_TRAIN_FAMILY_STEPS)]
+
+
+def _n_forward_gemms(cfg, main_repeats=None) -> int:
+    """The bf16 GEMMs (``layers.dense_proj`` and the head) of one training
+    forward: an SSD layer's w_out, attention's q / k / v / o (MLA's wq_a,
+    wq_b, wkv_a, wkv_b, wo), a cross layer's self-attention and its wq /
+    wk / wv / wo, a SwiGLU's three and a GELU MLP's two products, and the
+    head; the SSD projections, a MoE's experts, the frontend and vision
+    projections are plain products."""
+    from repro_torch.models.layers import ffn_kind
+    n = 1
+    for stage in cfg.stages(main_repeats):
+        per = 0
+        for sp in stage.group:
+            per += {"ssm": 1, "cross": 8}.get(sp.mixer, 5 if cfg.use_mla else 4)
+            if sp.ffn == "dense":
+                per += 2 if ffn_kind(cfg) == "gelu_mlp" else 3
+        n += per * stage.repeats
+    return n
+
+
+def _timed_mesh_step(step, state, batch, mesh):
+    """One train step over ``mesh`` timed on the host clock (to the loss's
+    read): (state, row of loss, grad_norm, ms, the mesh's collectives and
+    bytes, kernel launches and those of the GEMM with ``trans_a``)."""
+    from repro_torch.kernels.block_gemm import block_gemm
+    from repro_torch.kernels.ops import LAUNCH_COUNTERS
+    for c in LAUNCH_COUNTERS:
+        c.launches = 0
+    block_gemm.trans_a_launches = 0
+    c0, b0 = mesh.collectives, mesh.wire_bytes
+    torch.cuda.synchronize()
+    t0 = time.time()
+    state, m = step(state, batch)
+    loss = float(m["loss"])  # waits for the step
+    return state, dict(loss=loss, grad_norm=float(m["grad_norm"]),
+                       ms=(time.time() - t0) * 1e3, collectives=mesh.collectives - c0,
+                       wire_bytes=mesh.wire_bytes - b0,
+                       launches={c.__name__: c.launches for c in LAUNCH_COUNTERS
+                                 if c.launches},
+                       trans_a=block_gemm.trans_a_launches)
+
+
+def _family_cfg(key, remat, dtype=torch.bfloat16):
+    from repro_torch.configs import get_config
+    return get_config(MESH_TRAIN_FAMILIES[key][0]).with_(remat_policy=remat,
+                                                         compute_dtype=dtype)
 
 
 def _mesh_train_rank(rank, work):
@@ -5635,13 +5747,15 @@ def _mesh_train_rank(rank, work):
     ``trans_a``) and the rank's peak; (d) f32 at 2 layers: each layout's
     gathered gradients against the single rank's (rank 0 computes those
     alone first), the compressed pod mean against the exact one, 2 steps'
-    losses.  Writes ``rank<r>.json`` into ``work``."""
+    losses; (e)-(h) each family of ``MESH_TRAIN_FAMILIES`` in bf16 on its
+    layouts, a row a step as (a)-(c); (i) each family in f32 at 2 layers (the
+    VLM one period) on its first layout: gradients and loss as (d), no
+    optimizer step.  Writes ``rank<r>.json``
+    into ``work``."""
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.data.pipeline import SyntheticLM, to_device
     from repro_torch.kernels import _build
-    from repro_torch.kernels.block_gemm import block_gemm
-    from repro_torch.kernels.ops import LAUNCH_COUNTERS
     from repro_torch.launch.cells import prepare_arch
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.launch.sharding import gather_whole
@@ -5669,23 +5783,12 @@ def _mesh_train_rank(rank, work):
         step = make_train_step(cfg, opt, mesh=mesh, compress_pod=compress)
         rows = []
         for i in range(n_steps):
-            for c in LAUNCH_COUNTERS:
-                c.launches = 0
-            block_gemm.trans_a_launches = 0
-            c0, b0 = mesh.collectives, mesh.wire_bytes
-            torch.cuda.synchronize()
-            t0 = time.time()
-            state, m = step(state, batches[i])
-            loss = float(m["loss"])  # waits for the step
-            rows.append(dict(loss=loss, grad_norm=float(m["grad_norm"]),
-                             ms=(time.time() - t0) * 1e3, collectives=mesh.collectives - c0,
-                             wire_bytes=mesh.wire_bytes - b0,
-                             launches={c.__name__: c.launches for c in LAUNCH_COUNTERS
-                                       if c.launches},
-                             trans_a=block_gemm.trans_a_launches))
+            state, row = _timed_mesh_step(step, state, batches[i], mesh)
+            rows.append(row)
         out[key] = dict(steps=rows, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
                         wq_local=list(wq.shape), params_local=n_local)
-        del state, step, m, wq
+        del state, step, wq
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5716,12 +5819,12 @@ def _mesh_train_rank(rank, work):
         whole = tree_map(lambda t, ps: gather_whole(t, mesh, ps), g, pspecs)
         row = {}
         if rank == 0:
-            row["grad_gap"] = _grad_gap(whole, single)
+            row["grad_gap"], row["grad_leaf"] = _grad_gap(whole, single)
         if compress:  # the int8 pod mean against the exact one, leaf by leaf
             _, _, gc_ = mesh_value_and_grad(cfg, state.params, batches[0], mesh,
                                             main_repeats=R, compress_pod=True)
             gcw = tree_map(lambda t, ps: gather_whole(t, mesh, ps), gc_, pspecs)
-            row["compressed_gap"] = _grad_gap(gcw, whole)
+            row["compressed_gap"] = _grad_gap(gcw, whole)[0]
             del gc_, gcw
         del g, whole
         step = make_train_step(cfg, opt, mesh=mesh, main_repeats=R, compress_pod=compress)
@@ -5733,6 +5836,65 @@ def _mesh_train_rank(rank, work):
         d[key] = row
         del state, step, m
     out["d"] = d
+
+    # (e)-(h): the other families in bf16, each layout 2 steps
+    fam = {}
+    for key, (arch, layouts, _, _, _) in MESH_TRAIN_FAMILIES.items():
+        batches = _family_batches(key)
+        R = MESH_TRAIN_FAMILY_DEPTH.get(key)
+        for mkey, remat in layouts:
+            mesh = meshes[mkey]
+            cfg = prepare_arch(_family_cfg(key, remat), mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state = _mesh_train_state(cfg, opt, mesh, dev, R, opened=True)
+            n_local = sum(t.numel() for t in tree_leaves(state.params))
+            step = make_train_step(cfg, opt, mesh=mesh, main_repeats=R)
+            rows = []
+            for i in range(MESH_TRAIN_FAMILY_STEPS):
+                state, row = _timed_mesh_step(step, state, batches[i], mesh)
+                rows.append(row)
+            fam[f"{key}/{mkey}"] = dict(
+                steps=rows, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+                params_local=n_local, depth=R, n_fwd=_n_forward_gemms(cfg, R))
+            del state, step
+    out["families"] = fam
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (i) each family in f32 at full width, 2 layers (the VLM one period), on
+    # its first layout: the gradients and the loss of the first batch against
+    # the single rank's (no optimizer step: the VLM's f32 state would not fit
+    # twice beside the ranks')
+    fam32 = {}
+    for key, (arch, layouts, _, _, _) in MESH_TRAIN_FAMILIES.items():
+        mkey = layouts[0][0]
+        mesh = meshes[mkey]
+        R = 1 if key == "g" else MESH_TRAIN_F32_PERIODS
+        cfg = prepare_arch(_family_cfg(key, "none", torch.float32), mesh)
+        batch = _family_batches(key)[0]
+        single, row = None, dict(layout=mkey, depth=R)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:  # the single rank, alone (no collective runs meanwhile)
+            params = _seed_params(cfg, dev, R, opened=True)
+            loss, _, single = value_and_grad(cfg, params, to_device(batch, dev), main_repeats=R)
+            row["single_loss"] = float(loss)
+            del params
+        params = M.shard_params(cfg, _seed_params(cfg, dev, R, opened=True), mesh,
+                                fsdp=cfg.fsdp, main_repeats=R)
+        pspecs = M.param_pspecs(mesh_config(cfg, mesh), mesh, fsdp=cfg.fsdp, main_repeats=R)
+        loss, _, g = mesh_value_and_grad(cfg, params, batch, mesh, main_repeats=R)
+        row["loss"] = float(loss)
+        del params
+        whole = tree_map(lambda t, ps: gather_whole(t, mesh, ps), g, pspecs)
+        if rank == 0:
+            row["grad_gap"], row["grad_leaf"] = _grad_gap(whole, single)
+        del g, whole, single
+        fam32[key] = row
+    out["families_f32"] = fam32
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
@@ -5757,6 +5919,21 @@ def mesh_train_phase():
         exact mean (``max |g| / 127``: a scale at most twice the mean's
         largest entry, halved by rounding), each layout's 2 losses within
         1e-4 (relative) of the single rank's.
+
+    (e)-(h) the other families at full width in bf16, 2 steps each
+        (``MESH_TRAIN_FAMILIES``, the zero-initialised leaves opened): (e)
+        mamba2-130m whole at 1x2 (head-parallel SSD, 12 of 24 heads a rank)
+        and 2x1 FSDP, 8 x 512; (f) minicpm3-4b (MLA) at 1x2, 4 x 512, the
+        main stage cut to 35 of its 62 layers (``MESH_TRAIN_FAMILY_DEPTH``);
+        (g) llama-3.2-vision-11b one period (4 self + 1 cross layer) at
+        1x2, 2 x 512 tokens and 1601 stub patch
+        embeddings a row, gates 0.5; (h) hubert-xlarge whole (48 layers) at
+        1x2, 4 x 1000 frames, biases opened.  Each against the single rank
+        in this process, gated as (a)-(c);
+    (i) each family in f32 at full width, 2 layers (the VLM one period), on
+        its first layout: the gathered gradients within 1e-4 of each leaf's
+        max of the single rank's and the loss within 1e-4 (relative), as
+        (d), on the first batch (no optimizer step).
 
     Gates (a)-(c): each step's loss finite, the same on both ranks, within
     ``MESH_TRAIN_LOSS_BOUND`` of the single rank's at that step (and
@@ -5790,35 +5967,54 @@ def mesh_train_phase():
     del state, step, m
     gc.collect()
     torch.cuda.empty_cache()
+    # what this process still holds while the two ranks share the card with it
+    held = (torch.cuda.memory_allocated() / 2 ** 30, torch.cuda.memory_reserved() / 2 ** 30)
+    free, total = (x / 2 ** 30 for x in torch.cuda.mem_get_info())
+    log(f"mesh train: the main process holds {held[0]:.2f} GiB ({held[1]:.2f} reserved) when the "
+        f"ranks start; {free:.2f} of {total:.2f} GiB free on the card")
+    # the ranks' allocator grows its segments in place: with fixed segments a
+    # rank reserved about a third more than its peak at (c) (split blocks
+    # that no later request fits), and two ranks beside this process then
+    # filled the card
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     t0 = time.time()
-    D.spawn(_mesh_train_rank, 2, "gloo", args=(MESH_TRAIN_WORK,))
+    try:
+        D.spawn(_mesh_train_rank, 2, "gloo", args=(MESH_TRAIN_WORK,))
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
     ranks_s = time.time() - t0
     ranks = [json.load(open(os.path.join(MESH_TRAIN_WORK, f"rank{r}.json"))) for r in range(2)]
+    # the single rank of each family (e)-(h), bf16, each freed before the
+    # next, after the ranks have left the card
+    fam_single = {}
+    for key, (_, layouts, _, _, _) in MESH_TRAIN_FAMILIES.items():
+        R = MESH_TRAIN_FAMILY_DEPTH.get(key)
+        fcfg = _family_cfg(key, layouts[0][1])
+        torch.cuda.reset_peak_memory_stats()
+        state = _mesh_train_state(fcfg, opt, None, torch.device("cuda", 0), R, opened=True)
+        step = make_train_step(fcfg, opt, main_repeats=R)
+        rows = []
+        for batch in _family_batches(key):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            state, m = step(state, batch)
+            rows.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                             ms=(time.time() - t0) * 1e3))
+        fam_single[key] = dict(steps=rows, depth=R,
+                               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del state, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
     problems = []
     n_fwd = 16 * 7 + 1  # q, k, v, o, gate, up, down a layer, and the head
     summary = {}
     for key, (shape, _, remat, compress, n_steps, what) in MESH_TRAIN_LAYOUTS.items():
         rows = [r[key]["steps"] for r in ranks]
-        per_gemm = 4 if remat == "full" else 3
-        want_gemm = per_gemm * (n_fwd - 1) + 3
-        for i in range(n_steps):
-            a, b, s = rows[0][i], rows[1][i], single[i]
-            if not math.isfinite(a["loss"]) or a["loss"] != b["loss"]:
-                problems.append(f"mesh train ({key}) step {i}: losses {a['loss']} / {b['loss']} "
-                                f"(finite, equal on both ranks)")
-            if abs(a["loss"] - s["loss"]) > MESH_TRAIN_LOSS_BOUND:
-                problems.append(f"mesh train ({key}) step {i}: loss {a['loss']:.6f} vs the single "
-                                f"rank's {s['loss']:.6f} (bound {MESH_TRAIN_LOSS_BOUND})")
-            if abs(a["grad_norm"] - s["grad_norm"]) > MESH_TRAIN_GNORM_RTOL * s["grad_norm"]:
-                problems.append(f"mesh train ({key}) step {i}: grad_norm {a['grad_norm']:.6f} vs "
-                                f"{s['grad_norm']:.6f} (relative bound {MESH_TRAIN_GNORM_RTOL})")
-            for r, row in enumerate((a, b)):
-                got = row["launches"].get("block_gemm", 0)
-                if got != want_gemm or row["trans_a"] != n_fwd or set(row["launches"]) != {
-                        "block_gemm"}:
-                    problems.append(f"mesh train ({key}) rank {r} step {i}: launches "
-                                    f"{row['launches']}, trans_a {row['trans_a']} (want "
-                                    f"block_gemm {want_gemm}, trans_a {n_fwd}, nothing else)")
+        _mesh_train_gates(key, rows, single, remat, n_fwd, problems)
         ms = [statistics.median(x["ms"] for x in r_[1:] or r_) for r_ in rows]
         summary[key] = dict(
             what=what, step_ms_median=ms, step_ms_all=[[x["ms"] for x in r_] for r_ in rows],
@@ -5828,6 +6024,7 @@ def mesh_train_phase():
             collectives_per_step=[x["collectives"] for x in rows[0]],
             wire_bytes_per_step=[x["wire_bytes"] for x in rows[0]],
             peak_gib=[r[key]["peak_gib"] for r in ranks],
+            reserved_gib=[r[key]["reserved_gib"] for r in ranks],
             gemm_launches_per_step=[[x["launches"].get("block_gemm", 0) for x in r_]
                                     for r_ in rows],
             trans_a_per_step=[[x["trans_a"] for x in r_] for r_ in rows],
@@ -5846,7 +6043,9 @@ def mesh_train_phase():
             + ", ".join(f"{s['loss']:.5f}" for s in single[:n_steps]) + ")")
         log(f"mesh train ({key}): {rows[0][-1]['collectives']} collectives and "
             f"{rows[0][-1]['wire_bytes'] / 1e9:.3f} GB handed to them a step a rank{extra}; peak "
-            f"{ranks[0][key]['peak_gib']:.2f} / {ranks[1][key]['peak_gib']:.2f} GiB a rank; "
+            f"{ranks[0][key]['peak_gib']:.2f} / {ranks[1][key]['peak_gib']:.2f} GiB a rank "
+            f"({ranks[0][key]['reserved_gib']:.2f} / {ranks[1][key]['reserved_gib']:.2f} "
+            f"reserved); "
             f"block_gemm {rows[0][-1]['launches'].get('block_gemm', 0)} launches a step a rank "
             f"({rows[0][-1]['trans_a']} trans_a); wq held {ranks[0][key]['wq_local']}")
     # (d)
@@ -5854,7 +6053,8 @@ def mesh_train_phase():
     for key, row in ranks[0]["d"].items():
         if not row["grad_gap"] <= MESH_TRAIN_GRAD_RTOL:
             problems.append(f"mesh train (d) {key}: gradients {row['grad_gap']:.3e} from the "
-                            f"single rank's (bound {MESH_TRAIN_GRAD_RTOL} of each leaf's max)")
+                            f"single rank's at {row['grad_leaf']} (bound {MESH_TRAIN_GRAD_RTOL} "
+                            f"of each leaf's max)")
         if "compressed_gap" in row and not row["compressed_gap"] <= 1 / 127:
             problems.append(f"mesh train (d) {key}: the int8 pod mean {row['compressed_gap']:.3e} "
                             f"from the exact mean (bound 1/127 of each leaf's max)")
@@ -5864,25 +6064,121 @@ def mesh_train_phase():
                                 f"rank's {y} (1e-4 relative) and rank 1's "
                                 f"{ranks[1]['d'][key]['losses'][i]}")
         log(f"mesh train (d) {key} f32, {MESH_TRAIN_F32_LAYERS} layers at full width: gradients "
-            f"{row['grad_gap']:.3e} of each leaf's max from the single rank's"
+            f"{row['grad_gap']:.3e} of each leaf's max from the single rank's (worst leaf "
+            f"{row['grad_leaf']})"
             + (f", the int8 pod mean {row['compressed_gap']:.3e} from the exact mean"
                if "compressed_gap" in row else "")
             + f"; losses " + ", ".join(f"{x:.6f}" for x in row["losses"])
             + " (single " + ", ".join(f"{y:.6f}" for y in sl) + ")")
+    # (e)-(h)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    families = {}
+    for fk, frow in ranks[0]["families"].items():
+        key, mkey = fk.split("/")
+        remat = dict(MESH_TRAIN_FAMILIES[key][1])[mkey]
+        rows = [r["families"][fk]["steps"] for r in ranks]
+        fs = fam_single[key]
+        _mesh_train_gates(f"{key} {mkey}", rows, fs["steps"], remat, frow["n_fwd"], problems)
+        ms = [statistics.median(x["ms"] for x in r_[1:] or r_) for r_ in rows]
+        last = rows[0][-1]
+        families[fk] = dict(
+            what=MESH_TRAIN_FAMILIES[key][4], layout=MESH_TRAIN_LAYOUTS[mkey][5], remat=remat,
+            depth=frow["depth"], step_ms_median=ms, step_ms_all=[[x["ms"] for x in r_] for r_ in rows],
+            losses=[x["loss"] for x in rows[0]], single_losses=[x["loss"] for x in fs["steps"]],
+            grad_norms=[x["grad_norm"] for x in rows[0]],
+            single_grad_norms=[x["grad_norm"] for x in fs["steps"]],
+            single_step_ms=[x["ms"] for x in fs["steps"]], single_peak_gib=fs["peak_gib"],
+            collectives_per_step=[x["collectives"] for x in rows[0]],
+            wire_bytes_per_step=[x["wire_bytes"] for x in rows[0]],
+            peak_gib=[r["families"][fk]["peak_gib"] for r in ranks],
+            reserved_gib=[r["families"][fk]["reserved_gib"] for r in ranks],
+            gemm_launches_per_step=[[x["launches"].get("block_gemm", 0) for x in r_]
+                                    for r_ in rows],
+            trans_a_per_step=[[x["trans_a"] for x in r_] for r_ in rows],
+            n_fwd=frow["n_fwd"], params_local=frow["params_local"], card=smi)
+        log(f"mesh train ({key}) {families[fk]['what']} at {mkey} ({families[fk]['layout']}, "
+            f"remat {remat}, depth {frow['depth'] or 'whole'}), two ranks on one card over gloo "
+            f"(not a scaling number; {smi}): step {ms[0]:.1f} / {ms[1]:.1f} ms a rank (step 2; "
+            f"all: " + ", ".join(f"{x['ms']:.1f}" for x in rows[0]) + f"); single rank "
+            + ", ".join(f"{x['ms']:.1f}" for x in fs["steps"]) + " ms; losses "
+            + ", ".join(f"{x['loss']:.5f}" for x in rows[0]) + " (single rank "
+            + ", ".join(f"{x['loss']:.5f}" for x in fs["steps"]) + ")")
+        log(f"mesh train ({key}) {mkey}: {last['collectives']} collectives and "
+            f"{last['wire_bytes'] / 1e9:.3f} GB handed to them a step a rank; peak "
+            f"{families[fk]['peak_gib'][0]:.2f} / {families[fk]['peak_gib'][1]:.2f} GiB a rank "
+            f"({families[fk]['reserved_gib'][0]:.2f} / {families[fk]['reserved_gib'][1]:.2f} "
+            f"reserved; single rank {fs['peak_gib']:.2f} GiB); block_gemm "
+            f"{last['launches'].get('block_gemm', 0)} launches a step a rank ({last['trans_a']} "
+            f"trans_a, {frow['n_fwd']} forward GEMMs); {frow['params_local']:,} parameters held "
+            f"a rank")
+    # (i)
+    for key, row in ranks[0]["families_f32"].items():
+        other = ranks[1]["families_f32"][key]["loss"]
+        if not row["grad_gap"] <= MESH_TRAIN_GRAD_RTOL:
+            problems.append(f"mesh train (i) {key}: gradients {row['grad_gap']:.3e} from the "
+                            f"single rank's at {row['grad_leaf']} (bound {MESH_TRAIN_GRAD_RTOL} "
+                            f"of each leaf's max)")
+        x, y = row["loss"], row["single_loss"]
+        if not abs(x - y) <= 1e-4 * abs(y) or x != other:
+            problems.append(f"mesh train (i) {key}: f32 loss {x} vs the single rank's {y} "
+                            f"(1e-4 relative) and rank 1's {other}")
+        log(f"mesh train (i) {key} f32 at {row['layout']}, {row['depth']} "
+            f"{'period' if key == 'g' else 'layers'} at full width: gradients "
+            f"{row['grad_gap']:.3e} of each leaf's max from the single rank's (worst leaf "
+            f"{row['grad_leaf']}); loss {x:.6f} "
+            f"(single {y:.6f})")
     if problems:
         fail("; ".join(problems))
     flush = L2Flush()
     gen = torch.Generator(device="cuda").manual_seed(24)
     cases = [c for T, kns in MESH_TRAIN_GEMMS for c in _train_gemm_cases(T, kns)]
     err, gemm_rows = _gemm_case_rows(cases, flush, gen, "mesh shard")
+    for key, groups in MESH_TRAIN_FAMILY_GEMMS.items():
+        cases = [c for T, kns, head in groups for c in _train_gemm_cases(T, kns, head or -1)]
+        ferr, frows = _gemm_case_rows(cases, flush, gen, f"mesh shard ({key})")
+        launches = sum(row["launches"].get("block_gemm", 0) for fk in families
+                       if fk.startswith(key + "/") for row in ranks[0]["families"][fk]["steps"])
+        gemm_rows += [dict(row, family=key, launches=launches) for row in frows]
+        err = max(err, ferr)
     del flush
     launches = sum(sum(x) for key in summary for x in summary[key]["gemm_launches_per_step"][:1])
     wall = time.time() - t_phase
     log(f"mesh train phase: {wall:.1f} s (the ranks {ranks_s:.1f} s; backend "
         f"{ranks[0]['backend']}, both ranks on cuda:0)")
     return dict(layouts=summary, d=ranks[0]["d"], d_single_losses=sl, single_step_ms=single_ms,
+                families=families, families_f32=ranks[0]["families_f32"],
                 gemm_rows=gemm_rows, gemm_max_abs_err=err, block_gemm_launches_rank0=launches,
                 ranks_s=ranks_s, wall_s=wall)
+
+
+def _mesh_train_gates(key, rows, single, remat, n_fwd, problems):
+    """A bf16 layout's gates: each step's loss finite, the same on both
+    ranks and within ``MESH_TRAIN_LOSS_BOUND`` of the single rank's,
+    grad_norm within ``MESH_TRAIN_GNORM_RTOL``; on each rank 3 block GEMM
+    launches a forward GEMM a step (``full`` remat: 4 inside a layer group;
+    the head's 3), ``n_fwd`` of them ``trans_a``, no other kernel (no
+    attention kernel under autograd).  ``rows``: each rank's step rows."""
+    per_gemm = 4 if remat == "full" else 3
+    want_gemm = per_gemm * (n_fwd - 1) + 3
+    for i in range(len(rows[0])):
+        a, b, s = rows[0][i], rows[1][i], single[i]
+        if not math.isfinite(a["loss"]) or a["loss"] != b["loss"]:
+            problems.append(f"mesh train ({key}) step {i}: losses {a['loss']} / {b['loss']} "
+                            f"(finite, equal on both ranks)")
+        if abs(a["loss"] - s["loss"]) > MESH_TRAIN_LOSS_BOUND:
+            problems.append(f"mesh train ({key}) step {i}: loss {a['loss']:.6f} vs the single "
+                            f"rank's {s['loss']:.6f} (bound {MESH_TRAIN_LOSS_BOUND})")
+        if abs(a["grad_norm"] - s["grad_norm"]) > MESH_TRAIN_GNORM_RTOL * s["grad_norm"]:
+            problems.append(f"mesh train ({key}) step {i}: grad_norm {a['grad_norm']:.6f} vs "
+                            f"{s['grad_norm']:.6f} (relative bound {MESH_TRAIN_GNORM_RTOL})")
+        for r, row in enumerate((a, b)):
+            got = row["launches"].get("block_gemm", 0)
+            if got != want_gemm or row["trans_a"] != n_fwd or set(row["launches"]) != {
+                    "block_gemm"}:
+                problems.append(f"mesh train ({key}) rank {r} step {i}: launches "
+                                f"{row['launches']}, trans_a {row['trans_a']} (want "
+                                f"block_gemm {want_gemm}, trans_a {n_fwd}, nothing else)")
 
 
 def main() -> int:
@@ -6086,10 +6382,12 @@ def main() -> int:
     log(json.dumps({"train_options": options}))
     # the block GEMM at the mesh shards' training shapes; launches: rank 0's
     # over the bf16 mesh training steps (a)-(c)
+    # ((e)-(h)'s rows: rank 0's over that family's bf16 steps)
     mesh_train_kernels = [dict(name="block_gemm", route="cuda",
                                source=f"src/repro_torch/kernels/csrc/{bg[0]}", replaces=bg[1],
-                               launches=mesh_train["block_gemm_launches_rank0"],
-                               max_abs_err=mesh_train["gemm_max_abs_err"], **row)
+                               max_abs_err=mesh_train["gemm_max_abs_err"],
+                               **dict(row, launches=row.get(
+                                   "launches", mesh_train["block_gemm_launches_rank0"])))
                           for row in mesh_train["gemm_rows"]]
     log(json.dumps({"mesh_train": mesh_train}))
     log(json.dumps({"mesh_train_kernels": mesh_train_kernels}))

@@ -258,6 +258,15 @@ def current_mesh():
     return _ACT_MESH.get()
 
 
+def activation_context() -> tuple:
+    """The (mesh, profile, batch axes) :func:`activation_mesh` set, to be
+    set again with it where the code runs on another thread: a checkpointed
+    layer group's recompute runs inside the backward pass, on the autograd
+    engine's thread for a CUDA device, which does not see these context
+    variables."""
+    return _ACT_MESH.get(), _ACT_PROFILE.get(), _ACT_BATCH.get()
+
+
 def current_batch_axes() -> tuple:
     return _ACT_BATCH.get()
 

@@ -46,7 +46,7 @@ from repro_torch.models import model as M
 from repro_torch.models.params import count_params
 from repro_torch.runtime import StragglerMonitor, TrainRunner
 from repro_torch.training import AdamWConfig, init_state, make_train_step
-from repro_torch.training.step import check_mesh_family, shard_state, state_pspecs
+from repro_torch.training.step import shard_state, state_pspecs
 
 
 def parser() -> argparse.ArgumentParser:
@@ -149,8 +149,6 @@ def main(argv=None):
     if args.backend is None:
         ap.error(f"--mesh {args.mesh} needs --backend: nccl (one card a rank) or gloo "
                  f"(ranks may share a card, or run on the CPU)")
-    cfg = get_config(args.arch)
-    check_mesh_family(reduce_config(cfg) if args.reduced else cfg)
     if dist.is_initialized():  # started by the caller: train as this rank
         if dist.get_backend() != args.backend:
             raise ValueError(f"--backend {args.backend}, but the process group runs "

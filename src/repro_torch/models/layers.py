@@ -591,7 +591,10 @@ def _mla_attend(cfg, p, x, rows: StepRows, attn_chunk: int = 0):
     latent, k_rope = _mla_latent(cfg, p, xs, rows)
     kv = dense_proj(cfg, latent, p["wkv_b"], (cfg.padded_heads, dn + dv),
                     shard=("col", cfg.padded_heads))
-    k_rope_h = k_rope[:, :, None, :].expand(*k_rope.shape[:2], H, k_rope.shape[-1])
+    # the one shared key, read by this rank's heads: entered, so that its
+    # gradient (and that of wkv_a's rope columns) is summed over the group
+    k_rope_h = tp_input(k_rope, p["wkv_b"], ("col", cfg.padded_heads))
+    k_rope_h = k_rope_h[:, :, None, :].expand(*k_rope.shape[:2], H, k_rope.shape[-1])
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([kv[..., :dn], k_rope_h], -1)
     o = plain_attention(q.transpose(1, 2), k.transpose(1, 2), kv[..., dn:].transpose(1, 2),
@@ -673,17 +676,17 @@ def cross_attn(cfg: ArchConfig, p: dict, x, img=None, img_kv=None):
     The output is gated by ``tanh(gate)``.  Under w8a8 the image's
     k and v projections share one quantize.  Returns (out, (k, v))."""
     H, K, dh = cfg.padded_heads, cfg.num_kv_heads, cfg.head_dim
-    if img_kv is None:
-        xs = shared_input(img, p["wk"])
-        k = dense_proj(cfg, xs, p["wk"], (K, dh), shard=("col", K))
-        v = dense_proj(cfg, xs, p["wv"], (K, dh), shard=("col", K))
-        if "q_norm" in p:
-            k = rms_only(k, p["k_norm"])
+    if img_kv is None:  # the image enters the region once for both projections
+        xs = tp_input(shared_input(img, p["wk"]), p["wk"], ("col", K))
+        k = dense_proj(cfg, xs, p["wk"], (K, dh), shard=("col", K), entered=True)
+        v = dense_proj(cfg, xs, p["wv"], (K, dh), shard=("col", K), entered=True)
+        if "q_norm" in p:  # replicated scales on this rank's heads, as in _qkv
+            k = rms_only(k, tp_input(p["k_norm"], p["k_norm"], ("col", K)))
     else:
         k, v = img_kv
     q = dense_proj(cfg, x, p["wq"], (H, dh), shard=("col", H))
     if "q_norm" in p:
-        q = rms_only(q, p["q_norm"])
+        q = rms_only(q, tp_input(p["q_norm"], p["q_norm"], ("col", H)))
     o = dense_attention(q.transpose(1, 2), local_kv(cfg, k, 2).transpose(1, 2),
                         local_kv(cfg, v, 2).transpose(1, 2), causal=False)
     o = o.transpose(1, 2)  # [B, S, H, dh]; free on the card

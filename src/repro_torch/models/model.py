@@ -43,7 +43,8 @@ from repro_torch.core.gemm import cgra_gemm
 from repro_torch.core.quant import QTensor, quantize_over
 from repro_torch.kernels.ops import CGRA_MATMUL
 from repro_torch.launch.mesh import fsdp_gather, leave_tp
-from repro_torch.launch.sharding import (current_mesh, fsdp_dims, local_shape, local_slice,
+from repro_torch.launch.sharding import (activation_context, activation_mesh, current_mesh,
+                                         fsdp_dims, local_shape, local_slice,
                                          profile_for, tree_pspecs)
 from repro_torch.models import layers as L
 from repro_torch.models import ssd as S
@@ -728,6 +729,18 @@ def _remat(policy: str):
                              preserve_rng_state=False)
 
 
+def _in_context(fn, act: tuple):
+    """``fn`` run under the activation context ``act``
+    (:func:`~repro_torch.launch.sharding.activation_context`): a
+    checkpointed group runs again in the backward pass, on the autograd
+    engine's thread for a CUDA device, which does not see the forward's
+    context variables."""
+    def run(*args):
+        with activation_mesh(*act):
+            return fn(*args)
+    return run
+
+
 def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
                    caches=None, pos=None, pages=None, past_len=0,
                    chunk_len=None, images=None, frames=None, full_kv: bool = False,
@@ -821,7 +834,7 @@ def forward_hidden(cfg: ArchConfig, params, tokens=None, *, mode: str = "train",
             if remat is None:
                 x, aux, out = group(x, aux, lp, lc)
             else:
-                x, aux, out = remat(group, x, aux, lp, lc)
+                x, aux, out = remat(_in_context(group, activation_context()), x, aux, lp, lc)
             per_layer.append(out)
         if mode == "prefill":
             new_caches.append(_stack_layers(per_layer))

@@ -25,7 +25,12 @@ norm's mean over (H, P) sums each rank's squares and joins the sums over
 the model group (:func:`_gate_norm_out`); ``w_out`` is a row-parallel
 ``layers.dense_proj``.  The head count comes from the held weights, so a
 model axis that does not divide H leaves every leaf whole and the layer
-runs whole.
+runs whole.  Under autograd (a mesh's train step) every tensor that is
+whole on each rank but feeds only its heads enters the tensor-parallel
+region once (``launch.mesh.enter_tp``): the per-head projections' input,
+B and C past their conv, and the norm's joined sum; so the gradients of
+x, ``w_B``, ``w_C``, ``conv_B`` and ``conv_C`` are summed over the model
+group, and those of the ``"heads"`` leaves stay the rank's own.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.launch.mesh import leave_tp
+from repro_torch.launch.mesh import enter_tp, leave_tp
 from repro_torch.launch.sharding import current_mesh
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamSpec
@@ -120,12 +125,23 @@ def _proj_inputs(cfg: ArchConfig, p: dict, x):
     B_, S, D = x.shape
     H, P, N = _heads(p), cfg.ssm_headdim, cfg.ssm_state
     x2 = x.reshape(B_ * S, D)
-    z = (x2 @ p["w_z"].reshape(D, H * P)).reshape(B_, S, H, P)
-    xs = (x2 @ p["w_x"].reshape(D, H * P)).reshape(B_, S, H, P)
+    xh = _enter_heads(cfg, p, x2)  # the per-head projections' input
+    z = (xh @ p["w_z"].reshape(D, H * P)).reshape(B_, S, H, P)
+    xs = (xh @ p["w_x"].reshape(D, H * P)).reshape(B_, S, H, P)
     Bm = (x2 @ p["w_B"]).reshape(B_, S, N)
     Cm = (x2 @ p["w_C"]).reshape(B_, S, N)
-    dt = (x2.to(F32) @ p["w_dt"].to(F32)).reshape(B_, S, H)
+    dt = (xh.to(F32) @ p["w_dt"].to(F32)).reshape(B_, S, H)
     return z, xs, Bm, Cm, dt
+
+
+def _enter_heads(cfg: ArchConfig, p: dict, t):
+    """``t`` (whole on every rank) entering this rank's heads: identity
+    forward; under autograd the ranks' partial gradients are summed over
+    the model group (``launch.mesh.enter_tp``).  ``t`` itself when the
+    layer runs whole."""
+    if _heads(p) == cfg.ssm_heads:
+        return t
+    return enter_tp(t, current_mesh())
 
 
 def gated_rms(y, z, norm, heads: int, mesh=None):
@@ -134,13 +150,16 @@ def gated_rms(y, z, norm, heads: int, mesh=None):
     runs over all ``heads`` of the layer.  A rank holding ``h < heads`` of
     them sums its heads' squares in f32, the sums are joined over ``mesh``'s
     model group (f32) and the total is divided by ``heads * P``; off a mesh
-    the mean is taken directly.  Returns the f32 normed rows."""
+    the mean is taken directly.  The joined sum feeds this rank's heads
+    only, so under autograd its gradient is summed over the group too
+    (``leave_tp`` then ``enter_tp``).  Returns the f32 normed rows."""
     P = y.shape[-1]
     yf = (y * F.silu(z)).to(F32)
     if y.shape[-2] == heads:
         ms = yf.square().mean((-2, -1), keepdim=True)
     else:
-        ms = leave_tp(yf.square().sum((-2, -1), keepdim=True), mesh) / (heads * P)
+        ms = enter_tp(leave_tp(yf.square().sum((-2, -1), keepdim=True), mesh),
+                      mesh) / (heads * P)
     return yf * torch.rsqrt(ms + 1e-6) * norm.to(F32)
 
 
@@ -176,8 +195,11 @@ def ssd_forward(cfg: ArchConfig, p: dict, x, return_cache: bool = False):
     z, xs, Bm, Cm, dt = _proj_inputs(cfg, p, x)
     tails = [t[:, S - (W - 1):] for t in (xs, Bm, Cm)] if return_cache else None
     xs = F.silu(_causal_conv(xs, p["conv_x"].to(xs.dtype)))
-    Bm = F.silu(_causal_conv(Bm, p["conv_B"].to(Bm.dtype)))
-    Cm = F.silu(_causal_conv(Cm, p["conv_C"].to(Cm.dtype)))
+    # B and C are whole on every rank and feed only its heads: entered once
+    # here, past the conv, their gradients (and w_B's, w_C's, conv_B's,
+    # conv_C's) are summed over the model group
+    Bm = _enter_heads(cfg, p, F.silu(_causal_conv(Bm, p["conv_B"].to(Bm.dtype))))
+    Cm = _enter_heads(cfg, p, F.silu(_causal_conv(Cm, p["conv_C"].to(Cm.dtype))))
 
     dt = F.softplus(dt + p["dt_bias"].to(F32))  # [B, S, H]
     A = -torch.exp(p["A_log"].to(F32))          # [H]

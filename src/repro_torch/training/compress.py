@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.tree import tree_leaves, tree_unflatten
+from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.launch.sharding import spec_axes
 
 F32 = torch.float32
@@ -36,11 +36,19 @@ def compressed_mean(g, mesh, axis: str = "pod", err=None, pspec: tuple = ()):
         gf = gf + err
     amax = mesh.all_max(gf.abs().amax(), (axis,) + spec_axes(pspec))
     scale = torch.clamp(amax, min=1e-12) / torch.full_like(amax, 127.0)
-    q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+    t = gf / scale
+    q = t.round_().clamp_(-127, 127).to(torch.int8)
+    del t
     n = mesh.size(axis)
     allq = mesh.all_gather(q[None], axis, 0)  # [n, ...] int8 on the wire
-    total = allq.to(torch.int32).sum(0).to(F32)
-    mean = (total * scale) / torch.full_like(scale, float(n))
+    # summed a pod at a time: one int32 copy of the leaf, not n of them
+    total = allq[0].to(torch.int32)
+    for part in allq[1:]:
+        total += part
+    del allq
+    mean = total.to(F32)
+    del total
+    mean = mean.mul_(scale).div_(torch.full_like(scale, float(n)))
     new_err = gf - q.to(F32) * scale if err is not None else None
     return mean.to(g.dtype), new_err
 
@@ -48,10 +56,13 @@ def compressed_mean(g, mesh, axis: str = "pod", err=None, pspec: tuple = ()):
 def compressed_tree_mean(grads, mesh, axis: str = "pod", errs=None, pspecs=None):
     """:func:`compressed_mean` of every leaf of ``grads`` (``pspecs``: a tree
     of the leaves' specs, None for whole leaves).  Returns (means, new errs
-    or None when ``errs`` is None)."""
+    or None when ``errs`` is None).  Leaves meet their specs and errors by
+    key, not by position (the trees' keys may come in other orders)."""
     leaves = tree_leaves(grads)
-    specs = tree_leaves(pspecs) if pspecs is not None else [()] * len(leaves)
-    es = tree_leaves(errs) if errs is not None else [None] * len(leaves)
+    specs = tree_leaves(tree_map(lambda g, ps: ps, grads, pspecs)) if pspecs is not None \
+        else [()] * len(leaves)
+    es = tree_leaves(tree_map(lambda g, e: e, grads, errs)) if errs is not None \
+        else [None] * len(leaves)
     pairs = [compressed_mean(g, mesh, axis, e, ps) for g, e, ps in zip(leaves, es, specs)]
     mean = tree_unflatten(grads, [p[0] for p in pairs])
     if errs is None:

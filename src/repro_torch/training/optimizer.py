@@ -88,13 +88,16 @@ def global_norm(tree, mesh=None, pspecs=None) -> torch.Tensor:
     ``tree`` holds this rank's shards and ``pspecs`` their specs: the sums
     of the leaves cut on the same axes are added and all-reduced over those
     axes once (one collective per distinct set), so a replicated leaf is
-    counted once."""
+    counted once.  Each leaf meets its spec by key, not by position: a
+    tree from ``model.init`` holds its keys sorted, a spec tree in the
+    specs' order."""
     sq = [torch.sum(torch.square(x.to(F32))) for x in tree_leaves(tree)]
     if mesh is None:
         return torch.sqrt(torch.stack(sq).sum())
     groups: dict = {}
-    for s_, ps in zip(sq, tree_leaves(pspecs)):
-        groups.setdefault(spec_axes(ps), []).append(s_)
+    axes_of = tree_leaves(tree_map(lambda x, ps: spec_axes(ps), tree, pspecs))
+    for s_, axes in zip(sq, axes_of):
+        groups.setdefault(axes, []).append(s_)
     total = torch.zeros((), dtype=F32, device=sq[0].device)
     for axes, parts in sorted(groups.items()):
         part = torch.stack(parts).sum()

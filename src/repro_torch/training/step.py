@@ -36,7 +36,7 @@ from repro_torch.data.pipeline import local_batch, to_device
 from repro_torch.launch.sharding import (activation_mesh, batch_entry, local_slice,
                                          moment_pspecs, profile_for, spec_axes)
 from repro_torch.models import model as M
-from repro_torch.training.compress import compressed_tree_mean
+from repro_torch.training.compress import compressed_mean
 from repro_torch.training.optimizer import AdamWConfig, adamw_update, init_moments
 
 F32 = torch.float32
@@ -82,18 +82,6 @@ def value_and_grad(cfg: ArchConfig, params, batch: dict, *, attn_chunk: int = 0,
 
 
 # -- over a mesh ---------------------------------------------------------------
-
-def check_mesh_family(cfg: ArchConfig):
-    """Raise for a family whose training is not ported to a mesh: MLA, SSD,
-    cross-attention and the audio encoder train on one device."""
-    mixers = {sp.mixer for sp in cfg.layer_specs()}
-    if cfg.use_mla or cfg.kind == "encoder" or cfg.vision_tokens or cfg.audio_frontend \
-            or mixers & {"ssm", "cross"}:
-        raise NotImplementedError(
-            f"{cfg.name}: training over a mesh is ported for attention decoders with dense "
-            f"or MoE FFNs; MLA, SSD, cross-attention and encoder models train on one "
-            f"device (ROADMAP Queue 1 item 13)")
-
 
 def mesh_config(cfg: ArchConfig, mesh) -> ArchConfig:
     """``cfg`` as a mesh's train step runs it: expert-parallel MoE
@@ -146,9 +134,11 @@ def mesh_value_and_grad(cfg: ArchConfig, params, batch: dict, mesh, *, accum_ste
     gather's reduce-scatter); it is summed over the other batch axes in f32
     and divided by the number of batch ranks.  With ``compress_pod`` and a
     ``pod`` axis the exact sum runs within the pod and the mean over pods
-    is ``compressed_tree_mean`` (no error feedback, as the reference's
-    step).  ``accum_steps`` splits each rank's rows into that many
-    microbatches, the rows of global microbatch i in the i-th."""
+    is ``compressed_mean`` of each leaf (no error feedback, as the
+    reference's step).  A leaf is finished (f32, summed, cast back) before
+    the next starts, so one leaf's f32 copies are alive at a time.
+    ``accum_steps`` splits each rank's rows into that many microbatches,
+    the rows of global microbatch i in the i-th."""
     cfg = mesh_config(cfg, mesh)
     profile = profile_for(cfg)
     pspecs = M.param_pspecs(cfg, mesh, fsdp=cfg.fsdp, main_repeats=main_repeats)
@@ -162,21 +152,25 @@ def mesh_value_and_grad(cfg: ArchConfig, params, batch: dict, mesh, *, accum_ste
         if accum_steps == 1:
             loss, extras, grads = value_and_grad(cfg, params, rows, attn_chunk=attn_chunk,
                                                  main_repeats=main_repeats)
-            grads = tree_map(lambda g: g.to(F32), grads)
         else:
             loss, extras, grads = _accumulated(cfg, params, rows, accum_steps, attn_chunk,
                                                main_repeats)
 
     def mean(x, axes, summed=()):  # ``summed``: axes x is already a sum over
+        if not axes:
+            return x
         for a in axes:
             if a not in summed:
                 x = mesh.all_reduce(x, a)
         return x / math.prod(mesh.size(a) for a in axes)
 
-    grads = tree_map(lambda g, ps: mean(g, exact, spec_axes(ps)), grads, pspecs)
-    if pod:
-        grads, _ = compressed_tree_mean(grads, mesh, "pod", pspecs=pspecs)
-    grads = tree_map(lambda g, p: g.to(p.dtype), grads, params)
+    def finish(g, ps, p):
+        g = mean(g.to(F32), exact, spec_axes(ps))
+        if pod:
+            g = compressed_mean(g, mesh, "pod", pspec=ps)[0]
+        return g.to(p.dtype)
+
+    grads = tree_map(finish, grads, pspecs, params)
     return (mean(loss.to(F32), axes),
             {k: mean(v.to(F32), axes) for k, v in extras.items()}, grads)
 
@@ -216,13 +210,13 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig, *, accum_steps: int = 1,
     :func:`mesh_value_and_grad`.  ``compress_pod`` on a mesh with a ``pod``
     axis means the gradients over pods with the int8 compressed mean;
     without a ``pod`` axis (or a mesh) it trains plainly, as the reference.
-    MLA, SSD, cross-attention and encoder models raise on a mesh
-    (:func:`check_mesh_family`)."""
+    Every ported family trains on a mesh: attention (GQA or MLA), SSD,
+    cross-attention and the encoder, with dense or MoE FFNs (the MoE
+    meshes ``layers.moe_forward`` refuses aside)."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     pspecs = None
     if mesh is not None:
-        check_mesh_family(cfg)
         pspecs = M.param_pspecs(mesh_config(cfg, mesh), mesh, fsdp=cfg.fsdp,
                                 main_repeats=main_repeats)
 

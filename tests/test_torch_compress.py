@@ -297,3 +297,19 @@ def test_compress_pod_step_equals_the_reference(compressed):
         flips, total = flips + int(np.sum(over)), total + err.size
         assert np.array_equal(got[1]["p2/" + key], got[0]["p2/" + key])
     assert flips <= max(1, total // 1000)
+
+
+def test_tree_mean_meets_each_spec_by_key():
+    """``compressed_tree_mean`` hands each leaf its own spec (the scale's
+    max runs over the spec's axes too), whatever order the trees hold
+    their keys in.  The fake one-rank mesh records each max's axes."""
+    import types
+    import torch
+    from repro_torch.training.compress import compressed_tree_mean
+    seen = {}
+    mesh = types.SimpleNamespace(
+        size=lambda a: 1, all_gather=lambda x, axis, dim: x,
+        all_max=lambda x, axes: seen.setdefault(len(seen), axes) and x)
+    grads = {"b": torch.ones(2), "a": torch.ones(3)}
+    compressed_tree_mean(grads, mesh, "pod", pspecs={"a": (None,), "b": ("model",)})
+    assert seen == {0: ("pod", "model"), 1: ("pod",)}

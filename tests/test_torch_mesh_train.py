@@ -24,7 +24,11 @@ writes what it trained, gathered whole; each test reads one scenario:
   ``FailureInjector`` restart at 2x1 ends where an unfailed run ends;
 - the launcher: ``--mesh 2x1 --backend gloo --device cpu`` prints the
   reference's lines once, with the single device's losses; a mesh that
-  does not match the world size, and a family not ported, are refused.
+  does not match the world size is refused.
+
+The other families (MLA, SSD, jamba, cross-attention, the encoder) run
+the same ranks and checks in ``test_torch_mesh_train_families.py``, one
+spawn of their own (:func:`train_on_ranks`).
 """
 import json
 import os
@@ -52,7 +56,11 @@ from repro_torch.training import AdamWConfig, make_train_step
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 B, S, STEPS = 4, 16, 2
-ARCHS = {"olmo": "olmo-1b", "moe": "qwen3-moe-30b-a3b"}
+ARCHS = {"olmo": "olmo-1b", "moe": "qwen3-moe-30b-a3b", "mla": "minicpm3-4b",
+         "ssd": "mamba2-130m", "jamba": "jamba-v0.1-52b", "vlm": "llama-3.2-vision-11b",
+         "vlmqk": "llama-3.2-vision-11b", "enc": "hubert-xlarge"}
+# config fields an arch key sets in both packages, on top of its reduced config
+OVERRIDES = {"vlmqk": {"use_qk_norm": True}}
 # name: (arch, data, model, parallel_mode, fsdp, moments, accum, remat_policy)
 SCENARIOS = {
     "olmo/1x2": ("olmo", 1, 2, "2d", True, "f32", 1, "none"),
@@ -105,7 +113,8 @@ RANKS = textwrap.dedent("""
     def setup(tmp, plan, name, mesh):
         arch, d, m, mode, fsdp, moments, accum, remat = plan["scenarios"][name]
         cfg = TC.reduce_config(TC.get_config(plan["archs"][arch])).with_(
-            fsdp=fsdp, parallel_mode=mode, remat_policy=remat)
+            fsdp=fsdp, parallel_mode=mode, remat_policy=remat,
+            **plan["overrides"].get(arch, {}))
         cfg = prepare_arch(cfg, mesh)
         opt = AdamWConfig(**plan["opt"], moments_dtype=moments)
         params = bridge.params_from_numpy(cfg, dict(np.load(f"{tmp}/{name.replace('/', '_')}.npz")),
@@ -118,7 +127,7 @@ RANKS = textwrap.dedent("""
         torch.set_num_threads(1)
         plan = json.load(open(f"{tmp}/plan.json"))
         meshes = {}
-        for sh in ((1, 2), (2, 1), (2, 2)):  # every rank makes every mesh's groups, in order
+        for sh in ((1, 2), (2, 1), (2, 2), (1, 4)):  # every rank makes every mesh's groups, in order
             meshes[sh] = make_device_mesh(sh, ("data", "model"))
         out = {}
         for name, (arch, d, m, *_rest) in plan["scenarios"].items():
@@ -142,6 +151,10 @@ RANKS = textwrap.dedent("""
             if rank == 0:
                 np.savez(f"{tmp}/out_{name.replace('/', '_')}.npz", **arrays)
 
+        if not plan["extras"]:
+            with open(f"{tmp}/rank{rank}.json", "w") as f:
+                json.dump(out, f)
+            return
         # checkpoints: the 2x1 state after two steps written at 2x1, restored
         # at 1x1 (rank 0 alone) and at 1x2
         m21, m12 = meshes[(2, 1)], meshes[(1, 2)]
@@ -200,29 +213,49 @@ RANKS = textwrap.dedent("""
 
 
 def _jcfg(arch, d, m, mode, fsdp):
-    cfg = JC.reduce_config(JC.get_config(ARCHS[arch])).with_(fsdp=fsdp, parallel_mode=mode)
+    cfg = JC.reduce_config(JC.get_config(ARCHS[arch])).with_(fsdp=fsdp, parallel_mode=mode,
+                                                             **OVERRIDES.get(arch, {}))
     return j_prepare_arch(cfg, types.SimpleNamespace(shape={"data": d, "model": m}))
 
 
-def _jax_state(name):
-    arch, d, m, mode, fsdp, moments, accum, _ = SCENARIOS[name]
+def _open_zero_leaves(params, seed: int = 0):
+    """The JAX tree with its zero-initialised leaves opened: every cross
+    gate 0.5 (a closed gate zeroes every cross weight's gradient), every
+    bias (the GELU MLP's b1 / b2, the LayerNorms') 0.1 x N(0, 1) from a
+    numpy ``seed`` (a zero bias hides one added on each rank)."""
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, a):
+        key = "/".join(str(getattr(p, "key", getattr(p, "idx", p))) for p in path)
+        last = key.rsplit("/", 1)[-1]
+        if last == "gate":
+            return jnp.full(a.shape, 0.5, a.dtype)
+        if last in ("b1", "b2", "bias"):
+            return jnp.asarray(0.1 * rng.randn(*a.shape), a.dtype)
+        return a
+    return jax.tree_util.tree_map_with_path(leaf, params)
+
+
+def _jax_state(name, scenarios=SCENARIOS):
+    arch, d, m, mode, fsdp, moments, accum, _ = scenarios[name]
     cfg = _jcfg(arch, d, m, mode, fsdp)
     opt = JAdamW(**OPT, moments_dtype=moments)
-    return cfg, opt, accum, JT.init_state(cfg, opt, jax.random.PRNGKey(7))
+    state = JT.init_state(cfg, opt, jax.random.PRNGKey(7))
+    return cfg, opt, accum, state._replace(params=_open_zero_leaves(state.params))
 
 
-def _jax_key(name):
+def _jax_key(name, scenarios=SCENARIOS):
     """What the JAX package's single-device run of a scenario depends on:
     the mesh reaches it only through the padded heads and the MoE groups."""
-    arch, d, m, mode, fsdp, moments, accum, _ = SCENARIOS[name]
+    arch, d, m, mode, fsdp, moments, accum, _ = scenarios[name]
     cfg = _jcfg(arch, d, m, mode, fsdp)
     return (arch, moments, accum, cfg.padded_heads, cfg.num_moe_groups if cfg.num_experts else 0)
 
 
-def _jax_run(name, batches):
+def _jax_run(name, batches, scenarios=SCENARIOS):
     """The JAX package's side of a scenario on one device: gradients at
     both steps, the two steps' metrics and states."""
-    cfg, opt, accum, state = _jax_state(name)
+    cfg, opt, accum, state = _jax_state(name, scenarios)
     jb = [{k: jnp.asarray(v) for k, v in b.items()} for b in batches]
     gfn = jax.jit(jax.grad(lambda p, b: JM.loss_fn(cfg, p, b)[0]))
 
@@ -241,21 +274,23 @@ def _jax_run(name, batches):
     return out
 
 
-@pytest.fixture(scope="module")
-def trained(tmp_path_factory):
-    """(what each rank trained, keyed by scenario; the JAX runs; the
-    working directory)."""
-    tmp = tmp_path_factory.mktemp("mesh_train")
+def train_on_ranks(tmp, scenarios, extras: bool):
+    """Spawn the four gloo ranks on ``scenarios`` (and, with ``extras``, the
+    checkpoint, restart and launcher cases) and run the JAX side meanwhile:
+    (what each rank trained, keyed by scenario; the JAX runs; ``tmp``)."""
+    archs = {sc[0] for sc in scenarios.values()}
     batches = {}
-    for arch in ARCHS:
-        cfg = TC.reduce_config(TC.get_config(ARCHS[arch]))
+    for arch in archs:
+        cfg = TC.reduce_config(TC.get_config(ARCHS[arch])).with_(**OVERRIDES.get(arch, {}))
         data = SyntheticLM(cfg, batch=B, seq=S)
         batches[arch] = [data.batch_at(i) for i in range(STEPS)]
         for i, b in enumerate(batches[arch]):
             np.savez(tmp / f"{arch}_b{i}.npz", **b)
-    for name in SCENARIOS:  # the weights the ranks load
-        np.savez(tmp / f"{name.replace('/', '_')}.npz", **_flatten(_jax_state(name)[3].params))
-    (tmp / "plan.json").write_text(json.dumps(dict(archs=ARCHS, opt=OPT, scenarios=SCENARIOS)))
+    for name in scenarios:  # the weights the ranks load
+        np.savez(tmp / f"{name.replace('/', '_')}.npz",
+                 **_flatten(_jax_state(name, scenarios)[3].params))
+    (tmp / "plan.json").write_text(json.dumps(dict(archs=ARCHS, opt=OPT, scenarios=scenarios,
+                                                   overrides=OVERRIDES, extras=extras)))
     script = tmp / "ranks.py"
     script.write_text(RANKS)
     env = dict(os.environ, PYTHONPATH=SRC)
@@ -264,15 +299,20 @@ def trained(tmp_path_factory):
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     # the JAX runs, computed while the ranks train
     want, runs = {}, {}
-    for name in SCENARIOS:  # one run for the scenarios JAX computes alike
-        key = _jax_key(name)
+    for name in scenarios:  # one run for the scenarios JAX computes alike
+        key = _jax_key(name, scenarios)
         if key not in runs:
-            runs[key] = _jax_run(name, batches[SCENARIOS[name][0]])
+            runs[key] = _jax_run(name, batches[scenarios[name][0]], scenarios)
         want[name] = runs[key]
     out, _ = proc.communicate(timeout=600)
     assert proc.returncode == 0, out[-4000:]
     ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(4)]
     return ranks, want, tmp
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    return train_on_ranks(tmp_path_factory.mktemp("mesh_train"), SCENARIOS, extras=True)
 
 
 def _out(tmp, name):
@@ -286,19 +326,36 @@ def test_gradients_equal_jax_grad(trained, name):
     enter / leave, FSDP gathers (reduce-scatter backward), the vocab-parallel
     cross entropy, the MoE aux averaged over the data ranks and the
     expert-parallel backward."""
+    check_gradients(trained, name)
+
+
+@pytest.mark.parametrize("name", list(SCENARIOS))
+def test_loss_and_grad_norm_equal_the_jax_step(trained, name):
+    check_loss_and_grad_norm(trained, name, SCENARIOS)
+
+
+@pytest.mark.parametrize("name", list(SCENARIOS))
+def test_parameters_after_two_steps(trained, name):
+    _, want, tmp = trained
+    _params_rule(name, _out(tmp, name), want[name])
+
+
+def check_gradients(trained, name, against=None):
+    """Every leaf of the scenario's gathered gradient within ``GRAD_RTOL`` of
+    the leaf's largest entry of JAX's gradient, or of ``against`` (a flat
+    gradient of the same keys) where it is given."""
     _, want, tmp = trained
     got = _out(tmp, name)
-    for key, w in want[name]["g"][0].items():
+    for key, w in (want[name]["g"][0] if against is None else against).items():
         w = np.asarray(w, np.float32)
         g = got["g/" + key]
         assert g.shape == w.shape, key
         assert np.max(np.abs(g - w)) <= GRAD_RTOL * max(np.max(np.abs(w)), 1e-30), (name, key)
 
 
-@pytest.mark.parametrize("name", list(SCENARIOS))
-def test_loss_and_grad_norm_equal_the_jax_step(trained, name):
+def check_loss_and_grad_norm(trained, name, scenarios):
     ranks, want, _ = trained
-    arch, d, m = SCENARIOS[name][:3]
+    arch, d, m = scenarios[name][:3]
     for i in range(STEPS):
         got, ref = ranks[0][name]["metrics"][i], want[name]["metrics"][i]
         for k in ("loss", "grad_norm", "ce", "aux"):
@@ -347,12 +404,6 @@ def _params_rule(name, got, want):
         tight = 1e-5 * max(float(np.max(np.abs(w))), 1e-30)
         err = np.abs(p - w)
         assert np.all(err <= tight + allow), (name, key, float(np.max(err - tight - allow)))
-
-
-@pytest.mark.parametrize("name", list(SCENARIOS))
-def test_parameters_after_two_steps(trained, name):
-    _, want, tmp = trained
-    _params_rule(name, _out(tmp, name), want[name])
 
 
 @pytest.mark.parametrize("name", ["olmo/2x1", "olmo/2x1/bf16", "olmo/2x1/int8", "olmo/2x2",
@@ -437,19 +488,6 @@ def test_launcher_trains_on_a_mesh_and_prints_the_reference_lines(tmp_path):
     steps = [ln.split(" lr ")[0] for ln in lines if ln.startswith("step ")]
     assert len(steps) == 2
     assert steps == [ln.split(" lr ")[0] for ln in outs["1x1"] if ln.startswith("step ")]
-
-
-def test_families_not_ported_to_a_mesh_are_refused():
-    """MLA, SSD, cross-attention and the encoder raise naming the ROADMAP
-    item, before any process group is needed."""
-    mesh = types.SimpleNamespace(shape={"data": 2, "model": 1})
-    for name in ("minicpm3-4b", "mamba2-130m", "llama-3.2-vision-11b", "hubert-xlarge"):
-        cfg = TC.reduce_config(TC.get_config(name))
-        with pytest.raises(NotImplementedError, match="item 13"):
-            make_train_step(cfg, AdamWConfig(), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train_cli.main(["--arch", "mamba2-130m", "--reduced", "--mesh", "2x1", "--backend",
-                        "gloo", "--device", "cpu"])
 
 
 def test_moe_ffn_split_over_the_model_axis_is_refused():

@@ -86,6 +86,19 @@ def test_global_norm_matches_jax():
                - 5.0) < 1e-6
 
 
+def test_global_norm_meets_each_spec_by_key():
+    """Under a mesh each leaf's sum of squares joins the group of its own
+    spec, whatever order the two trees hold their keys in (``model.init``
+    sorts them, a spec tree keeps the specs' order): a model-sharded leaf
+    is summed over the ranks, a replicated one counted once.  The fake
+    mesh's all-reduce stands for two ranks holding equal shards."""
+    grads = {"a": torch.tensor([3.0]), "b": torch.tensor([4.0])}
+    specs = {"b": ("model",), "a": (None,)}
+    mesh = types.SimpleNamespace(all_reduce=lambda x, axis: 2 * x)
+    got = float(global_norm(grads, mesh, specs))
+    assert got == pytest.approx((3.0 ** 2 + 2 * 4.0 ** 2) ** 0.5, rel=1e-6)
+
+
 @pytest.mark.parametrize("moments", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("clip", [1e9, 0.5])
 def test_adamw_update_matches_jax(moments, clip):
@@ -238,10 +251,11 @@ def test_eval_step_and_refusals():
     state = init_state(cfg, opt, device="cpu")
     out = make_eval_step(cfg)(state.params, SyntheticLM(cfg, batch=2, seq=8).batch_at(0))
     assert set(out) == {"loss", "ce", "aux"} and out["loss"].grad_fn is None
-    # a mesh trains attention decoders; an SSD model raises naming the item
+    # an SSD model builds its step on a mesh too (no process group needed to build it)
     ssd = TC.reduce_config(TC.get_config("mamba2-130m"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_train_step(ssd, opt, mesh=types.SimpleNamespace(shape={"data": 2, "model": 1}))
+    shape = {"data": 2, "model": 1}
+    mesh = types.SimpleNamespace(shape=shape, size=lambda a: shape.get(a, 1))
+    assert callable(make_train_step(ssd, opt, mesh=mesh))
     make_train_step(cfg, opt, compress_pod=True)  # no pod axis: trains plainly, as JAX
     make_train_step(cfg, opt, attn_chunk=64, main_repeats=1)  # accepted
 
