@@ -212,7 +212,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    block GEMM launched forward and with ``trans_a`` on both ranks; at 2
    layers in f32 every layout's gathered gradients against the single
    rank's; the GEMM at the shards' training shapes;
-10. a JSON ``added_kernels`` line (the quantize kernels and the int8
+10. the pod-scale dry run (``dryrun_phase``: meta tensors on a dry mesh,
+   nothing allocated on the card) against what the script measured: the
+   training phase's cell (its peak within 10 %, its GEMM launches a step
+   exactly), the mesh training phase's collectives and bytes a step at
+   (a) and (e) exactly, the VLM's bf16 decode step's launches a replay
+   exactly; then eight production cells of the 16x16 mesh printed;
+11. a JSON ``added_kernels`` line (the quantize kernels and the int8
    GEMM's row-parallel entries), a JSON
    ``mla_kernels`` line (both decode kernels at the latent shape), a JSON
    ``moe`` line (the MoE phase's summary and its rows), a JSON ``ssm`` line
@@ -222,8 +228,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``train_kernels`` line (the GEMM's rows at the training shapes), a JSON
    ``serve`` line (``launch.serve``'s runs), a ``mesh`` line (the mesh
    phase), a ``train_options`` line, a ``mesh_train`` line (the mesh
-   training phase) and a ``mesh_train_kernels`` line (the GEMM's rows at
-   the shards' training shapes),
+   training phase), a ``mesh_train_kernels`` line (the GEMM's rows at
+   the shards' training shapes) and a ``dryrun`` line (phase 10),
    the script's wall time, a JSON ``kernels`` line
    (the six ported TPU kernels, the row quantize and the four row-parallel
    entries), then the JSON result as the last line.
@@ -5739,6 +5745,27 @@ def _family_cfg(key, remat, dtype=torch.bfloat16):
                                                          compute_dtype=dtype)
 
 
+def _held_before_step() -> tuple[int, int, int]:
+    """(bytes allocated on the card just before a run of steps, the
+    allocated and reserved peaks until then); the peaks restart, so
+    ``max_memory_allocated`` then reads the steps' own."""
+    torch.cuda.synchronize()
+    held = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+    torch.cuda.reset_peak_memory_stats()
+    return held
+
+
+def _step_memory(held: int, drawn: int, reserved: int) -> dict:
+    """A run of steps' memory record in GiB: the allocated and reserved
+    peaks since the state was drawn, the steps' own peak and what was held
+    before them."""
+    steps = torch.cuda.max_memory_allocated()
+    return dict(peak_gib=max(drawn, steps) / 2 ** 30, step_peak_gib=steps / 2 ** 30,
+                held_gib=held / 2 ** 30,
+                reserved_gib=max(reserved, torch.cuda.max_memory_reserved()) / 2 ** 30)
+
+
 def _mesh_train_rank(rank, work):
     """One rank of the mesh training phase (two ranks on ``cuda:0`` over
     gloo): (a)-(c) full olmo-1b in bf16 on each layout of
@@ -5750,8 +5777,9 @@ def _mesh_train_rank(rank, work):
     losses; (e)-(h) each family of ``MESH_TRAIN_FAMILIES`` in bf16 on its
     layouts, a row a step as (a)-(c); (i) each family in f32 at 2 layers (the
     VLM one period) on its first layout: gradients and loss as (d), no
-    optimizer step.  Writes ``rank<r>.json``
-    into ``work``."""
+    optimizer step.  Each bf16 run also records what the rank held on the
+    card before its first step and the steps' own peak.  Writes
+    ``rank<r>.json`` into ``work``."""
     from repro_torch.configs import get_config
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.data.pipeline import SyntheticLM, to_device
@@ -5781,12 +5809,12 @@ def _mesh_train_rank(rank, work):
         wq = state.params["stages"][0]["0"]["mixer"]["wq"]
         n_local = sum(t.numel() for t in tree_leaves(state.params))
         step = make_train_step(cfg, opt, mesh=mesh, compress_pod=compress)
+        held = _held_before_step()
         rows = []
         for i in range(n_steps):
             state, row = _timed_mesh_step(step, state, batches[i], mesh)
             rows.append(row)
-        out[key] = dict(steps=rows, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                        reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+        out[key] = dict(steps=rows, **_step_memory(*held),
                         wq_local=list(wq.shape), params_local=n_local)
         del state, step, wq
     gc.collect()
@@ -5851,13 +5879,13 @@ def _mesh_train_rank(rank, work):
             state = _mesh_train_state(cfg, opt, mesh, dev, R, opened=True)
             n_local = sum(t.numel() for t in tree_leaves(state.params))
             step = make_train_step(cfg, opt, mesh=mesh, main_repeats=R)
+            held = _held_before_step()
             rows = []
             for i in range(MESH_TRAIN_FAMILY_STEPS):
                 state, row = _timed_mesh_step(step, state, batches[i], mesh)
                 rows.append(row)
             fam[f"{key}/{mkey}"] = dict(
-                steps=rows, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+                steps=rows, **_step_memory(*held),
                 params_local=n_local, depth=R, n_fwd=_n_forward_gemms(cfg, R))
             del state, step
     out["families"] = fam
@@ -6024,6 +6052,8 @@ def mesh_train_phase():
             collectives_per_step=[x["collectives"] for x in rows[0]],
             wire_bytes_per_step=[x["wire_bytes"] for x in rows[0]],
             peak_gib=[r[key]["peak_gib"] for r in ranks],
+            step_peak_gib=[r[key]["step_peak_gib"] for r in ranks],
+            held_gib=[r[key]["held_gib"] for r in ranks],
             reserved_gib=[r[key]["reserved_gib"] for r in ranks],
             gemm_launches_per_step=[[x["launches"].get("block_gemm", 0) for x in r_]
                                     for r_ in rows],
@@ -6092,6 +6122,8 @@ def mesh_train_phase():
             collectives_per_step=[x["collectives"] for x in rows[0]],
             wire_bytes_per_step=[x["wire_bytes"] for x in rows[0]],
             peak_gib=[r["families"][fk]["peak_gib"] for r in ranks],
+            step_peak_gib=[r["families"][fk]["step_peak_gib"] for r in ranks],
+            held_gib=[r["families"][fk]["held_gib"] for r in ranks],
             reserved_gib=[r["families"][fk]["reserved_gib"] for r in ranks],
             gemm_launches_per_step=[[x["launches"].get("block_gemm", 0) for x in r_]
                                     for r_ in rows],
@@ -6179,6 +6211,148 @@ def _mesh_train_gates(key, rows, single, remat, n_fwd, problems):
                 problems.append(f"mesh train ({key}) rank {r} step {i}: launches "
                                 f"{row['launches']}, trans_a {row['trans_a']} (want "
                                 f"block_gemm {want_gemm}, trans_a {n_fwd}, nothing else)")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the pod-scale dry run (launch/dryrun.py) held against the card
+# ---------------------------------------------------------------------------
+
+DRY_PEAK_RTOL = 0.10  # (a): the predicted peak of a step against the card's, relative
+DRY_ACT_RTOL = 0.02  # (a): a forward + backward's peak above the state, relative
+# (d): production cells printed from the 16x16 dry mesh (the full-depth pass)
+DRY_CELLS = tuple((a, s) for a in ("olmo-1b", "qwen3-moe-30b-a3b", "kimi-k2-1t-a32b",
+                                   "jamba-v0.1-52b") for s in ("train_4k", "decode_32k"))
+
+
+def dryrun_phase(train, options, mesh_train, vlm):
+    """The dry run (``launch.cells.build_cell`` on meta tensors, counted by
+    ``launch.dry_costs.DryCounter`` over a ``launch.mesh.DryMesh``: nothing
+    allocated on any device) held against what this script measured on the
+    card:
+
+    (a) the training phase's own cell -- full olmo-1b, ``TRAIN_B`` x
+        ``TRAIN_S`` tokens, ``remat_policy="none"``, f32 moments, one device:
+        the predicted peak within ``DRY_PEAK_RTOL`` of that phase's
+        ``max_memory_allocated``, the predicted block GEMM calls equal to its
+        launches a step; and, under each ``REMAT`` policy, the predicted peak
+        of a forward + backward alone above the parameters (the activations
+        autograd saves, the recompute, the gradients) within
+        ``DRY_ACT_RTOL`` of ``train_options_phase``'s measured peak above
+        the state;
+    (b) ``mesh_train_phase``'s (a) (full olmo-1b at 1x2) and (e) (mamba2-130m
+        at 1x2 and 2x1 FSDP under ``full``) on dry meshes of their shapes:
+        collectives and wire bytes a step of rank 0 equal to the ones measured
+        at every step, exactly; the predicted arguments and a step's peak
+        above them printed beside what each rank held before its steps and
+        the steps' peak (not gated);
+    (c) ``vlm_phase``'s bf16 decode step (llama-3.2-vision-11b, B 2, slot
+        caches of ``VLM_CACHE`` rows): each kernel's predicted calls equal to
+        its launches a replay;
+    (d) ``DRY_CELLS`` on the 16x16 production mesh (full depth, no roofline
+        passes, to keep the phase short): each record printed.
+
+    A miss fails the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dry_costs import DryCounter
+    from repro_torch.launch.dryrun import count, run_cell, status
+    from repro_torch.launch.mesh import DryMesh, dry_production_mesh
+    from repro_torch.training import AdamWConfig
+    from repro_torch.training.step import value_and_grad
+    t_phase = time.time()
+    problems, out = [], {}
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS, moments_dtype="f32")
+    one = ("data", "model")
+    # (a)
+    cfg = get_config(TRAIN).with_(remat_policy="none")
+    c = count(build_cell(cfg, ShapeConfig("train", TRAIN_S, TRAIN_B, "train"),
+                         DryMesh((1, 1), one), opt=opt))
+    meas = train["f32"]["peak_gib"]
+    pred = c.peak / 2 ** 30
+    calls = dict(c.kernel_calls)
+    want = {"block_gemm": train["f32"]["gemm_launches_per_step"]}
+    out["a"] = dict(predicted_peak_gib=pred, measured_peak_gib=meas, rel=pred / meas - 1,
+                    predicted_calls=calls, measured_launches=want, memory=c.memory())
+    if not abs(pred - meas) <= DRY_PEAK_RTOL * meas:
+        problems.append(f"(a) predicted peak {pred:.3f} GiB vs measured {meas:.3f} GiB "
+                        f"(bound {DRY_PEAK_RTOL:.0%})")
+    if calls != want:
+        problems.append(f"(a) predicted kernel calls {calls} vs launches a step {want}")
+    log(f"dry run (a) {TRAIN} train {TRAIN_B} x {TRAIN_S}, one device: predicted peak "
+        f"{pred:.3f} GiB vs measured {meas:.3f} GiB ({pred / meas - 1:+.2%}); predicted "
+        f"{calls} vs {want} launches a step")
+    # (a) the activations: a forward + backward alone, as _policy_run measures it
+    for policy in REMAT:
+        cell = build_cell(get_config(TRAIN).with_(remat_policy=policy),
+                          ShapeConfig("train", TRAIN_S, TRAIN_B, "train"), DryMesh((1, 1), one))
+        state, batch = cell.args
+        c = DryCounter()
+        c.arguments(state.params)
+        with c:
+            value_and_grad(cell.cfg, state.params, batch)
+        pred = (c.peak - c.argument_bytes) / 2 ** 30
+        meas = options[policy]["grad_peak_above_state_gib"]
+        out[f"a/{policy}"] = dict(predicted_gib=pred, measured_gib=meas, rel=pred / meas - 1)
+        if not abs(pred - meas) <= DRY_ACT_RTOL * meas:
+            problems.append(f"(a) {policy}: predicted forward + backward peak {pred:.3f} GiB "
+                            f"above the parameters vs measured {meas:.3f} GiB above the state "
+                            f"(bound {DRY_ACT_RTOL:.0%})")
+        log(f"dry run (a) {TRAIN} forward + backward {TRAIN_B} x {TRAIN_S}, remat {policy}: "
+            f"predicted {pred:.3f} GiB above the parameters vs measured {meas:.3f} GiB above "
+            f"the state ({pred / meas - 1:+.2%})")
+    # (b) (family key or None for olmo-1b, layout key, the measured rows)
+    cases = {"a": (None, "a", mesh_train["layouts"]["a"]),
+             "e/a": ("e", "a", mesh_train["families"]["e/a"]),
+             "e/b": ("e", "b", mesh_train["families"]["e/b"])}
+    for key, (fam, lay, row) in cases.items():
+        shape, axes, remat = MESH_TRAIN_LAYOUTS[lay][:3]
+        arch, B, S = TRAIN, TRAIN_B, TRAIN_S
+        if fam:
+            arch, _, B, S = MESH_TRAIN_FAMILIES[fam][:4]
+            remat = dict(MESH_TRAIN_FAMILIES[fam][1])[lay]
+        m = DryMesh(shape, axes)
+        c = count(build_cell(get_config(arch).with_(remat_policy=remat),
+                             ShapeConfig("train", S, B, "train"), m, opt=opt))
+        got = [m.collectives, m.wire_bytes]
+        steps = [list(x) for x in zip(row["collectives_per_step"], row["wire_bytes_per_step"])]
+        args, peak = c.argument_bytes / 2 ** 30, c.peak / 2 ** 30
+        above = [p - h for p, h in zip(row["step_peak_gib"], row["held_gib"])]
+        out[f"b/{key}"] = dict(predicted=got, measured=steps, predicted_arguments_gib=args,
+                               predicted_peak_gib=peak, held_gib=row["held_gib"],
+                               step_peak_gib=row["step_peak_gib"],
+                               predicted_above_gib=peak - args, measured_above_gib=above)
+        if any(x != got for x in steps):
+            problems.append(f"(b) {key}: predicted {got} collectives and bytes a step, "
+                            f"measured {steps}")
+        log(f"dry run (b) {key} {arch} {shape} remat {remat}: predicted {got[0]} collectives "
+            f"and {got[1]:,} bytes a step a rank; measured {steps}")
+        log(f"dry run (b) {key} memory (not gated): predicted arguments {args:.3f} GiB and a "
+            f"peak {peak:.3f} GiB ({peak - args:.3f} above them); ranks 0 / 1 held "
+            + " / ".join(f"{h:.3f}" for h in row["held_gib"]) + " GiB before their steps, "
+            "whose peak was " + " / ".join(f"{p:.3f}" for p in row["step_peak_gib"])
+            + " GiB (" + " / ".join(f"{a:.3f}" for a in above) + " above)")
+    # (c)
+    c = count(build_cell(get_config(VLM), ShapeConfig("decode", VLM_CACHE, VLM_B, "decode"),
+                         DryMesh((1, 1), one)))
+    calls, want = dict(c.kernel_calls), vlm["vlm"]["bf16"]["per_replay"]
+    out["c"] = dict(predicted=calls, measured=want)
+    if calls != want:
+        problems.append(f"(c) {VLM} decode step: predicted {calls}, launched {want}")
+    log(f"dry run (c) {VLM} bf16 decode step, B {VLM_B}, slot caches of {VLM_CACHE}: "
+        f"predicted {calls}; launched a replay {want}")
+    # (d)
+    mesh = dry_production_mesh()
+    for arch, shape in DRY_CELLS:
+        t0 = time.time()
+        rec = run_cell(arch, shape, mesh, "pod16x16", overrides={}, opt=AdamWConfig(),
+                       do_roofline=False)
+        log(f"dry run (d) [{time.time() - t0:.1f} s] {arch} {shape} {status(rec)}")
+        log(json.dumps({"dryrun_cell": rec}))
+    out["wall_s"] = time.time() - t_phase
+    if problems:
+        fail("dry run: " + "; ".join(problems))
+    return out
 
 
 def main() -> int:
@@ -6277,6 +6451,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_train = mesh_train_phase()
+    dry = dryrun_phase(train, options, mesh_train, vlm)
 
     def pick(name, shape):  # the row's contract keys
         row = next(r for r in rows[name] if r["shape"] == shape)
@@ -6391,11 +6566,12 @@ def main() -> int:
                           for row in mesh_train["gemm_rows"]]
     log(json.dumps({"mesh_train": mesh_train}))
     log(json.dumps({"mesh_train_kernels": mesh_train_kernels}))
+    log(json.dumps({"dryrun": dry}))
     log(f"chip_smoke wall time {time.time() - t_start:.1f} s (the serve phase "
         f"{served['wall_s']:.1f} s, the mesh phase {meshed['wall_s']:.1f} s, the SSM engine phases {ssm['wall_s']:.1f} s, the VLM and "
         f"encoder phases {vlm['wall_s']:.1f} s, the training phases {train['wall_s']:.1f} s, "
         f"the training options {options['wall_s']:.1f} s, the mesh training phase "
-        f"{mesh_train['wall_s']:.1f} s)")
+        f"{mesh_train['wall_s']:.1f} s, the dry run {dry['wall_s']:.1f} s)")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,9 @@ two halves apart: :func:`block_gemm_int8_acc` stores the raw int32 sums,
 the ranks add them exactly, and :func:`int8_epilogue` scales the whole
 sum.  Each wrapper's ``.launches`` counts its kernel launches;
 ``block_gemm``'s ``.trans_a_launches`` those of them that read A
-transposed (the weight gradients of a train step).
+transposed (the weight gradients of a train step).  Inside a dry run
+(``kernels.dry``) a meta tensor takes the CUDA route up to the launch and
+reports the call instead.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, dry
 from repro_torch.kernels.ref import (block_gemm_int8_acc_ref, block_gemm_int8_ref,
                                      block_gemm_ref, int8_epilogue_ref)
 
@@ -143,7 +145,7 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
         raise ValueError("block_gemm: trans_a and trans_b together are not supported")
     if a.device.type == "cpu":
         return block_gemm_ref(a, b, out_dtype, trans_b, trans_a)
-    if a.device.type != "cuda" or b.device != a.device:
+    if not dry.on_card(a) or b.device != a.device:
         raise ValueError(f"block_gemm: a on {a.device}, b on {b.device}")
     ka, kb = (0 if trans_a else 1), (1 if trans_b else 0)
     if a.dim() != 2 or b.dim() != 2 or a.shape[ka] != b.shape[kb]:
@@ -162,6 +164,10 @@ def block_gemm(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
         return c
     if K == 0:
         return c.zero_()
+    if c.is_meta:
+        dry.report("block_gemm", flops=2 * M * N * K, nbytes=a.nbytes + b.nbytes + c.nbytes,
+                   outputs=(c,))
+        return c
     err = _entry()(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
                    int(a.dtype == torch.bfloat16),
                    int(out_dtype == torch.bfloat16), int(trans_a), int(trans_b),
@@ -194,6 +200,10 @@ def block_gemm_int8(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
         return c
     if K == 0:
         return c.zero_()
+    if c.is_meta:
+        dry.report("block_gemm_int8", flops=2 * M * N * K, nbytes=a_q.nbytes + b_q.nbytes
+                   + a_scale.nbytes + b_scale.nbytes + c.nbytes, outputs=(c,))
+        return c
     route, splits, sms = _int8_plan(a_q, b_q)
     err = _entry_int8()(a_q.data_ptr(), b_q.data_ptr(), a_scale.data_ptr(),
                         b_scale.data_ptr(), c.data_ptr(), M, N, K,
@@ -210,7 +220,7 @@ block_gemm_int8.launches = 0
 def _int8_operands(what: str, a_q, b_q) -> tuple[int, int, int]:
     """Checks a_q [M, K] and b_q [N, K] (int8, contiguous, on one card);
     returns (M, N, K)."""
-    if a_q.device.type != "cuda" or b_q.device != a_q.device:
+    if not dry.on_card(a_q) or b_q.device != a_q.device:
         raise ValueError(f"{what}: a_q on {a_q.device}, b_q on {b_q.device}")
     if not (a_q.is_contiguous() and b_q.is_contiguous()):
         raise ValueError(f"{what}: a_q and b_q must be contiguous")
@@ -262,6 +272,10 @@ def block_gemm_int8_acc(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
         return acc
     if K == 0:
         return acc.zero_()
+    if acc.is_meta:
+        dry.report("block_gemm_int8_acc", flops=2 * M * N * K,
+                   nbytes=a_q.nbytes + b_q.nbytes + acc.nbytes, outputs=(acc,))
+        return acc
     route, splits, sms = _int8_plan(a_q, b_q)
     err = _entry_acc()(a_q.data_ptr(), b_q.data_ptr(), acc.data_ptr(), M, N, K, route,
                        splits, sms, _build.stream_ptr(a_q.device))
@@ -283,7 +297,7 @@ def int8_epilogue(acc: torch.Tensor, a_scale: torch.Tensor, b_scale: torch.Tenso
     _build.refuse_grad("int8_epilogue", acc, a_scale, b_scale)
     if acc.device.type == "cpu":
         return int8_epilogue_ref(acc, a_scale, b_scale, out_dtype)
-    if acc.device.type != "cuda" or acc.dtype != torch.int32 or acc.dim() != 2 \
+    if not dry.on_card(acc) or acc.dtype != torch.int32 or acc.dim() != 2 \
             or not acc.is_contiguous():
         raise ValueError(f"int8_epilogue: acc {tuple(acc.shape)} {acc.dtype} on "
                          f"{acc.device}: a contiguous [M, N] int32 on the card")
@@ -291,6 +305,10 @@ def int8_epilogue(acc: torch.Tensor, a_scale: torch.Tensor, b_scale: torch.Tenso
     _check_scales("int8_epilogue", acc.device, M, N, a_scale, b_scale, out_dtype)
     c = torch.empty((M, N), dtype=out_dtype, device=acc.device)
     if M == 0 or N == 0:
+        return c
+    if c.is_meta:
+        dry.report("int8_epilogue", flops=2 * M * N, nbytes=acc.nbytes + a_scale.nbytes
+                   + b_scale.nbytes + c.nbytes, outputs=(c,))
         return c
     err = _entry_epi()(acc.data_ptr(), a_scale.data_ptr(), b_scale.data_ptr(), c.data_ptr(),
                        M, N, int(out_dtype == torch.bfloat16), _sm_count(acc.device),

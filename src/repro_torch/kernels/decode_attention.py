@@ -10,7 +10,9 @@ the partials in block order, in the same launch.  On rows wider than 256
 columns (MLA's latent call: 40 heads over one latent head, q 288 wide) a
 kv-head with more than 8 query heads has them split into
 :func:`head_groups` groups, a CUDA block each.  Each wrapper's
-``.launches`` counts its launches.
+``.launches`` counts its launches.  Inside a dry run (``kernels.dry``) a
+meta tensor takes the CUDA route up to the launch and reports the call
+instead, its partials and tickets included.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, dry
 from repro_torch.kernels.ref import flash_decode_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -63,7 +65,7 @@ def decode_scratch(B: int, H: int, K: int, S: int, dv: int,
 def _launch(name, q, k, v, pos, start, pages, *, ring, softcap, scale, dv):
     """Checks and one launch of the decode kernel on slot caches (``pages``
     None) or page pools; raises where the kernel refuses."""
-    if q.device.type != "cuda":
+    if not dry.on_card(q):
         raise ValueError(f"{name}: q on {q.device}")
     B, H, dq = q.shape
     dev = q.device
@@ -100,6 +102,14 @@ def _launch(name, q, k, v, pos, start, pages, *, ring, softcap, scale, dv):
     out = torch.empty((B, H, dv), dtype=q.dtype, device=dev)
     if B == 0 or S == 0 or H == 0:
         return out.zero_()
+    if out.is_meta:  # every row may be live: pos and start are data
+        dry.scratch(*decode_scratch(B, H, K, S, dv, dq))
+        rows = B * S * K  # the rows of k (and of v, unless v is k) the slots read
+        kv = rows * (dq * k.element_size() + (0 if v is k else dv * v.element_size()))
+        dry.report(name, flops=2 * B * S * H * (dq + dv),
+                   nbytes=q.nbytes + kv + pos.nbytes + start.nbytes + out.nbytes
+                   + (pages.nbytes if pages is not None else 0), outputs=(out,))
+        return out
     stream = _build.stream_ptr(dev)
     part, tickets = _build.scratch(dev, stream, *decode_scratch(B, H, K, S, dv, dq))
     scale = scale if scale is not None else dq ** -0.5
@@ -133,7 +143,7 @@ def flash_decode(q, k, v, pos, start, *, layout: str = "linear",
         raise ValueError(f"flash_decode: layout {layout!r}")
     out = _launch("flash_decode", q, k, v, pos, start, None, ring=layout == "ring",
                   softcap=softcap, scale=scale, dv=dv)
-    flash_decode.launches += 1
+    flash_decode.launches += int(not out.is_meta)  # a dry run's call launches nothing
     return out
 
 
@@ -155,7 +165,7 @@ def flash_decode_paged(q, k, v, pos, start, pages, *, softcap: float = 0.0,
                                 softcap=softcap, scale=scale, dv=dv)
     out = _launch("flash_decode_paged", q, k, v, pos, start, pages, ring=False,
                   softcap=softcap, scale=scale, dv=dv)
-    flash_decode_paged.launches += 1
+    flash_decode_paged.launches += int(not out.is_meta)  # a dry run's call launches nothing
     return out
 
 

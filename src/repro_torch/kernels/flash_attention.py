@@ -4,7 +4,8 @@ plain versions on the CPU.
 Ports of ``repro.kernels.flash_attention.flash_attention`` (TPU kernel
 ``_fa_kernel``, dense) and ``_flash_attention_paged`` (``_fa_kernel_paged``,
 chunked prefill over page pools).  Each wrapper's ``.launches`` counts its
-launches.
+launches.  Inside a dry run (``kernels.dry``) a meta tensor takes the CUDA
+route up to the launch and reports the call instead.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, dry
 from repro_torch.kernels.ref import flash_attention_paged_ref, flash_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -58,7 +59,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale, softcap=softcap)
-    if q.device.type != "cuda":
+    if not dry.on_card(q):
         raise ValueError(f"flash_attention: q on {q.device}")
     dev = q.device
     for name, t in (("k", k), ("v", v)):
@@ -80,6 +81,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=dev).transpose(1, 2)
     if B == 0 or Sq == 0 or H == 0:
         return out
+    if out.is_meta:
+        pairs = attended_pairs(Sq, Sk, causal, window)
+        dry.report("flash_attention", flops=4 * B * H * pairs * d,
+                   nbytes=q.nbytes + k.nbytes + v.nbytes + out.nbytes, outputs=(out,))
+        return out
     scale = scale if scale is not None else d ** -0.5
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in t.stride()[:3]))
@@ -93,6 +99,22 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+
+
+def attended_pairs(Sq: int, Sk: int, causal: bool, window: int = 0) -> int:
+    """(query, key) pairs dense attention computes: every pair, or, causal,
+    query row i (at position ``i + Sk - Sq``) over the ``min(pos + 1,
+    window)`` keys that end at its position -- summed in closed form."""
+    if not causal:
+        return Sq * Sk
+    a, b = max(1, Sk - Sq + 1), Sk  # keys the first and the last row see, no window
+    if a > b:
+        return 0
+    if not window:
+        return (a + b) * (b - a + 1) // 2
+    c = min(b, window)
+    below = (a + c) * (c - a + 1) // 2 if a <= c else 0
+    return below + window * max(0, b - max(a, window + 1) + 1)
 
 
 _SPLIT = 128  # key rows per piece of a paged slot (FAP_SPLIT in the source)
@@ -143,7 +165,7 @@ def flash_attention_paged(q, k, v, pages, q_start, k_len, *, window: int = 0,
         return flash_attention_paged_ref(q, k, v, pages, q_start, k_len,
                                          window=window, scale=scale,
                                          softcap=softcap)
-    if q.device.type != "cuda":
+    if not dry.on_card(q):
         raise ValueError(f"flash_attention_paged: q on {q.device}")
     dev = q.device
     for name, t in (("k", k), ("v", v), ("pages", pages), ("q_start", q_start),
@@ -172,8 +194,17 @@ def flash_attention_paged(q, k, v, pages, q_start, k_len, *, window: int = 0,
         return out
     ps, npp = k.shape[1], pages.shape[1]
     bf16 = q.dtype == torch.bfloat16
-    stream = _build.stream_ptr(dev)
     n_part, n_tickets = paged_scratch(B, H, C, d, npp, ps) if bf16 else (0, 0)
+    if out.is_meta:  # every row of the table may be live: k_len is data
+        if n_part:
+            dry.scratch(n_part, n_tickets)
+        K, keys = k.shape[2], npp * ps
+        dry.report("flash_attention_paged", flops=4 * B * H * C * keys * d,
+                   nbytes=q.nbytes + out.nbytes + pages.nbytes + q_start.nbytes
+                   + k_len.nbytes + 2 * B * keys * K * d * k.element_size(),
+                   outputs=(out,))
+        return out
+    stream = _build.stream_ptr(dev)
     part = tickets = None
     if n_part:
         part, tickets = _build.scratch(dev, stream, n_part, n_tickets)

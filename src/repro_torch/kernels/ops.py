@@ -1,9 +1,11 @@
 """Public kernel entry points (port of ``repro.kernels.ops``).
 
 A CUDA tensor launches the hand-written kernel; a CPU tensor takes the
-kernel's plain version.  There is no other branch and no fallback.  The
-block GEMM is trainable (:data:`CGRA_MATMUL`, with the reference's custom VJP);
-every other kernel wrapper raises under autograd (``_build.refuse_grad``).
+kernel's plain version; a meta tensor, only inside a dry run
+(``kernels.dry``), is counted as the kernel's call.  There is no other
+branch and no fallback.  The block GEMM is trainable (:data:`CGRA_MATMUL`,
+with the reference's custom VJP); every other kernel wrapper raises under
+autograd (``_build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -62,6 +64,15 @@ def _cgra_matmul_backward(ctx, g):
         gb = (block_gemm(gt, a, trans_a=True) if ctx.trans_b
               else block_gemm(a, gt, trans_a=True)).to(b.dtype)
     return ga, gb, None, None
+
+
+@_cgra_matmul_op.register_fake
+def _cgra_matmul_meta(a, b, out_dtype, trans_b):
+    """The operator on meta tensors: the wrapper's own meta route, which
+    inside a dry run allocates the output and reports the one call (the
+    operator reaches a dispatch mode as one op, so the GEMM is counted here
+    and nowhere else) and outside one raises as the wrapper does."""
+    return block_gemm(a, b, out_dtype=out_dtype, trans_b=trans_b)
 
 
 _cgra_matmul_op.register_autograd(_cgra_matmul_backward, setup_context=_cgra_matmul_setup)

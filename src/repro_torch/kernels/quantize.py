@@ -7,7 +7,8 @@ XLA fuses into one pass.  A row whose K is cut over a mesh's ranks (the
 row-parallel w8a8 GEMM, ``core.gemm.cgra_gemm_w8a8_row``) takes its two
 passes apart: :func:`row_amax`, then, after the ranks' maxima are joined,
 :func:`quantize_rows_given`.  Each wrapper's ``.launches`` counts its
-kernel's launches.
+kernel's launches.  Inside a dry run (``kernels.dry``) a meta tensor takes
+the CUDA route up to the launch and reports the call instead.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, dry
 from repro_torch.kernels.ref import quantize_rows_given_ref, quantize_rows_ref, row_amax_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -33,7 +34,7 @@ def _entry(fn: str, n_ptrs: int):
 
 def _check_x(what: str, x):
     _build.refuse_grad(what, x)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type != "cpu" and not dry.on_card(x):
         raise ValueError(f"{what}: x on {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"{what}: dtype {x.dtype}")
@@ -56,6 +57,10 @@ def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     if M == 0:
         return q, scale
+    if x.is_meta:
+        dry.report("quantize_rows", flops=0, nbytes=x.nbytes + q.nbytes + scale.nbytes,
+                   outputs=(q, scale))
+        return q, scale
     err = _entry("repro_quantize_rows", 3)(x.data_ptr(), q.data_ptr(), scale.data_ptr(), M,
                                            K, int(x.dtype == torch.bfloat16),
                                            _build.stream_ptr(x.device))
@@ -76,6 +81,9 @@ def row_amax(x: torch.Tensor) -> torch.Tensor:
     M, K = x.shape
     amax = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     if M == 0:
+        return amax
+    if x.is_meta:
+        dry.report("row_amax", flops=0, nbytes=x.nbytes + amax.nbytes, outputs=(amax,))
         return amax
     err = _entry("repro_row_amax", 2)(x.data_ptr(), amax.data_ptr(), M, K,
                                       int(x.dtype == torch.bfloat16),
@@ -107,6 +115,10 @@ def quantize_rows_given(x: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tens
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     if M == 0:
+        return q, scale
+    if x.is_meta:
+        dry.report("quantize_rows_given", flops=0, nbytes=x.nbytes + amax.nbytes + q.nbytes
+                   + scale.nbytes, outputs=(q, scale))
         return q, scale
     err = _entry("repro_quantize_rows_given", 4)(
         x.data_ptr(), amax.data_ptr(), q.data_ptr(), scale.data_ptr(), M, K,

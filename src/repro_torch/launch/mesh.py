@@ -36,7 +36,15 @@ Under gloo a CUDA tensor is copied to the host for every collective and
 back after it (:meth:`Mesh._host`): one rule, written here once.  The copy
 is gloo's price on a card, not a choice made behind the caller's back.
 :attr:`Mesh.collectives` and :attr:`Mesh.wire_bytes` count what the mesh
-issued (bytes: the payload this rank hands each collective).
+issued (bytes: the payload this rank hands each collective).  Each
+collective builds its payload and counts it (:meth:`Mesh._count`) in one
+method, and hands it to one small transport method (``_reduce``,
+``_gather``, ``_scatter``, ``_bcast``, ``_hop``, ``_barrier``) that makes
+the ``dist`` call.  :class:`DryMesh` is the same grid over no process
+group, whose transports communicate nothing: the dry run
+(``launch.dryrun``) drives the port's steps at pod scale on it and counts
+exactly what a live mesh counts, each collective's kind, axis, group size
+and payload recorded (:attr:`Mesh.records`).
 
 Not ported: the reference's ``AxisType`` shims and ``jax.make_mesh``'s
 device ordering (a rank list is the order).  Defined as functions and
@@ -69,11 +77,28 @@ class Mesh:
     the world in the same order, as ``dist.new_group`` requires."""
 
     def __init__(self, ranks: np.ndarray, axes: tuple):
+        self._grid(ranks, axes, this_rank(),
+                   dist.get_backend() if dist.is_initialized() else None)
+        if self.ranks.size == 1:
+            return
+        for ax, lines in self._axis_lines():
+            for line in lines:
+                g = dist.new_group(line)
+                if self.rank in line:
+                    self.groups[ax] = (g, line)
+        everyone = [int(r) for r in self.ranks.reshape(-1)]
+        g = (dist.group.WORLD if len(everyone) == world_size()
+             else dist.new_group(everyone))
+        if self.rank in everyone:
+            self.groups[None] = (g, everyone)
+
+    def _grid(self, ranks, axes: tuple, rank: int, backend):
+        """The grid, this rank's place on it and empty counts (no group)."""
         self.ranks = np.asarray(ranks, dtype=np.int64)
         self.axis_names = tuple(axes)
         self.shape = OrderedDict(zip(self.axis_names, self.ranks.shape))
-        self.rank = this_rank()
-        self.backend = dist.get_backend() if dist.is_initialized() else None
+        self.rank = rank
+        self.backend = backend
         where = np.argwhere(self.ranks == self.rank)
         self.coords = (dict(zip(self.axis_names, (int(i) for i in where[0])))
                        if len(where) else None)
@@ -81,22 +106,18 @@ class Mesh:
         self.collectives = 0
         #: bytes this rank handed to those collectives
         self.wire_bytes = 0
+        #: (kind, axis, group size, payload bytes) of each collective, kept
+        #: by a :class:`DryMesh` (None: not kept)
+        self.records = None
         self.groups: dict = {}
-        if self.ranks.size == 1:
-            return
+
+    def _axis_lines(self):
+        """(axis, every line of ranks along it) for each axis longer than 1."""
         for ax_i, ax in enumerate(self.axis_names):
-            if self.ranks.shape[ax_i] == 1:
-                continue
-            lines = np.moveaxis(self.ranks, ax_i, -1).reshape(-1, self.ranks.shape[ax_i])
-            for line in lines:
-                g = dist.new_group([int(r) for r in line])
-                if self.rank in line:
-                    self.groups[ax] = (g, [int(r) for r in line])
-        everyone = [int(r) for r in self.ranks.reshape(-1)]
-        g = (dist.group.WORLD if len(everyone) == world_size()
-             else dist.new_group(everyone))
-        if self.rank in everyone:
-            self.groups[None] = (g, everyone)
+            n = self.ranks.shape[ax_i]
+            if n > 1:
+                lines = np.moveaxis(self.ranks, ax_i, -1).reshape(-1, n)
+                yield ax, [[int(r) for r in line] for line in lines]
 
     @property
     def devices(self) -> np.ndarray:
@@ -126,9 +147,36 @@ class Mesh:
         host copy of a CUDA tensor (gloo moves host memory)."""
         return x.cpu() if self.backend == "gloo" and x.is_cuda else x
 
-    def _count(self, t):
+    def _count(self, t, kind: str, axis):
+        n = t.numel() * t.element_size()
         self.collectives += 1
-        self.wire_bytes += t.numel() * t.element_size()
+        self.wire_bytes += n
+        if self.records is not None:
+            self.records.append((kind, axis, len(self.peers(axis)), n))
+
+    # -- transports: the one ``dist`` call of each collective ---------------
+
+    def _reduce(self, t, axis, op=dist.ReduceOp.SUM):
+        dist.all_reduce(t, op=op, group=self.groups[axis][0])
+
+    def _gather(self, parts, t, axis):
+        dist.all_gather(parts, t, group=self.groups[axis][0])
+
+    def _scatter(self, out, t, axis):
+        dist.reduce_scatter_tensor(out, t, group=self.groups[axis][0])
+
+    def _bcast(self, t, axis):
+        g, line = self.groups[axis]
+        dist.broadcast(t, src=line[0], group=g)
+
+    def _hop(self, send, recv, axis, shift: int) -> list:
+        g, line = self.groups[axis]
+        n, i = len(line), line.index(self.rank)
+        return dist.batch_isend_irecv([dist.P2POp(dist.isend, send, line[(i + shift) % n], g),
+                                       dist.P2POp(dist.irecv, recv, line[(i - shift) % n], g)])
+
+    def _barrier(self):
+        dist.barrier(group=self.groups[None][0])
 
     def all_reduce(self, x, axis: str = "model"):
         """Sum of ``x`` over ``axis`` in f32, cast back to x's dtype: the
@@ -136,8 +184,8 @@ class Mesh:
         if axis not in self.groups:
             return x
         t = self._host(x.float().contiguous())
-        self._count(t)
-        dist.all_reduce(t, group=self.groups[axis][0])
+        self._count(t, "all-reduce", axis)
+        self._reduce(t, axis)
         return t.to(device=x.device, dtype=x.dtype)
 
     def all_sum_int(self, x, axis: str = "model"):
@@ -150,8 +198,8 @@ class Mesh:
         if axis not in self.groups:
             return x
         t = self._host(x.contiguous())
-        self._count(t)
-        dist.all_reduce(t, group=self.groups[axis][0])
+        self._count(t, "all-reduce", axis)
+        self._reduce(t, axis)
         return t.to(x.device)
 
     def all_max(self, x, axes):
@@ -160,8 +208,8 @@ class Mesh:
         for axis in _axes(axes):
             if axis in self.groups:
                 t = self._host(x.contiguous())
-                self._count(t)
-                dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.groups[axis][0])
+                self._count(t, "all-reduce", axis)
+                self._reduce(t, axis, dist.ReduceOp.MAX)
                 x = t.to(x.device)
         return x
 
@@ -171,11 +219,10 @@ class Mesh:
         for a in reversed(_axes(axis)):
             if a not in self.groups:
                 continue
-            g, line = self.groups[a]
             t = self._host(x.contiguous())
-            self._count(t)
-            parts = [torch.empty_like(t) for _ in line]
-            dist.all_gather(parts, t, group=g)
+            self._count(t, "all-gather", a)
+            parts = [torch.empty_like(t) for _ in self.groups[a][1]]
+            self._gather(parts, t, a)
             x = torch.cat(parts, dim).to(x.device)
         return x
 
@@ -186,11 +233,10 @@ class Mesh:
         for a in _axes(axis):
             if a not in self.groups:
                 continue
-            g, line = self.groups[a]
             t = self._host(x.float().movedim(dim, 0).contiguous())
-            self._count(t)
-            out = t.new_empty((t.shape[0] // len(line), *t.shape[1:]))
-            dist.reduce_scatter_tensor(out, t, group=g)
+            self._count(t, "reduce-scatter", a)
+            out = t.new_empty((t.shape[0] // len(self.groups[a][1]), *t.shape[1:]))
+            self._scatter(out, t, a)
             x = out.movedim(0, dim).to(device=x.device, dtype=x.dtype)
         return x
 
@@ -199,16 +245,15 @@ class Mesh:
         rank of the mesh), everywhere."""
         if axis not in self.groups:
             return x
-        g, line = self.groups[axis]
         t = self._host(x.contiguous())
-        self._count(t)
-        dist.broadcast(t, src=line[0], group=g)
+        self._count(t, "broadcast", axis)
+        self._bcast(t, axis)
         return t.to(x.device)
 
     def barrier(self):
         """Every rank of the mesh waits for the others here."""
         if None in self.groups:
-            dist.barrier(group=self.groups[None][0])
+            self._barrier()
 
     def ring_shift(self, x, axis: str = "model", shift: int = 1) -> "RingHop":
         """Send ``x`` to the rank ``shift`` places on along ``axis``'s ring
@@ -216,14 +261,60 @@ class Mesh:
         reference's ``ppermute`` with ``_ring_perm``): returns a
         :class:`RingHop` whose :meth:`~RingHop.wait` gives the received
         tensor.  The caller runs its GEMM between the two."""
-        g, line = self.groups[axis]
-        n, i = len(line), line.index(self.rank)
         send = self._host(x.contiguous())
-        self._count(send)
+        self._count(send, "collective-permute", axis)
         recv = torch.empty_like(send)
-        ops = [dist.P2POp(dist.isend, send, line[(i + shift) % n], g),
-               dist.P2POp(dist.irecv, recv, line[(i - shift) % n], g)]
-        return RingHop(dist.batch_isend_irecv(ops), recv, x.device, send)
+        return RingHop(self._hop(send, recv, axis, shift), recv, x.device, send)
+
+
+class DryMesh(Mesh):
+    """The grid of :class:`Mesh` (``shape`` over ``axes``, rank-major) as
+    rank ``rank`` sees it, over no process group: the same ``coords``,
+    ``size``, ``index`` and ``peers``, and transports that communicate
+    nothing.  An all-reduce (sum, int sum, max) leaves its payload as it
+    is, an all-gather concatenates ``n`` shards (left unset) along ``dim``,
+    a reduce-scatter returns this rank's slice (left unset), a broadcast
+    its input, and a ring hop's ``wait`` a tensor shaped like the one sent.
+    Everything else is :class:`Mesh`'s own code, so :attr:`collectives` and
+    :attr:`wire_bytes` are the live mesh's by construction, and
+    :attr:`records` keeps each collective's (kind, axis, group size,
+    payload bytes) for ``launch.roofline.collective_bytes``.  The dry run
+    (``launch.dryrun``) drives the port on it with meta tensors."""
+
+    def __init__(self, shape, axes, rank: int = 0):
+        self._grid(np.arange(math.prod(shape)).reshape(tuple(shape)), axes, rank, None)
+        self.records = []
+        for ax, lines in self._axis_lines():
+            self.groups[ax] = (None, next(line for line in lines if rank in line))
+        if self.ranks.size > 1:
+            self.groups[None] = (None, [int(r) for r in self.ranks.reshape(-1)])
+
+    def _reduce(self, t, axis, op=None):
+        pass
+
+    def _gather(self, parts, t, axis):
+        pass
+
+    def _scatter(self, out, t, axis):
+        pass
+
+    def _bcast(self, t, axis):
+        pass
+
+    def _hop(self, send, recv, axis, shift: int) -> list:
+        return []
+
+    def _barrier(self):
+        pass
+
+
+def dry_production_mesh(multi_pod: bool = False) -> DryMesh:
+    """The pod-scale mesh of :func:`make_production_mesh` as a
+    :class:`DryMesh`: 16 x 16 ``("data", "model")`` (256 ranks), or with
+    ``multi_pod`` 2 x 16 x 16 ``("pod", "data", "model")`` (512), rank 0."""
+    if multi_pod:
+        return DryMesh((2, 16, 16), ("pod", "data", "model"))
+    return DryMesh((16, 16), ("data", "model"))
 
 
 def _axes(axes) -> tuple:

@@ -49,6 +49,7 @@ from repro_torch.core import round_up
 from repro_torch.core.cache import CacheLayout
 from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8, cgra_gemm_w8a8_row, quantize_act
 from repro_torch.core.quant import QTensor
+from repro_torch.kernels import dry
 from repro_torch.kernels._build import records
 from repro_torch.kernels.ops import attend_decode, attention
 from repro_torch.kernels.ref import flash_attention_ref
@@ -386,7 +387,14 @@ def plain_attention(q, k, v, *, causal: bool, window: int = 0, softcap: float = 
     336-350``): with ``0 < chunk < Sq`` the queries are padded to a multiple
     of ``chunk`` and each block of ``chunk`` rows runs over all keys at its
     own positions, so a block's f32 scores are [B,H,chunk,Sk] instead of
-    [B,H,Sq,Sk]; the padded rows are sliced off."""
+    [B,H,Sq,Sk]; the padded rows are sliced off.  Inside a dry run its
+    traffic, forward and backward, is also booked as ``attn_core``
+    (``kernels.dry.scoped``): what a flash kernel would keep on chip."""
+    return dry.scoped("attn_core", _plain_attention, q, k, v, causal=causal, window=window,
+                      softcap=softcap, chunk=chunk)
+
+
+def _plain_attention(q, k, v, *, causal: bool, window: int, softcap: float, chunk: int):
     Sq, Sk = q.shape[2], k.shape[2]
     if not chunk or Sq <= chunk:
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)

@@ -921,7 +921,8 @@ def loss_fn(cfg: ArchConfig, params, batch: dict, *, attn_chunk: int = 0,
 
 
 def prefill(cfg: ArchConfig, params, tokens, *, images=None, past=None,
-            past_len: int = 0, full_kv: bool = False, cache_len: int | None = None):
+            past_len: int = 0, full_kv: bool = False, cache_len: int | None = None,
+            attn_chunk: int = 0, main_repeats: int | None = None):
     """Whole-prompt prefill of tokens [B, S].  Returns (last-row logits
     [B, 1, Vp] f32, caches).  ``images`` [B, vision_tokens, vision_dim]: a
     cross model's patch embeddings (required there; their K/V are cached).
@@ -932,27 +933,44 @@ def prefill(cfg: ArchConfig, params, tokens, *, images=None, past=None,
     row and decode windows through ``start``).
     ``cache_len``: zero-pad every ``kv_seq`` leaf to that capacity so that
     ``decode_step`` can decode into it directly (SSD state and image K/V
-    leaves are already whole).  An encoder has no prefill."""
+    leaves are already whole).  ``attn_chunk`` / ``main_repeats``: see
+    :func:`forward_hidden`.  An encoder has no prefill."""
     hidden, caches = forward_hidden(cfg, params, tokens, mode="prefill",
                                     caches=past, past_len=past_len, images=images,
-                                    full_kv=full_kv)
+                                    full_kv=full_kv, attn_chunk=attn_chunk,
+                                    main_repeats=main_repeats)
     logits = lm_logits(cfg, params, hidden[:, -1:].contiguous())
     if cache_len is not None:
         caches = pad_cache_len(cfg, caches, cache_len)
     return logits, caches
 
 
-def decode_step(cfg: ArchConfig, params, caches, token, pos, *, pages=None):
+def encode(cfg: ArchConfig, params, frames, *, attn_chunk: int = 0,
+           main_repeats: int | None = None):
+    """An encoder's inference forward (hubert): frames [B, S,
+    frontend_dim] -> every frame's f32 logits [B, S, Vp], attending both
+    ways; the attention on its kernel outside autograd.  The dry run's
+    prefill cell of an encoder, which has no causal prefill.
+    ``attn_chunk`` / ``main_repeats``: see :func:`forward_hidden`."""
+    hidden, _ = forward_hidden(cfg, params, mode="train", frames=frames,
+                               attn_chunk=attn_chunk, main_repeats=main_repeats)
+    return lm_logits(cfg, params, hidden)
+
+
+def decode_step(cfg: ArchConfig, params, caches, token, pos, *, pages=None,
+                main_repeats: int | None = None):
     """One-token decode.  token: [B, 1]; pos: an int (every slot at the
     same row) or [B] int32 (each slot at its own row).  ``pages`` [B, npp]
     int32 switches ``caches`` from slot caches (linear for global layers, a
     ring for sliding-window ones) to page pools.  The new row is written in
-    place; a cross model reads its prefill's image K/V.  Returns (logits
+    place; a cross model reads its prefill's image K/V.  ``main_repeats``:
+    see :func:`forward_hidden`.  Returns (logits
     [B, 1, Vp] f32, caches)."""
     B = token.shape[0]
     pos = _rows(pos, B, token.device)
     hidden, caches = forward_hidden(cfg, params, token, mode="decode",
-                                    caches=caches, pos=pos, pages=pages)
+                                    caches=caches, pos=pos, pages=pages,
+                                    main_repeats=main_repeats)
     return lm_logits(cfg, params, hidden), caches
 
 

@@ -123,7 +123,7 @@ def _batch_axes(cfg: ArchConfig, mesh) -> tuple:
 
 def mesh_value_and_grad(cfg: ArchConfig, params, batch: dict, mesh, *, accum_steps: int = 1,
                         attn_chunk: int = 0, main_repeats: int | None = None,
-                        compress_pod: bool = False):
+                        compress_pod: bool = False, global_batch: int | None = None):
     """(loss, extras, grads) of one step over ``mesh``: ``params`` this
     rank's shard (:func:`shard_state`), ``batch`` the step's *global* batch
     (this rank takes its rows, :func:`local_batch`).  ``grads`` holds the
@@ -138,16 +138,24 @@ def mesh_value_and_grad(cfg: ArchConfig, params, batch: dict, mesh, *, accum_ste
     reference's step).  A leaf is finished (f32, summed, cast back) before
     the next starts, so one leaf's f32 copies are alive at a time.
     ``accum_steps`` splits each rank's rows into that many microbatches,
-    the rows of global microbatch i in the i-th."""
+    the rows of global microbatch i in the i-th.  ``global_batch``: the
+    batch handed is already this rank's rows (as :func:`local_batch` cuts
+    them) of a global batch of that many rows -- the dry run's arguments
+    (``launch.cells.build_cell``), which hold a rank's rows only: its
+    memory record counts what a rank's device holds, and the rows cut here
+    from a meta global batch would be views that keep the whole batch's
+    storage alive."""
     cfg = mesh_config(cfg, mesh)
     profile = profile_for(cfg)
     pspecs = M.param_pspecs(cfg, mesh, fsdp=cfg.fsdp, main_repeats=main_repeats)
     axes = _batch_axes(cfg, mesh)
     pod = compress_pod and "pod" in mesh.shape
     exact = tuple(a for a in axes if not (pod and a == "pod"))
-    B = next(iter(batch.values())).shape[0]
+    B = global_batch or next(iter(batch.values())).shape[0]
     split = batch_entry(mesh, B // accum_steps, profile)
-    rows = to_device(local_batch(batch, mesh, profile, accum_steps), _device(params))
+    if not global_batch:
+        batch = local_batch(batch, mesh, profile, accum_steps)
+    rows = to_device(batch, _device(params))
     with activation_mesh(mesh, profile, split):
         if accum_steps == 1:
             loss, extras, grads = value_and_grad(cfg, params, rows, attn_chunk=attn_chunk,
@@ -191,7 +199,7 @@ def _accumulated(cfg, params, batch, accum_steps, attn_chunk, main_repeats):
 
 def make_train_step(cfg: ArchConfig, opt: AdamWConfig, *, accum_steps: int = 1,
                     attn_chunk: int = 0, main_repeats: int | None = None,
-                    compress_pod: bool = False, mesh=None):
+                    compress_pod: bool = False, mesh=None, global_batch: int | None = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.  ``batch``
     holds numpy arrays or tensors (``data.pipeline.SyntheticLM.batch_at``);
     they are moved to the parameters' device.
@@ -210,6 +218,8 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig, *, accum_steps: int = 1,
     :func:`mesh_value_and_grad`.  ``compress_pod`` on a mesh with a ``pod``
     axis means the gradients over pods with the int8 compressed mean;
     without a ``pod`` axis (or a mesh) it trains plainly, as the reference.
+    ``global_batch`` (a mesh's step only): ``batch`` is this rank's rows of
+    a global batch of that many rows (:func:`mesh_value_and_grad`).
     Every ported family trains on a mesh: attention (GQA or MLA), SSD,
     cross-attention and the encoder, with dense or MoE FFNs (the MoE
     meshes ``layers.moe_forward`` refuses aside)."""
@@ -224,7 +234,7 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig, *, accum_steps: int = 1,
         if mesh is not None:
             return mesh_value_and_grad(cfg, params, batch, mesh, accum_steps=accum_steps,
                                        attn_chunk=attn_chunk, main_repeats=main_repeats,
-                                       compress_pod=compress_pod)
+                                       compress_pod=compress_pod, global_batch=global_batch)
         batch = to_device(batch, _device(params))
         if accum_steps == 1:
             return value_and_grad(cfg, params, batch, attn_chunk=attn_chunk,

@@ -37,6 +37,10 @@ from repro.models import model as JM
 from repro.serving import Engine as JEngine
 from repro.serving import EngineConfig as JEngineConfig
 import repro_torch.configs as TC
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.cells import build_cell
+from repro_torch.launch.dryrun import count
+from repro_torch.launch.mesh import DryMesh
 from repro_torch.models import model as TM
 from repro_torch.models.graph import DecodeGraph
 from repro_torch.serving import Engine, EngineConfig
@@ -70,7 +74,8 @@ RANKS = textwrap.dedent("""
 
     import repro_torch.configs as TC
     from repro_torch.launch import dist as D
-    from repro_torch.launch.sharding import activation_mesh
+    from repro_torch.launch.cells import prepare_arch
+    from repro_torch.launch.sharding import activation_mesh, batch_entry, profile_for
     from repro_torch.models import bridge
     from repro_torch.models import model as M
     from repro_torch.serving import ChaosInjector, Engine, EngineConfig, MeshSpec
@@ -171,6 +176,23 @@ RANKS = textwrap.dedent("""
             with activation_mesh(meng.mesh):
                 lg = M.prefill(scfg, sp, torch.tensor([mp[0]], dtype=torch.int32))[0]
             np.save(f"{tmp}/moe_logits_r{rank}.npy", lg.numpy())
+
+            # one prefill (B 2, S 8) and one decode step on its slot caches
+            # (16 rows): the collectives and bytes each issues on this rank
+            m12 = shapes[0].build()
+            pcfg = prepare_arch(cfg, m12)
+            psh = M.shard_params(pcfg, params, m12)
+            toks = torch.tensor([p[:8] for p in prompts[1:3]], dtype=torch.int32)
+            counts = {}
+            with activation_mesh(m12, profile_for(pcfg), batch_entry(m12, 2, profile_for(pcfg))):
+                c0, w0 = m12.collectives, m12.wire_bytes
+                _, caches = M.prefill(pcfg, psh, toks, cache_len=16)
+                counts["prefill"] = [m12.collectives - c0, m12.wire_bytes - w0]
+                c0, w0 = m12.collectives, m12.wire_bytes
+                M.decode_step(pcfg, psh, caches, toks[:, :1], 8)
+                counts["decode"] = [m12.collectives - c0, m12.wire_bytes - w0]
+            with open(f"{tmp}/step_counts_r{rank}.json", "w") as f:
+                json.dump(counts, f)
 
         # w8a8 on the model axis: the row-parallel int8 GEMMs (wo, w_down)
         toks = torch.tensor([prompts[2]], dtype=torch.int32)
@@ -280,6 +302,8 @@ def served(tmp_path_factory):
     assert proc.returncode == 0, out
     ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(4)]
     logits = [np.load(tmp / f"moe_logits_r{r}.npy") for r in range(2)]
+    # rank 0's collectives and bytes of one prefill and one decode step at 1x2
+    want["step_counts_1x2"] = json.loads((tmp / "step_counts_r0.json").read_text())
     for shape, n in (("1x2", 2), ("2x2", 4)):
         want[f"w8a8/{shape}/ranks"] = [np.load(tmp / f"w8a8_{shape}_logits_r{r}.npy")
                                        for r in range(n)]
@@ -433,3 +457,19 @@ def test_a_graph_under_gloo_on_the_card_is_refused():
     caches = TM.init_paged_cache(cfg, 2, 5, 8, device="cpu")
     g = DecodeGraph(cfg, params, caches, 2, 4, device="cpu", mesh=gloo)
     assert not g.graphed
+
+
+@pytest.mark.parametrize("step", ["prefill", "decode"])
+def test_dry_mesh_counts_equal_live_mesh(served, step):
+    """The dry run of reduced cgra-edge's prefill (B 2, S 8) and of a decode
+    step on 16-row slot caches, on meta arguments over a ``DryMesh`` 1x2
+    (rank 0), issues rank 0's collectives and wire bytes of the same step
+    on the live gloo mesh, exactly."""
+    _, want, _ = served
+    cfg = TC.reduce_config(TC.get_config("cgra-edge"))
+    shape = ShapeConfig("t", 8 if step == "prefill" else 16, 2, step)
+    mesh = DryMesh((1, 2), ("data", "model"))
+    count(build_cell(cfg, shape, mesh))
+    assert [mesh.collectives, mesh.wire_bytes] == want["step_counts_1x2"][step]
+    assert mesh.collectives > 0
+

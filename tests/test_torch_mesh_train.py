@@ -49,8 +49,12 @@ from repro.models import model as JM
 from repro.training import step as JT
 from repro.training.optimizer import AdamWConfig as JAdamW
 import repro_torch.configs as TC
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import train as train_cli
+from repro_torch.launch.cells import build_cell
+from repro_torch.launch.dryrun import count
+from repro_torch.launch.mesh import DryMesh
 from repro_torch.training import AdamWConfig, make_train_step
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
@@ -143,11 +147,15 @@ RANKS = textwrap.dedent("""
             step = make_train_step(cfg, opt, accum_steps=accum, mesh=mesh)
             metrics = []
             for i in range(2):
+                c0, w0 = mesh.collectives, mesh.wire_bytes
                 state, mt = step(state, batches[i])
+                if i == 0:  # the first step's collectives and bytes on this rank
+                    step_counts = [mesh.collectives - c0, mesh.wire_bytes - w0]
                 metrics.append({k: float(mt[k]) for k in ("loss", "grad_norm", "ce", "aux")})
                 arrays.update({f"s{i + 1}/" + k: v for k, v in
                                flatten(whole_state(state, specs, mesh)).items()})
-            out[name] = dict(metrics=metrics, collectives=mesh.collectives)
+            out[name] = dict(metrics=metrics, collectives=mesh.collectives,
+                             wire_bytes=mesh.wire_bytes, step_counts=step_counts)
             if rank == 0:
                 np.savez(f"{tmp}/out_{name.replace('/', '_')}.npz", **arrays)
 
@@ -365,6 +373,23 @@ def check_loss_and_grad_norm(trained, name, scenarios):
     for r in range(d * m, 4):
         assert name not in ranks[r]
     assert ranks[0][name]["collectives"] > 0
+
+
+@pytest.mark.parametrize("name", ["olmo/1x2", "olmo/2x1"])
+def test_dry_mesh_counts_equal_live_mesh(trained, name):
+    """The dry run of the scenario's train step (meta arguments at rank 0's
+    shapes on a ``DryMesh`` of the scenario's shape, FSDP on, this rank's
+    rows of the 4 x 16 batch) issues rank 0's collectives and wire bytes of
+    the first live step, exactly."""
+    ranks, _, _ = trained
+    arch, d, m, mode, fsdp, moments, accum, remat = SCENARIOS[name]
+    cfg = TC.reduce_config(TC.get_config(ARCHS[arch])).with_(
+        fsdp=fsdp, parallel_mode=mode, remat_policy=remat)
+    mesh = DryMesh((d, m), ("data", "model"))
+    count(build_cell(cfg, ShapeConfig("t", S, B, "train"), mesh,
+                     opt=AdamWConfig(**OPT, moments_dtype=moments), accum_steps=accum))
+    assert [mesh.collectives, mesh.wire_bytes] == ranks[0][name]["step_counts"]
+    assert mesh.collectives > 0
 
 
 def _params_rule(name, got, want):
