@@ -104,7 +104,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    row-max and given-max entries: the whole row's scale, an exact int32
    sum), (f) full mamba2-130m head-parallel at 1x2 and over the data group
    at 2x1, bf16 and f32, and a w8a8 pass, (g) reduced jamba at 1x2 in f32,
-   each against its single-rank engine under the same flip rule.  The
+   each against its single-rank engine under the same flip rule; (h) (b)'s
+   model on three ranks at 1x3, where 128 experts do not divide and each
+   rank holds 256 of every expert's 768 FFN columns, against (b)'s single
+   rank (f32 logits within 1e-4, bf16 tokens under the flip rule).  The
    row-parallel entries are checked exactly in phase 2
    (``rowpar_kernel_phase``: olmo-1b's K halves, M 1-512, every route).
    Its times are two ranks sharing one card, not multi-GPU scaling numbers;
@@ -211,13 +214,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    equal on both ranks and within a stated bound of the single rank's, the
    block GEMM launched forward and with ``trans_a`` on both ranks; at 2
    layers in f32 every layout's gathered gradients against the single
-   rank's; the GEMM at the shards' training shapes;
+   rank's; every other family at full width; qwen3-moe-30b-a3b at 2 layers
+   on three ranks of their own, 1x2 ``parallel_mode="fsdp"`` (one dispatch
+   group over both ranks, capacity dropping choices) and 1x3 (each expert's
+   FFN cut), against the single rank, and in f32 their gradients; the GEMM
+   at the shards' training shapes;
 10. the pod-scale dry run (``dryrun_phase``: meta tensors on a dry mesh,
    nothing allocated on the card) against what the script measured: the
    training phase's cell (its peak within 10 %, its GEMM launches a step
    exactly), the mesh training phase's collectives and bytes a step at
    (a) and (e) exactly, the VLM's bf16 decode step's launches a replay
-   exactly; then eight production cells of the 16x16 mesh printed;
+   exactly; then eight production cells of the 16x16 mesh printed, and
+   qwen3-moe ``train_4k`` under ``parallel_mode="fsdp"`` with its dispatch
+   groups' count all-gathers;
 11. a JSON ``added_kernels`` line (the quantize kernels and the int8
    GEMM's row-parallel entries), a JSON
    ``mla_kernels`` line (both decode kernels at the latent shape), a JSON
@@ -247,6 +256,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -2597,8 +2607,8 @@ class _MoeRecorder:
     def __enter__(self):
         route = self._route = self.layers.moe_route
 
-        def moe_route(cfg, p, xt):
-            r = route(cfg, p, xt)
+        def moe_route(cfg, p, xt, span=None):
+            r = route(cfg, p, xt, span)
             k = cfg.experts_per_token
             top = torch.topk(r.probs, k + 1, -1).values
             self.calls[xt.device.type].append(dict(
@@ -4711,6 +4721,9 @@ MOE_MESH_MAX_NEW = 16
 MESH_LOGITS_BOUND = 1e-2  # the mesh's logits against the single rank's at a flip
 MESH_DTYPES = (("a", torch.bfloat16), ("a32", torch.float32))
 MOE_F32_BOUND = 1e-4  # expert-parallel prefill logits in f32 (the CPU tests' bound vs JAX)
+# (h): (b)'s model over three ranks, where its 128 experts do not divide and
+# each expert's FFN (768 = 3 x 256) does: the FFN cut over the model axis
+MOE_FFN_MESH = "1x3"
 RING_T, RING_D, RING_F = 512, 2048, 8192  # olmo-1b's FFN at 512 tokens
 MESH_PATH = ("block_gemm", "flash_attention_paged", "flash_decode_paged")
 # (e): the w8a8 path's kernels; the row-parallel entries launch for wo and
@@ -5003,6 +5016,57 @@ def _mesh_rank(rank, work):
         json.dump(out, f)
 
 
+def _mesh_ffn_rank(rank, work):
+    """One rank of mesh (h) (three ranks on the one card over gloo): (b)'s 8
+    layers of qwen3-moe-30b-a3b at ``MOE_FFN_MESH``, every rank holding all
+    128 experts and 256 of each expert's 768 FFN columns: one f32 prefill's
+    logits (one rank at a time draws the whole f32 tree), then the bf16
+    engine on (b)'s prompts.  Writes ``h_rank<r>.json`` (and the logits rows
+    as ``.pt``) into ``work``."""
+    import gc as _gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.sharding import activation_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serving import Engine, EngineConfig, MeshSpec
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()  # the main process built them: loaded from build/
+    plan = json.load(open(os.path.join(work, "plan.json")))
+    spec = MeshSpec.parse(MOE_FFN_MESH)
+    mesh = spec.build()
+    mcfg = get_config("qwen3-moe-30b-a3b").with_(num_layers=MOE_MESH_LAYERS)
+    toks = torch.tensor([plan["b_prompts"][1]], dtype=torch.int32, device="cuda")
+    cfg32 = mcfg.with_(compute_dtype=torch.float32)
+    for r in range(spec.size):  # one rank at a time holds the whole f32 tree (22 GB)
+        if r == rank:
+            sp = M.shard_params(cfg32, M.init(cfg32, seed=0, device="cuda"), mesh)
+            _gc.collect()
+            torch.cuda.empty_cache()
+        mesh.broadcast(torch.zeros(1), None)
+    with activation_mesh(mesh):
+        lg = M.prefill(cfg32, sp, toks)[0][0, -1, : mcfg.vocab_size]
+    torch.save(lg.float().cpu(), os.path.join(work, f"h32_prefill_r{rank}.pt"))
+    del sp, lg
+    _gc.collect()
+    torch.cuda.empty_cache()
+    params = M.init(mcfg, seed=0, device="cuda")
+    eng = Engine(mcfg, params, EngineConfig(mesh=spec, **MESH_CONF))
+    del params
+    _gc.collect()
+    torch.cuda.empty_cache()
+    with eng.runner.on_mesh():
+        lg = M.prefill(eng.cfg, eng.runner.params, toks)[0][0, -1, : mcfg.vocab_size]
+    torch.save(lg.float().cpu(), os.path.join(work, f"h_prefill_r{rank}.pt"))
+    out = dict(rank=rank, h=_mesh_serve(eng, plan["b_prompts"], plan["b_single"],
+                                        MOE_MESH_MAX_NEW, work, "h", rank))
+    out["h"].update(shard_map=eng.cfg.moe_shard_map,
+                    w_gate=list(eng.params["stages"][0]["0"]["ffn"]["w_gate"].shape),
+                    w_down=list(eng.params["stages"][0]["0"]["ffn"]["w_down"].shape))
+    with open(os.path.join(work, f"h_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
 def _mesh_serve(eng, prompts, single, max_new, work, key, rank, record=False):
     """A rank's run of ``eng`` over ``prompts`` (greedy, ``max_new``) with
     every launch counter at 0 just before and read just after: the tokens,
@@ -5060,13 +5124,13 @@ def _single_rank_logits(cfg, params, prompt, toks):
 
 def _mesh_gate(name, single, ranks, key, cfg, prompts, bound, problems, quant=None):
     """Tokens equal to the single rank's, or every first difference held by
-    :func:`mesh_flip_witness`; both ranks the same tokens, every request
+    :func:`mesh_flip_witness`; every rank the same tokens, every request
     ok.  A gate that fails is added to ``problems``.  ``quant``: the
     single rank's weights for a witness are quantized so (w8a8)."""
-    a0, a1 = ranks[0][key], ranks[1][key]
-    if a0["tokens"] != a1["tokens"] or not (a0["agree"] and a1["agree"]):
-        problems.append(f"{name}: the two ranks emitted different tokens")
-    if not (a0["ok"] and a1["ok"]):
+    a0 = ranks[0][key]
+    if any(r[key]["tokens"] != a0["tokens"] or not r[key]["agree"] for r in ranks):
+        problems.append(f"{name}: the ranks emitted different tokens")
+    if not all(r[key]["ok"] for r in ranks):
         problems.append(f"{name}: a request did not finish ok")
     mesh_rows = torch.load(os.path.join(MESH_WORK, f"{key}_logits_r0.pt"))
     witnesses = []
@@ -5091,6 +5155,52 @@ def _mesh_gate(name, single, ranks, key, cfg, prompts, bound, problems, quant=No
     gc.collect()
     torch.cuda.empty_cache()
     return witnesses
+
+
+def _mesh_ffn_gates(ranks, mcfg, single32, single16, single, single_ticks, prompts,
+                    problems) -> dict:
+    """The gates of mesh (h) on what its three ranks wrote: no expert-
+    parallel split, every rank holding all experts and a third of each
+    expert's FFN; the f32 prefill logits within ``MOE_F32_BOUND`` of the
+    single rank's (``single32``) and the same on every rank (the bf16 gap to
+    ``single16`` printed); greedy tokens under :func:`_mesh_gate`'s rule,
+    the same on every rank; ``MESH_PATH``'s kernels launched on every rank."""
+    n = len(ranks)
+    E, D, Fdim = mcfg.num_experts, mcfg.d_model, mcfg.moe_d_ff
+    h0 = ranks[0]["h"]
+    if h0["shard_map"] or h0["w_gate"][1:] != [E, D, Fdim // n] \
+            or h0["w_down"][1:] != [E, Fdim // n, D]:
+        problems.append(f"mesh (h): not the FFN cut: shard_map {h0['shard_map']}, w_gate "
+                        f"{h0['w_gate']}, w_down {h0['w_down']}")
+    gaps = {}
+    for key, want in (("h32", single32), ("h", single16)):
+        lg = [torch.load(os.path.join(MESH_WORK, f"{key}_prefill_r{r}.pt")) for r in range(n)]
+        gaps[key] = float((lg[0] - want).abs().max())
+        if not all(torch.equal(lg[0], x) for x in lg[1:]):
+            problems.append(f"mesh (h) {key}: the ranks' prefill logits differ")
+    if not math.isfinite(gaps["h32"]) or gaps["h32"] > MOE_F32_BOUND:
+        problems.append(f"mesh (h): f32 prefill logits {gaps['h32']:.3e} from the single "
+                        f"rank's (bound {MOE_F32_BOUND})")
+    log(f"mesh (h) qwen3-moe {MOE_MESH_LAYERS} of 48 layers at {MOE_FFN_MESH}, all {E} experts "
+        f"and {Fdim // n} of each expert's {Fdim} FFN columns a rank, prefill logits from the "
+        f"single rank's: f32 {gaps['h32']:.3e} (gate {MOE_F32_BOUND}), bf16 {gaps['h']:.3e} "
+        f"(beside {MESH_LOGITS_BOUND}, not gated)")
+    witnesses = _mesh_gate(f"mesh (h) qwen3-moe {MOE_FFN_MESH} bf16", single, ranks, "h", mcfg,
+                           prompts, None, problems)
+    for r in ranks:
+        a = r["h"]
+        missing = [k for k in MESH_PATH if a["launches"][k] <= 0]
+        if missing:
+            problems.append(f"mesh (h) rank {r['rank']}: {missing} never launched")
+        log(f"mesh (h) rank {r['rank']}: launches "
+            f"{json.dumps({k: v for k, v in a['launches'].items() if v})}; peak "
+            f"{a['peak_gib']:.2f} GiB; collectives a decode tick "
+            f"{a['collectives_per_decode_tick']}, a mixed tick {a['collectives_per_mixed_tick']}")
+    log(f"mesh (h): decode tick {h0['decode_tick_ms']:.2f} ms ({n} ranks, eager, gloo) vs "
+        f"{single_ticks['decode_tick_ms']:.2f} ms single rank (graphed); mixed tick "
+        f"{h0['mixed_tick_ms']:.2f} vs {single_ticks['mixed_tick_ms']:.2f} ms")
+    return dict(prefill_logits_gap=gaps, witnesses=witnesses,
+                ranks=[r["h"] | {"tokens": None} for r in ranks])
 
 
 def _mesh_gates_efg(ranks, singles, a_prompts, f_prompts, g_prompts, problems):
@@ -5227,7 +5337,14 @@ def mesh_phase():
     (g) reduced jamba (f32; SSD, attention and 4 experts, expert-parallel) at
         1x2: tokens equal to the single rank's or witnessed flips.  The
         full-width period does not fit here: each rank would draw the whole
-        26.5 GB period before it keeps its half, beside the single rank's.
+        26.5 GB period before it keeps its half, beside the single rank's;
+    (h) (b)'s model at ``MOE_FFN_MESH`` (three ranks in a spawn of their
+        own): 128 experts do not divide over 3, so every rank holds all of
+        them and 256 of each expert's 768 FFN columns, and each MoE layer's
+        output is one f32 all-reduce of the ranks' partials; (b)'s gates
+        against (b)'s single rank (f32 prefill logits within 1e-4, bf16
+        tokens under the flip rule, the same tokens on every rank) and
+        ``MESH_PATH``'s kernels launched on every rank.
 
     Times of two ranks sharing one card over gloo (every collective through
     host memory, the decode step eager by rule) are not multi-GPU scaling
@@ -5355,6 +5472,16 @@ def mesh_phase():
         f"{b0['collectives_per_decode_tick']}")
     gc.collect()
     torch.cuda.empty_cache()
+    # (h) the same model over three ranks, each expert's FFN cut over them
+    t0 = time.time()
+    D.spawn(_mesh_ffn_rank, 3, "gloo", args=(MESH_WORK,))
+    h_s = time.time() - t0
+    h_ranks = [json.load(open(os.path.join(MESH_WORK, f"h_rank{r}.json"))) for r in range(3)]
+    ffn_cut = _mesh_ffn_gates(h_ranks, mcfg, b32_prefill, b_prefill, b_single, b_ticks,
+                              b_prompts, problems)
+    ffn_cut["ranks_s"] = h_s
+    gc.collect()
+    torch.cuda.empty_cache()
     e_f_g = _mesh_gates_efg(ranks, singles, a_prompts, f_prompts, g_prompts, problems)
     witnesses.update(e_f_g.pop("witnesses"))
     gc.collect()
@@ -5405,6 +5532,7 @@ def mesh_phase():
                    for key, _ in MESH_DTYPES},
                 b=dict(single=b_ticks, prefill_logits_gap=gaps, witnesses=witnesses["b"],
                        ranks=[r["b"] | {"tokens": None} for r in ranks]),
+                h=ffn_cut,
                 **{k: dict(v, witnesses=witnesses[k]) for k, v in e_f_g.items()},
                 ring=ring, serve_line=lines, serve_s=d_s, wall_s=time.time() - t_phase)
 
@@ -5645,6 +5773,298 @@ MESH_TRAIN_FAMILY_GEMMS = {
                   (4096, 64128)), 64128), (3202, ((4096, 512),), None)),
     "h": ((4000, ((1280, 640), (640, 1280), (1280, 2560), (2560, 1280), (1280, 256)), 256),),
 }
+
+
+# (j): qwen3-moe-30b-a3b at full width (d_model 2048, 128 experts top-8 of
+# width 768) over the MoE meshes the expert-parallel rule does not serve:
+# (key: (mesh shape, parallel_mode, what)), each under the config's own
+# remat_policy ("full", MESH_MOE_REMAT), so a layer's recompute runs its
+# collectives again on the autograd engine's thread.  j1: the batch splits
+# over both ranks and prepare_arch makes one dispatch group (pod * data), so
+# the group spans them; j2: 128 experts do not divide over 3, each expert's
+# FFN (768 = 3 x 256) does
+MESH_MOE_LAYOUTS = {
+    "j1": ((1, 2), "fsdp", "1x2 parallel_mode='fsdp' (one dispatch group over both ranks)"),
+    "j2": ((1, 3), "2d", "1x3 '2d' (256 of each expert's 768 FFN columns a rank)"),
+}
+MESH_MOE_REMAT = "full"
+# the main stage cut to 2 of its 48 layers: the single rank's bf16 step
+# holds about 20 bytes a parameter (bf16 weights and gradients, f32
+# moments) and each layer carries 623 M (604 M of them experts), so the
+# whole model's 30.5 B would not fit one card; 2 layers and the 311 M
+# embedding and 311 M head make 1.87 B
+MESH_MOE_LAYERS = 2
+MESH_MOE_B, MESH_MOE_S, MESH_MOE_STEPS = 4, 512, 2
+MESH_MOE_F32_LAYERS = 1  # (j3): f32 at full width, 1 layer, each layout
+
+
+def _moe_train_cfg(mode, dtype=torch.bfloat16, remat="none"):
+    from repro_torch.configs import get_config
+    return get_config("qwen3-moe-30b-a3b").with_(parallel_mode=mode, remat_policy=remat,
+                                                 compute_dtype=dtype)
+
+
+def _moe_batches():
+    from repro_torch.data.pipeline import SyntheticLM
+    data = SyntheticLM(_moe_train_cfg("2d"), batch=MESH_MOE_B, seq=MESH_MOE_S, seed=0)
+    return [data.batch_at(i) for i in range(MESH_MOE_STEPS)]
+
+
+@contextlib.contextmanager
+def _route_drops():
+    """The choices every MoE route inside the block drops, summed
+    (``layers.moe_route`` wrapped for the block; each count stays on the
+    card until the block ends): yields a list whose one entry is set at
+    the end."""
+    from repro_torch.models import layers as L
+    route, counts, box = L.moe_route, [], [0]
+
+    def counted(*a, **kw):
+        r = route(*a, **kw)
+        counts.append((~r.kept).sum())
+        return r
+    L.moe_route = counted
+    try:
+        yield box
+    finally:
+        L.moe_route = route
+        box[0] = int(sum(int(c) for c in counts))
+
+
+def _mesh_moe_train_rank(rank, work):
+    """One rank of mesh training (j) (three ranks on ``cuda:0`` over gloo):
+    (j1) / (j2) qwen3-moe-30b-a3b at ``MESH_MOE_LAYERS`` layers in bf16 on
+    each layout of ``MESH_MOE_LAYOUTS`` (a rank outside j1's 1x2 mesh waits
+    at a barrier), ``MESH_MOE_STEPS`` steps of ``MESH_MOE_B`` x
+    ``MESH_MOE_S`` tokens under ``MESH_MOE_REMAT``, a row a step as (a)-(c),
+    the first step's collective records and the choices capacity dropped
+    (each route of the forward and of the recompute); (j3) f32 at
+    ``MESH_MOE_F32_LAYERS`` layer on each layout: the
+    gathered gradients and the loss of the first batch against the single
+    rank's (rank 0 computes those alone first).  Writes ``moe_rank<r>.json``
+    into ``work``."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels import _build
+    from repro_torch.launch.cells import prepare_arch
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.sharding import gather_whole
+    from repro_torch.models import model as M
+    from repro_torch.training import AdamWConfig, make_train_step
+    from repro_torch.training.step import mesh_config, mesh_value_and_grad, value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()  # the main process built them: loaded from build/
+    dev = torch.device("cuda", 0)
+    meshes = {k: make_device_mesh(v[0], ("data", "model")) for k, v in MESH_MOE_LAYOUTS.items()}
+    world = meshes["j2"]  # every rank
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS, moments_dtype="f32")
+    batches = _moe_batches()
+    out, R = {}, MESH_MOE_LAYERS
+    for key, (shape, mode, _) in MESH_MOE_LAYOUTS.items():
+        mesh = meshes[key]
+        world.barrier()  # a rank outside the last layout's mesh waits for it here
+        if mesh.coords is None:
+            continue
+        cfg = prepare_arch(_moe_train_cfg(mode, remat=MESH_MOE_REMAT), mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = _mesh_train_state(cfg, opt, mesh, dev, R)
+        ffn = state.params["stages"][0]["0"]["ffn"]
+        held_shapes = {k: list(ffn[k].shape) for k in ("w_gate", "w_down")}
+        n_local = sum(t.numel() for t in tree_leaves(state.params))
+        step = make_train_step(cfg, opt, mesh=mesh, main_repeats=R)
+        held = _held_before_step()
+        rows = []
+        with _route_drops() as dropped:
+            for i in range(MESH_MOE_STEPS):
+                mesh.records = [] if i == 0 else None  # the first step's collectives
+                state, row = _timed_mesh_step(step, state, batches[i], mesh)
+                if i == 0:
+                    records = [list(x) for x in mesh.records]
+                rows.append(row)
+        mesh.records = None
+        out[key] = dict(steps=rows, **_step_memory(*held), params_local=n_local,
+                        dropped=dropped[0], groups=cfg.num_moe_groups, records=records,
+                        **held_shapes)
+        del state, step, ffn
+    world.barrier()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (j3) f32 at 1 layer: gradients and loss against the single rank's
+    R = MESH_MOE_F32_LAYERS
+    batch = batches[0]
+    single = None
+    if rank == 0:  # the single rank, alone (no collective runs meanwhile)
+        cfg = _moe_train_cfg("2d", torch.float32)
+        params = _seed_params(cfg, dev, R)
+        loss, _, single = value_and_grad(cfg, params, to_device(batch, dev), main_repeats=R)
+        out["j3_single_loss"] = float(loss)
+        del params
+    j3 = {}
+    for key, (shape, mode, _) in MESH_MOE_LAYOUTS.items():
+        mesh = meshes[key]
+        if mesh.coords is None:
+            continue
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = prepare_arch(_moe_train_cfg(mode, torch.float32, MESH_MOE_REMAT), mesh)
+        params = M.shard_params(cfg, _seed_params(cfg, dev, R), mesh, fsdp=cfg.fsdp,
+                                main_repeats=R)
+        pspecs = M.param_pspecs(mesh_config(cfg, mesh), mesh, fsdp=cfg.fsdp, main_repeats=R)
+        with _route_drops() as dropped:
+            loss, _, g = mesh_value_and_grad(cfg, params, batch, mesh, main_repeats=R)
+        del params
+        whole = tree_map(lambda t, ps: gather_whole(t, mesh, ps), g, pspecs)
+        row = dict(loss=float(loss), dropped=dropped[0])
+        if rank == 0:
+            row["grad_gap"], row["grad_leaf"] = _grad_gap(whole, single)
+        del g, whole
+        j3[key] = row
+    out["j3"] = j3
+    with open(os.path.join(work, f"moe_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _mesh_moe_train(opt, problems) -> dict:
+    """Mesh training (j) on the card: :func:`_mesh_moe_train_rank` on three
+    gloo ranks, then the single rank's bf16 steps in this process (under
+    the same remat, so its routes run as often); gates as (a)-(c)
+    (:func:`_mesh_train_gates`, every rank of the layout), capacity dropping
+    choices in j1, each rank's first step issuing the collectives the dry
+    run predicts for it (``launch.dryrun.count`` of ``build_cell`` on a
+    ``DryMesh`` of the layout, as that rank: kind, axis, group and bytes of
+    each, in any order), j1's among them its dispatch group's count
+    all-gathers, one a MoE layer's forward and one its recompute; (j3) as
+    (d).  Each rank's peak printed beside the dry run's."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dist as D
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import count
+    from repro_torch.launch.mesh import DryMesh
+    from repro_torch.training import make_train_step
+    t0 = time.time()
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        D.spawn(_mesh_moe_train_rank, 3, "gloo", args=(MESH_TRAIN_WORK,))
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    ranks_s = time.time() - t0
+    ranks = [json.load(open(os.path.join(MESH_TRAIN_WORK, f"moe_rank{r}.json")))
+             for r in range(3)]
+    # the single rank's bf16 steps (one dispatch group, as both layouts)
+    R = MESH_MOE_LAYERS
+    cfg = _moe_train_cfg("2d", remat=MESH_MOE_REMAT)
+    torch.cuda.reset_peak_memory_stats()
+    state = _mesh_train_state(cfg, opt, None, torch.device("cuda", 0), R)
+    step = make_train_step(cfg, opt, main_repeats=R)
+    single = []
+    with _route_drops() as single_dropped:
+        for batch in _moe_batches():
+            torch.cuda.synchronize()
+            t1 = time.time()
+            state, m = step(state, batch)
+            single.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                               ms=(time.time() - t1) * 1e3))
+    single_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_fwd = _n_forward_gemms(cfg, R)
+    summary = {}
+    for key, (shape, mode, what) in MESH_MOE_LAYOUTS.items():
+        n = math.prod(shape)
+        rows = [r[key]["steps"] for r in ranks[:n]]
+        _mesh_train_gates(key, rows, single, MESH_MOE_REMAT, n_fwd, problems)
+        if key == "j1" and not ranks[0][key]["dropped"] > 0:
+            problems.append("mesh train (j1): capacity dropped no choice: the cross-rank "
+                            "slots were not exercised")
+        preds = []
+        # a rank's int32 choice counts [1, k, E] gathered over its group (model)
+        count_gather = ["all-gather", "model", n, cfg.experts_per_token * cfg.num_experts * 4]
+        for r in range(n):  # the dry run's prediction for this rank
+            dm = DryMesh(shape, ("data", "model"), rank=r)
+            c = count(build_cell(_moe_train_cfg(mode, remat=MESH_MOE_REMAT), ShapeConfig(
+                "train", MESH_MOE_S, MESH_MOE_B, "train"), dm, opt=opt, main_repeats=R))
+            live = ranks[r][key]["records"]
+            gathers = sum(x == count_gather for x in live)
+            preds.append(dict(arguments_gib=c.argument_bytes / 2 ** 30,
+                              peak_gib=c.peak / 2 ** 30, collectives=dm.collectives,
+                              wire_bytes=dm.wire_bytes, count_gathers=gathers))
+            if Counter(map(tuple, live)) != Counter(map(tuple, dm.records)):
+                problems.append(f"mesh train ({key}) rank {r}: the first step's collectives "
+                                f"({len(live)}) are not the dry run's ({len(dm.records)})")
+            want = 2 * R  # a MoE layer's forward and its recompute
+            if key == "j1" and gathers != want:
+                problems.append(f"mesh train ({key}) rank {r}: {gathers} count all-gathers "
+                                f"{count_gather} in the first step, want {want}")
+        ms = [statistics.median(x["ms"] for x in r_[1:] or r_) for r_ in rows]
+        last = rows[0][-1]
+        summary[key] = dict(
+            what=what, depth=R, groups=ranks[0][key]["groups"],
+            dropped=[r[key]["dropped"] for r in ranks[:n]],
+            single_dropped=single_dropped[0],
+            w_gate=ranks[0][key]["w_gate"], w_down=ranks[0][key]["w_down"],
+            step_ms_median=ms, step_ms_all=[[x["ms"] for x in r_] for r_ in rows],
+            losses=[x["loss"] for x in rows[0]], single_losses=[x["loss"] for x in single],
+            grad_norms=[x["grad_norm"] for x in rows[0]],
+            single_grad_norms=[x["grad_norm"] for x in single],
+            single_step_ms=[x["ms"] for x in single], single_peak_gib=single_peak,
+            collectives_per_step=[x["collectives"] for x in rows[0]],
+            wire_bytes_per_step=[x["wire_bytes"] for x in rows[0]],
+            peak_gib=[r[key]["peak_gib"] for r in ranks[:n]],
+            step_peak_gib=[r[key]["step_peak_gib"] for r in ranks[:n]],
+            held_gib=[r[key]["held_gib"] for r in ranks[:n]],
+            reserved_gib=[r[key]["reserved_gib"] for r in ranks[:n]],
+            gemm_launches_per_step=[[x["launches"].get("block_gemm", 0) for x in r_]
+                                    for r_ in rows],
+            trans_a_per_step=[[x["trans_a"] for x in r_] for r_ in rows],
+            params_local=[r[key]["params_local"] for r in ranks[:n]], predicted=preds)
+        log(f"mesh train ({key}) qwen3-moe-30b-a3b {R} of 48 layers, {what}, {n} ranks on one "
+            f"card over gloo (not a scaling number): step "
+            + " / ".join(f"{x:.1f}" for x in ms) + " ms a rank (step 2; all: "
+            + ", ".join(f"{x['ms']:.1f}" for x in rows[0]) + "); single rank "
+            + ", ".join(f"{x['ms']:.1f}" for x in single) + " ms; losses "
+            + ", ".join(f"{x['loss']:.5f}" for x in rows[0]) + " (single rank "
+            + ", ".join(f"{x['loss']:.5f}" for x in single) + f"); {summary[key]['dropped']} "
+            f"choices dropped a rank over the steps (single rank {single_dropped[0]})")
+        log(f"mesh train ({key}): {last['collectives']} collectives and "
+            f"{last['wire_bytes'] / 1e9:.3f} GB handed to them a step a rank (dry run "
+            f"{preds[0]['collectives']} and {preds[0]['wire_bytes'] / 1e9:.3f} GB); block_gemm "
+            f"{last['launches'].get('block_gemm', 0)} launches a step a rank "
+            f"({last['trans_a']} trans_a, {n_fwd} forward GEMMs, remat {MESH_MOE_REMAT}); "
+            f"{preds[0]['count_gathers']} count all-gathers in the first step; w_gate held "
+            f"{ranks[0][key]['w_gate']}, w_down {ranks[0][key]['w_down']}")
+        for r in range(n):
+            x, pr = ranks[r][key], preds[r]
+            log(f"mesh train ({key}) rank {r}: held {x['held_gib']:.3f} GiB before its steps, "
+                f"their peak {x['step_peak_gib']:.3f} GiB ({x['reserved_gib']:.3f} reserved); "
+                f"the dry run predicts arguments {pr['arguments_gib']:.3f} GiB and a peak "
+                f"{pr['peak_gib']:.3f} GiB (single rank's peak {single_peak:.3f} GiB)")
+    # (j3)
+    y = ranks[0]["j3_single_loss"]
+    for key, row in ranks[0]["j3"].items():
+        n = math.prod(MESH_MOE_LAYOUTS[key][0])
+        if not row["grad_gap"] <= MESH_TRAIN_GRAD_RTOL:
+            problems.append(f"mesh train (j3) {key}: gradients {row['grad_gap']:.3e} from the "
+                            f"single rank's at {row['grad_leaf']} (bound {MESH_TRAIN_GRAD_RTOL} "
+                            f"of each leaf's max)")
+        others = [r["j3"][key]["loss"] for r in ranks[1:n]]
+        if not abs(row["loss"] - y) <= 1e-4 * abs(y) or any(o != row["loss"] for o in others):
+            problems.append(f"mesh train (j3) {key}: f32 loss {row['loss']} vs the single "
+                            f"rank's {y} (1e-4 relative) and the other ranks' {others}")
+        log(f"mesh train (j3) {key} f32, {MESH_MOE_F32_LAYERS} layer at full width: gradients "
+            f"{row['grad_gap']:.3e} of each leaf's max from the single rank's (worst leaf "
+            f"{row['grad_leaf']}); loss {row['loss']:.6f} (single {y:.6f}); "
+            f"{[r['j3'][key]['dropped'] for r in ranks[:n]]} choices dropped a rank")
+    return dict(layouts=summary, j3=ranks[0]["j3"], j3_single_loss=y, ranks_s=ranks_s,
+                wall_s=time.time() - t0)
 
 
 def _mesh_train_state(cfg, opt, mesh, dev, main_repeats=None, opened=False):
@@ -5961,7 +6381,14 @@ def mesh_train_phase():
     (i) each family in f32 at full width, 2 layers (the VLM one period), on
         its first layout: the gathered gradients within 1e-4 of each leaf's
         max of the single rank's and the loss within 1e-4 (relative), as
-        (d), on the first batch (no optimizer step).
+        (d), on the first batch (no optimizer step);
+    (j) qwen3-moe-30b-a3b at full width, ``MESH_MOE_LAYERS`` of 48 layers,
+        on three ranks of their own (:func:`_mesh_moe_train`): (j1) 1x2
+        ``parallel_mode="fsdp"``, one dispatch group over both ranks, and
+        (j2) 1x3 ``"2d"``, each expert's FFN cut over the three ranks, bf16,
+        4 x 512, 2 steps, gated as (a)-(c) against the single rank, and
+        (j1) dropping choices; (j3) each in f32 at 1 layer as (i); each
+        rank's peak printed beside the dry run's prediction.
 
     Gates (a)-(c): each step's loss finite, the same on both ranks, within
     ``MESH_TRAIN_LOSS_BOUND`` of the single rank's at that step (and
@@ -6160,6 +6587,8 @@ def mesh_train_phase():
             f"{row['grad_gap']:.3e} of each leaf's max from the single rank's (worst leaf "
             f"{row['grad_leaf']}); loss {x:.6f} "
             f"(single {y:.6f})")
+    # (j) qwen3-moe over the MoE meshes: three ranks of their own
+    moe = _mesh_moe_train(opt, problems)
     if problems:
         fail("; ".join(problems))
     flush = L2Flush()
@@ -6179,14 +6608,14 @@ def mesh_train_phase():
     log(f"mesh train phase: {wall:.1f} s (the ranks {ranks_s:.1f} s; backend "
         f"{ranks[0]['backend']}, both ranks on cuda:0)")
     return dict(layouts=summary, d=ranks[0]["d"], d_single_losses=sl, single_step_ms=single_ms,
-                families=families, families_f32=ranks[0]["families_f32"],
+                families=families, families_f32=ranks[0]["families_f32"], moe=moe,
                 gemm_rows=gemm_rows, gemm_max_abs_err=err, block_gemm_launches_rank0=launches,
                 ranks_s=ranks_s, wall_s=wall)
 
 
 def _mesh_train_gates(key, rows, single, remat, n_fwd, problems):
-    """A bf16 layout's gates: each step's loss finite, the same on both
-    ranks and within ``MESH_TRAIN_LOSS_BOUND`` of the single rank's,
+    """A bf16 layout's gates: each step's loss finite, the same on every
+    rank and within ``MESH_TRAIN_LOSS_BOUND`` of the single rank's,
     grad_norm within ``MESH_TRAIN_GNORM_RTOL``; on each rank 3 block GEMM
     launches a forward GEMM a step (``full`` remat: 4 inside a layer group;
     the head's 3), ``n_fwd`` of them ``trans_a``, no other kernel (no
@@ -6194,17 +6623,18 @@ def _mesh_train_gates(key, rows, single, remat, n_fwd, problems):
     per_gemm = 4 if remat == "full" else 3
     want_gemm = per_gemm * (n_fwd - 1) + 3
     for i in range(len(rows[0])):
-        a, b, s = rows[0][i], rows[1][i], single[i]
-        if not math.isfinite(a["loss"]) or a["loss"] != b["loss"]:
-            problems.append(f"mesh train ({key}) step {i}: losses {a['loss']} / {b['loss']} "
-                            f"(finite, equal on both ranks)")
+        a, s = rows[0][i], single[i]
+        losses = [r_[i]["loss"] for r_ in rows]
+        if not math.isfinite(a["loss"]) or any(x != a["loss"] for x in losses):
+            problems.append(f"mesh train ({key}) step {i}: losses {losses} (finite, equal on "
+                            f"every rank)")
         if abs(a["loss"] - s["loss"]) > MESH_TRAIN_LOSS_BOUND:
             problems.append(f"mesh train ({key}) step {i}: loss {a['loss']:.6f} vs the single "
                             f"rank's {s['loss']:.6f} (bound {MESH_TRAIN_LOSS_BOUND})")
         if abs(a["grad_norm"] - s["grad_norm"]) > MESH_TRAIN_GNORM_RTOL * s["grad_norm"]:
             problems.append(f"mesh train ({key}) step {i}: grad_norm {a['grad_norm']:.6f} vs "
                             f"{s['grad_norm']:.6f} (relative bound {MESH_TRAIN_GNORM_RTOL})")
-        for r, row in enumerate((a, b)):
+        for r, row in enumerate(r_[i] for r_ in rows):
             got = row["launches"].get("block_gemm", 0)
             if got != want_gemm or row["trans_a"] != n_fwd or set(row["launches"]) != {
                     "block_gemm"}:
@@ -6249,7 +6679,10 @@ def dryrun_phase(train, options, mesh_train, vlm):
         caches of ``VLM_CACHE`` rows): each kernel's predicted calls equal to
         its launches a replay;
     (d) ``DRY_CELLS`` on the 16x16 production mesh (full depth, no roofline
-        passes, to keep the phase short): each record printed.
+        passes, to keep the phase short): each record printed;
+    (e) :func:`dry_fsdp_moe_cell`: qwen3-moe-30b-a3b ``train_4k`` under
+        ``parallel_mode="fsdp"``, its dispatch groups over ranks, gathering
+        their counts.
 
     A miss fails the run."""
     from repro_torch.configs import get_config
@@ -6349,10 +6782,46 @@ def dryrun_phase(train, options, mesh_train, vlm):
                        do_roofline=False)
         log(f"dry run (d) [{time.time() - t0:.1f} s] {arch} {shape} {status(rec)}")
         log(json.dumps({"dryrun_cell": rec}))
+    out["e"] = dry_fsdp_moe_cell(problems)
     out["wall_s"] = time.time() - t_phase
     if problems:
         fail("dry run: " + "; ".join(problems))
     return out
+
+
+def dry_fsdp_moe_cell(problems) -> dict:
+    """Dry run (e): full qwen3-moe-30b-a3b ``train_4k`` under
+    ``parallel_mode="fsdp"`` on the 16x16 mesh (full depth, no roofline
+    passes), where its 16 dispatch groups each span a model line of 16
+    ranks: the record printed, and each MoE layer's forward (and its
+    recompute) all-gathers the rank's int32 counts [1, k, E] over model
+    (the group's line) alone, in the mesh's collective records."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import count
+    from repro_torch.launch.mesh import dry_production_mesh
+    t0 = time.time()
+    cfg = get_config("qwen3-moe-30b-a3b").with_(parallel_mode="fsdp")
+    mesh = dry_production_mesh()
+    c = count(build_cell(cfg, SHAPES["train_4k"], mesh, attn_chunk=2048))
+    n = cfg.experts_per_token * cfg.num_experts * 4
+    recs = mesh.records
+    pairs = sum(x == ("all-gather", "model", 16, n) for x in recs)
+    want = cfg.num_layers * (2 if cfg.remat_policy == "full" else 1)
+    if pairs != want:
+        problems.append(f"(e) qwen3-moe-30b-a3b train_4k fsdp: {pairs} count all-gathers "
+                        f"(over model, {n} bytes a rank), want {want}")
+    rec = dict(memory=c.memory(), kernel_calls=dict(c.kernel_calls),
+               collectives=RL.collective_bytes(recs), count_gathers=pairs,
+               mesh_counts={"collectives": mesh.collectives, "wire_bytes": mesh.wire_bytes})
+    log(f"dry run (e) [{time.time() - t0:.1f} s] qwen3-moe-30b-a3b train_4k "
+        f"parallel_mode=fsdp on 16x16: peak {rec['memory']['peak_per_device_gib']} GiB a "
+        f"device, {pairs} count all-gathers of {n} bytes (want {want}), "
+        f"{mesh.collectives} collectives and {mesh.wire_bytes:,} bytes a rank a step")
+    log(json.dumps({"dryrun_cell": dict(rec, arch="qwen3-moe-30b-a3b", shape="train_4k",
+                                        overrides={"parallel_mode": "fsdp"})}))
+    return rec
 
 
 def main() -> int:

@@ -28,6 +28,18 @@ def get_config(name: str) -> ArchConfig:
     return REGISTRY[name]
 
 
+def parse_sets(sets) -> dict:
+    """``--set key=value`` flags (the dry run's and the train launcher's) as
+    config overrides, as the reference's dry run reads them: an integer,
+    ``True`` / ``False``, else the string."""
+    overrides = {}
+    for kv in sets:
+        k, v = kv.split("=", 1)
+        overrides[k] = (v if not v.lstrip("-").isdigit() else int(v)) \
+            if v not in ("True", "False") else v == "True"
+    return overrides
+
+
 def reduce_config(cfg: ArchConfig) -> ArchConfig:
     """Shrink an arch to smoke-test size with the same widths as
     ``repro.configs.reduce_config`` (layer pattern and GQA kept)."""

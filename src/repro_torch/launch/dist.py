@@ -72,6 +72,9 @@ def _entry(rank, fn, world, backend, port, args):
     init_process(rank, world, backend, port)
     try:
         fn(rank, *args)
+        # no rank leaves the group while another still talks to it (a gloo
+        # rank whose peer tore its pairs down first could abort at exit)
+        dist.barrier()
     finally:
         shutdown()
 

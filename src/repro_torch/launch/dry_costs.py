@@ -220,7 +220,9 @@ class DryCounter(TorchDispatchMode):
             return out
         packet = func._overloadpacket
         if packet in flop_registry:
-            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+            # a product's ``out_dtype`` overload: the formula takes the operands
+            fargs = args[:2] if func._overloadname == "dtype" else args
+            self.flops += flop_registry[packet](*fargs, **kwargs, out_val=out)
         n = 0 if func.is_view else _op_bytes(packet.__name__, args,
                                               _tensors((args, kwargs)), outs)
         self.bytes += n

@@ -36,7 +36,7 @@ import os
 import time
 import traceback
 
-from repro_torch.configs import ASSIGNED, SHAPES, cell_skip_reason, get_config
+from repro_torch.configs import ASSIGNED, SHAPES, cell_skip_reason, get_config, parse_sets
 from repro_torch.launch import roofline as RL
 from repro_torch.launch.cells import build_cell
 from repro_torch.launch.dry_costs import DryCounter
@@ -150,11 +150,7 @@ def main(argv=None):
     ap.add_argument("--force", action="store_true", help="recompute existing")
     args = ap.parse_args(argv)
 
-    overrides = {}
-    for kv in args.sets:
-        k, v = kv.split("=", 1)
-        overrides[k] = (v if not v.lstrip("-").isdigit() else int(v)) \
-            if v not in ("True", "False") else v == "True"
+    overrides = parse_sets(args.sets)
 
     archs = [args.arch] if args.arch else ASSIGNED
     shapes = [args.shape] if args.shape else list(SHAPES)

@@ -23,6 +23,14 @@ needs one card a rank; gloo serves ranks that share a card (or the CPU)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --reduced \\
         --steps 20 --mesh 2x1 --backend gloo
+
+``--set key=value`` overrides a config field (the dry run's flag; the
+reference's launcher has none), e.g. ``--set parallel_mode=fsdp``: no
+tensor parallelism, the batch and parameters over both axes, so a MoE
+model's dispatch groups span ranks::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b \\
+        --reduced --steps 20 --mesh 1x2 --backend gloo --set parallel_mode=fsdp
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ import numpy as np
 import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import get_config, reduce_config
+from repro_torch.configs import get_config, parse_sets, reduce_config
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch import dist as D
 from repro_torch.launch.cells import prepare_arch
@@ -69,14 +77,25 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--set", dest="sets", action="append", default=[],
+                    help="config override key=value (repeatable), as the dry run's, "
+                         "e.g. parallel_mode=fsdp")
     return ap
+
+
+def launch_config(args):
+    """The arch config a run trains: ``--arch`` (``--reduced``), then each
+    ``--set`` override (``configs.parse_sets``)."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_config(cfg)
+    overrides = parse_sets(args.sets)
+    return cfg.with_(**overrides) if overrides else cfg
 
 
 def _train(args, device, mesh=None):
     """Train as one process (or one rank of ``mesh``); rank 0 prints."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduce_config(cfg)
+    cfg = launch_config(args)
     shape = {"data": 1, "model": 1} if mesh is None else dict(mesh.shape)
     cfg = prepare_arch(cfg, mesh if mesh is not None else types.SimpleNamespace(shape=shape))
     opt = AdamWConfig(lr=args.lr, warmup_steps=max(5, args.steps // 20),

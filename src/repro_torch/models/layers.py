@@ -28,7 +28,8 @@ its partial GEMM over the model group in f32 (a w8a8 weight: in int32,
 exactly, ``core.gemm.cgra_gemm_w8a8_row``), anything else (no hint, or
 ``blocks`` not a multiple of the model axis: the weight was left whole) is
 whole.  Attention runs on this rank's heads over its KV-pool shard, and MoE
-on its ``E / tp`` experts (``cfg.moe_shard_map``).  The same code trains:
+on its ``E / tp`` experts (``cfg.moe_shard_map``) or, where tp does not
+divide E, on its ``moe_d_ff / tp`` of every expert's FFN.  The same code trains:
 a replicated tensor that enters rank-specific compute (a column-parallel
 projection's input, a replicated weight applied to this rank's heads, a
 tensor a rank slices for itself) goes through ``launch.mesh.enter_tp``,
@@ -39,7 +40,7 @@ replicated tensor's gradient is whole on every rank.  Under the
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -785,7 +786,17 @@ class MoeRoute(NamedTuple):
         return self.pos < self.C
 
 
-def moe_route(cfg: ArchConfig, p: dict, xt) -> MoeRoute:
+class GroupSpan(NamedTuple):
+    """One dispatch group whose tokens lie on ``s`` consecutive batch
+    ranks, ``T / s`` a rank, this rank holding slice ``j``.  ``gather``
+    takes this slice's choices of each expert at each priority, [k, E]
+    int32, to every slice's [s, k, E], in slice order."""
+    s: int
+    j: int
+    gather: Callable
+
+
+def moe_route(cfg: ArchConfig, p: dict, xt, span: GroupSpan | None = None) -> MoeRoute:
     """The router of :func:`moe_forward`.  Logits ``xt @ router`` in f32,
     as the reference's einsum (with TF32 off, as everywhere in the port: a
     TF32 router flips top-k choices).  Then softmax, top-k, weights
@@ -793,6 +804,14 @@ def moe_route(cfg: ArchConfig, p: dict, xt) -> MoeRoute:
     choice's slot is the count of earlier choices of its expert in (k, t)
     order, so every token's first choice is placed before any second
     choice.
+
+    ``span``: xt [1, T/s, D] is slice j of a group of T tokens spread over
+    s ranks (:class:`GroupSpan`).  The capacity is the group's,
+    ``moe_capacity(T)``, and a priority-k choice of expert e at local token
+    t takes the slot the whole group's (k, t) order gives it: every slice's
+    choices of e at priorities below k, then slices 0..j-1's at priority k,
+    then this slice's before t.  Only the slices' integer counts cross
+    ranks (``span.gather``); each token's route is its own.
 
     ``torch.topk`` does not promise the lower index on a tie, as
     ``lax.top_k`` does: the two frameworks agree wherever the k-th and
@@ -808,7 +827,79 @@ def moe_route(cfg: ArchConfig, p: dict, xt) -> MoeRoute:
     onehot = sel[..., None] == torch.arange(E, device=xt.device)  # [G, kT, E]
     count = torch.cumsum(onehot, 1)  # choices of each expert so far, this one included
     pos = torch.gather(count, 2, sel[..., None]).reshape(G, k, T).transpose(1, 2) - 1
-    return MoeRoute(probs, topi, topw, pos, moe_capacity(cfg, T))
+    if span is None:
+        return MoeRoute(probs, topi, topw, pos, moe_capacity(cfg, T))
+    if G != 1:
+        raise ValueError(f"a group spread over ranks is one group a rank, not {G}")
+    mine = onehot.view(k, T, E).sum(1, dtype=torch.int32)  # this slice's [k, E]
+    every = span.gather(mine)  # [s, k, E]
+    other = every.sum(0) - mine  # the other slices' choices at each priority
+    # the local cumsum counts this slice's lower priorities; add the other
+    # slices' lower priorities and the earlier slices' at the same one
+    extra = torch.cumsum(other, 0) - other + every[:span.j].sum(0)  # [k, E]
+    pos = pos + torch.gather(extra, 1, topi[0].transpose(0, 1)).transpose(0, 1)[None]
+    return MoeRoute(probs, topi, topw, pos, moe_capacity(cfg, T * span.s))
+
+
+def _group_layout(cfg: ArchConfig, tokens: int):
+    """(G, span) of this rank's ``tokens`` (its rows of a step's batch, split
+    n ways over ``current_batch_axes``): the step's ``groups = max(1,
+    min(num_moe_groups, n * tokens))`` dispatch groups (the reference's
+    clamp, of the global batch) are ``G = groups / n`` whole groups a rank
+    where n divides them; where they divide n, one group spans ``s = n /
+    groups`` consecutive batch ranks (``launch.sharding.batch_rows``'
+    order, pod-major) and this rank is its slice ``b % s`` (G = 1 and a
+    :class:`GroupSpan`).  Where s divides the minor batch axis (the
+    ``"fsdp"`` profile's groups are its lines), the counts are gathered
+    over that axis alone."""
+    mesh, axes = current_mesh(), current_batch_axes()
+    n, b = 1, 0  # the batch split's ranks; this rank's index in it
+    for a in axes:
+        n, b = n * mesh.size(a), b * mesh.size(a) + mesh.index(a)
+    groups = max(1, min(cfg.num_moe_groups, n * tokens))
+    if groups % n == 0:
+        return groups // n, None
+    if n % groups:
+        raise NotImplementedError(
+            f"{cfg.name}: {groups} MoE dispatch groups over a batch split {n} ways: neither "
+            f"divides the other, so a rank's rows are neither whole groups nor one slice "
+            f"of a group (ROADMAP Queue 3); prepare_arch makes pod * data groups")
+    s = n // groups
+    minor = [a for a in axes if mesh.size(a) > 1][-1]
+    over, first = (minor, mesh.index(minor) // s * s) if mesh.size(minor) % s == 0 \
+        else (axes, b // s * s)
+
+    def gather(c):
+        return mesh.all_gather(c[None], over, 0)[first:first + s]
+    return 1, GroupSpan(s, b % s, gather)
+
+
+class _BmmF32(torch.autograd.Function):
+    """``a @ b`` (batched) as f32 of two bf16 operands: the reference's
+    einsum with ``preferred_element_type=F32``.  On the card (and on meta,
+    whose dry run follows the card) the bf16 product itself writes f32
+    (``bmm``'s ``out_dtype``), so no f32 copy of an operand is made or
+    saved; the CPU lacks that product and casts the operands (the same
+    values: a bf16 product is exact in f32).  ``out_dtype`` has no
+    derivative in PyTorch: the backward is the f32 products an f32
+    ``bmm`` of the cast operands would run, each gradient cast back to its
+    operand's dtype, as the reference's transpose does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.device.type == "cpu":
+            return torch.bmm(a.float(), b.float())
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype) \
+            if ctx.needs_input_grad[0] else None
+        db = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return da, db
 
 
 def moe_forward(cfg: ArchConfig, p: dict, x):
@@ -833,41 +924,47 @@ def moe_forward(cfg: ArchConfig, p: dict, x):
     decode step captures.  The reference's second result, the aux loss,
     is :func:`moe_aux` of the returned route (serving does not need it).
 
-    Expert-parallel (``cfg.moe_shard_map`` under a mesh whose model axis
-    divides E: the reference's ``_moe_expert_block(axis="model")``): the
-    route is computed whole on every rank, this rank dispatches, runs and
-    combines only the choices of its ``E / tp`` experts (its slice of the
-    expert weights), and one f32 all-reduce over the model group sums the
-    partial outputs.
+    In a mesh's train step each batch rank holds its own rows of the batch
+    (``current_batch_axes``, n ranks) and routes them
+    (:func:`_group_layout`) as ``num_moe_groups / n`` whole groups
+    (``prepare_arch`` makes the groups the data ranks, so under ``"2d"`` one
+    a rank), or, where a group spans ranks (the ``"fsdp"`` profile, whose
+    batch splits over ``model`` too), as its slice of one group, whose slots
+    the ranks place together from each other's int32 choice counts
+    (:class:`GroupSpan`); dispatch, experts and combine run on the rank's
+    own tokens.
 
-    In a mesh's train step each data rank holds its own rows of the batch
-    (``current_batch_axes``) and routes them as ``num_moe_groups / n`` of
-    the step's groups (``prepare_arch`` makes the groups the data ranks, so
-    one a rank); the tokens it dispatches enter the expert-parallel region
-    and its partial outputs leave it (``enter_tp`` / ``leave_tp``)."""
+    The experts under tensor parallelism (model axis tp), the route
+    computed whole on every rank:
+
+    - expert-parallel (``cfg.moe_shard_map``, tp divides E: the
+      reference's ``_moe_expert_block(axis="model")``): this rank
+      dispatches, runs and combines only the choices of its ``E / tp``
+      experts (its slice of the expert weights), and one f32 all-reduce
+      over the model group sums the partial outputs;
+    - FFN-parallel (tp does not divide E and divides ``moe_d_ff``: the
+      weights' ``ffn`` dim is cut, and the reference leaves its whole
+      expert block to XLA's partitioner): every rank runs all E experts on
+      its ``moe_d_ff / tp`` columns of gate / up and rows of down,
+      Megatron's column / row split inside each expert.  The down product
+      stays f32, the combine sums the f32 partials and one f32 all-reduce
+      of the [G, T, D] output over the model group is cast to the compute
+      dtype (in bf16 a rounding order other than the reference's, ROADMAP
+      Queue 3).
+
+    Either way the tokens it dispatches and their routing weights enter the
+    tensor-parallel region and its partial output leaves it (``enter_tp`` /
+    ``leave_tp``)."""
     B, S, D = x.shape
     E, k, dt = cfg.num_experts, cfg.experts_per_token, cfg.compute_dtype
-    groups = cfg.num_moe_groups
     mesh = current_mesh()
-    n = 1
-    for a in current_batch_axes():
-        n *= mesh.size(a)
-    if groups % n:
-        raise NotImplementedError(
-            f"{cfg.name}: {groups} MoE dispatch groups over a batch split {n} ways: a "
-            f"group would span ranks (ROADMAP Queue 1 item 13); train MoE with "
-            f"parallel_mode='2d' on a mesh from prepare_arch")
-    if p["w_gate"].shape[-1] != cfg.moe_d_ff:
-        raise NotImplementedError(
-            f"{cfg.name}: expert FFNs split over the model axis ({cfg.num_experts} experts "
-            f"do not divide over it) are not ported (ROADMAP Queue 1 item 13)")
-    G = max(1, min(groups // n, B * S))
+    G, span = _group_layout(cfg, B * S)
     T = (B * S) // G
     dev = x.device
     xt = x.reshape(G, T, D)
-    r = moe_route(cfg, p, xt)
+    r = moe_route(cfg, p, xt, span)
     C, GC = r.C, G * r.C
-    El = p["w_gate"].shape[0]  # this rank's experts
+    El, Fl = p["w_gate"].shape[0], p["w_gate"].shape[-1]  # this rank's experts, FFN width
     base, mine, w_route = 0, r.kept, r.topw
     if El != E:
         if not cfg.moe_shard_map or mesh is None or E != El * mesh.size("model"):
@@ -875,6 +972,12 @@ def moe_forward(cfg: ArchConfig, p: dict, x):
                              f"cfg.moe_shard_map and a mesh whose model axis is E / {El}")
         base = mesh.index("model") * El
         mine = mine & (r.topi >= base) & (r.topi < base + El)
+    cut = Fl != cfg.moe_d_ff
+    if cut and (El != E or cfg.moe_d_ff != Fl * tp_size()):
+        raise ValueError(f"{Fl} of each expert's {cfg.moe_d_ff} FFN columns held: an FFN "
+                         f"cut needs all {E} experts and a tensor-parallel model axis of "
+                         f"{cfg.moe_d_ff} / {Fl}")
+    if El != E or cut:
         xt, w_route = enter_tp(xt, mesh), enter_tp(r.topw, mesh)
     # slot of each choice as a row of the [El, G, C] expert batch; El*G*C is
     # the trash row / the zero row of the combine (another rank's choices
@@ -890,19 +993,23 @@ def moe_forward(cfg: ArchConfig, p: dict, x):
     xd = xt.to(dt)
     x_pad = torch.cat([xd.new_zeros(G, 1, D), xd], 1).reshape(-1, D)
     ein = x_pad.index_select(0, slot_tok[:-1]).view(El, GC, D)
-    g = torch.bmm(ein, p["w_gate"])
-    u = torch.bmm(ein, p["w_up"])
-    eout = torch.bmm(F.silu(g) * u, p["w_down"]).view(El * GC, D)
+    h = F.silu(torch.bmm(ein, p["w_gate"])) * torch.bmm(ein, p["w_up"])
+    if cut:  # this rank's f32 partial of every slot's output
+        eout = _BmmF32.apply(h, p["w_down"]) if h.dtype != torch.float32 \
+            else torch.bmm(h, p["w_down"])
+    else:
+        eout = torch.bmm(h, p["w_down"])
+    eout = eout.view(El * GC, D)
     eout = torch.cat([eout, eout.new_zeros(1, D)])
     order = torch.argsort(r.topi, -1)  # each token's choices by expert id
     rows = torch.gather(row, -1, order)
-    w = torch.gather(w_route, -1, order).to(dt)
+    w = torch.gather(w_route, -1, order).to(eout.dtype)
     terms = eout.index_select(0, rows.reshape(-1)).view(G, T, k, D) * w[..., None]
     out = terms[:, :, 0]
     for j in range(1, k):
         out = out + terms[:, :, j]
-    if El != E:
-        out = leave_tp(out, mesh)
+    if El != E or cut:
+        out = leave_tp(out, mesh).to(dt)
     return out.reshape(B, S, D), r
 
 

@@ -840,7 +840,8 @@ class Engine:
                                  f"{spec.model} mesh: only its first {spec.size} ranks serve")
             if spec.model > 1 and cfg.num_experts and cfg.num_experts % spec.model == 0:
                 # expert-parallel MoE: each rank holds E / model experts (the
-                # reference's rule, repro/serving/engine.py:995-1001)
+                # reference's rule, repro/serving/engine.py:995-1001); otherwise
+                # each rank holds every expert's FFN cut over model
                 cfg = cfg.with_(moe_shard_map=True)
         if self.config.quant == "w8a8":
             # before the runner shards: a column's scale spans the whole K

@@ -85,7 +85,9 @@ def value_and_grad(cfg: ArchConfig, params, batch: dict, *, attn_chunk: int = 0,
 
 def mesh_config(cfg: ArchConfig, mesh) -> ArchConfig:
     """``cfg`` as a mesh's train step runs it: expert-parallel MoE
-    (``moe_shard_map``) where tensor parallelism splits the experts."""
+    (``moe_shard_map``) where tensor parallelism splits the experts; where
+    it does not, the experts' FFN dim is cut over ``model`` and
+    ``layers.moe_forward`` runs every expert on its columns."""
     tp = mesh.size("model") if profile_for(cfg).tp_rules else 1
     if tp > 1 and cfg.num_experts and cfg.num_experts % tp == 0:
         return cfg.with_(moe_shard_map=True)

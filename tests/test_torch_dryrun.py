@@ -23,7 +23,10 @@ under ``launch.dry_costs.DryCounter`` over a ``launch.mesh.DryMesh``
 - full-width olmo-1b ``train_4k`` and kimi-k2 ``decode_32k`` on 16x16 run
   on meta in seconds;
 - every kernel wrapper refuses meta outside a counter and, inside one,
-  returns its CUDA route's output shapes and dtypes without a launch.
+  returns its CUDA route's output shapes and dtypes without a launch;
+- full qwen3-moe-30b-a3b ``train_4k`` under ``parallel_mode="fsdp"`` on
+  16x16 (dispatch groups over ranks) runs and gathers each group's int32
+  choice counts, a MoE layer's forward and recompute each.
 
 The dry mesh's counts against a live mesh's are held in the spawned groups
 of ``tests/test_torch_mesh_train.py`` and ``tests/test_torch_mesh_serving.py``.
@@ -362,3 +365,19 @@ def test_wrappers_on_meta():
         assert [(tuple(o.shape), o.dtype) for o in outs] == want, w.__name__
         assert all(o.is_meta for o in outs)
         assert w.launches == before and sum(c.kernel_calls.values()) == 1, w.__name__
+
+
+def test_fsdp_moe_cell_gathers_the_group_counts():
+    """Full qwen3-moe-30b-a3b ``train_4k`` under ``parallel_mode="fsdp"`` on
+    the 16x16 mesh: the batch splits 256 ways over (data, model) and its 16
+    dispatch groups each span the 16 ranks of a model line.  The cell runs,
+    and each MoE layer's forward (and its recompute under ``full`` remat)
+    all-gathers this rank's int32 counts [1, k, E] over model (the group's
+    line) alone."""
+    cfg = TC.get_config("qwen3-moe-30b-a3b").with_(parallel_mode="fsdp")
+    mesh = dry_production_mesh()
+    c = count(build_cell(cfg, TC.SHAPES["train_4k"], mesh, attn_chunk=2048))
+    assert 0 < c.memory()["peak_per_device_gib"] < 80
+    n = cfg.experts_per_token * cfg.num_experts * 4  # bytes of one rank's counts
+    recs = mesh.records
+    assert sum(x == ("all-gather", "model", 16, n) for x in recs) == 2 * cfg.num_layers

@@ -10,8 +10,10 @@ test case reads one scenario: greedy tokens equal to the JAX engine's
 2x2), radix reuse, a prompt joining mid-stream, the composed resilience
 scenario (one REJECTED / CANCELLED / FAULT / DEADLINE, every counter moved
 once: the rank-0 clock broadcast carries the chaos skew), expert-parallel
-MoE at 1x2 and 2x2 (tokens equal, prefill logits within 1e-4 in f32), the
-same tokens on every rank, and the refusals.  In the same four ranks: w8a8
+MoE at 1x2 and 2x2 (tokens equal, prefill logits within 1e-4 in f32),
+FFN-parallel MoE (3 experts, each expert's FFN cut over the model axis) at
+1x2 and 2x2 (the same checks), the same tokens on every rank, and the
+refusals.  In the same four ranks: w8a8
 on the model axis (reduced cgra-edge at 1x2 and 2x2: 4 heads, 4 KV heads
 and an ffn of 128 over 2 ranks, the row-parallel int8 GEMMs exact, prefill
 logits equal to the port's single rank bit for bit), head-parallel Mamba-2
@@ -117,6 +119,22 @@ RANKS = textwrap.dedent("""
         for i, p in enumerate(mp):
             meng.submit(p, 8, 0.0, seed=i)
         record("moe_2x2", meng, meng.run(), shard_map=meng.cfg.moe_shard_map)
+
+        # 3 experts over a model axis of 2: every expert's FFN cut over it
+        m3cfg = mcfg.with_(num_experts=3)
+        m3params = bridge.params_from_numpy(m3cfg, dict(np.load(f"{tmp}/moe3.npz")), "cpu")
+        for shape in ("1x2", "2x2"):
+            if MeshSpec.parse(shape).build().coords is None:
+                continue
+            eng = Engine(m3cfg, m3params, EngineConfig(mesh=shape, **KW), device="cpu")
+            for i, p in enumerate(mp):
+                eng.submit(p, 8, 0.0, seed=i)
+            record(f"moe3/{shape}", eng, eng.run(), shard_map=eng.cfg.moe_shard_map,
+                   w_gate=list(eng.params["stages"][0]["0"]["ffn"]["w_gate"].shape))
+            with eng.runner.on_mesh():
+                lg = M.prefill(eng.cfg, eng.runner.params,
+                               torch.tensor([mp[0]], dtype=torch.int32))[0]
+            np.save(f"{tmp}/moe3_{shape}_logits_r{rank}.npy", lg.numpy())
 
         one_by_two = shapes[0].build().coords is not None
         if one_by_two:
@@ -258,6 +276,9 @@ def served(tmp_path_factory):
     mparams = JM.init(mcfg, jax.random.PRNGKey(1))
     np.savez(tmp / "edge.npz", **_flatten(eparams))
     np.savez(tmp / "moe.npz", **_flatten(mparams))
+    m3cfg = mcfg.with_(num_experts=3)
+    m3params = JM.init(m3cfg, jax.random.PRNGKey(3))
+    np.savez(tmp / "moe3.npz", **_flatten(m3params))
     ssd = {}
     for arch in SSD_ARCHS:
         scfg = JC.reduce_config(JC.get_config(arch))
@@ -287,6 +308,9 @@ def served(tmp_path_factory):
     want["moe"] = _jax_tokens(JEngine(mcfg, mparams, JEngineConfig(**KW)), mp, 8)
     want["moe_logits"] = np.asarray(JM.prefill(mcfg, mparams, {"tokens": jnp.asarray(
         np.array([mp[0]]), jnp.int32)})[0])
+    want["moe3"] = _jax_tokens(JEngine(m3cfg, m3params, JEngineConfig(**KW)), mp, 8)
+    want["moe3_logits"] = np.asarray(JM.prefill(m3cfg, m3params, {"tokens": jnp.asarray(
+        np.array([mp[0]]), jnp.int32)})[0])
     want["w8a8"] = _jax_tokens(JEngine(ecfg, eparams, JEngineConfig(quant="w8a8", **KW)),
                                prompts, 12)
     qcfg = ecfg.with_(quant="w8a8")
@@ -306,6 +330,8 @@ def served(tmp_path_factory):
     want["step_counts_1x2"] = json.loads((tmp / "step_counts_r0.json").read_text())
     for shape, n in (("1x2", 2), ("2x2", 4)):
         want[f"w8a8/{shape}/ranks"] = [np.load(tmp / f"w8a8_{shape}_logits_r{r}.npy")
+                                       for r in range(n)]
+        want[f"moe3/{shape}/ranks"] = [np.load(tmp / f"moe3_{shape}_logits_r{r}.npy")
                                        for r in range(n)]
     return ranks, want, logits
 
@@ -373,6 +399,23 @@ def test_moe_expert_parallel_prefill_logits(served):
 
 
 @pytest.mark.parametrize("shape", ["1x2", "2x2"])
+def test_moe_ffn_parallel_equals_the_jax_engine(served, shape):
+    """3 experts over a model axis of 2: no expert-parallel split; every
+    rank runs all 3 experts on its 16 of each expert's 32 FFN columns and
+    one f32 all-reduce sums the layer's output (at 2x2 the decode batch is
+    split over data too).  Greedy tokens equal the JAX single-device
+    engine's; a prefill's logits within 1e-4 of JAX's, the same on every
+    rank."""
+    ranks, want, _ = served
+    got = ranks[0][f"moe3/{shape}"]
+    assert got["tokens"] == want["moe3"] and got["agree"] and not got["shard_map"]
+    assert got["w_gate"][1:] == [3, 64, 16]  # [layers, E, D, F / 2]
+    lg = want[f"moe3/{shape}/ranks"]
+    assert all(np.array_equal(lg[0], x) for x in lg[1:])
+    assert float(np.max(np.abs(lg[0] - want["moe3_logits"]))) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", ["1x2", "2x2"])
 def test_w8a8_on_the_model_axis_equals_the_single_device(served, shape):
     """w8a8 with wo and w_down row-parallel (each rank's K slice quantized
     with the whole row's scale, the int32 partials summed exactly): greedy
@@ -417,7 +460,7 @@ def test_every_rank_emits_the_same_tokens(served):
     for key, got in ranks[0].items():
         shape = key.split("/")[2] if key.startswith("ssd/") else key.split("/")[-1]
         size = (n[key.split("/")[1]] if key.startswith("dense/")
-                else n[shape] if key.startswith(("w8a8/", "ssd/"))
+                else n[shape] if key.startswith(("w8a8/", "ssd/", "moe3/"))
                 else 4 if key == "moe_2x2" else 2)
         for r in range(1, size):
             assert ranks[r][key]["tokens"] == got["tokens"], (key, r)
@@ -425,7 +468,7 @@ def test_every_rank_emits_the_same_tokens(served):
             checked += 1
         for r in range(size, 4):
             assert key not in ranks[r]
-    assert checked >= 16 + 3 + 5 + 4 + 7
+    assert checked >= 16 + 3 + 5 + 4 + 7 + 4
 
 
 def test_a_mesh_without_a_process_group_is_refused():

@@ -3,8 +3,12 @@
 Four gloo ranks on the CPU, spawned once for the module, train reduced
 olmo-1b at 1x2 ("2d": tensor parallel), 2x1 (FSDP over ``data``), 2x2
 ("2d" with FSDP) and 2x2 ``parallel_mode="fsdp"``, and reduced
-qwen3-moe-30b-a3b at 2x1 (the aux loss across data ranks) and 1x2
-(expert-parallel backward); 2x1 again with bf16 and int8 moments and with
+qwen3-moe-30b-a3b at 2x1 (the aux loss across data ranks), 1x2
+(expert-parallel backward), 2x2 and 1x2 under ``"fsdp"`` (each dispatch
+group over two ranks, which place their choices' slots together from each
+other's counts; capacity drops choices; 1x2 under ``remat_policy="full"``,
+so the recompute gathers the counts again) and, with 3 experts in both
+packages, at 1x2 and 2x2 (every expert's FFN cut over the model axis); 2x1 again with bf16 and int8 moments and with
 ``accum_steps=2``, and 2x2 under ``remat_policy="full"``.  A rank outside a scenario's mesh sits it out.  The
 weights come from the JAX package (``bridge.params_from_numpy``), each
 config passed through both packages' ``prepare_arch`` for the scenario's
@@ -60,11 +64,13 @@ from repro_torch.training import AdamWConfig, make_train_step
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 B, S, STEPS = 4, 16, 2
-ARCHS = {"olmo": "olmo-1b", "moe": "qwen3-moe-30b-a3b", "mla": "minicpm3-4b",
-         "ssd": "mamba2-130m", "jamba": "jamba-v0.1-52b", "vlm": "llama-3.2-vision-11b",
-         "vlmqk": "llama-3.2-vision-11b", "enc": "hubert-xlarge"}
-# config fields an arch key sets in both packages, on top of its reduced config
-OVERRIDES = {"vlmqk": {"use_qk_norm": True}}
+ARCHS = {"olmo": "olmo-1b", "moe": "qwen3-moe-30b-a3b", "moe3": "qwen3-moe-30b-a3b",
+         "mla": "minicpm3-4b", "ssd": "mamba2-130m", "jamba": "jamba-v0.1-52b",
+         "vlm": "llama-3.2-vision-11b", "vlmqk": "llama-3.2-vision-11b", "enc": "hubert-xlarge"}
+# config fields an arch key sets in both packages, on top of its reduced config:
+# moe3's 3 experts do not divide over a model axis of 2, so its 32-wide
+# expert FFNs are cut over it
+OVERRIDES = {"vlmqk": {"use_qk_norm": True}, "moe3": {"num_experts": 3}}
 # name: (arch, data, model, parallel_mode, fsdp, moments, accum, remat_policy)
 SCENARIOS = {
     "olmo/1x2": ("olmo", 1, 2, "2d", True, "f32", 1, "none"),
@@ -73,6 +79,13 @@ SCENARIOS = {
     "olmo/2x2/fsdp": ("olmo", 2, 2, "fsdp", True, "f32", 1, "none"),
     "moe/2x1": ("moe", 2, 1, "2d", True, "f32", 1, "none"),
     "moe/1x2": ("moe", 1, 2, "2d", True, "f32", 1, "none"),
+    # a dispatch group over ranks: 2 groups, each over a model pair; one over
+    # both, under the config's own remat (its counts gathered again in the recompute)
+    "moe/2x2/fsdp": ("moe", 2, 2, "fsdp", True, "f32", 1, "none"),
+    "moe/1x2/fsdp": ("moe", 1, 2, "fsdp", True, "f32", 1, "full"),
+    # every expert's FFN cut over the model axis (with FSDP over data at 2x2)
+    "moe3/1x2": ("moe3", 1, 2, "2d", True, "f32", 1, "none"),
+    "moe3/2x2": ("moe3", 2, 2, "2d", True, "f32", 1, "none"),
     "olmo/2x1/bf16": ("olmo", 2, 1, "2d", True, "bf16", 1, "none"),
     "olmo/2x1/int8": ("olmo", 2, 1, "2d", True, "int8", 1, "none"),
     "olmo/2x1/accum2": ("olmo", 2, 1, "2d", True, "f32", 2, "none"),
@@ -97,6 +110,7 @@ RANKS = textwrap.dedent("""
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.launch.sharding import gather_whole
     from repro_torch.models import bridge
+    from repro_torch.models import layers as TL
     from repro_torch.runtime import FailureInjector, TrainRunner
     from repro_torch.training import AdamWConfig, make_train_step
     from repro_torch.training.optimizer import init_moments
@@ -127,8 +141,16 @@ RANKS = textwrap.dedent("""
         state = TrainState(torch.zeros((), dtype=torch.int32), params, mu, nu)
         return cfg, opt, accum, shard_state(cfg, opt, state, mesh), state_pspecs(cfg, opt, mesh)
 
+    DROPPED = []  # the choices each MoE route of a gradient pass dropped
+
+    def counted_route(*a, _route=TL.moe_route, **kw):
+        r = _route(*a, **kw)
+        DROPPED.append(int((~r.kept).sum()))
+        return r
+
     def body(rank, tmp):
         torch.set_num_threads(1)
+        TL.moe_route = counted_route
         plan = json.load(open(f"{tmp}/plan.json"))
         meshes = {}
         for sh in ((1, 2), (2, 1), (2, 2), (1, 4)):  # every rank makes every mesh's groups, in order
@@ -141,8 +163,10 @@ RANKS = textwrap.dedent("""
             cfg, opt, accum, state, specs = setup(tmp, plan, name, mesh)
             batches = [dict(np.load(f"{tmp}/{arch}_b{i}.npz")) for i in range(2)]
             arrays = {}
+            DROPPED.clear()
             _, _, g = mesh_value_and_grad(cfg, state.params, batches[0], mesh,
                                           accum_steps=accum)
+            dropped = sum(DROPPED)
             arrays.update({"g/" + k: v for k, v in flatten(whole(g, specs.params, mesh)).items()})
             step = make_train_step(cfg, opt, accum_steps=accum, mesh=mesh)
             metrics = []
@@ -155,7 +179,8 @@ RANKS = textwrap.dedent("""
                 arrays.update({f"s{i + 1}/" + k: v for k, v in
                                flatten(whole_state(state, specs, mesh)).items()})
             out[name] = dict(metrics=metrics, collectives=mesh.collectives,
-                             wire_bytes=mesh.wire_bytes, step_counts=step_counts)
+                             wire_bytes=mesh.wire_bytes, step_counts=step_counts,
+                             dropped=dropped)
             if rank == 0:
                 np.savez(f"{tmp}/out_{name.replace('/', '_')}.npz", **arrays)
 
@@ -375,16 +400,28 @@ def check_loss_and_grad_norm(trained, name, scenarios):
     assert ranks[0][name]["collectives"] > 0
 
 
-@pytest.mark.parametrize("name", ["olmo/1x2", "olmo/2x1"])
+def test_groups_over_ranks_drop_choices(trained):
+    """In the ``fsdp`` scenarios each dispatch group spans ranks, and
+    capacity drops choices there (the cross-rank slots decide which): the
+    gradients above hold the kept ones equal to the reference's."""
+    ranks, _, _ = trained
+    for name in ("moe/2x2/fsdp", "moe/1x2/fsdp"):
+        d, m = SCENARIOS[name][1:3]
+        assert sum(r[name]["dropped"] for r in ranks[:d * m]) > 0, name
+
+
+@pytest.mark.parametrize("name", ["olmo/1x2", "olmo/2x1", "moe/2x2/fsdp", "moe/1x2/fsdp",
+                                  "moe3/2x2"])
 def test_dry_mesh_counts_equal_live_mesh(trained, name):
     """The dry run of the scenario's train step (meta arguments at rank 0's
     shapes on a ``DryMesh`` of the scenario's shape, FSDP on, this rank's
     rows of the 4 x 16 batch) issues rank 0's collectives and wire bytes of
-    the first live step, exactly."""
+    the first live step, exactly (a group over ranks: its int32 count
+    gathers too)."""
     ranks, _, _ = trained
     arch, d, m, mode, fsdp, moments, accum, remat = SCENARIOS[name]
     cfg = TC.reduce_config(TC.get_config(ARCHS[arch])).with_(
-        fsdp=fsdp, parallel_mode=mode, remat_policy=remat)
+        fsdp=fsdp, parallel_mode=mode, remat_policy=remat, **OVERRIDES.get(arch, {}))
     mesh = DryMesh((d, m), ("data", "model"))
     count(build_cell(cfg, ShapeConfig("t", S, B, "train"), mesh,
                      opt=AdamWConfig(**OPT, moments_dtype=moments), accum_steps=accum))
@@ -515,17 +552,87 @@ def test_launcher_trains_on_a_mesh_and_prints_the_reference_lines(tmp_path):
     assert steps == [ln.split(" lr ")[0] for ln in outs["1x1"] if ln.startswith("step ")]
 
 
-def test_moe_ffn_split_over_the_model_axis_is_refused():
+def test_moe_ffn_split_over_the_model_axis_sums_to_the_whole_layer():
     """Experts that do not divide over the model axis leave their ``ffn``
-    dim cut over it; the MoE layer refuses such a shard instead of running
-    each rank's partial FFNs unsummed."""
+    dim cut over it: each of two ranks (a dry 1x2 mesh, whose all-reduce
+    leaves a rank's partial as it is) runs every expert on its half of the
+    FFN, and the two f32 partials summed equal the whole layer within
+    1e-6, at a capacity that drops choices."""
     import torch
+    from repro_torch.launch.sharding import activation_mesh
     from repro_torch.models import layers as TL
     from repro_torch.models import model as TM
-    cfg = TC.reduce_config(TC.get_config("qwen3-moe-30b-a3b"))
+    cfg = TC.reduce_config(TC.get_config("qwen3-moe-30b-a3b")).with_(capacity_factor=0.5)
     p = {k: v[0] for k, v in TM.init(cfg, 0, "cpu")["stages"][0]["0"]["ffn"].items()}
+    x = torch.from_numpy(np.random.RandomState(5).randn(2, 12, cfg.d_model).astype(np.float32))
+    whole, route = TL.moe_forward(cfg, p, x)
+    assert int((~route.kept).sum()) > 0
     half = cfg.moe_d_ff // 2
-    p.update(w_gate=p["w_gate"][..., :half], w_up=p["w_up"][..., :half],
-             w_down=p["w_down"][:, :half])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TL.moe_forward(cfg, p, torch.zeros(1, 4, cfg.d_model))
+    parts = []
+    for r in range(2):
+        cols = slice(r * half, (r + 1) * half)
+        shard = dict(p, w_gate=p["w_gate"][..., cols], w_up=p["w_up"][..., cols],
+                     w_down=p["w_down"][:, cols])
+        with activation_mesh(DryMesh((1, 2), ("data", "model"), rank=r)):
+            parts.append(TL.moe_forward(cfg, shard, x)[0])
+    assert float((parts[0] + parts[1] - whole).abs().max()) <= 1e-6
+
+
+def test_launcher_set_overrides_the_config():
+    """``--set key=value`` (the dry run's flag) overrides config fields
+    after ``--reduced``: ``parallel_mode=fsdp`` puts a MoE model's dispatch
+    groups over ranks on a mesh."""
+    args = train_cli.parser().parse_args(["--arch", "qwen3-moe-30b-a3b", "--reduced", "--set",
+                                          "parallel_mode=fsdp", "--set", "num_experts=3"])
+    cfg = train_cli.launch_config(args)
+    assert (cfg.parallel_mode, cfg.num_experts, cfg.name) == ("fsdp", 3,
+                                                              "qwen3-moe-30b-a3b-smoke")
+    assert train_cli.launch_config(train_cli.parser().parse_args([])) == TC.get_config("olmo-1b")
+
+
+@pytest.mark.parametrize("shape, groups, over", [
+    ((2, 2), 2, [("model", 2)]), ((1, 4), 2, [("model", 4)]),
+    ((2, 3), 3, [("model", 3), ("data", 2)])])
+def test_group_counts_gather_over_the_minor_axis_where_it_holds_the_group(shape, groups,
+                                                                          over):
+    """A dispatch group over s batch ranks (the ``"fsdp"`` profile, a dry
+    mesh, every rank of it): this rank's slice is ``b % s`` of the batch
+    split's order, and its int32 counts are gathered over ``model`` alone
+    where s divides it (the group lies in one model line), else over
+    every batch axis; either way the gather hands back the group's s rows."""
+    import torch
+    from repro_torch.launch.sharding import activation_mesh, profile_for
+    from repro_torch.models import layers as TL
+    cfg = TC.reduce_config(TC.get_config("qwen3-moe-30b-a3b")).with_(
+        parallel_mode="fsdp", num_moe_groups=groups)
+    k, E = cfg.experts_per_token, cfg.num_experts
+    s = shape[0] * shape[1] // groups
+    for rank in range(shape[0] * shape[1]):
+        mesh = DryMesh(shape, ("data", "model"), rank=rank)
+        with activation_mesh(mesh, profile_for(cfg), ("data", "model")):
+            G, span = TL._group_layout(cfg, 8)
+            got = span.gather(torch.zeros(k, E, dtype=torch.int32))
+        assert (G, span.s, span.j) == (1, s, rank % s)
+        assert got.shape == (s, k, E) and got.dtype == torch.int32
+        sizes = [k * E * 4]
+        for _, m in over[:-1]:
+            sizes.append(sizes[-1] * m)
+        assert mesh.records == [("all-gather", a, m, n) for (a, m), n in zip(over, sizes)]
+
+
+def test_moe_groups_that_neither_divide_the_batch_split_are_refused():
+    """4 dispatch groups over a batch split 6 ways (a dry 2x3 mesh, the
+    batch over data and model): a rank's rows are neither whole groups nor
+    one slice of a group, so the layer raises and names the condition."""
+    import torch
+    from repro_torch.launch.sharding import activation_mesh, profile_for
+    from repro_torch.models import layers as TL
+    from repro_torch.models import model as TM
+    cfg = TC.reduce_config(TC.get_config("qwen3-moe-30b-a3b")).with_(
+        parallel_mode="fsdp", num_moe_groups=4)
+    p = {k: v[0] for k, v in TM.init(cfg, 0, "cpu")["stages"][0]["0"]["ffn"].items()}
+    mesh = DryMesh((2, 3), ("data", "model"))
+    with activation_mesh(mesh, profile_for(cfg), ("data", "model")):
+        with pytest.raises(NotImplementedError, match="4 MoE dispatch groups over a batch "
+                                                      "split 6 ways: neither divides"):
+            TL.moe_forward(cfg, p, torch.zeros(1, 4, cfg.d_model))

@@ -163,6 +163,68 @@ def test_moe_forward_matches_jax(pair, groups, capacity_factor):
           f"{route.kept.numel()} choices dropped")
 
 
+@pytest.mark.parametrize("s", [2, 4])
+def test_group_split_over_ranks_places_every_choice_as_the_whole_group(pair, s):
+    """One dispatch group of 48 tokens cut into ``s`` consecutive slices, as
+    a group spans ``s`` batch ranks: each slice routed alone, handed every
+    slice's per-priority counts (``GroupSpan``), gives each of its choices
+    the slot and kept mask of ``moe_route`` on the whole group (and of the
+    reference's routing), and the group's capacity, at a capacity factor
+    of 0.5 that drops choices."""
+    jcfg, tcfg, jp, tp = _ffn(pair)
+    jcfg, tcfg = (c.with_(capacity_factor=0.5) for c in (jcfg, tcfg))
+    E, T = tcfg.num_experts, 48
+    x = np.random.RandomState(40 + s).randn(1, T, tcfg.d_model).astype(np.float32)
+    whole = TL.moe_route(tcfg, tp, _t(x))
+    probs, jtopi, jkept = _jax_routing(jcfg, jp, x)
+    _no_tie(probs, tcfg.experts_per_token)
+    np.testing.assert_array_equal(whole.kept.numpy(), jkept)
+    slices = _t(x).chunk(s, 1)
+    counts = []  # each slice's [k, E], as it hands them to the gather
+    for xs in slices:
+        TL.moe_route(tcfg, tp, xs, TL.GroupSpan(1, 0, lambda c: counts.append(c) or c[None]))
+    assert counts[0].dtype == torch.int32 and counts[0].shape == (tcfg.experts_per_token, E)
+    assert sum(int(c.sum()) for c in counts) == T * tcfg.experts_per_token
+    n = T // s
+    for j, xs in enumerate(slices):
+        def gather(c, j=j):  # what the ranks' all-gather hands slice j
+            assert torch.equal(c, counts[j])
+            return torch.stack(counts)
+        r = TL.moe_route(tcfg, tp, xs, TL.GroupSpan(s, j, gather))
+        assert r.C == whole.C == TL.moe_capacity(tcfg, T)
+        np.testing.assert_array_equal(r.pos.numpy(), whole.pos[:, j * n:(j + 1) * n].numpy())
+        np.testing.assert_array_equal(r.kept.numpy(), jkept[:, j * n:(j + 1) * n])
+    assert int((~whole.kept).sum()) > 0
+
+
+def test_ffn_cut_down_product_is_f32_of_bf16_operands():
+    """The FFN cut's down product (``layers._BmmF32``): bf16 operands, an
+    f32 result and f32 gradients cast back to bf16, equal to autograd
+    through ``bmm`` of the operands cast to f32 (what the CPU runs, and
+    what the reference's ``preferred_element_type=F32`` einsum computes);
+    on meta (the dry run) the f32 result and the product's FLOPs counted
+    without an f32 copy of either operand."""
+    from repro_torch.launch.dry_costs import DryCounter
+    rs = np.random.RandomState(3)
+    a0, b0, g = (torch.from_numpy(rs.randn(*sh).astype(np.float32))
+                 for sh in ((4, 6, 8), (4, 8, 5), (4, 6, 5)))
+    a, b = (t.to(torch.bfloat16).requires_grad_() for t in (a0, b0))
+    a2, b2 = (t.detach().clone().requires_grad_() for t in (a, b))
+    y = TL._BmmF32.apply(a, b)
+    want = torch.bmm(a2.float(), b2.float())
+    assert y.dtype == torch.float32 and torch.equal(y, want)
+    y.backward(g)
+    want.backward(g)
+    for got, ref in ((a.grad, a2.grad), (b.grad, b2.grad)):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, ref)
+    am, bm = (torch.empty(t.shape, dtype=torch.bfloat16, device="meta", requires_grad=True)
+              for t in (a0, b0))
+    with DryCounter() as c:
+        ym = TL._BmmF32.apply(am, bm)
+    assert ym.dtype == torch.float32 and ym.is_meta
+    assert c.flops == 2 * 4 * 6 * 8 * 5
+
+
 def test_moe_capacity_matches_jax(pair):
     """``moe_capacity`` at the engine's token counts (decode batches, chunk
     buffers, prefills) of the reduced and the full config."""
