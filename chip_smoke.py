@@ -227,7 +227,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    exactly; then eight production cells of the 16x16 mesh printed, and
    qwen3-moe ``train_4k`` under ``parallel_mode="fsdp"`` with its dispatch
    groups' count all-gathers;
-11. a JSON ``added_kernels`` line (the quantize kernels and the int8
+11. the static analysis (``analysis_phase``): a seeded host read that the
+   card's J003 checks must find, then ``repro_torch.analysis.run_analysis(
+   modes=("cuda",))`` over every config x quant -- the served entries under
+   ``torch.cuda.set_sync_debug_mode``, each engine tick's one device -> host
+   copy, the bounds proofs of every kernel through the host build of
+   ``kernels/csrc/index.cuh``, the mesh entries, paging, resilience on the
+   card -- with no finding; then ``sentinel_phase``: slot decode linear and
+   ring, paged decode at the engine's and MLA's shapes, paged chunk split
+   (bf16) and f32, dense attention with a window, each at hostile scalars
+   with every row the prover says is unread set to NaN, every output finite
+   and within ``check_attn`` of the plain version on the clean inputs;
+12. a JSON ``added_kernels`` line (the quantize kernels and the int8
    GEMM's row-parallel entries), a JSON
    ``mla_kernels`` line (both decode kernels at the latent shape), a JSON
    ``moe`` line (the MoE phase's summary and its rows), a JSON ``ssm`` line
@@ -239,11 +250,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    phase), a ``train_options`` line, a ``mesh_train`` line (the mesh
    training phase), a ``mesh_train_kernels`` line (the GEMM's rows at
    the shards' training shapes) and a ``dryrun`` line (phase 10),
-   the script's wall time, a JSON ``kernels`` line
+   the script's wall time, a JSON ``analysis`` line (phase 11), a JSON
+   ``kernels`` line
    (the six ported TPU kernels, the row quantize and the four row-parallel
    entries), then the JSON result as the last line.
 
 It needs CUDA: without a card it exits 2 before printing anything else.
+
+``python3 chip_smoke.py --kernel-rows TREE [TREE ...]`` instead runs phase
+2's kernel rows of each checkout (a tree with its own ``chip_smoke.py`` and
+``src/``) in a process of its own, in the order given, and prints each
+row's ratio to the first tree's and every ptxas entry that differs: a
+change beside its parent in one call (parent, change, change, parent).
 """
 from __future__ import annotations
 
@@ -6824,6 +6842,241 @@ def dry_fsdp_moe_cell(problems) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the static analysis on the card (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def _nan_unread(t, rows_read, n_rows):
+    """``t`` (rows first, [n_rows, ...]) with every row not in ``rows_read``
+    set to NaN: a kernel that read one would turn its output non-finite."""
+    keep = torch.zeros(n_rows, dtype=torch.bool, device=t.device)
+    if rows_read:
+        keep[torch.tensor(sorted(rows_read), device=t.device)] = True
+    out = t.clone()
+    out.view(n_rows, -1)[~keep] = float("nan")
+    return out, int((~keep).sum())
+
+
+def _sentinel_rows(spec, fill, op=1):
+    from repro_torch.analysis.bounds import read_rows
+    rows = set()
+    for r in read_rows(spec, fill, op).values():
+        rows |= r
+    return rows
+
+
+def sentinel_phase(gen):
+    """The four attention routes with every row the bounds prover says is
+    unread -- the pools' trash and spare pages, the rows of a slot outside
+    [start, pos], a frozen slot's row S, the keys below a window's first
+    tile -- filled with NaN, at hostile scalars (frozen, drained and empty
+    slots): every output must be finite and equal to the plain version on
+    the clean inputs.  Returns one summary per case."""
+    from repro_torch.kernels import decode_attention as DA, flash_attention as FA, ref
+    out = []
+
+    def held(name, got, want, dtype, nan_rows):
+        err, rel = check_attn(name, got, want, dtype)
+        out.append(dict(case=name, nan_rows=nan_rows, max_abs_err=err, max_row_rel=rel))
+        log(f"  sentinel {name}: {nan_rows} unread rows NaN, output finite, max_abs_err "
+            f"{err:.3e}" + (f", row rel {rel:.3e}" if dtype == torch.bfloat16 else ""))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype)[6:]
+        # slot caches, linear and ring: a live, a frozen (pos == S), a drained slot
+        B, H, K, S, d = 3, 8, 4, 320, 128
+        q = torch.randn(B, H, d, generator=gen, device="cuda").to(dtype)
+        for layout, pos, start in (("linear", [200, S, 5], [37, 100, 90]),
+                                   ("ring", [700, S - 1, 3], [300, 0, 9])):
+            k = torch.randn(B * S, K, d, generator=gen, device="cuda").to(dtype)
+            v = torch.randn(B * S, K, d, generator=gen, device="cuda").to(dtype)
+            spec = DA.fd_dense_spec(B, H, K, S, d, d, layout=layout)
+            fill = {"pos": np.array(pos), "start": np.array(start)}
+            kn, n = _nan_unread(k, _sentinel_rows(spec, fill, 1), B * S)
+            vn, _ = _nan_unread(v, _sentinel_rows(spec, fill, 2), B * S)
+            p_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            s_t = torch.tensor(start, dtype=torch.int32, device="cuda")
+            got = DA.flash_decode(q, kn.view(B, S, K, d), vn.view(B, S, K, d), p_t, s_t,
+                                  layout=layout)
+            want = ref.flash_decode_ref(q, k.view(B, S, K, d), v.view(B, S, K, d), p_t, s_t,
+                                        layout=layout)
+            held(f"slot {layout} {dn}", got, want, dtype, n)
+        # pools: the engine's shape (olmo-1b, 16 heads, d 128, page 64 of 1024
+        # rows) and MLA's latent call (40 heads over one, dq 288, dv 256, v is k)
+        for name, (H, K, dq, dv, ps, npp) in (("engine", (16, 16, 128, 128, 64, 16)),
+                                               ("mla", (40, 1, 288, 256, 16, 64))):
+            B, P = 8, 8 * npp + 1
+            q = torch.randn(B, H, dq, generator=gen, device="cuda").to(dtype)
+            kv = torch.randn(P * ps, K, dq, generator=gen, device="cuda").to(dtype)
+            pages = _tables(B, npp, P, 11)
+            S = npp * ps
+            pos = [S, 0, 100, S - 1, 37, 500 % S, 64, 3]
+            start = [0, 5, 90, 0, 37, 0, 65, 0]
+            spec = DA.fd_paged_spec(B, H, K, dq, dv, ps, npp, P, v_row=dq)
+            fill = {"pos": np.array(pos), "start": np.array(start),
+                    "pages": pages.cpu().numpy()}
+            rows = _sentinel_rows(spec, fill, 1) | _sentinel_rows(spec, fill, 2)
+            kvn, n = _nan_unread(kv, rows, P * ps)
+            p_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            s_t = torch.tensor(start, dtype=torch.int32, device="cuda")
+            pool, clean = kvn.view(P, ps, K, dq), kv.view(P, ps, K, dq)
+            got = DA.flash_decode_paged(q, pool, pool, p_t, s_t, pages, dv=dv)
+            want = ref.flash_decode_ref(q, clean, clean, p_t, s_t, pages=pages, dv=dv)
+            held(f"paged decode {name} {dn}", got, want, dtype, n)
+        # paged chunk: 64 rows over 1024 (bf16: 8 pieces), a normal, an empty,
+        # a chunk whose keys run past its horizon and one at the table's end
+        B, H, K, C, d, ps, npp = 4, 16, 16, 64, 128, 64, 16
+        P, S = B * npp + 1, npp * ps
+        q = torch.randn(B, H, C, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(P * ps, K, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(P * ps, K, d, generator=gen, device="cuda").to(dtype)
+        pages = _tables(B, npp, P, 12)
+        qs, kl = [448, 0, 100, S - C], [512, 0, 700, S]
+        spec = FA.fa_paged_spec(B, H, K, C, d, ps, npp, P, dtype=dtype)
+        fill = {"q_start": np.array(qs), "k_len": np.array(kl), "pages": pages.cpu().numpy()}
+        kn, n = _nan_unread(k, _sentinel_rows(spec, fill, 1), P * ps)
+        vn, _ = _nan_unread(v, _sentinel_rows(spec, fill, 2), P * ps)
+        q_t = torch.tensor(qs, dtype=torch.int32, device="cuda")
+        k_t = torch.tensor(kl, dtype=torch.int32, device="cuda")
+        got = FA.flash_attention_paged(q, kn.view(P, ps, K, d), vn.view(P, ps, K, d), pages,
+                                       q_t, k_t)
+        want = ref.flash_attention_paged_ref(q, k.view(P, ps, K, d), v.view(P, ps, K, d),
+                                             pages, q_t, k_t)
+        held(f"paged chunk {dn}" + (" split" if dtype == torch.bfloat16 else ""), got, want,
+             dtype, n)
+        # dense with a window: 64 queries at the end of 512 keys, window 100
+        B, H, K, Sq, Sk, d, W = 2, 8, 4, 64, 512, 128, 100
+        q = torch.randn(B, H, Sq, d, generator=gen, device="cuda").to(dtype)
+        k = torch.randn(B * K * Sk, d, generator=gen, device="cuda").to(dtype)
+        v = torch.randn(B * K * Sk, d, generator=gen, device="cuda").to(dtype)
+        spec = FA.fa_dense_spec(B, H, K, Sq, Sk, d, window=W, dtype=dtype)
+        kn, n = _nan_unread(k, _sentinel_rows(spec, {}, 1), B * K * Sk)
+        vn, _ = _nan_unread(v, _sentinel_rows(spec, {}, 2), B * K * Sk)
+        got = FA.flash_attention(q, kn.view(B, K, Sk, d), vn.view(B, K, Sk, d), window=W)
+        want = ref.flash_attention_ref(q, k.view(B, K, Sk, d), v.view(B, K, Sk, d), window=W)
+        held(f"dense window {dn}", got, want, dtype, n)
+    return out
+
+
+def analysis_phase(gen):
+    """``repro_torch.analysis`` on the card: ``run_analysis(modes=("cuda",))``
+    over every config x quant (the entries on the card under
+    ``torch.cuda.set_sync_debug_mode``, each tick's one device -> host
+    copy, the kernels' bounds proofs through the host library built by the
+    host compiler, the mesh entries, paging, resilience on the card) must
+    report no finding; then :func:`sentinel_phase`."""
+    from repro_torch.analysis import Report, run_analysis
+    from repro_torch.analysis import runner as AR
+    from repro_torch.kernels import _build
+    t0 = time.time()
+    lib = _build.host_library()
+    # the card's own J003 checks must see a host read: a device -> host
+    # read inside an entry, and a tick with a second copy
+    canary = Report()
+    x = torch.ones(4, device="cuda")
+    AR._lint_entry(canary, lambda: x.sum().item(), "canary", "cuda", sync=True)
+    AR._tick_copies(canary, lambda: (x.cpu(), x.sum().cpu()), "canary tick")
+    msgs = [f.message for f in canary.findings if f.rule == "J003"]
+    if not any("synchronising call" in m for m in msgs) or not any(
+            "_local_scalar_dense" in m for m in msgs) or not any("2 device" in m for m in msgs):
+        fail(f"analysis canary: the card's J003 checks missed a host read: {msgs}")
+    log(f"analysis canary: {len(msgs)} J003 findings on a seeded host read, as expected")
+    report = run_analysis(modes=("cuda",))
+    for f in report.findings:
+        log(f"  analysis finding: {f}")
+    if report.findings:
+        fail(f"analysis on the card: {len(report.findings)} findings")
+    wall = time.time() - t0
+    log(f"analysis (cuda): {len(report.checked)} surfaces checked, 0 findings, "
+        f"{wall:.1f} s (host library {lib._name})")
+    sentinel = sentinel_phase(gen)
+    return dict(surfaces=len(report.checked), findings=0, analysis_s=wall,
+                sentinel=sentinel, wall_s=time.time() - t0)
+
+
+# ---------------------------------------------------------------------------
+# kernel rows of several trees in one call (``--kernel-rows``)
+# ---------------------------------------------------------------------------
+
+KERNEL_ROW_PHASES = ("gemm_phase", "int8_phase", "quantize_phase", "rowpar_kernel_phase",
+                     "dense_attention_phase", "slot_decode_phase", "decode_phase",
+                     "chunk_phase")
+
+
+def _kernel_rows_child(tree: str) -> None:
+    """In a fresh process: build the kernels of checkout ``tree``, run its
+    own ``chip_smoke.py``'s kernel phases (phase 2's six kernels and the
+    added ones) and print one JSON line ``KERNEL_ROWS`` of every row's
+    times and each kernel's ptxas registers and spills."""
+    import importlib.util
+    sys.path.insert(0, os.path.join(tree, "src"))
+    spec = importlib.util.spec_from_file_location("tree_chip_smoke",
+                                                  os.path.join(tree, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all()
+    res = {k: v for n in ("flash_attention", "block_gemm", "block_gemm_int8",
+                          "decode_attention", "quantize")
+           for k, v in _build.resources(n).items()}
+    flush = cs.L2Flush()
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    rows = {}
+    for ph in KERNEL_ROW_PHASES:
+        got = getattr(cs, ph)(flush, gen)
+        got = got[1] if isinstance(got, tuple) else got
+        if isinstance(got, dict) and "ms" not in got:  # rowpar: {name: rows}
+            items = got.items()
+        else:
+            items = [(ph, got if isinstance(got, list) else [got])]
+        for name, rs in items:
+            for r in rs:
+                if isinstance(r, dict) and "ms" in r:
+                    rows[f"{name} | {r.get('shape', '')}"] = r["ms"]
+    print("KERNEL_ROWS " + json.dumps({"tree": tree, "rows": rows, "ptxas": res}),
+          flush=True)
+
+
+def kernel_rows(trees) -> dict:
+    """The kernel rows of each checkout in ``trees`` (run in that order,
+    each in a process of its own, on this one card), and each row's ratio
+    of the mean over the later trees to the mean over the first one's
+    runs: ``python3 chip_smoke.py --kernel-rows PARENT CHANGE CHANGE
+    PARENT`` compares a change with its parent in one call."""
+    runs = []
+    for tree in trees:
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--kernel-rows-child",
+                               os.path.abspath(tree)], capture_output=True, text=True)
+        line = next((ln for ln in proc.stdout.splitlines() if ln.startswith("KERNEL_ROWS ")),
+                    None)
+        if proc.returncode != 0 or line is None:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            fail(f"kernel rows of {tree}: exit {proc.returncode}")
+        runs.append(json.loads(line[len("KERNEL_ROWS "):]))
+        log(f"kernel rows of {tree}: {len(runs[-1]['rows'])} rows, {time.time() - t0:.1f} s")
+    first = os.path.abspath(trees[0])
+    base = [r for r in runs if r["tree"] == first]
+    other = [r for r in runs if r["tree"] != first]
+    ratios = {}
+    for key in base[0]["rows"]:
+        b = statistics.mean(r["rows"][key] for r in base)
+        o = [r["rows"][key] for r in other if key in r["rows"]]
+        if o:
+            ratios[key] = statistics.mean(o) / b
+    ptxas = {k: (base[0]["ptxas"].get(k), other[0]["ptxas"].get(k)) for k in
+             sorted(set(base[0]["ptxas"]) | set(other[0]["ptxas"]))} if other else {}
+    changed = {k: v for k, v in ptxas.items() if v[0] != v[1]}
+    out = dict(runs=runs, ratio=ratios, ptxas_changed=changed)
+    log(json.dumps({"kernel_rows": out}))
+    for key, r in sorted(ratios.items(), key=lambda kv: -abs(kv[1] - 1))[:12]:
+        log(f"  {key}: {r:.4f} x the first tree's")
+    log(f"ptxas lines that differ: {len(changed)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the card",
@@ -6921,6 +7174,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_train = mesh_train_phase()
     dry = dryrun_phase(train, options, mesh_train, vlm)
+    gc.collect()
+    torch.cuda.empty_cache()
+    analysis = analysis_phase(gen)
 
     def pick(name, shape):  # the row's contract keys
         row = next(r for r in rows[name] if r["shape"] == shape)
@@ -7040,7 +7296,9 @@ def main() -> int:
         f"{served['wall_s']:.1f} s, the mesh phase {meshed['wall_s']:.1f} s, the SSM engine phases {ssm['wall_s']:.1f} s, the VLM and "
         f"encoder phases {vlm['wall_s']:.1f} s, the training phases {train['wall_s']:.1f} s, "
         f"the training options {options['wall_s']:.1f} s, the mesh training phase "
-        f"{mesh_train['wall_s']:.1f} s, the dry run {dry['wall_s']:.1f} s)")
+        f"{mesh_train['wall_s']:.1f} s, the dry run {dry['wall_s']:.1f} s, the analysis "
+        f"{analysis['wall_s']:.1f} s)")
+    log(json.dumps({"analysis": analysis}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7049,4 +7307,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--kernel-rows-child":
+        _kernel_rows_child(sys.argv[2])
+        sys.exit(0)
+    if len(sys.argv) > 2 and sys.argv[1] == "--kernel-rows":
+        if not torch.cuda.is_available():
+            print("chip_smoke: CUDA is not available; this script runs on the card",
+                  file=sys.stderr)
+            sys.exit(2)
+        kernel_rows(sys.argv[2:])
+        sys.exit(0)
     sys.exit(main())

@@ -14,6 +14,11 @@ The C entry points take every pointer and the stream as ``void*`` and
 return ``cudaGetLastError()``; :func:`check` raises when that is not 0.
 The kernels that split a reduction over blocks and merge it in the same
 launch take their partials and ticket counters from :func:`scratch`.
+
+``csrc/index_host.cpp`` is built apart, by the host C++ compiler alone
+(:func:`host_library`): the enumerators of the kernels' address arithmetic
+(``csrc/index.cuh``) that ``repro_torch.analysis.bounds`` walks.  It needs
+no card and no CUDA toolkit, so the bounds proofs run on any machine.
 """
 from __future__ import annotations
 
@@ -89,6 +94,48 @@ def build_all() -> Path:
     if errors:
         raise RuntimeError("\n".join(errors))
     return out
+
+
+HOST_SOURCE = "index_host.cpp"
+HOST_FLAGS = ["-std=c++17", "-O1", "-shared", "-fPIC"]
+_HOST_LIBS: dict[Path, ctypes.CDLL] = {}
+
+
+def _cxx() -> str:
+    for name in (os.environ.get("CXX"), "g++", "c++", "clang++"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (g++, c++ or clang++ on PATH, or $CXX): "
+                       "the bounds proofs build csrc/index_host.cpp with it")
+
+
+def host_library(csrc: Path = CSRC, build_root: Path = BUILD_ROOT) -> ctypes.CDLL:
+    """The host enumerators built from ``csrc/index_host.cpp`` and the
+    ``index.cuh`` beside it (``csrc`` may be a copy, as a mutation test's),
+    compiled with the host C++ compiler into ``build_root/host-<hash>/``
+    keyed by both sources and the flags, and loaded with ctypes.  Raises
+    with the compiler's output on failure, or when there is no compiler."""
+    csrc = Path(csrc)
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    for name in (HOST_SOURCE, "index.cuh"):
+        h.update(name.encode())
+        h.update((csrc / name).read_bytes())
+    out = Path(build_root) / f"host-{h.hexdigest()[:16]}"
+    so = out / "libindex_host.so"
+    lib = _HOST_LIBS.get(so)
+    if lib is not None:
+        return lib
+    if not so.exists():
+        out.mkdir(parents=True, exist_ok=True)
+        tmp = out / f"libindex_host.so.{os.getpid()}.tmp"
+        proc = subprocess.run([_cxx(), *HOST_FLAGS, f"-I{csrc}", "-o", str(tmp),
+                               str(csrc / HOST_SOURCE)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"host build of {HOST_SOURCE} failed:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    lib = _HOST_LIBS[so] = ctypes.CDLL(str(so))
+    return lib
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -21,6 +21,7 @@ import torch
 from repro_torch.kernels import _build, dry
 from repro_torch.kernels.ref import (block_gemm_int8_acc_ref, block_gemm_int8_ref,
                                      block_gemm_ref, int8_epilogue_ref)
+from repro_torch.kernels.spec import KernelSpec, OperandSpec, header_line, run_enumerator
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _fn = None
@@ -82,6 +83,28 @@ def int8_route(M: int, N: int, sms: int = _SMS, tma_ok: bool = True) -> int:
         cols = {bn: -(-(m_tiles * -(-N // bn)) // sms) * bn for bn in (128, 256)}
         return 3 if cols[256] <= 1.15 * cols[128] else 2
     return 1
+
+
+def gemm_spec(M: int, K: int, N: int, *, int8: bool = False, sms: int = _SMS,
+              lib=None) -> KernelSpec:
+    """Contract of :func:`block_gemm` (bf16: the tile ``launch_bf16`` takes
+    for M, K split by :func:`gemm_splits`) or, ``int8``, of
+    :func:`block_gemm_int8` on the route :func:`int8_route` takes (K split
+    by :func:`int8_splits` on the mma.sync routes; the persistent kernel's
+    tile walk over ``sms`` blocks on the wgmma routes).  Ragged M, N and K
+    are the interesting cases: the tiles' edges are masked, never padded."""
+    route = int8_route(M, N, sms) if int8 else 0
+    splits = (int8_splits(K, N) if route < 2 else 1) if int8 else gemm_splits(K, N)
+    operands = (OperandSpec("a", M, K), OperandSpec("b", K, N), OperandSpec("c", M, N, "out"))
+
+    def enumerate_(fill):
+        return run_enumerator("repro_enum_gemm", (M, N, K, int(int8), route, splits, sms),
+                              (), lib)
+
+    f, line = header_line("walk_tile" if int8 and route >= 2 else "split_range")
+    return KernelSpec(name=f"block_gemm_int8_route{route}" if int8 else "block_gemm",
+                      grid=(), scalars=(), operands=operands, enumerate=enumerate_,
+                      k_whole=K, src_file=f, src_line=line)
 
 
 _SM_COUNTS: dict = {}

@@ -60,6 +60,7 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
+#include "index.cuh"  // the addresses: the header the bounds proofs read (analysis/bounds.py)
 
 namespace repro {
 
@@ -98,8 +99,9 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
   const int g = lane >> 2, c2 = (lane & 3) * 2;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const int split = splits > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
-  const int m0 = blockIdx.y * BM, n0 = (blockIdx.x / splits) * BN;
-  const int kbeg = split * kc, kend = min(K, kbeg + kc);
+  int m0, n0, kbeg, kend;
+  ix::gemm_tile(blockIdx.x, blockIdx.y, BM, BN, splits, m0, n0);
+  ix::split_range(split, kc, K, kbeg, kend);
   const bf16 zero = __float2bfloat16(0.f);
   const uint64_t pol = l2_evict_first();  // B is read once per call
 
@@ -249,10 +251,9 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
       }
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  const int rows = min(BM, M - m0);
-  const int n4 = rows * (BN / 4), per = (n4 + splits - 1) / splits;
-  const int e1 = min(n4, (split + 1) * per);
-  for (int e = split * per + tid; e < e1; e += NT) {
+  int e0, e1;
+  ix::reduce_slice(split, splits, BM, BN, M, m0, e0, e1);
+  for (int e = e0 + tid; e < e1; e += NT) {
     const int row = e / (BN / 4), col = (e % (BN / 4)) * 4;
     float4 sum = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, 0) +
                                                   row * RS + col);
@@ -286,7 +287,8 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   __shared__ float As[BK][BM + 1];
   __shared__ float Bs[BK][BN];
   const int tid = threadIdx.x, tx = tid % CG, ty = tid / CG;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  int m0, n0;
+  ix::gemm_tile(blockIdx.x, blockIdx.y, BM, BN, 1, m0, n0);
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -343,9 +345,11 @@ int launch_tile(const bf16* A, const bf16* B, TO* C, int M, int N, int K, int ve
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // kc: ceil(K / splits) rounded up to the k-tile -- a function of (K, splits)
-  const int kc = ((K + splits - 1) / splits + BK - 1) / BK * BK;
+  const int kc = ix::split_chunk(K, splits, BK);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((N + BN - 1) / BN) * splits, (M + BM - 1) / BM);
+  int gx, gy;
+  ix::gemm_grid(M, N, BM, BN, splits, gx, gy);
+  cfg.gridDim = dim3(gx, gy);
   cfg.blockDim = dim3((BM / WM) * (BN / WN) * 32);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -370,10 +374,12 @@ int launch_bf16(const bf16* A, const bf16* B, TO* C, int M, int N, int K, int sp
   // decode rows: one m16 tile; 128 columns (4 stages) where K is split, so
   // that a block keeps 16 KB of B per stage in flight, else 64 (5 stages),
   // which fills the SMs better at the LM head's 50k-262k columns
-  if (M <= 16 && splits > 1)
+  int bm, bn;
+  ix::bf16_tile(M, splits, bm, bn);
+  if (bm == 16 && bn == 128)
     return launch_tile<16, 128, 16, 32, 4, AT, BT, TO>(A, B, C, M, N, K, vecA, vecB, splits,
                                                    stream);
-  if (M <= 16)
+  if (bm == 16)
     return launch_tile<16, 64, 16, 16, 5, AT, BT, TO>(A, B, C, M, N, K, vecA, vecB, splits,
                                                   stream);
   // mixed-tick and prefill rows: 64 x 64 tiles, four 32 x 32 warp tiles, 4 stages

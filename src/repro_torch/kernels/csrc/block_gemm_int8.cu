@@ -81,6 +81,7 @@
 #include <cuda.h>  // CUtensorMap and the driver's enums (types only: no -lcuda)
 
 #include "common.cuh"
+#include "index.cuh"  // the addresses: the header the bounds proofs read (analysis/bounds.py)
 
 namespace repro {
 
@@ -155,8 +156,9 @@ gemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
   const int g = lane >> 2, c4 = (lane & 3) * 4;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const int split = splits > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
-  const int m0 = blockIdx.y * BM, n0 = (blockIdx.x / splits) * BN;
-  const int kbeg = split * kc, kend = min(K, kbeg + kc);
+  int m0, n0, kbeg, kend;
+  ix::gemm_tile(blockIdx.x, blockIdx.y, BM, BN, splits, m0, n0);
+  ix::split_range(split, kc, K, kbeg, kend);
 
   int acc[MT][NTL][4];
 #pragma unroll
@@ -281,10 +283,9 @@ gemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
       }
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  const int rows = min(BM, M - m0);
-  const int n4 = rows * (BN / 4), per = (n4 + splits - 1) / splits;
-  const int e1 = min(n4, (split + 1) * per);
-  for (int e = split * per + tid; e < e1; e += NT) {
+  int e0, e1;
+  ix::reduce_slice(split, splits, BM, BN, M, m0, e0, e1);
+  for (int e = e0 + tid; e < e1; e += NT) {
     const int row = e / (BN / 4), col = (e % (BN / 4)) * 4;
     int4 sum = *reinterpret_cast<const int4*>(cluster.map_shared_rank(red, 0) + row * PS + col);
     for (int s = 1; s < splits; ++s) {
@@ -579,8 +580,9 @@ gemm_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
   float* sb_tile = reinterpret_cast<float*>(empty + STAGES);  // [2][BN] column scales
 
   const int tid = threadIdx.x, wg = tid / 128;
-  const int mt = (M + WG_BM - 1) / WG_BM, nt = (N + BN - 1) / BN;
-  const int ntiles = mt * nt, KT = (K + I8_BK - 1) / I8_BK;
+  int mt, ntiles, grid;
+  ix::walk_grid(M, N, WG_BM, BN, gridDim.x, mt, ntiles, grid);
+  const int KT = (K + I8_BK - 1) / I8_BK;
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
@@ -596,7 +598,8 @@ gemm_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
       int s = 0;
       uint32_t ph = 0;
       for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-        const int m0 = (t % mt) * WG_BM, n0 = (t / mt) * BN;
+        int m0, n0;
+        ix::walk_tile(t, mt, WG_BM, BN, m0, n0);
         for (int kt = 0; kt < KT; ++kt) {
           mbar_wait(&empty[s], ph ^ 1);  // a fresh stage passes at once
           mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
@@ -616,7 +619,8 @@ gemm_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
     uint32_t ph = 0;
     float* sbs = sb_tile + wg * BN;
     for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-      const int m0 = (t % mt) * WG_BM, n0 = (t / mt) * BN;
+      int m0, n0;
+      ix::walk_tile(t, mt, WG_BM, BN, m0, n0);
       // this tile's column scales, read from shared memory by the epilogue
       // (the barrier: the warpgroup's last epilogue is done with them)
       wg_bar(1 + wg);
@@ -744,8 +748,9 @@ int launch_wgmma(const int8_t* A, const int8_t* B, const float* sa, const float*
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = ((M + WG_BM - 1) / WG_BM) * ((N + BN - 1) / BN);
-  kern<<<tiles < sms ? tiles : sms, WG_THREADS, smem, stream>>>(ma, mb, sa, sb, C, M, N, K);
+  int mt, tiles, grid;
+  ix::walk_grid(M, N, WG_BM, BN, sms, mt, tiles, grid);
+  kern<<<grid, WG_THREADS, smem, stream>>>(ma, mb, sa, sb, C, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -760,9 +765,11 @@ int launch_mma(const int8_t* A, const int8_t* B, const float* sa, const float* s
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // kc: ceil(K / splits) rounded up to 32 -- a function of (K, splits)
-  const int kc = ((K + splits - 1) / splits + 31) / 32 * 32;
+  const int kc = ix::split_chunk(K, splits, 32);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((N + BN - 1) / BN) * splits, (M + BM - 1) / BM);
+  int gx, gy;
+  ix::gemm_grid(M, N, BM, BN, splits, gx, gy);
+  cfg.gridDim = dim3(gx, gy);
   cfg.blockDim = dim3((BM / WM) * (BN / WN) * 32);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -783,18 +790,18 @@ int launch_mma(const int8_t* A, const int8_t* B, const float* sa, const float* s
 template <typename TO>
 int launch_int8(const int8_t* A, const int8_t* B, const float* sa, const float* sb, TO* C,
                 int M, int N, int K, int route, int splits, int sms, cudaStream_t stream) {
-  if (splits < 1 || splits > 8) return static_cast<int>(cudaErrorInvalidValue);
-  switch (route) {
-    case 0:
-      if (splits == 1)
-        return launch_mma<16, 32, 16, 8, 4, false, TO>(A, B, sa, sb, C, M, N, K, 1, stream);
-      return launch_mma<16, 128, 16, 32, 4, true, TO>(A, B, sa, sb, C, M, N, K, splits, stream);
-    case 1:
-      return launch_mma<64, 128, 32, 32, 3, true, TO>(A, B, sa, sb, C, M, N, K, splits, stream);
-    case 2: return launch_wgmma<128, 6, TO>(A, B, sa, sb, C, M, N, K, sms, stream);
-    case 3: return launch_wgmma<256, 4, TO>(A, B, sa, sb, C, M, N, K, sms, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (splits < 1 || splits > 8 || route < 0 || route > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int bm, bn;  // the route's tile, from index.cuh (the bounds proofs read the same)
+  ix::int8_tile(route, splits, bm, bn);
+  if (bm == 16 && bn == 32)
+    return launch_mma<16, 32, 16, 8, 4, false, TO>(A, B, sa, sb, C, M, N, K, 1, stream);
+  if (bm == 16)
+    return launch_mma<16, 128, 16, 32, 4, true, TO>(A, B, sa, sb, C, M, N, K, splits, stream);
+  if (bm == 64)
+    return launch_mma<64, 128, 32, 32, 3, true, TO>(A, B, sa, sb, C, M, N, K, splits, stream);
+  if (bn == 128) return launch_wgmma<128, 6, TO>(A, B, sa, sb, C, M, N, K, sms, stream);
+  return launch_wgmma<256, 4, TO>(A, B, sa, sb, C, M, N, K, sms, stream);
 }
 
 }  // namespace repro

@@ -87,10 +87,11 @@
 // Bound: at G = 40 each latent row meets 40 heads, ~80 operations a byte,
 // still under the card's bf16 balance in the operations the CUDA cores do.
 #include "common.cuh"
+#include "index.cuh"  // the addresses: the header the bounds proofs read (analysis/bounds.py)
 
 namespace repro {
 
-constexpr int SD_ROWS = 64;  // cache rows per block: 8 warps x 8 rows
+constexpr int SD_ROWS = ix::SD_ROWS;  // cache rows per block: 8 warps x 8 rows
 constexpr int SD_THREADS = 256;
 constexpr int SD_WARPS = SD_THREADS / 32;
 constexpr int SD_MAX_D = 288;  // widest q or v row: MLA's kv_lora_rank + qk_rope
@@ -137,15 +138,16 @@ template <> __device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& r,
 // Storage row of logical row r of slot b, counted in rows of [Kh][width]:
 // a slot cache's own rows (b * S + r: contiguous, so a block steps a
 // pointer), or a pool's rows through the page table (the page index
-// clipped to npp - 1).  min_blocks: blocks an SM the kernel is compiled for
-// (registers a thread <= 65536 / (256 * min_blocks)).  paged: a slot's
+// clipped to npp - 1); the arithmetic is index.cuh's.  min_blocks: blocks
+// an SM the kernel is compiled for (registers a thread <= 65536 / (256 *
+// min_blocks)).  paged: a slot's
 // rows are a table's width, mostly past pos, so blocks outside the live
 // range exit at once (see the kernel).
 struct SlotRows {
   static constexpr int min_blocks = 2;
   static constexpr bool paged = false;
   int S;
-  __device__ __forceinline__ size_t operator()(int b, int r) const { return (size_t)b * S + r; }
+  __device__ __forceinline__ size_t operator()(int b, int r) const { return ix::slot_row(S, b, r); }
 };
 struct PageRows {
   static constexpr int min_blocks = 3;  // a third block an SM hides more load latency
@@ -153,7 +155,7 @@ struct PageRows {
   const int* pages;  // [B, npp]
   int ps, npp;
   __device__ __forceinline__ size_t operator()(int b, int r) const {
-    return (size_t)pages[(size_t)b * npp + min(r / ps, npp - 1)] * ps + r % ps;
+    return ix::page_row(pages, ps, npp, b, r);
   }
 };
 
@@ -176,10 +178,11 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ int last;
   constexpr bool wide = CH * 32 * V > 256;  // rows past 256 columns: head groups
   const int blk = blockIdx.x, b = blockIdx.z, nblk = gridDim.x;
-  const int ng = wide ? gridDim.y / Kh : 1, kh = blockIdx.y / ng;  // ng head groups a kv-head
-  const int G = H / Kh / ng, W = dv + 2;
-  const int h0 = kh * (H / Kh) + (blockIdx.y % ng) * G;
-  const int grp = b * Kh * ng + blockIdx.y;  // this (slot, kv-head, head group)
+  // ng head groups a kv-head
+  const int ng = wide ? gridDim.y / Kh : 1, kh = ix::group_kv_head(blockIdx.y, ng);
+  const int G = ix::group_heads(H, Kh, ng), W = dv + 2;
+  const int h0 = ix::group_first_head(blockIdx.y, kh, H, Kh, ng, G);
+  const int grp = ix::group_index(blockIdx.y, b, Kh, ng);  // this (slot, kv-head, head group)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   float* q_s = sd_smem;                   // [G][dq]
   float* p_s = q_s + G * dq;              // [G][SD_ROWS] scores, then P
@@ -193,7 +196,7 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* mine = pbase + (size_t)blk * G * W;
 
   const int p_b = pos[b], s_b = start[b];
-  const int r0 = blk * SD_ROWS, jn = min(SD_ROWS, S - r0);
+  const int r0 = ix::block_first_row(blk), jn = ix::block_rows(r0, S);
   // the blocks that take a ticket, [blo, bhi].  Slot caches: all of them
   // (a block with no live row writes a partial with sum 0).  Pools: those
   // overlapping [start, pos], none when drained -- a function of the slot's
@@ -202,9 +205,9 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int blo = 0, bhi = nblk - 1;
   if constexpr (Rows::paged) {
     bhi = -1;
-    if (s_b <= p_b && p_b >= 0 && s_b < S) {
-      blo = max(s_b, 0) / SD_ROWS;
-      bhi = min(p_b, S - 1) / SD_ROWS;
+    if (ix::slot_has_rows(p_b, s_b, S)) {
+      blo = ix::first_live_block(s_b);
+      bhi = ix::last_live_block(p_b, S);
     }
   }
   const int nlive = bhi - blo + 1;
@@ -217,11 +220,12 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
       return;
     }
   }
-  const bool live = s_b <= p_b && (ring || (r0 <= p_b && r0 + jn > s_b));
+  const bool live = ix::decode_block_live(r0, jn, p_b, s_b, ring);
   if (live) {
     // rows read: all of a ring block's, those in [start, pos] of a linear or
     // paged one (the rest stay zero and are masked)
-    const int j_lo = ring ? 0 : max(s_b - r0, 0), j_hi = ring ? jn - 1 : min(p_b - r0, jn - 1);
+    const int j_lo = ring ? 0 : ix::rows_from(s_b, r0);
+    const int j_hi = ring ? jn - 1 : ix::rows_to(p_b, r0, jn);
     const size_t kstride = (size_t)Kh * dq, vstride = (size_t)Kh * v_row;
     size_t sr0 = 0;  // slot caches: the block's first row; its rows follow
     if constexpr (!Rows::paged) sr0 = rows(b, r0);
@@ -279,13 +283,7 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dot = warp_sum(dot);
         if (lane == 0) {
           const int j = warp * 8 + u, r = r0 + j;
-          bool valid;
-          if (ring) {
-            const int a = p_b - (((p_b - r) % S + S) % S);
-            valid = a >= 0 && a >= s_b;
-          } else {
-            valid = r >= s_b && r <= p_b;
-          }
+          const bool valid = ix::decode_row_valid(r, p_b, s_b, S, ring);
           float sc = dot * scale;
           if (softcap > 0.f) sc = tanhf(sc / softcap) * softcap;
           p_s[g * SD_ROWS + j] = (j < jn && valid) ? sc : NEG;
@@ -420,7 +418,7 @@ int launch_slot(const void* q, const void* k, const void* v, const int* pos, con
                 float* part, int* counter, void* out, int B, int H, int Kh, int ng, int S,
                 int dq, int dv, int v_row, int ring, float scale, float softcap, Rows rows,
                 cudaStream_t stream) {
-  const int G = H / Kh / ng, nblk = (S + SD_ROWS - 1) / SD_ROWS;  // G: heads a block
+  const int G = H / Kh / ng, nblk = ix::decode_blocks(S);  // G: heads a block
   const size_t smem = slot_smem<T>(G, dq, dv, nblk);
   auto kern = flash_decode_slot_kernel<T, CH, Rows>;
   cudaError_t err = cudaFuncSetAttribute(

@@ -99,13 +99,14 @@
 // paged form reads its rows through the same table and does not split: it
 // carries the tests and the card's comparisons, never a serving path.
 #include "common.cuh"
+#include "index.cuh"  // the addresses: the header the bounds proofs read (analysis/bounds.py)
 
 namespace repro {
 
 constexpr int FAD_BQ = 64;       // query rows per block
 constexpr int FAD_KT = 32;       // key rows per tile (one per lane in the softmax)
 constexpr int FAD_THREADS = 256;
-constexpr int FAP_SPLIT = 128;   // key rows per piece of a paged slot (bf16)
+constexpr int FAP_SPLIT = ix::FAP_SPLIT;  // key rows per piece of a paged slot (bf16)
 
 struct Strides3 {
   long long b, h, s;  // elements; the d stride is 1
@@ -151,7 +152,7 @@ flash_attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int* tbl = nullptr;
   if constexpr (PAGED) {
     off = pg.q_start[b];
-    kn = min(pg.k_len[b], pg.npp * pg.ps);
+    kn = ix::paged_keys(pg.k_len[b], pg.npp, pg.ps);
     tbl = pg.pages + (size_t)b * pg.npp;
   } else {
     kb += b * ks.b;
@@ -178,17 +179,16 @@ flash_attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int t = 0; t < CH; ++t) acc[r][t] = 0.f;
 
   // live keys of the tile: [key_lo, key_hi]; none live -> the rows stay 0
-  const int qlo = q0 + off, qhi = min(q0 + BQ, Sq) - 1 + off;
-  const int key_hi = causal ? min(kn - 1, qhi) : kn - 1;
-  const int key_lo = window > 0 ? max(0, qlo - window + 1) : 0;
+  int key_lo, key_hi;
+  ix::tile_keys(q0, BQ, Sq, off, kn, causal, window, key_lo, key_hi);
   __syncthreads();
-  for (int t0 = key_hi >= key_lo ? (key_lo / KT) * KT : kn; t0 <= key_hi; t0 += KT) {
+  for (int t0 = ix::first_key_row(key_lo, key_hi, KT, kn); t0 <= key_hi; t0 += KT) {
     for (int e = tid; e < KT * d; e += FAD_THREADS) {
       const int j = e / d, c = e % d;
       const int r = t0 + j;
       const bool ok = r < kn;
       long long row = r;  // the key row's index in the K/V operand's rows
-      if constexpr (PAGED) row = ok ? (long long)tbl[r / pg.ps] * pg.ps + r % pg.ps : 0;
+      if constexpr (PAGED) row = ok ? ix::pool_row(tbl, pg.ps, r) : 0;
       k_s[j * dp + c] = ok ? to_f(kb[row * ks.s + c]) : 0.f;
       v_s[j * d + c] = ok ? to_f(vb[row * vs.s + c]) : 0.f;
     }
@@ -214,10 +214,7 @@ flash_attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int i = sr + 32 * r, j = sk + 8 * u;
-        const int qpos = q0 + i + off, kpos = t0 + j;
-        bool valid = kpos < kn;
-        if (causal) valid = valid && kpos <= qpos;
-        if (window > 0) valid = valid && kpos > qpos - window;
+        const bool valid = ix::key_valid(t0 + j, q0 + i + off, kn, causal, window);
         float x = sc[r][u] * scale;
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
         s_s[i * SP + j] = valid ? x : NEG;
@@ -286,7 +283,7 @@ int launch_dense(const void* q, const void* k, const void* v, void* out, Strides
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sq + FAD_BQ - 1) / FAD_BQ, H, B);
+  dim3 grid(ix::query_tiles(Sq, FAD_BQ), H, B);
   kern<<<grid, FAD_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), qs, ks, vs, os, H, Kh, Sq, Sk, d, causal, window, scale,
@@ -334,7 +331,7 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 constexpr int FAT_ST = 2;  // stages of the K/V ring
 
-__host__ __device__ constexpr int fat_kt(int D) { return D > 128 ? 32 : 64; }  // K/V tile rows
+using ix::fat_kt;  // K/V tile rows
 
 // shared memory of a block in bytes: Q and the ring of K and V tiles, bf16,
 // rows of D + 8
@@ -357,11 +354,11 @@ fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
 
   // heaviest causal query tile first; the heads of one kv-head side by
   // side; paged: then the key pieces of a query tile
-  const int nq = (Sq + BQ - 1) / BQ;
-  const int tile = static_cast<int>(blockIdx.x / (B * H));
-  const int piece = PAGED ? tile % pg.nsplit : 0;
-  const int iq = nq - 1 - (PAGED ? tile / pg.nsplit : tile);
-  const int bh = blockIdx.x % (B * H), h = bh % H, b = bh / H;
+  const int nq = ix::query_tiles(Sq, BQ);
+  const int tile = ix::tc_tile(blockIdx.x, B, H);
+  const int piece = ix::tc_piece(tile, PAGED, pg.nsplit);
+  const int iq = ix::tc_query_tile(tile, nq, PAGED, pg.nsplit);
+  const int bh = ix::tc_slot_head(blockIdx.x, B, H), h = bh % H, b = bh / H;
   const int kh = h / (H / Kh);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
@@ -373,7 +370,7 @@ fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
   const int* tbl = nullptr;
   if constexpr (PAGED) {
     off = pg.q_start[b];
-    kn = min(pg.k_len[b], pg.npp * pg.ps);
+    kn = ix::paged_keys(pg.k_len[b], pg.npp, pg.ps);
     tbl = pg.pages + (size_t)b * pg.npp;
   } else {
     kb += b * ks.b;
@@ -400,7 +397,7 @@ fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
   };
   // paged: key rows [row0, row0 + KT) into a K and a V tile, each row's
   // pool row looked up once for both; rows >= kn and columns >= d are zero
-  auto pool_row = [&](int lr) { return (long long)tbl[lr / pg.ps] * pg.ps + lr % pg.ps; };
+  auto pool_row = [&](int lr) { return ix::pool_row(tbl, pg.ps, lr); };
   auto copy_paged = [&](bf16* dst_k, bf16* dst_v, int row0) {
     if (vec) {
       constexpr int CH = D / 8;
@@ -424,9 +421,8 @@ fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
 
   // key tiles live for some row of the block: [t_first, t_first + ntiles);
   // paged: within the block's piece of the slot's keys
-  const int qlo = q0 + off, qhi = min(q0 + BQ, Sq) - 1 + off;
-  int key_hi = causal ? min(kn - 1, qhi) : kn - 1;
-  int key_lo = window > 0 ? max(0, qlo - window + 1) : 0;
+  int key_lo, key_hi;
+  ix::tile_keys(q0, BQ, Sq, off, kn, causal, window, key_lo, key_hi);
   // paged: the query tile's live pieces [plo, phi], a function of the
   // slot's own rows that every block computes; blocks of other pieces exit
   // at once (piece 0 of a tile with no key writes its zeros), and a tile
@@ -434,15 +430,15 @@ fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
   int plo = 0, phi = 0;
   if constexpr (PAGED) {
     if (key_hi >= key_lo) {
-      plo = key_lo / FAP_SPLIT;
-      phi = key_hi / FAP_SPLIT;
+      plo = ix::piece_of(key_lo);
+      phi = ix::piece_of(key_hi);
     }
     if (piece < plo || piece > phi) return;
-    key_lo = max(key_lo, piece * FAP_SPLIT);
-    key_hi = min(key_hi, piece * FAP_SPLIT + FAP_SPLIT - 1);
+    key_lo = ix::piece_lo(key_lo, piece);
+    key_hi = ix::piece_hi(key_hi, piece);
   }
-  const int t_first = key_lo / KT;
-  const int ntiles = key_hi >= key_lo ? key_hi / KT - t_first + 1 : 0;
+  const int t_first = ix::first_tile(key_lo, KT);
+  const int ntiles = ix::tile_count(key_lo, key_hi, KT, t_first);
   auto load_kv = [&](int t) {  // tile t into stage t % ST
     bf16* ks_ = kv_s + (t % ST) * 2 * KT * RS;
     if constexpr (PAGED) {
@@ -509,10 +505,7 @@ fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
                                 : s[j][r] * sl2;
         if (edge) {
           const int qp = wlo + g + (r >= 2 ? 8 : 0), kp = t0 + 8 * j + 2 * c + (r & 1);
-          bool ok = kp < kn;
-          if (causal) ok = ok && kp <= qp;
-          if (window > 0) ok = ok && kp > qp - window;
-          if (!ok) x = NEG;
+          if (!ix::key_valid(kp, qp, kn, causal, window)) x = NEG;
         }
         s[j][r] = x;
         mx[r >> 1] = fmaxf(mx[r >> 1], x);
@@ -578,10 +571,10 @@ fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
   if constexpr (PAGED) {
     if (phi > plo) {  // partial, ticket, and the last block merges
       __shared__ int last;
-      const int pidx = (b * H + h) * nq + iq;
+      const int pidx = ix::piece_group(b, h, iq, H, nq);
       const size_t pstride = (size_t)BQ * (d + 2);
-      const float* base = pg.part + (size_t)pidx * pg.nsplit * pstride;
-      float* mine = pg.part + ((size_t)pidx * pg.nsplit + piece) * pstride;  // O, m, l
+      const float* base = pg.part + ix::piece_slot(pidx, pg.nsplit, 0) * pstride;
+      float* mine = pg.part + ix::piece_slot(pidx, pg.nsplit, piece) * pstride;  // O, m, l
       const bool even = (d & 1) == 0;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -750,7 +743,7 @@ int launch_dense_tc(const void* q, const void* k, const void* v, void* out, Stri
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks =
-      (unsigned)((Sq + FAT_BQ - 1) / FAT_BQ) * (PAGED ? pg.nsplit : 1) * B * H;
+      (unsigned)ix::query_tiles(Sq, FAT_BQ) * (PAGED ? pg.nsplit : 1) * B * H;
   kern<<<blocks, FAT_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), qs, ks, vs,

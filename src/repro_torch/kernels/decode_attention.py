@@ -18,10 +18,13 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build, dry
 from repro_torch.kernels.ref import flash_decode_ref
+from repro_torch.kernels.spec import (KernelSpec, OperandSpec, ScalarSpec, header_line,
+                                      run_enumerator)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _ROWS = 64  # logical rows per CUDA block
@@ -60,6 +63,60 @@ def decode_scratch(B: int, H: int, K: int, S: int, dv: int,
     H, K, dv and dq alone."""
     groups = head_groups(H // K, max(dv, dq or dv))
     return B * K * -(-S // _ROWS) * (H // K) * (dv + 2), B * K * groups
+
+
+def _decode_spec(name, B, H, K, S, dq, dv, v_row, layout, kv_rows, ps, npp, n_pages,
+                 lib) -> KernelSpec:
+    """The contract of one decode launch (``decode_attention.cu``'s grid
+    and addresses, the scratch of :func:`decode_scratch`)."""
+    v_row = v_row or dv
+    ng = head_groups(H // K, max(dq, dv))
+    G, nblk = H // K // ng, -(-S // _ROWS)
+    n_part, n_tickets = decode_scratch(B, H, K, S, dv, dq)
+    paged, ring = npp > 0, layout == "ring"
+    scalars = [ScalarSpec("pos", (B,), 0, S), ScalarSpec("start", (B,), 0, S)]
+    if paged:
+        scalars.append(ScalarSpec("pages", (B, npp), 0, n_pages - 1))
+    operands = (OperandSpec("q", B * H, dq), OperandSpec("k", kv_rows, K * dq),
+                OperandSpec("v", kv_rows, K * v_row), OperandSpec("out", B * H, dv, "out"),
+                OperandSpec("part", n_part // (G * (dv + 2)), 1, "partial"),
+                OperandSpec("tickets", n_tickets, 1, "ticket"),
+                OperandSpec("pages", B * npp, npp, "table"))
+
+    def enumerate_(fill):
+        return run_enumerator("repro_enum_decode",
+                              (B, H, K, ng, S, dq, dv, v_row, int(ring), int(paged), ps, npp),
+                              (fill["pos"], fill["start"], fill.get("pages")), lib)
+
+    def live(fill, ev, reads):  # the reference's: rows [start, pos], a ring's all
+        b = reads[:, 8]
+        p, s = fill["pos"][b], fill["start"][b]
+        if ring:
+            return s <= p
+        return (reads[:, 7] >= np.maximum(s, 0)) & (reads[:, 7] <= np.minimum(p, S - 1))
+
+    f, line = header_line("page_row" if paged else "rows_to")
+    return KernelSpec(name=name, grid=(nblk, K * ng, B), scalars=tuple(scalars),
+                      operands=operands, enumerate=enumerate_, live=live, kv_ops=(1, 2),
+                      src_file=f, src_line=line)
+
+
+def fd_dense_spec(B: int, H: int, K: int, S: int, dq: int, dv: int, *,
+                  layout: str = "linear", v_row: int | None = None, lib=None) -> KernelSpec:
+    """Contract of :func:`flash_decode` on slot caches [B, S, K, *] in the
+    ``layout`` given (``v_row``: v's row width when v is k, MLA's latent
+    call).  Scalar domains are the reference's hostile ones: ``pos`` reaches
+    ``S`` (a frozen slot) and ``start`` may pass ``pos`` (a drained one)."""
+    return _decode_spec(f"flash_decode_{layout}", B, H, K, S, dq, dv, v_row, layout,
+                        B * S, 0, 0, 0, lib)
+
+
+def fd_paged_spec(B: int, H: int, K: int, dq: int, dv: int, ps: int, npp: int,
+                  n_pages: int, *, v_row: int | None = None, lib=None) -> KernelSpec:
+    """Contract of :func:`flash_decode_paged` over pools [n_pages, ps, K, *]
+    and tables [B, npp] holding any pool page."""
+    return _decode_spec("flash_decode_paged", B, H, K, npp * ps, dq, dv, v_row, "linear",
+                        n_pages * ps, ps, npp, n_pages, lib)
 
 
 def _launch(name, q, k, v, pos, start, pages, *, ring, softcap, scale, dv):

@@ -11,10 +11,13 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build, dry
 from repro_torch.kernels.ref import flash_attention_paged_ref, flash_attention_ref
+from repro_torch.kernels.spec import (READ, KernelSpec, OperandSpec, ScalarSpec, header_line,
+                                      run_enumerator)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _SMEM_LIMIT = 227 * 1024  # an H100 block's dynamic shared memory
@@ -22,15 +25,22 @@ _fn = None
 _fn_dense = None
 
 
+def tc_tile(d: int) -> tuple[int, int]:
+    """The tensor-core route's (D, key tile rows) for head dim d: d padded to
+    a power of two >= 16, key tiles of 64 rows, 32 at D > 128
+    (``index.cuh``'s ``fat_kt``)."""
+    D = max(16, 1 << (d - 1).bit_length())
+    return D, 32 if D > 128 else 64
+
+
 def dense_smem_bytes(d: int, dtype) -> int:
     """Dynamic shared memory of one dense-attention block.  bf16 (tensor
-    cores): 64 Q rows and a 2-stage ring of K and V tiles (64 rows, 32 at
-    d > 128), bf16, d padded to a power of two >= 16 plus 8 elements a row.
-    f32 (CUDA cores): 64 Q rows and 32 K rows of d + 1, 32 V rows of d, the
-    64 x 33 score tile and three 64-float row vectors."""
+    cores): 64 Q rows and a 2-stage ring of K and V tiles (:func:`tc_tile`),
+    bf16, rows of D + 8 elements.  f32 (CUDA cores): 64 Q rows and 32 K rows
+    of d + 1, 32 V rows of d, the 64 x 33 score tile and three 64-float row
+    vectors."""
     if dtype == torch.bfloat16:
-        D = max(16, 1 << (d - 1).bit_length())
-        kt = 32 if D > 128 else 64
+        D, kt = tc_tile(d)
         return 2 * (64 + 4 * kt) * (D + 8)
     return 4 * (96 * (d + 1) + 32 * d + 64 * 33 + 192)
 
@@ -137,6 +147,78 @@ def paged_scratch(B: int, H: int, C: int, d: int, npp: int, ps: int) -> tuple[in
         return 0, 0
     tiles = B * H * -(-C // 64)
     return tiles * n * 64 * (d + 2), tiles
+
+
+def _attn_spec(name, B, H, K, Sq, Sk, d, causal, window, dtype, ps, npp, n_pages,
+               lib) -> KernelSpec:
+    """The contract of one attention launch (``flash_attention.cu``'s
+    routes: tensor cores for bf16, CUDA cores for f32)."""
+    tc, paged = dtype == torch.bfloat16, npp > 0
+    nq = -(-Sq // 64)
+    D, kt = tc_tile(d) if tc else (0, 32)
+    S = npp * ps
+    n_part, n_tickets = (paged_scratch(B, H, Sq, d, npp, ps) if tc and paged else (0, 0))
+    nsplit = key_pieces(npp, ps) if paged else 1
+    scalars = ()
+    kv = OperandSpec("k", B * K * Sk, d), OperandSpec("v", B * K * Sk, d)
+    if paged:
+        scalars = (ScalarSpec("q_start", (B,), 0, S), ScalarSpec("k_len", (B,), 0, S),
+                   ScalarSpec("pages", (B, npp), 0, n_pages - 1))
+        kv = OperandSpec("k", n_pages * ps, K * d), OperandSpec("v", n_pages * ps, K * d)
+    operands = (OperandSpec("q", B * H * Sq, d), *kv, OperandSpec("out", B * H * Sq, d, "out"),
+                OperandSpec("part", n_part // (64 * (d + 2)), 1, "partial"),
+                OperandSpec("tickets", n_tickets, 1, "ticket"),
+                OperandSpec("pages", B * npp, npp, "table"))
+    grid = (nq * (nsplit if tc else 1) * B * H,) if tc else (nq, H, B)
+
+    def enumerate_(fill):
+        return run_enumerator(
+            "repro_enum_flash", (B, H, K, Sq, Sk, d, int(causal), int(window), int(tc), D,
+                                 int(paged), ps, npp, nsplit),
+            (fill.get("q_start"), fill.get("k_len"), fill.get("pages")), lib)
+
+    def live(fill, ev, reads):
+        # the keys some query row of the block sees (the reference's masks:
+        # kpos < kn, causal kpos <= qpos, windowed kpos > qpos - window),
+        # read a key tile of kt rows at a time
+        q = ev[(ev[:, 1] == READ) & (ev[:, 2] == 0)]
+        q0_of = dict(zip(q[:, 0].tolist(), q[:, 3].tolist()))
+        qn_of = dict(zip(q[:, 0].tolist(), (q[:, 4] - q[:, 3]).tolist()))
+        blk, r, b = reads[:, 0], reads[:, 7], reads[:, 8]
+        qrow = np.array([q0_of.get(x, -1) for x in blk.tolist()])
+        qn = np.array([qn_of.get(x, 0) for x in blk.tolist()])
+        if paged:
+            off, kn = fill["q_start"][b], np.minimum(fill["k_len"][b], S)
+        else:
+            off, kn = Sk - Sq, np.full_like(b, Sk)
+        qlo = qrow % Sq + off  # the block's first query position
+        qhi = qlo + qn - 1
+        hi = np.minimum(kn - 1, qhi) if causal else kn - 1
+        lo = np.maximum(0, qlo - window + 1) if window > 0 else np.zeros_like(hi)
+        return (qrow >= 0) & (r < kn) & (hi >= lo) & (r // kt >= lo // kt) & (r // kt <= hi // kt)
+
+    f, line = header_line("pool_row" if paged else "tile_keys")
+    return KernelSpec(name=name, grid=grid, scalars=scalars, operands=operands,
+                      enumerate=enumerate_, live=live, kv_ops=(1, 2),
+                      split_groups=tc and paged and nsplit > 1, src_file=f, src_line=line)
+
+
+def fa_dense_spec(B: int, H: int, K: int, Sq: int, Sk: int, d: int, *, causal: bool = True,
+                  window: int = 0, dtype=torch.bfloat16, lib=None) -> KernelSpec:
+    """Contract of :func:`flash_attention` (query row i at position
+    ``i + Sk - Sq``) on the route ``dtype`` takes."""
+    return _attn_spec("flash_attention", B, H, K, Sq, Sk, d, causal, window, dtype, 0, 0, 0,
+                      lib)
+
+
+def fa_paged_spec(B: int, H: int, K: int, C: int, d: int, ps: int, npp: int, n_pages: int,
+                  *, window: int = 0, dtype=torch.bfloat16, lib=None) -> KernelSpec:
+    """Contract of :func:`flash_attention_paged`: a C-row chunk over pools
+    [n_pages, ps, K, d] through tables [B, npp]; ``q_start`` and ``k_len``
+    range over the table's whole capacity (``k_len == 0``: an empty
+    chunk), and bf16 splits the keys into :func:`key_pieces`."""
+    return _attn_spec("flash_attention_paged", B, H, K, C, 0, d, True, window, dtype, ps, npp,
+                      n_pages, lib)
 
 
 def _entry():

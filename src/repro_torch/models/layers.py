@@ -653,13 +653,16 @@ def mla_decode(cfg: ArchConfig, p: dict, cache: dict, x, rows: StepRows):
         layout = CacheLayout.LINEAR
     kv4 = kv[:, :, None]  # one kv-head: the same tensor as k and as v
     wkv_b = p["wkv_b"]  # [kvr, H, dn + dv], float under w8a8 too
-    # the absorption einsums are batched matmuls: bf16 products sum in f32
-    # and round once, as the reference's preferred_element_type=F32 einsums
-    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wkv_b[..., :dn])
+    # the absorption einsums as batched products over the heads that sum
+    # and store f32 and round once, as the reference's
+    # preferred_element_type=F32 einsums
+    q_lat = matmul_f32(q_nope[:, 0].transpose(0, 1), wkv_b[..., :dn].permute(1, 2, 0)) \
+        .transpose(0, 1).to(q_nope.dtype)  # [B, H, kvr]
     q_cat = torch.cat([q_lat, q_rope[:, 0].to(q_lat.dtype)], -1).contiguous()
     o_lat = attend_decode(q_cat, kv4, kv4, pos, rows.start(0), layout=layout,
                           pages=rows.pages, scale=(dn + dr) ** -0.5, dv=kvr)
-    o = torch.einsum("bhr,rhd->bhd", o_lat, wkv_b[..., dn:])  # [B, H, dv]
+    o = matmul_f32(o_lat.transpose(0, 1), wkv_b[..., dn:].transpose(0, 1)) \
+        .transpose(0, 1).to(o_lat.dtype)  # [B, H, dv]
     out = dense_proj(cfg, o.reshape(B, 1, -1), p["wo"], shard=("row", cfg.padded_heads))
     return out, {"kv": kv}
 
@@ -875,31 +878,41 @@ def _group_layout(cfg: ArchConfig, tokens: int):
 
 
 class _BmmF32(torch.autograd.Function):
-    """``a @ b`` (batched) as f32 of two bf16 operands: the reference's
-    einsum with ``preferred_element_type=F32``.  On the card (and on meta,
-    whose dry run follows the card) the bf16 product itself writes f32
-    (``bmm``'s ``out_dtype``), so no f32 copy of an operand is made or
-    saved; the CPU lacks that product and casts the operands (the same
-    values: a bf16 product is exact in f32).  ``out_dtype`` has no
-    derivative in PyTorch: the backward is the f32 products an f32
-    ``bmm`` of the cast operands would run, each gradient cast back to its
-    operand's dtype, as the reference's transpose does."""
+    """``a @ b`` (2-D, or batched 3-D) as f32 of two bf16 operands: the
+    reference's einsum with ``preferred_element_type=F32``.  On the card
+    (and on meta, whose dry run follows the card) the bf16 product itself
+    writes f32 (``mm`` / ``bmm``'s ``out_dtype``), so no f32 copy of an
+    operand is made or saved; the CPU lacks that product and casts the
+    operands (the same values: a bf16 product is exact in f32).
+    ``out_dtype`` has no derivative in PyTorch: the backward is the f32
+    products an f32 product of the cast operands would run, each gradient
+    cast back to its operand's dtype, as the reference's transpose does."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
         if a.device.type == "cpu":
-            return torch.bmm(a.float(), b.float())
-        return torch.bmm(a, b, out_dtype=torch.float32)
+            return torch.matmul(a.float(), b.float())
+        return (torch.mm if a.dim() == 2 else torch.bmm)(a, b, out_dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        da = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype) \
+        da = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype) \
             if ctx.needs_input_grad[0] else None
-        db = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype) \
+        db = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype) \
             if ctx.needs_input_grad[1] else None
         return da, db
+
+
+def matmul_f32(a, b):
+    """``a @ b`` (2-D or batched 3-D) accumulated and stored in f32 (the
+    reference's ``preferred_element_type=F32``; analysis rule J002):
+    :class:`_BmmF32` for bf16 / f16 operands, the plain product for f32
+    (and f64) ones."""
+    if a.dtype in (torch.bfloat16, torch.float16):
+        return _BmmF32.apply(a, b)
+    return torch.matmul(a, b)
 
 
 def moe_forward(cfg: ArchConfig, p: dict, x):
@@ -993,12 +1006,12 @@ def moe_forward(cfg: ArchConfig, p: dict, x):
     xd = xt.to(dt)
     x_pad = torch.cat([xd.new_zeros(G, 1, D), xd], 1).reshape(-1, D)
     ein = x_pad.index_select(0, slot_tok[:-1]).view(El, GC, D)
-    h = F.silu(torch.bmm(ein, p["w_gate"])) * torch.bmm(ein, p["w_up"])
-    if cut:  # this rank's f32 partial of every slot's output
-        eout = _BmmF32.apply(h, p["w_down"]) if h.dtype != torch.float32 \
-            else torch.bmm(h, p["w_down"])
-    else:
-        eout = torch.bmm(h, p["w_down"])
+    # the reference's three einsums with preferred_element_type=F32: each
+    # product accumulates and stores f32 and is cast once
+    h = F.silu(matmul_f32(ein, p["w_gate"]).to(dt)) * matmul_f32(ein, p["w_up"]).to(dt)
+    eout = matmul_f32(h, p["w_down"])
+    if not cut:  # an FFN cut keeps this rank's f32 partial of every slot's output
+        eout = eout.to(dt)
     eout = eout.view(El * GC, D)
     eout = torch.cat([eout, eout.new_zeros(1, D)])
     order = torch.argsort(r.topi, -1)  # each token's choices by expert id

@@ -118,18 +118,19 @@ def _heads(p: dict) -> int:
 
 def _proj_inputs(cfg: ArchConfig, p: dict, x):
     """The five input projections of x [B, S, D] (z / xs / dt on this
-    rank's heads).  z / xs / B / C are stored in the compute dtype (they
-    feed the conv and gate path); dt stays f32, a product of f32 operands,
-    as the reference's ``preferred_element_type`` keeps it (its analysis
-    rule J002)."""
+    rank's heads).  Every product accumulates and stores f32, as the
+    reference's ``preferred_element_type=F32`` einsums (analysis rule
+    J002); z / xs / B / C are cast once to the compute dtype (they feed the
+    conv and gate path); dt stays f32, a product of f32 operands."""
     B_, S, D = x.shape
     H, P, N = _heads(p), cfg.ssm_headdim, cfg.ssm_state
     x2 = x.reshape(B_ * S, D)
     xh = _enter_heads(cfg, p, x2)  # the per-head projections' input
-    z = (xh @ p["w_z"].reshape(D, H * P)).reshape(B_, S, H, P)
-    xs = (xh @ p["w_x"].reshape(D, H * P)).reshape(B_, S, H, P)
-    Bm = (x2 @ p["w_B"]).reshape(B_, S, N)
-    Cm = (x2 @ p["w_C"]).reshape(B_, S, N)
+    dt_ = x.dtype
+    z = L.matmul_f32(xh, p["w_z"].reshape(D, H * P)).to(dt_).reshape(B_, S, H, P)
+    xs = L.matmul_f32(xh, p["w_x"].reshape(D, H * P)).to(dt_).reshape(B_, S, H, P)
+    Bm = L.matmul_f32(x2, p["w_B"]).to(dt_).reshape(B_, S, N)
+    Cm = L.matmul_f32(x2, p["w_C"]).to(dt_).reshape(B_, S, N)
     dt = (xh.to(F32) @ p["w_dt"].to(F32)).reshape(B_, S, H)
     return z, xs, Bm, Cm, dt
 

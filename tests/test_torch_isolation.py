@@ -32,7 +32,12 @@ def test_import_pulls_in_no_jax_and_no_repro():
             "repro_torch.core.cgra", "repro_torch.launch.roofline",
             "repro_torch.launch.mesh", "repro_torch.launch.sharding",
             "repro_torch.launch.dist", "repro_torch.core.torus",
-            "repro_torch.launch.cells", "repro_torch.training.compress"} <= set(mods)
+            "repro_torch.launch.cells", "repro_torch.training.compress",
+            "repro_torch.kernels.spec", "repro_torch.analysis",
+            "repro_torch.analysis.__main__", "repro_torch.analysis.findings",
+            "repro_torch.analysis.bounds", "repro_torch.analysis.op_lints",
+            "repro_torch.analysis.mesh_lints", "repro_torch.analysis.donation",
+            "repro_torch.analysis.runner"} <= set(mods)
     assert len(mods) >= 28
     code = (
         "import importlib, sys\n"
