@@ -1,10 +1,12 @@
-"""Bounds prover of the CUDA kernels' address arithmetic (rules K001-K003).
+"""Bounds prover of the CUDA kernels' address arithmetic and block decisions
+(rules K001-K003).
 
 Every address a kernel computes comes from ``kernels/csrc/index.cuh``; the
 host enumerators of ``csrc/index_host.cpp`` include the same header and
-walk every block of a kernel's grid for one fill of its scalars, as the
-kernel's control flow does, recording each read, write, partial, ticket and
-page-table read as an event (``repro_torch.kernels.spec``).  The prover runs
+walk every block of a kernel's grid for one fill of its scalars, taking
+each of the kernel's block decisions from the same header, recording each
+read, write, partial, ticket and page-table read as an event
+(``repro_torch.kernels.spec``).  The prover runs
 them against the reference's hostile fills (each scalar's extremes, and
 ascending / descending spreads of each table) and checks:
 
@@ -23,7 +25,14 @@ K003  every output element has exactly one writer -- a block, or the last
       ticket holder of its group, whose group must draw exactly the tickets
       it expects and merge exactly the partial slots its blocks wrote --,
       each partial slot at most one, the pieces of a split group read
-      disjoint keys, and the K ranges of a GEMM tile's splits cover K once.
+      disjoint keys, every key row a query sees is read by the blocks of
+      its query rows (computed here from the reference's semantics, as
+      K002's live set), and the K ranges of a GEMM tile's splits cover K
+      once.
+
+Since every exit, ticket count, row range and edge mask a kernel's blocks
+act on is a function of ``index.cuh`` that the kernel calls too, an edit of
+one of them is an edit of what the proofs read.
 """
 from __future__ import annotations
 
@@ -120,6 +129,26 @@ def _live(spec: KernelSpec, fill, ev: np.ndarray, emit) -> None:
                      f"{int((~ok).sum())} such reads")
 
 
+def _coverage(spec: KernelSpec, fill, ev: np.ndarray, emit) -> None:
+    if spec.needed is None:
+        return
+    need = spec.needed(fill)
+    if not len(need):
+        return
+    blk = ev[:, 0] >= 0
+    q = ev[blk & (ev[:, 1] == READ) & (ev[:, 2] == 0)]
+    r = ev[blk & (ev[:, 1] == READ) & (ev[:, 2] == spec.kv_ops[0])]
+    qkey = np.full(int(ev[:, 0].max(initial=-1)) + 2, -1, np.int64)
+    qkey[q[:, 0]] = q[:, 3]
+    span = int(max(need[:, 1].max(), r[:, 7].max() if len(r) else 0)) + 1
+    got = qkey[r[:, 0]] * span + r[:, 7]
+    miss = ~np.isin(need[:, 0] * span + need[:, 1], got)
+    if miss.any():
+        x = need[np.argmax(miss)]
+        emit("K003", f"the blocks of query rows from {x[0]} leave key row {x[1]} unread, "
+                     f"which a query of theirs sees; {int(miss.sum())} such rows")
+
+
 def _writers(spec: KernelSpec, ev: np.ndarray, emit) -> None:
     ops = spec.operands
     t = ev[ev[:, 1] == TICKET]
@@ -213,6 +242,7 @@ def check_kernel_spec(spec: KernelSpec, context: str = "") -> List[Finding]:
         _bounds(spec, ev, emit)
         _live(spec, fill, ev, emit)
         _writers(spec, ev, emit)
+        _coverage(spec, fill, ev, emit)
     return out
 
 

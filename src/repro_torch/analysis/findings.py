@@ -51,7 +51,8 @@ RULES: Dict[str, str] = {
             "'dead blocks cost no DMA')",
     "K003": "writer conflict: an output element, split partial or ticket "
             "without exactly one writer (or the last ticket holder of its "
-            "group), or split K ranges that do not cover K once",
+            "group), split K ranges that do not cover K once, or a key row "
+            "a query sees that no block of its query rows reads",
     "P001": "paging invariant violation (PagePool/RadixCache structural "
             "check, see serving.paging.check_invariants)",
     "R001": "unreachable resilience branch: a FinishReason the Scheduler "

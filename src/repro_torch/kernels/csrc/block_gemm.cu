@@ -60,14 +60,14 @@
 #include <cooperative_groups.h>
 
 #include "common.cuh"
-#include "index.cuh"  // the addresses: the header the bounds proofs read (analysis/bounds.py)
+#include "index.cuh"  // addresses and block decisions, as the bounds proofs read them
 
 namespace repro {
 
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-constexpr int GEMM_BK = 64;  // k-tile depth; kc is a multiple of it
+constexpr int GEMM_BK = ix::BF16_BK;  // k-tile depth; kc is a multiple of it
 
 // bf16 tensor-core kernel.  Block tile BM x BN, warp tile WM x WN (WM/16 x
 // WN/8 mma tiles per warp), STAGES-deep cp.async ring in dynamic shared
@@ -98,7 +98,8 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c2 = (lane & 3) * 2;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int split = splits > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const int split =
+      ix::gemm_clustered(splits) ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
   int m0, n0, kbeg, kend;
   ix::gemm_tile(blockIdx.x, blockIdx.y, BM, BN, splits, m0, n0);
   ix::split_range(split, kc, K, kbeg, kend);
@@ -121,59 +122,61 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
       for (int e = tid; e < BK * BM / 8; e += NT) {
         const int r = e / (BM / 8), c = (e % (BM / 8)) * 8;
         const int gk = k0 + r, gm = m0 + c;
-        const bool ok = gk < kend && gm < M;
+        const bool ok = ix::in_edge(gk, kend, gm, M);
         cp_async16(as + r * AS + c, ok ? A + (size_t)gk * M + gm : A, ok);
       }
     } else if (AT) {
       for (int e = tid; e < BK * BM; e += NT) {
         const int r = e / BM, c = e % BM;
         const int gk = k0 + r, gm = m0 + c;
-        as[r * AS + c] = (gk < kend && gm < M) ? A[(size_t)gk * M + gm] : zero;
+        as[r * AS + c] = ix::in_edge(gk, kend, gm, M) ? A[(size_t)gk * M + gm] : zero;
       }
     } else if (vecA) {
       for (int e = tid; e < BM * BK / 8; e += NT) {
         const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
         const int gm = m0 + r, gk = k0 + c;
-        const bool ok = gm < M && gk < kend;
+        const bool ok = ix::in_edge(gm, M, gk, kend);
         cp_async16(as + r * AS + c, ok ? A + (size_t)gm * K + gk : A, ok);
       }
     } else {
       for (int e = tid; e < BM * BK; e += NT) {
         const int r = e / BK, c = e % BK;
         const int gm = m0 + r, gk = k0 + c;
-        as[r * AS + c] = (gm < M && gk < kend) ? A[(size_t)gm * K + gk] : zero;
+        as[r * AS + c] = (ix::inside(gm, M) && ix::inside(gk, kend)) ? A[(size_t)gm * K + gk]
+                                                                   : zero;
       }
     }
     if (BT && vecB) {
       for (int e = tid; e < BN * BK / 8; e += NT) {
         const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
         const int gn = n0 + r, gk = k0 + c;
-        const bool ok = gn < N && gk < kend;
+        const bool ok = ix::in_edge(gn, N, gk, kend);
         cp_async16(bs + r * BS + c, ok ? B + (size_t)gn * K + gk : B, ok, pol);
       }
     } else if (BT) {
       for (int e = tid; e < BN * BK; e += NT) {
         const int r = e / BK, c = e % BK;
         const int gn = n0 + r, gk = k0 + c;
-        bs[r * BS + c] = (gn < N && gk < kend) ? B[(size_t)gn * K + gk] : zero;
+        bs[r * BS + c] = ix::in_edge(gn, N, gk, kend) ? B[(size_t)gn * K + gk] : zero;
       }
     } else if (vecB) {
       for (int e = tid; e < BK * BN / 8; e += NT) {
         const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
         const int gk = k0 + r, gn = n0 + c;
-        const bool ok = gk < kend && gn < N;
+        const bool ok = ix::in_edge(gk, kend, gn, N);
         cp_async16(bs + r * BS + c, ok ? B + (size_t)gk * N + gn : B, ok, pol);
       }
     } else {
       for (int e = tid; e < BK * BN; e += NT) {
         const int r = e / BN, c = e % BN;
         const int gk = k0 + r, gn = n0 + c;
-        bs[r * BS + c] = (gk < kend && gn < N) ? B[(size_t)gk * N + gn] : zero;
+        bs[r * BS + c] = (ix::inside(gk, kend) && ix::inside(gn, N)) ? B[(size_t)gk * N + gn]
+                                                                   : zero;
       }
     }
   };
 
-  const int KT = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  const int KT = ix::split_k_tiles(kbeg, kend, BK);
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < KT) load(s, s);
@@ -220,7 +223,7 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
   }
   cp_async_wait<0>();
 
-  if (splits == 1) {
+  if (ix::gemm_stores_direct(splits)) {
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
@@ -229,7 +232,7 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
         for (int r = 0; r < 4; ++r) {
           const int gm = m0 + wm * WM + mi * 16 + g + (r >= 2 ? 8 : 0);
           const int gn = n0 + wn * WN + ni * 8 + c2 + (r & 1);
-          if (gm < M && gn < N) C[(size_t)gm * N + gn] = from_f<TO>(acc[mi][ni][r]);
+          if (ix::in_edge(gm, M, gn, N)) C[(size_t)gm * N + gn] = from_f<TO>(acc[mi][ni][r]);
         }
     return;
   }
@@ -269,7 +272,7 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, TO* __r
     TO* out = C + (size_t)(m0 + row) * N + n0 + col;
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      if (n0 + col + u < N) out[u] = from_f<TO>(vals[u]);
+      if (ix::inside(n0 + col + u, N)) out[u] = from_f<TO>(vals[u]);
   }
   cluster.sync();  // no block leaves while the others read its partial
 }
@@ -359,7 +362,7 @@ int launch_tile(const bf16* A, const bf16* B, TO* C, int M, int N, int K, int ve
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = splits > 1 ? 1 : 0;
+  cfg.numAttrs = ix::gemm_clustered(splits) ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kern, A, B, C, M, N, K, vecA, vecB, splits, kc);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

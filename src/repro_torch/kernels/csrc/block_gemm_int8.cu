@@ -81,13 +81,13 @@
 #include <cuda.h>  // CUtensorMap and the driver's enums (types only: no -lcuda)
 
 #include "common.cuh"
-#include "index.cuh"  // the addresses: the header the bounds proofs read (analysis/bounds.py)
+#include "index.cuh"  // addresses and block decisions, as the bounds proofs read them
 
 namespace repro {
 
 namespace cg = cooperative_groups;
 
-constexpr int I8_BK = 128;  // k-tile depth in bytes (= int8 values)
+constexpr int I8_BK = ix::INT8_BK;  // k-tile depth in bytes (= int8 values)
 
 __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
   asm volatile(
@@ -155,7 +155,8 @@ gemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c4 = (lane & 3) * 4;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int split = splits > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const int split =
+      ix::gemm_clustered(splits) ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
   int m0, n0, kbeg, kend;
   ix::gemm_tile(blockIdx.x, blockIdx.y, BM, BN, splits, m0, n0);
   ix::split_range(split, kc, K, kbeg, kend);
@@ -177,7 +178,7 @@ gemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
       for (int e = tid; e < BM * (BK / 16); e += NT) {
         const int r = e / (BK / 16), c = (e % (BK / 16)) * 16;
         const int gm = m0 + r, gk = k0 + c;
-        const bool ok = gm < M && gk < kend;
+        const bool ok = ix::in_edge(gm, M, gk, kend);
         cp_async16(as + r * RS + c, ok ? A + (size_t)gm * K + gk : A, ok);
       }
       if (HINT) {
@@ -186,14 +187,14 @@ gemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
         for (int e = tid; e < BN * (BK / 16); e += NT) {
           const int r = e / (BK / 16), c = (e % (BK / 16)) * 16;
           const int gn = n0 + r, gk = k0 + c;
-          const bool ok = gn < N && gk < kend;
+          const bool ok = ix::in_edge(gn, N, gk, kend);
           cp_async16(bs + r * RS + c, ok ? B + (size_t)gn * K + gk : B, ok, pol);
         }
       } else {
         for (int e = tid; e < BN * (BK / 16); e += NT) {
           const int r = e / (BK / 16), c = (e % (BK / 16)) * 16;
           const int gn = n0 + r, gk = k0 + c;
-          const bool ok = gn < N && gk < kend;
+          const bool ok = ix::in_edge(gn, N, gk, kend);
           cp_async16(bs + r * RS + c, ok ? B + (size_t)gn * K + gk : B, ok);
         }
       }
@@ -201,17 +202,17 @@ gemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
       for (int e = tid; e < BM * BK; e += NT) {
         const int r = e / BK, c = e % BK;
         const int gm = m0 + r, gk = k0 + c;
-        as[r * RS + c] = (gm < M && gk < kend) ? A[(size_t)gm * K + gk] : int8_t(0);
+        as[r * RS + c] = ix::in_edge(gm, M, gk, kend) ? A[(size_t)gm * K + gk] : int8_t(0);
       }
       for (int e = tid; e < BN * BK; e += NT) {
         const int r = e / BK, c = e % BK;
         const int gn = n0 + r, gk = k0 + c;
-        bs[r * RS + c] = (gn < N && gk < kend) ? B[(size_t)gn * K + gk] : int8_t(0);
+        bs[r * RS + c] = ix::in_edge(gn, N, gk, kend) ? B[(size_t)gn * K + gk] : int8_t(0);
       }
     }
   };
 
-  const int KT = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  const int KT = ix::split_k_tiles(kbeg, kend, BK);
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < KT) load(s, s);
@@ -251,7 +252,7 @@ gemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
   cp_async_wait<0>();
 
   const int c2 = (lane & 3) * 2;
-  if (splits == 1) {
+  if (ix::gemm_stores_direct(splits)) {
 #pragma unroll
     for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
@@ -260,7 +261,7 @@ gemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
         for (int r = 0; r < 4; ++r) {
           const int gm = m0 + wm * WM + mi * 16 + g + (r >= 2 ? 8 : 0);
           const int gn = n0 + wn * WN + ni * 8 + c2 + (r & 1);
-          if (gm < M && gn < N)
+          if (ix::in_edge(gm, M, gn, N))
             C[(size_t)gm * N + gn] = out_val<TO>(acc[mi][ni][r], sa, sb, gm, gn);
         }
     return;
@@ -301,7 +302,7 @@ gemm_int8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
     TO* out = C + (size_t)gm * N + n0 + col;
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      if (n0 + col + u < N) out[u] = out_val<TO>(vals[u], sa, sb, gm, n0 + col + u);
+      if (ix::inside(n0 + col + u, N)) out[u] = out_val<TO>(vals[u], sa, sb, gm, n0 + col + u);
   }
   cluster.sync();  // no block leaves while the others read its partial
 }
@@ -582,7 +583,7 @@ gemm_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
   const int tid = threadIdx.x, wg = tid / 128;
   int mt, ntiles, grid;
   ix::walk_grid(M, N, WG_BM, BN, gridDim.x, mt, ntiles, grid);
-  const int KT = (K + I8_BK - 1) / I8_BK;
+  const int KT = ix::whole_k_tiles(K, I8_BK);
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
@@ -597,7 +598,7 @@ gemm_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
     if (tid == 256) {
       int s = 0;
       uint32_t ph = 0;
-      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      for (int t = ix::walk_first(blockIdx.x); t < ntiles; t += ix::walk_stride(gridDim.x)) {
         int m0, n0;
         ix::walk_tile(t, mt, WG_BM, BN, m0, n0);
         for (int kt = 0; kt < KT; ++kt) {
@@ -618,7 +619,7 @@ gemm_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
     int s = 0;
     uint32_t ph = 0;
     float* sbs = sb_tile + wg * BN;
-    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    for (int t = ix::walk_first(blockIdx.x); t < ntiles; t += ix::walk_stride(gridDim.x)) {
       int m0, n0;
       ix::walk_tile(t, mt, WG_BM, BN, m0, n0);
       // this tile's column scales, read from shared memory by the epilogue
@@ -779,7 +780,7 @@ int launch_mma(const int8_t* A, const int8_t* B, const float* sa, const float* s
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = splits > 1 ? 1 : 0;
+  cfg.numAttrs = ix::gemm_clustered(splits) ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kern, A, B, sa, sb, C, M, N, K, vec, splits, kc);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

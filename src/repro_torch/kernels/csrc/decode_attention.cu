@@ -87,7 +87,7 @@
 // Bound: at G = 40 each latent row meets 40 heads, ~80 operations a byte,
 // still under the card's bf16 balance in the operations the CUDA cores do.
 #include "common.cuh"
-#include "index.cuh"  // the addresses: the header the bounds proofs read (analysis/bounds.py)
+#include "index.cuh"  // addresses and block decisions, as the bounds proofs read them
 
 namespace repro {
 
@@ -197,35 +197,30 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int p_b = pos[b], s_b = start[b];
   const int r0 = ix::block_first_row(blk), jn = ix::block_rows(r0, S);
-  // the blocks that take a ticket, [blo, bhi].  Slot caches: all of them
-  // (a block with no live row writes a partial with sum 0).  Pools: those
+  // the blocks that take part, [blo, bhi].  Slot caches: all of them (a
+  // block with no live row writes a partial with sum 0).  Pools: those
   // overlapping [start, pos], none when drained -- a function of the slot's
   // own rows, known to every block: the others exit at once, and block 0
-  // of a slot with none writes its zeros.
-  int blo = 0, bhi = nblk - 1;
-  if constexpr (Rows::paged) {
-    bhi = -1;
-    if (ix::slot_has_rows(p_b, s_b, S)) {
-      blo = ix::first_live_block(s_b);
-      bhi = ix::last_live_block(p_b, S);
-    }
+  // of a slot with none writes its zeros.  Every decision is index.cuh's.
+  int blo = 0, bhi = ix::decode_last_block(Rows::paged, nblk);
+  if (ix::decode_cut_to_live(Rows::paged, p_b, s_b, S)) {
+    blo = ix::first_live_block(s_b);
+    bhi = ix::last_live_block(p_b, S);
   }
-  const int nlive = bhi - blo + 1;
-  if constexpr (Rows::paged) {
-    if (blk < blo || blk > bhi) {
-      if (nlive <= 0 && blk == 0) {
-        T* ob = out + ((size_t)b * H + h0) * dv;
-        for (int e = tid; e < G * dv; e += SD_THREADS) ob[e] = from_f<T>(0.f);
-      }
-      return;
+  const int nlive = ix::decode_live_blocks(blo, bhi);
+  if (ix::decode_block_exits(Rows::paged, blk, blo, bhi)) {
+    if (ix::decode_zero_writer(blk, nlive)) {
+      T* ob = out + ((size_t)b * H + h0) * dv;
+      for (int e = tid; e < G * dv; e += SD_THREADS) ob[e] = from_f<T>(0.f);
     }
+    return;
   }
   const bool live = ix::decode_block_live(r0, jn, p_b, s_b, ring);
   if (live) {
     // rows read: all of a ring block's, those in [start, pos] of a linear or
     // paged one (the rest stay zero and are masked)
-    const int j_lo = ring ? 0 : ix::rows_from(s_b, r0);
-    const int j_hi = ring ? jn - 1 : ix::rows_to(p_b, r0, jn);
+    const int j_lo = ring ? ix::ring_first_row() : ix::rows_from(s_b, r0);
+    const int j_hi = ring ? ix::ring_last_row(jn) : ix::rows_to(p_b, r0, jn);
     const size_t kstride = (size_t)Kh * dq, vstride = (size_t)Kh * v_row;
     size_t sr0 = 0;  // slot caches: the block's first row; its rows follow
     if constexpr (!Rows::paged) sr0 = rows(b, r0);
@@ -235,7 +230,7 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int j = warp * 8 + u;
-      const bool rd = j >= j_lo && j <= j_hi;
+      const bool rd = ix::decode_reads_row(j, j_lo, j_hi);
       const T* krow = kb + j * kstride;
       const T* vrow = vb + j * vstride;
       if constexpr (Rows::paged) {  // one table read for K and V
@@ -335,7 +330,7 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
     __syncthreads();
-    if (Rows::paged && nlive == 1) {  // one live block: the merge of its lone partial
+    if (ix::decode_writes_direct(Rows::paged, nlive)) {  // the merge of its lone partial
       T* ob = out + ((size_t)b * H + h0) * dv;
       for (int e = tid; e < G * dv; e += SD_THREADS) {  // the warps' sums in warp order
         const int g = e / dv, c = e % dv;
@@ -365,7 +360,7 @@ flash_decode_slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // group) merges
   __threadfence();
   __syncthreads();
-  if (tid == 0) last = atomicAdd(&counter[grp], 1) == nlive - 1;
+  if (tid == 0) last = atomicAdd(&counter[grp], 1) == ix::decode_tickets(Rows::paged, nlive) - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();

@@ -99,7 +99,7 @@
 // paged form reads its rows through the same table and does not split: it
 // carries the tests and the card's comparisons, never a serving path.
 #include "common.cuh"
-#include "index.cuh"  // the addresses: the header the bounds proofs read (analysis/bounds.py)
+#include "index.cuh"  // addresses and block decisions, as the bounds proofs read them
 
 namespace repro {
 
@@ -182,11 +182,12 @@ flash_attention_dense_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int key_lo, key_hi;
   ix::tile_keys(q0, BQ, Sq, off, kn, causal, window, key_lo, key_hi);
   __syncthreads();
-  for (int t0 = ix::first_key_row(key_lo, key_hi, KT, kn); t0 <= key_hi; t0 += KT) {
+  for (int t0 = ix::first_key_row(key_lo, key_hi, KT, kn); ix::core_tile_live(t0, key_hi, KT);
+       t0 += KT) {
     for (int e = tid; e < KT * d; e += FAD_THREADS) {
       const int j = e / d, c = e % d;
       const int r = t0 + j;
-      const bool ok = r < kn;
+      const bool ok = ix::inside(r, kn);
       long long row = r;  // the key row's index in the K/V operand's rows
       if constexpr (PAGED) row = ok ? ix::pool_row(tbl, pg.ps, r) : 0;
       k_s[j * dp + c] = ok ? to_f(kb[row * ks.s + c]) : 0.f;
@@ -384,13 +385,13 @@ fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
       constexpr int CH = D / 8;
       for (int e = tid; e < rows * CH; e += FAT_THREADS) {
         const int r = e / CH, col = (e % CH) * 8;
-        const bool ok = row0 + r < n && col < d;
+        const bool ok = ix::in_edge(row0 + r, n, col, d);
         cp_async16(dst + r * RS + col, ok ? src + (row0 + r) * rs + col : src, ok);
       }
     } else {
       for (int e = tid; e < rows * D; e += FAT_THREADS) {
         const int r = e / D, col = e % D;
-        const bool ok = row0 + r < n && col < d;
+        const bool ok = ix::in_edge(row0 + r, n, col, d);
         dst[r * RS + col] = ok ? src[(row0 + r) * rs + col] : __float2bfloat16(0.f);
       }
     }
@@ -403,7 +404,7 @@ fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
       constexpr int CH = D / 8;
       for (int e = tid; e < KT * CH; e += FAT_THREADS) {
         const int r = e / CH, col = (e % CH) * 8;
-        const bool ok = row0 + r < kn && col < d;
+        const bool ok = ix::in_edge(row0 + r, kn, col, d);
         const long long prow = ok ? pool_row(row0 + r) : 0;
         cp_async16(dst_k + r * RS + col, ok ? kb + prow * ks.s + col : kb, ok);
         cp_async16(dst_v + r * RS + col, ok ? vb + prow * vs.s + col : vb, ok);
@@ -411,7 +412,7 @@ fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
     } else {
       for (int e = tid; e < KT * D; e += FAT_THREADS) {
         const int r = e / D, col = e % D;
-        const bool ok = row0 + r < kn && col < d;
+        const bool ok = ix::in_edge(row0 + r, kn, col, d);
         const long long prow = ok ? pool_row(row0 + r) : 0;
         dst_k[r * RS + col] = ok ? kb[prow * ks.s + col] : __float2bfloat16(0.f);
         dst_v[r * RS + col] = ok ? vb[prow * vs.s + col] : __float2bfloat16(0.f);
@@ -426,17 +427,15 @@ fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
   // paged: the query tile's live pieces [plo, phi], a function of the
   // slot's own rows that every block computes; blocks of other pieces exit
   // at once (piece 0 of a tile with no key writes its zeros), and a tile
-  // with one live piece writes its output directly
+  // with one live piece writes its output directly (index.cuh's decisions)
   int plo = 0, phi = 0;
-  if constexpr (PAGED) {
-    if (key_hi >= key_lo) {
-      plo = ix::piece_of(key_lo);
-      phi = ix::piece_of(key_hi);
-    }
-    if (piece < plo || piece > phi) return;
-    key_lo = ix::piece_lo(key_lo, piece);
-    key_hi = ix::piece_hi(key_hi, piece);
+  if (ix::tile_has_pieces(PAGED, key_lo, key_hi)) {
+    plo = ix::piece_of(key_lo);
+    phi = ix::piece_of(key_hi);
   }
+  if (ix::piece_exits(PAGED, piece, plo, phi)) return;
+  key_lo = ix::piece_key_lo(PAGED, key_lo, piece);
+  key_hi = ix::piece_key_hi(PAGED, key_hi, piece);
   const int t_first = ix::first_tile(key_lo, KT);
   const int ntiles = ix::tile_count(key_lo, key_hi, KT, t_first);
   auto load_kv = [&](int t) {  // tile t into stage t % ST
@@ -569,7 +568,7 @@ fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
     lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 2);
   }
   if constexpr (PAGED) {
-    if (phi > plo) {  // partial, ticket, and the last block merges
+    if (ix::piece_merges(plo, phi)) {  // partial, ticket, and the last block merges
       __shared__ int last;
       const int pidx = ix::piece_group(b, h, iq, H, nq);
       const size_t pstride = (size_t)BQ * (d + 2);
@@ -598,14 +597,14 @@ fat_body(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ 
       }
       __threadfence();
       __syncthreads();
-      if (tid == 0) last = atomicAdd(&pg.counter[pidx], 1) == phi - plo;
+      if (tid == 0) last = atomicAdd(&pg.counter[pidx], 1) == ix::piece_tickets(plo, phi) - 1;
       __syncthreads();
       if (!last) return;
       __threadfence();
       // merge factors 2^(m_p - M) per (piece, row), then 1 / sum, in shared
       // memory (the ring is free: every warp has passed its last tile); the
       // m and l of every live piece come in one sweep
-      const int nlive = phi - plo + 1;
+      const int nlive = ix::piece_tickets(plo, phi);
       base += (size_t)plo * pstride;  // the live pieces' partials
       float* fac = reinterpret_cast<float*>(fat_smem_raw);  // [nlive][BQ] m, then factors
       float* ls_ = fac + nlive * BQ;                         // [nlive][BQ] l

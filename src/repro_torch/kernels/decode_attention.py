@@ -95,10 +95,27 @@ def _decode_spec(name, B, H, K, S, dq, dv, v_row, layout, kv_rows, ps, npp, n_pa
             return s <= p
         return (reads[:, 7] >= np.maximum(s, 0)) & (reads[:, 7] <= np.minimum(p, S - 1))
 
+    # the first q row of each (slot, kv-head, head group): b * H + h0
+    y = np.arange(K * ng)
+    h0 = (y // ng) * (H // K) + (y % ng) * G
+    qrow = np.arange(B)[:, None] * H + h0[None, :]  # [B, K * ng]
+    r = np.arange(S)
+
+    def needed(fill):  # every live row of the slot, for each of its head groups
+        p, s = fill["pos"][:, None], fill["start"][:, None]
+        if ring:
+            a = p - (p - r[None, :]) % S
+            need = (s <= p) & (a >= np.maximum(s, 0))
+        else:
+            need = (r[None, :] >= np.maximum(s, 0)) & (r[None, :] <= np.minimum(p, S - 1))
+        b, row = np.nonzero(need)
+        q = qrow[b]  # [n, K * ng]
+        return np.stack([q.ravel(), np.repeat(row, q.shape[1])], 1).astype(np.int64)
+
     f, line = header_line("page_row" if paged else "rows_to")
     return KernelSpec(name=name, grid=(nblk, K * ng, B), scalars=tuple(scalars),
-                      operands=operands, enumerate=enumerate_, live=live, kv_ops=(1, 2),
-                      src_file=f, src_line=line)
+                      operands=operands, enumerate=enumerate_, live=live, needed=needed,
+                      kv_ops=(1, 2), src_file=f, src_line=line)
 
 
 def fd_dense_spec(B: int, H: int, K: int, S: int, dq: int, dv: int, *,

@@ -197,9 +197,27 @@ def _attn_spec(name, B, H, K, Sq, Sk, d, causal, window, dtype, ps, npp, n_pages
         lo = np.maximum(0, qlo - window + 1) if window > 0 else np.zeros_like(hi)
         return (qrow >= 0) & (r < kn) & (hi >= lo) & (r // kt >= lo // kt) & (r // kt <= hi // kt)
 
+    # each (slot, head, query tile): its first q row and its query positions
+    bb, hh, iq = (a.ravel() for a in np.meshgrid(np.arange(B), np.arange(H), np.arange(nq),
+                                                 indexing="ij"))
+    qrow = (bb * H + hh) * Sq + iq * 64
+    qn = np.minimum(iq * 64 + 64, Sq) - iq * 64
+    r = np.arange(max(Sk, S))
+
+    def needed(fill):  # the keys some query row of the tile sees
+        if paged:
+            off, kn = fill["q_start"][bb], np.minimum(fill["k_len"][bb], S)
+        else:
+            off, kn = Sk - Sq, np.full_like(bb, Sk)
+        qlo = iq * 64 + off
+        hi = np.minimum(kn - 1, qlo + qn - 1) if causal else kn - 1
+        lo = np.maximum(0, qlo - window + 1) if window > 0 else np.zeros_like(hi)
+        g, row = np.nonzero((r[None, :] >= lo[:, None]) & (r[None, :] <= hi[:, None]))
+        return np.stack([qrow[g], row], 1).astype(np.int64)
+
     f, line = header_line("pool_row" if paged else "tile_keys")
     return KernelSpec(name=name, grid=grid, scalars=scalars, operands=operands,
-                      enumerate=enumerate_, live=live, kv_ops=(1, 2),
+                      enumerate=enumerate_, live=live, needed=needed, kv_ops=(1, 2),
                       split_groups=tc and paged and nsplit > 1, src_file=f, src_line=line)
 
 

@@ -4,8 +4,10 @@ The reference proves its Pallas kernels against the BlockSpec index maps
 that ``pl.pallas_call`` itself is built from.  The port keeps that
 property with one header: every address a CUDA kernel computes -- a
 block's rows, its page-table reads, its key tiles, its split's K range,
-its partial slot and ticket -- comes from ``csrc/index.cuh``, which the
-``.cu`` files include and which ``csrc/index_host.cpp`` includes too.  A
+its partial slot and ticket -- and every decision its blocks take on them
+(exits, row and tile walks, direct or merged writes, ticket counts, edge
+masks) comes from ``csrc/index.cuh``, which the ``.cu`` files include and
+which ``csrc/index_host.cpp`` includes too.  A
 :class:`KernelSpec` names one kernel instantiation: its CUDA grid, the
 hostile domain of each scalar operand (:class:`ScalarSpec`), the extent of
 each operand, and an ``enumerate`` callable that runs the host enumerator
@@ -67,9 +69,13 @@ class KernelSpec:
     -> bool mask`` says, for each K/V read event in ``reads`` (those of the
     operands ``kv_ops``), whether the row lies in the block's live set,
     computed from the reference's semantics and not from the header (rule
-    K002).  ``split_groups``: the pieces of a ticket group must read
-    disjoint keys.  ``k_whole``: the GEMM's K, which the splits of each
-    output tile must cover exactly once (rule K003)."""
+    K002).  ``needed(fill) -> [n, 2] int64`` lists, as (first row of the
+    ``q`` operand a block reads, logical key row), every key row some query
+    of those rows sees, from the same semantics: the blocks that read those
+    query rows must read each such key row between them (rule K003).
+    ``split_groups``: the pieces of a ticket group must read disjoint keys.
+    ``k_whole``: the GEMM's K, which the splits of each output tile must
+    cover exactly once (rule K003)."""
 
     name: str
     grid: Tuple[int, ...]  # the CUDA grid (() where it depends on the route)
@@ -77,6 +83,7 @@ class KernelSpec:
     operands: Tuple[OperandSpec, ...]
     enumerate: Callable[[dict], np.ndarray]
     live: Optional[Callable[[dict, np.ndarray], np.ndarray]] = None
+    needed: Optional[Callable[[dict], np.ndarray]] = None
     kv_ops: Tuple[int, ...] = ()
     split_groups: bool = False
     k_whole: int = 0

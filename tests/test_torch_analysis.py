@@ -7,6 +7,7 @@ and the repaired findings stay repaired (f32 logits, f32-accumulated
 products).  No spawn; the host enumerators build with the host C++
 compiler (a missing one fails these tests)."""
 import dataclasses
+import re
 import shutil
 
 import numpy as np
@@ -301,6 +302,156 @@ def test_table_reads_are_guarded_and_recorded(tmp_path):
     assert t[:, 3].max() == 2  # entry npp of a 2-entry table, read and survived
 
 
+
+# ---------------------------------------------------------------------------
+# K rules: the header's block decisions (exits, tickets, row ranges, masks)
+# ---------------------------------------------------------------------------
+
+_KERNELS = ("decode_attention.cu", "flash_attention.cu", "block_gemm.cu", "block_gemm_int8.cu")
+
+#: each block decision of index.cuh -> the kernels that take it; the
+#: enumerators of index_host.cpp take every one of them too
+_DECISIONS = {
+    "decode_last_block": ("decode_attention.cu",),
+    "decode_cut_to_live": ("decode_attention.cu",),
+    "first_live_block": ("decode_attention.cu",),
+    "last_live_block": ("decode_attention.cu",),
+    "decode_live_blocks": ("decode_attention.cu",),
+    "decode_block_exits": ("decode_attention.cu",),
+    "decode_zero_writer": ("decode_attention.cu",),
+    "decode_block_live": ("decode_attention.cu",),
+    "ring_first_row": ("decode_attention.cu",),
+    "ring_last_row": ("decode_attention.cu",),
+    "rows_from": ("decode_attention.cu",),
+    "rows_to": ("decode_attention.cu",),
+    "decode_reads_row": ("decode_attention.cu",),
+    "decode_writes_direct": ("decode_attention.cu",),
+    "decode_tickets": ("decode_attention.cu",),
+    "tile_has_pieces": ("flash_attention.cu",),
+    "piece_of": ("flash_attention.cu",),
+    "piece_exits": ("flash_attention.cu",),
+    "piece_key_lo": ("flash_attention.cu",),
+    "piece_key_hi": ("flash_attention.cu",),
+    "piece_merges": ("flash_attention.cu",),
+    "piece_tickets": ("flash_attention.cu",),
+    "first_key_row": ("flash_attention.cu",),
+    "core_tile_live": ("flash_attention.cu",),
+    "first_tile": ("flash_attention.cu",),
+    "tile_count": ("flash_attention.cu",),
+    "split_k_tiles": ("block_gemm.cu", "block_gemm_int8.cu"),
+    "whole_k_tiles": ("block_gemm_int8.cu",),
+    "gemm_clustered": ("block_gemm.cu", "block_gemm_int8.cu"),
+    "gemm_stores_direct": ("block_gemm.cu", "block_gemm_int8.cu"),
+    "walk_first": ("block_gemm_int8.cu",),
+    "walk_stride": ("block_gemm_int8.cu",),
+    "inside": ("flash_attention.cu", "block_gemm.cu", "block_gemm_int8.cu"),
+}
+
+#: header helpers the decisions are made of: called nowhere but index.cuh
+_HELPERS = ("piece_lo", "piece_hi", "slot_has_rows", "split_reads")
+
+
+def _code(src):
+    """A source file without its comments."""
+    return re.sub(r"//[^\n]*", "", (_build.CSRC / src).read_text())
+
+
+@pytest.mark.parametrize("name", sorted(_DECISIONS))
+def test_block_decisions_are_the_headers(name):
+    """Each block decision is one index.cuh function that its kernels and
+    the host enumerators both call, so the proofs read the control flow the
+    card runs."""
+    assert re.search(rf"REPRO_HD \w+ {name}\(", _code("index.cuh")), name
+    for src in _DECISIONS[name] + ("index_host.cpp",):
+        assert f"ix::{name}(" in _code(src), src
+    if name == "inside":  # the kernels' two-sided mask is made of it
+        assert "return inside(i, ni) && inside(j, nj);" in _code("index.cuh")
+        for src in _DECISIONS[name]:
+            assert "ix::in_edge(" in _code(src), src
+
+
+@pytest.mark.parametrize("src", _KERNELS + ("index_host.cpp",))
+def test_no_block_decision_is_made_by_hand(src):
+    """Neither a kernel nor an enumerator computes a live block or piece
+    range, a tile or ticket count, or a helper's part of one, itself: each
+    is a literal default or an index.cuh call."""
+    text = _code(src)
+    for helper in _HELPERS:
+        assert not re.search(rf"\b{helper}\(", text), (src, helper)
+    for m in re.finditer(r"[^\n]*\b(blo|bhi|plo|phi|nlive|ntiles|tickets|KT)\s*=(?!=)\s*([^;,]*)",
+                         text):
+        if "constexpr" not in m.group(0) and not re.fullmatch(r"-?\d+", m.group(2).strip()):
+            assert "ix::" in m.group(2), (src, m.group(0).strip())
+    for line in text.splitlines():
+        if "atomicAdd(" in line:
+            assert "ix::" in line, (src, line.strip())
+    assert not re.search(r"splits\s*==\s*1|splits\s*>\s*1|t0\s*<=\s*key_hi|\+=\s*gridDim\.x",
+                         text), src
+
+
+@pytest.mark.parametrize("src,stmt", [
+    ("decode_attention.cu", "j_lo = ring ? ix::ring_first_row() : ix::rows_from(s_b, r0);"),
+    ("decode_attention.cu", "j_hi = ring ? ix::ring_last_row(jn) : ix::rows_to(p_b, r0, jn);"),
+    ("decode_attention.cu", "blo = ix::first_live_block(s_b);"),
+    ("decode_attention.cu", "bhi = ix::last_live_block(p_b, S);"),
+    ("flash_attention.cu", "plo = ix::piece_of(key_lo);"),
+    ("flash_attention.cu", "phi = ix::piece_of(key_hi);"),
+])
+def test_kernel_and_enumerator_spell_each_kept_shape_alike(src, stmt):
+    """Where a decision keeps the kernel's shape at its call (a ternary on
+    the layout, a range's two ends assigned under one header condition),
+    the kernel and its enumerator spell it alike."""
+    for f in (src, "index_host.cpp"):
+        assert stmt in _code(f), f
+
+
+_FD = dict(B=2, H=4, K=2, dq=64, dv=64, ps=16, npp=4, n_pages=9)
+
+
+@pytest.mark.parametrize("old,new,make,rules", [
+    pytest.param("{ return nlive <= 0 && blk == 0; }", "{ return false; }",
+                 lambda lib: fd_paged_spec(**_FD, lib=lib), {"K003"},
+                 id="decode-zero-write-dropped"),
+    pytest.param("return paged && (blk < blo || blk > bhi);", "return false;",
+                 lambda lib: fd_paged_spec(**_FD, lib=lib), {"K003"},
+                 id="decode-paged-exit-removed"),
+    pytest.param("int nlive) { return paged && nlive == 1; }", "int nlive) { return false; }",
+                 lambda lib: fd_paged_spec(**_FD, lib=lib), {"K003"},
+                 id="decode-direct-write-through-a-ticket"),
+    pytest.param("imin(p_b - r0, jn - 1)", "imin(p_b - r0 - 1, jn - 1)",
+                 lambda lib: fd_dense_spec(2, 4, 2, 64, 64, 64, lib=lib), {"K003"},
+                 id="decode-rows-one-short"),
+    pytest.param("return split && (piece < plo || piece > phi);", "return false;",
+                 lambda lib: fa_paged_spec(2, 4, 2, 64, 64, 16, 16, 20, lib=lib), {"K003"},
+                 id="flash-piece-exit-removed"),
+    pytest.param("{ return t0 <= key_hi; }", "{ return t0 + kt <= key_hi; }",
+                 lambda lib: fa_dense_spec(2, 4, 2, 96, 96, 64, dtype=torch.float32, lib=lib),
+                 {"K003"}, id="flash-core-tiles-one-short"),
+    pytest.param("{ return splits == 1; }", "{ return splits >= 1; }",
+                 lambda lib: gemm_spec(8, 2048, 2048, lib=lib), {"K003"},
+                 id="gemm-direct-store-by-split-tiles"),
+    pytest.param("return static_cast<int>(grid);", "return static_cast<int>(grid) + 1;",
+                 lambda lib: gemm_spec(2048, 256, 4096, int8=True, lib=lib), {"K003"},
+                 id="gemm-walk-stride-off-by-one"),
+    pytest.param("{ return i < n; }", "{ return i <= n; }",
+                 lambda lib: gemm_spec(17, 300, 130, lib=lib), {"K001"},
+                 id="edge-mask-one-past"),
+])
+def test_a_mutated_block_decision_trips_the_proofs(tmp_path, old, new, make, rules):
+    """One decision changed in the header alone -- the one place it lives --
+    is what both the kernels and the proofs read; each such defect trips
+    its rule."""
+    assert rules <= rules_of(check_kernel_spec(make(_mutant(tmp_path, old, new))))
+
+
+def test_gemm_unsplit_tile_through_its_cluster_sum_proves_clean(tmp_path):
+    """The direct store removed outright leaves a correct program: an
+    unsplit tile's one block sums itself over a one-block cluster and
+    stores the whole tile in slices.  The proofs stay silent."""
+    lib = _mutant(tmp_path, "{ return splits == 1; }", "{ return false; }")
+    for spec in (gemm_spec(17, 300, 130, lib=lib), gemm_spec(64, 128, 256, int8=True, lib=lib)):
+        assert check_kernel_spec(spec) == []
+
 @pytest.mark.parametrize("spec", [
     fa_dense_spec(2, 4, 2, 96, 96, 64), fa_dense_spec(2, 4, 2, 96, 96, 64, dtype=torch.float32),
     fa_dense_spec(1, 2, 1, 64, 512, 64, window=100),
@@ -312,7 +463,8 @@ def test_table_reads_are_guarded_and_recorded(tmp_path):
     fd_paged_spec(2, 40, 1, 288, 256, 16, 5, 9, v_row=288),
     gemm_spec(64, 128, 256), gemm_spec(64, 128, 256, int8=True),
     gemm_spec(8, 2048, 2048), gemm_spec(8, 2048, 2048, int8=True),
-    gemm_spec(17, 300, 130), gemm_spec(600, 256, 4000, int8=True)],
+    gemm_spec(17, 300, 130), gemm_spec(600, 256, 4000, int8=True),
+    gemm_spec(2048, 256, 4096, int8=True)],
     ids=lambda s: s.name)
 def test_shipped_kernel_specs_prove_clean(spec):
     assert check_kernel_spec(spec) == []
