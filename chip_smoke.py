@@ -2035,17 +2035,29 @@ def _greedy_run(cfg, params, prompts, cache_len, n, forced=None, images=None):
     return outs, toks, t_pre, (time.time() - t0) / max(n - 1, 1), g
 
 
+SPANS = ("plain_attention", "adamw_update")  # the port's profiler ranges, with ``serve.*``
+
+
+def _in_spans(key: str) -> bool:
+    """A profiler range of the port (``SPANS``, or one of the serving
+    engine's ``serve.*`` ranges): its device-side span (first to last kernel
+    inside, gaps included) repeats the kernels it holds."""
+    return key in SPANS or key.startswith("serve.")
+
+
 def _traced(fn):
     """Device time by kernel of ``fn`` under torch.profiler: (total ms, the
     top 8 {name xcount: ms}, every kernel's (name, launches), (CUDA graph
-    launches, other kernel launches))."""
+    launches, other kernel launches)); the port's profiler ranges
+    (:func:`_in_spans`) are left out."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    kernels = [e for e in events if _device_us(e) > 0 and not e.key.startswith("aten::")]
+    kernels = [e for e in events if _device_us(e) > 0 and not e.key.startswith("aten::")
+               and not _in_spans(e.key)]
     top = sorted(kernels, key=_device_us, reverse=True)[:8]
     return (sum(_device_us(e) for e in kernels) / 1e3,
             {f"{e.key[:60]} x{e.count}": _device_us(e) / 1e3 for e in top},
@@ -3992,10 +4004,10 @@ def trace_ticks(eng, prompts, max_new, summary, counters, kinds=("mixed", "decod
         replays = eng.runner.graph.replays - replays
         events = prof.key_averages()
         n_graph, n_kernel = _launch_counts(events)
-        # device activity only: an aten:: op's device time repeats that of
-        # the kernels it launched
-        kernels = [e for e in events
-                   if _device_us(e) > 0 and not e.key.startswith("aten::")]
+        # device activity only: an aten:: op's device time, and a profiler
+        # range's device span, repeat those of the kernels inside
+        kernels = [e for e in events if _device_us(e) > 0
+                   and not e.key.startswith("aten::") and not _in_spans(e.key)]
         dev_ms = sum(_device_us(e) for e in kernels) / 1e3
         tick_ms = summary[f"{kind}_tick_ms"]
         top = sorted(kernels, key=_device_us, reverse=True)[:6]
@@ -4307,21 +4319,17 @@ def _attention_ms(cfg, gen):
     return s.elapsed_time(e) / 5
 
 
-SPANS = ("plain_attention", "adamw_update")  # the port's profiler ranges
-
-
 def _device_events(events):
     """The device's own activity in a trace (kernels, copies, fills): events
     on the CUDA device, without the CPU ops whose device time repeats that
     of the kernels they launched (the GEMM's ``autograd.Function`` and its
     backward are such ops), without the device-side spans of the port's
-    profiler ranges (``SPANS``: first to last kernel inside, gaps included)
-    and without CUPTI's "Command Buffer Full" records (the host waiting on
-    a full launch queue: no device work)."""
+    profiler ranges (:func:`_in_spans`) and without CUPTI's "Command Buffer
+    Full" records (the host waiting on a full launch queue: no device work)."""
     from torch.autograd import DeviceType
     return [e for e in events if getattr(e, "device_type", None) == DeviceType.CUDA
             and _device_us(e) > 0 and not e.key.startswith("Command Buffer")
-            and e.key not in SPANS]
+            and not _in_spans(e.key)]
 
 
 def _gemm_kind(key: str):
@@ -4388,11 +4396,11 @@ RECORDS = ("Command Buffer", "Activity Buffer", "cuda")
 def _kernel_us(event) -> float:
     """Device us of the kernels a CPU op launched, the block GEMM's left
     out (the trace's GEMM split reads those by name), and so is a profiler
-    range's own device-side span (``SPANS``); 0 for ``RECORDS``."""
+    range's own device-side span (:func:`_in_spans`); 0 for ``RECORDS``."""
     if event.name.startswith(RECORDS):
         return 0.0
     return sum(k.duration for k in getattr(event, "kernels", ())
-               if not _gemm_kind(k.name) and k.name not in SPANS)
+               if not _gemm_kind(k.name) and not _in_spans(k.name))
 
 
 def _moments_vs_f32(st, ref, kind: str) -> dict:
@@ -5536,8 +5544,8 @@ def mesh_phase():
     lines = [ln for ln in out.stdout.splitlines() if "=" in ln]
     for ln in lines:
         log(f"mesh (d) {ln}")
-    if out.returncode != 0 or len(lines) != 2 or "requests=8 ok=8" not in lines[0] \
-            or "ranks_agree=True" not in lines[1]:
+    if out.returncode != 0 or len(lines) != 3 or "requests=8 ok=8" not in lines[0] \
+            or "ranks_agree=True" not in lines[1] or not lines[2].startswith("queue_wait_p50="):
         problems.append(f"mesh (d): {' '.join(cmd[2:])} gave {out.returncode}: "
                         f"{out.stdout[-1500:]}{out.stderr[-1500:]}")
     d_s = time.time() - t0

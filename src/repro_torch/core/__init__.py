@@ -1,7 +1,14 @@
-"""Small shared helpers: block-grid rounding and device resolution."""
+"""Small shared helpers: block-grid rounding, device resolution and the
+program's profiler ranges."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+#: what :func:`span` returns while no profiler records: one shared context
+#: that does nothing (``nullcontext`` keeps no state, so nesting is safe)
+NO_SPAN = contextlib.nullcontext()
 
 
 def round_up(n: int, m: int) -> int:
@@ -19,3 +26,15 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return dev
+
+
+def span(name: str):
+    """A profiler range ``name`` around a ``with`` block while a profiler
+    records (``torch.profiler.record_function``: a host span and, on the
+    card, its device projection), else :data:`NO_SPAN`.  The check costs
+    ~0.1 us where an idle ``record_function`` costs ~8 us, so ranges may
+    sit on the serving tick's path; tracing is on exactly when a profiler
+    runs, and the profiler keeps the spans."""
+    if not torch.autograd._profiler_enabled():
+        return NO_SPAN
+    return torch.profiler.record_function(name)

@@ -12,14 +12,17 @@ random (``model.init``, seed 0).  ``--reduced`` is on by default, as in the
 reference, and ``--no-reduced`` serves the config at full width.  There is
 no ``--kernel-mode``: a tensor's device picks each kernel or its plain
 version.  The summary line prints ``device=`` where the reference prints
-``kernel_mode=``.
+``kernel_mode=``.  A last line, after the reference's, gives the healthy
+requests' queue wait (admission minus arrival) and time to the first token,
+p50 and p90.
 
 ``--mesh DxM --backend {nccl,gloo}`` serves mesh-sharded: ``main`` starts
 one process per mesh position (``launch.dist.spawn``; or, inside a process
 group its caller started, it runs as that rank), each drawing the same
-seed-0 weights and keeping its slice, and rank 0 prints the summary line
-and a ``mesh=`` line.  A mesh has no default backend: NCCL needs one card a
-rank; gloo serves ranks that share a card (or the CPU)::
+seed-0 weights and keeping its slice, and rank 0 prints the summary lines,
+a ``mesh=`` line and the queue-wait line.  A mesh has no default backend:
+NCCL needs one card a rank; gloo serves ranks that share a card (or the
+CPU)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \
         --mesh 1x2 --backend gloo --requests 8 --max-new 16
@@ -155,6 +158,21 @@ def latency_percentiles(results) -> tuple[float, float]:
     return lat[len(lat) // 2], lat[min(len(lat) - 1, int(len(lat) * 0.99))]
 
 
+def wait_line(results) -> str:
+    """p50 and p90 of the healthy requests' queue wait (``admitted_s -
+    arrival_s``) and of their time to the first token, in seconds, indexed
+    as :func:`latency_percentiles` indexes."""
+    ok = [r for r in results if r.ok and r.admitted_s is not None]
+
+    def p50_p90(xs):
+        xs = sorted(xs) or [0.0]
+        return xs[len(xs) // 2], xs[min(len(xs) - 1, int(len(xs) * 0.9))]
+    w50, w90 = p50_p90(r.admitted_s - r.arrival_s for r in ok)
+    t50, t90 = p50_p90(r.ttft_s for r in ok)
+    return (f"queue_wait_p50={w50:.3f}s queue_wait_p90={w90:.3f}s "
+            f"ttft_p50={t50:.3f}s ttft_p90={t90:.3f}s")
+
+
 def summary_lines(cfg, eng, results, args) -> list[str]:
     """The reference's summary line (``device=`` in place of
     ``kernel_mode=``) and, when a request was degraded, its second line."""
@@ -181,7 +199,7 @@ def summary_lines(cfg, eng, results, args) -> list[str]:
 def _serve(args, device):
     """Serve as one process (or one rank): seed-0 weights on ``device``,
     :func:`run`, and the summary lines, printed by rank 0 only; on a mesh
-    one ``mesh=`` line follows them."""
+    one ``mesh=`` line follows them; :func:`wait_line` comes last."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
@@ -195,6 +213,7 @@ def _serve(args, device):
         if eng.mesh is not None:
             print(f"mesh={args.mesh} backend={eng.mesh.backend} ranks={eng.mesh.size_total} "
                   f"ranks_agree={agree} decode_graph={eng.runner.graph.graphed}", flush=True)
+        print(wait_line(results), flush=True)
     if not agree:
         raise RuntimeError("the mesh's ranks emitted different tokens")
     return results

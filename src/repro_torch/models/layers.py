@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import round_up
+from repro_torch.core import round_up, span
 from repro_torch.core.cache import CacheLayout
 from repro_torch.core.gemm import cgra_gemm, cgra_gemm_w8a8, cgra_gemm_w8a8_row, quantize_act
 from repro_torch.core.quant import QTensor
@@ -423,7 +423,7 @@ def dense_attention(q, k, v, *, causal: bool, window: int = 0, softcap: float = 
     query-chunks the plain version (:func:`plain_attention`); the kernel
     keeps no score matrix and takes the whole query block."""
     if records(q, k, v):
-        with torch.profiler.record_function("plain_attention"):
+        with span("plain_attention"):
             return plain_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap, chunk=chunk)
     return attention(q, k, v, causal=causal, window=window, softcap=softcap)

@@ -76,6 +76,14 @@ arrivals of ``launch.serve``).  Request seeds are the caller's (0 unless
 given), never drawn from the OS.  Under gloo the decode step runs eagerly
 by rule (gloo collectives cannot be captured in a CUDA graph); under NCCL
 it is captured with its collectives inside.
+
+Profiler ranges (:func:`repro_torch.core.span`: made only while a profiler
+records): ``serve.chunk_forward`` (the eager chunk step and its last-row
+logits) and ``serve.whole_forward`` (a whole prefill's forward).  Both are
+leaves, holding no other program range: the trace ties a kernel to the
+innermost range open at its launch.  ``RequestResult.admitted_s`` (the
+first admission) splits a request's time to its first token into queue
+wait and prefill.
 """
 from __future__ import annotations
 
@@ -90,7 +98,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import resolve_device, round_up
+from repro_torch.core import resolve_device, round_up, span
 from repro_torch.launch.sharding import activation_mesh
 from repro_torch.models import model as M
 from repro_torch.models.graph import DecodeGraph
@@ -140,6 +148,8 @@ class Request:
     first_token_s: float | None = None
     token_times: list[float] = field(default_factory=list)
     preemptions: int = 0
+    #: engine clock when the request first got a slot (kept across preemption)
+    admitted_s: float | None = None
 
     def full_prompt(self) -> list[int]:
         """Rows to prefill: the prompt plus any tokens generated before a
@@ -161,6 +171,10 @@ class RequestResult:
     #: backpressure hint on REJECTED results: seconds after which a retry
     #: plausibly finds queue room
     retry_after_s: float | None = None
+    #: engine clock when the request first got a slot (None: it never got
+    #: one); with ``arrival_s`` and ``first_token_s`` it splits the time to
+    #: the first token into queue wait and prefill
+    admitted_s: float | None = None
 
     @property
     def ok(self) -> bool:
@@ -334,10 +348,11 @@ class ModelRunner:
         state = torch.from_numpy(np.stack([cur, pos, remaining])).to(dev)
         tables = torch.from_numpy(np.concatenate([chunk_pages, dec_pages])).to(dev)
         buf_t = torch.from_numpy(buf).to(dev)
-        with self.on_mesh():
-            logits, _ = M.chunk_step(self.cfg, self.params, self.caches, buf_t,
-                                     tables[:1], past, n)
-        lf = logits[:, -1, : self.vocab]
+        with span("serve.chunk_forward"):  # a leaf: no program range inside
+            with self.on_mesh():
+                logits, _ = M.chunk_step(self.cfg, self.params, self.caches, buf_t,
+                                         tables[:1], past, n)
+            lf = logits[:, -1, : self.vocab]
         if chunk_nan:
             lf = torch.full_like(lf, float("nan"))
         tok0 = self._sample(lf, [chunk_temp], [chunk_gen])
@@ -360,7 +375,7 @@ class ModelRunner:
         device->host copy."""
         dev = self.device
         toks = torch.tensor([tokens], dtype=torch.int32, device=dev)
-        with self.on_mesh():
+        with span("serve.whole_forward"), self.on_mesh():  # a leaf: no program range inside
             logits, small = M.prefill(self.cfg, self.params, toks, full_kv=True)
         self._scatter_new(small, torch.from_numpy(table).to(dev), slot, len(tokens))
         lf = logits[:, -1, : self.vocab]
@@ -501,7 +516,8 @@ class Scheduler:
         return RequestResult(
             req.rid, req.prompt, list(req.resume_tokens), req.arrival_s,
             req.first_token_s if req.first_token_s is not None else now,
-            now, token_times_s=list(req.token_times), finish_reason=reason)
+            now, token_times_s=list(req.token_times), finish_reason=reason,
+            admitted_s=req.admitted_s)
 
     def _expired(self, req: Request, now: float) -> bool:
         return req.deadline_s is not None and now - req.arrival_s > req.deadline_s
@@ -671,6 +687,8 @@ class Scheduler:
                     self.radix.hit_tokens, self.radix.lookup_tokens = ht, lt
                 break
             self.queue.popleft()
+            if req.admitted_s is None:  # a preempted request keeps its first
+                req.admitted_s = self.clock()
             i = free_rows.pop(0)
             shared = list(m.full_pages)  # pins transfer to slot ownership
             table = np.zeros(self.npp, np.int32)
@@ -767,7 +785,7 @@ class Scheduler:
         self.finished.append(RequestResult(
             s.req.rid, s.req.prompt, s.emitted, s.req.arrival_s,
             s.first_token_s, now, token_times_s=list(s.token_times),
-            finish_reason=reason))
+            finish_reason=reason, admitted_s=s.req.admitted_s))
         self._release(i)
 
     def check_capacity(self, steps_bound: int, stats: ServeStats):

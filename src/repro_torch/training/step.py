@@ -29,7 +29,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import resolve_device
+from repro_torch.core import resolve_device, span
 from repro_torch.core.quant import QTensor
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.data.pipeline import local_batch, to_device
@@ -245,7 +245,7 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig, *, accum_steps: int = 1,
 
     def train_step(state: TrainState, batch: dict):
         loss, extras, grads = grads_of(state.params, batch)
-        with torch.profiler.record_function("adamw_update"):  # a trace's optimizer span
+        with span("adamw_update"):  # a trace's optimizer span
             params, mu, nu, om = adamw_update(opt, state.params, grads, state.mu,
                                               state.nu, state.step, mesh, pspecs)
         metrics = {"loss": loss, **extras, **om, "step": state.step}

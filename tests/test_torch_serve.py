@@ -5,7 +5,8 @@ JAX's on the same inputs; ``make_prompts`` is the reference driver's
 recipe; ``run()`` on reduced olmo-1b with bridged JAX weights at ``--rate
 0 --temperature 0`` gives JAX's ``Engine``'s tokens for the same prompts
 and ``EngineConfig`` (whole-suffix and chunked prefill), token for token;
-``main`` prints the reference's summary fields, serves Poisson arrivals,
+``main`` prints the reference's summary fields and, last, the port's
+queue-wait line, serves Poisson arrivals,
 refuses ``--mesh`` without ``--backend``, and with ``--mesh 1x2 --backend
 gloo`` spawns two ranks whose rank 0 prints the reference's summary line
 (also under ``--quant w8a8`` and for ``--arch mamba2-130m``)."""
@@ -36,6 +37,8 @@ from repro_torch.serving.config import CacheSpec
 # the reference driver's summary line (repro/launch/serve.py:127-133)
 J_FIELDS = ["arch", "kernel_mode", "quant", "requests", "ok", "batch", "pages", "prefill",
             "decode", "throughput", "prefix_hit", "p50", "p99"]
+# the port's last line: queue wait and time to the first token
+WAIT_FIELDS = ["queue_wait_p50", "queue_wait_p90", "ttft_p50", "ttft_p90"]
 
 
 def test_stats_tokenizer_and_cache_spec_equal_the_reference():
@@ -88,10 +91,12 @@ def test_run_gives_the_jax_engines_tokens(olmo, chunk_tokens):
 
 def test_main_prints_the_reference_summary_and_streams(capsys):
     serve.main(["--device", "cpu", "--requests", "3", "--max-new", "4"])
-    line = capsys.readouterr().out.strip().splitlines()[0]
+    lines = capsys.readouterr().out.strip().splitlines()
+    line = lines[0]
     keys = re.findall(r"(\w+)=", line)
     assert keys == [("device" if k == "kernel_mode" else k) for k in J_FIELDS]
     assert "arch=olmo-1b-smoke device=cpu quant=none requests=3 ok=3" in line
+    assert re.findall(r"(\w+)=", lines[-1]) == WAIT_FIELDS
     results = serve.main(["--device", "cpu", "--requests", "4", "--max-new", "4",
                           "--rate", "200", "--preemption", "recompute", "--pages", "3",
                           "--page-size", "16", "--max-len", "64"])
@@ -118,12 +123,13 @@ def test_mesh_1x2_over_gloo_prints_the_reference_summary():
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     lines = res.stdout.strip().splitlines()
-    assert len(lines) == 2, res.stdout
+    assert len(lines) == 3, res.stdout
     keys = re.findall(r"(\w+)=", lines[0])
     assert keys == [("device" if k == "kernel_mode" else k) for k in J_FIELDS]
     assert "arch=olmo-1b-smoke device=cpu quant=none requests=3 ok=3" in lines[0]
     assert lines[1] == ("mesh=1x2 backend=gloo ranks=2 ranks_agree=True "
                         "decode_graph=False")
+    assert re.findall(r"(\w+)=", lines[2]) == WAIT_FIELDS
 
 
 @pytest.mark.parametrize("extra,head", [
@@ -141,6 +147,6 @@ def test_mesh_1x2_over_gloo_serves_w8a8_and_ssd(extra, head):
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     lines = res.stdout.strip().splitlines()
-    assert len(lines) == 2 and head in lines[0], res.stdout
+    assert len(lines) == 3 and head in lines[0], res.stdout
     assert lines[1] == ("mesh=1x2 backend=gloo ranks=2 ranks_agree=True "
                         "decode_graph=False")
